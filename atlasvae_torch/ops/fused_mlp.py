@@ -1,0 +1,72 @@
+"""Fused dense-stack forward: hand-written CUDA kernel K1 and its plain twin.
+
+Counterpart of ``atlasvae/ops/fused_mlp.py``.  ``fused_mlp_apply`` runs a
+whole dense stack (ReLU hidden layers, linear or ReLU final layer) in one
+launch of ``csrc/fused_mlp.cu``, keeping every intermediate activation in
+shared memory.  On a CPU tensor it runs ``fused_mlp_plain``, the same
+function as chained ``x @ w + b`` and ReLU.  Forward only: training
+gradients come with the training slice.
+"""
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+# Kernel launches made by fused_mlp_apply (reset and read by chip_smoke.py).
+launches = 0
+
+
+def _check_args(activation, final_activation):
+    if activation != "relu" or final_activation not in ("linear", "relu"):
+        raise ValueError("fused kernel supports relu hidden + linear/relu final")
+
+
+def fused_mlp_plain(layers, x, activation="relu", final_activation="linear"):
+    """Plain PyTorch version of the kernel: the CPU path and the reference
+    the kernel is held against on the card."""
+    _check_args(activation, final_activation)
+    h = x
+    for i, layer in enumerate(layers):
+        h = h @ layer["w"] + layer["b"]
+        if i < len(layers) - 1 or final_activation == "relu":
+            h = torch.relu(h)
+    return h
+
+
+def _entry():
+    fn = cuda_build.load("fused_mlp").atlasvae_fused_mlp_forward
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_mlp_apply(layers, x, activation="relu", final_activation="linear"):
+    """Apply a dense stack (list of {'w','b'}, w shaped (in, out)) in one
+    fused kernel on a CUDA tensor; the plain version on a CPU tensor."""
+    global launches
+    _check_args(activation, final_activation)
+    if x.device.type == "cpu":
+        return fused_mlp_plain(layers, x, activation, final_activation)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_apply: unsupported device {x.device}")
+    if not layers:
+        raise ValueError("fused_mlp_apply: empty stack")
+    pairs = [(l["w"], l["b"]) for l in layers]
+    cuda_build.check_stack(x, pairs[:-1], pairs[-1:], "fused_mlp_apply")
+    out = torch.empty((x.shape[0], pairs[-1][0].shape[1]), device=x.device,
+                      dtype=torch.float32)
+    dims = cuda_build.int_array([x.shape[1]] + [w.shape[1] for w, _ in pairs])
+    ws = cuda_build.pointer_array([w for w, _ in pairs])
+    bs = cuda_build.pointer_array([b for _, b in pairs])
+    fn = _entry()
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), x.shape[0], len(pairs), ctypes.addressof(dims),
+                 ctypes.addressof(ws), ctypes.addressof(bs), out.data_ptr(),
+                 int(final_activation == "relu"), torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "fused_mlp kernel")
+    launches += 1
+    return out

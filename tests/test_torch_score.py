@@ -1,0 +1,175 @@
+"""The scoring slice as a whole: the port's metric bank, one chunk of the
+score path, and ``atlasvae_torch.cli.score`` end to end, against the JAX
+package on the same files, weights and scaler.
+
+Tolerances: the metric bank on the same inputs rtol 1e-5 / atol 1e-5
+(float32, sums in different orders; float-max saturation compared as
+values); one chunk of the score path with injected noise rtol 1e-4 / atol
+1e-4 for MAE and Latent, and rtol 2e-3 / atol 1e-4 times the largest
+score for KLD and JSD, whose log2(p/q) magnifies the reconstruction's
+rounding where a prediction q is near zero;
+kinematics and weights exact.  ``score_MAE`` of the
+two CLIs depends on each framework's own latent draws, so only its mean is
+compared, within five standard errors of the difference of two means.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from atlasvae.cli import score as jax_score
+from atlasvae.data import load_data as jax_load_data, apply_scaler as jax_apply_scaler, \
+    fit_scaler as jax_fit_scaler
+from atlasvae.eval import compute_metric_bank as jax_metric_bank, loss_mapping as jax_mapping
+from atlasvae.models import VAEConfig as JaxVAEConfig, init_vae as jax_init_vae, \
+    vae_apply as jax_vae_apply
+from atlasvae.train.checkpoint import save_weights as jax_save_weights
+from atlasvae_torch.cli import score
+from atlasvae_torch.data import hdf5, load_data, apply_scaler, Scaler, ensure_synthetic_registry
+from atlasvae_torch.eval import compute_metric_bank, loss_mapping, loss_function
+from atlasvae_torch.interop import params_from_jax
+from atlasvae_torch.models import vae_apply
+
+CPU = torch.device("cpu")
+TOL = dict(rtol=1e-5, atol=1e-5)
+METRICS = ("MAE", "MSE", "MARE", "KLD", "JSD", "X-S", "Inputs", "Latent")
+QCD = "synthetic_QCD-Geneva.h5"
+
+
+@pytest.fixture(scope="module")
+def model():
+    params = jax_init_vae(jax.random.PRNGKey(11), JaxVAEConfig())
+    return params, params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+
+
+def _bank_inputs(rng):
+    p = np.abs(rng.normal(size=(256, 12))).astype(np.float32)
+    q = np.abs(rng.normal(size=(256, 12))).astype(np.float32)
+    q[:8, :3] = 0.0          # live feature predicted as zero: float-max terms
+    p[8:12, :2] = 0.0        # 0 * log(0 / q) terms
+    q[12:16] = 0.0
+    p[12:16, :] = 0.0        # 0 / 0 everywhere in the row
+    p[16:20, 0] = -1.0       # negative ratio: NaN terms
+    return p, q
+
+
+@pytest.mark.parametrize("normal_losses", [False, True])
+def test_metric_bank_matches_jax(rng, model, normal_losses):
+    jparams, params = model
+    p, q = _bank_inputs(rng)
+    want = jax_metric_bank(p, q, jparams, METRICS, normal_losses=normal_losses)
+    got = compute_metric_bank(torch.from_numpy(p), torch.from_numpy(q), params, METRICS,
+                              normal_losses=normal_losses, device=CPU)
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], np.asarray(want[key]), err_msg=key, **TOL)
+    if not normal_losses:
+        assert np.max(got["KLD"][:8]) == np.finfo(np.float32).max
+
+
+@pytest.mark.parametrize("x", [[0.1, 0.9], [-0.5, 0.0], [0.0, 3.0], [-4.0, -2.0],
+                               [-2.0, 5.0]])
+def test_loss_mapping_branches_match_jax(x):
+    np.testing.assert_array_equal(loss_mapping(np.array(x)), jax_mapping(np.array(x)))
+
+
+def test_emd_and_ksd_name_their_roadmap_item():
+    for metric in ("EMD", "KSD"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            loss_function(np.zeros((2, 3)), np.zeros((2, 3)), metric=metric, device=CPU)
+
+
+def test_one_chunk_with_injected_noise_matches_jax(synth_dir, model, rng):
+    jparams, params = model
+    path = str(synth_dir / QCD)
+    jax_sample = jax_load_data(path, (0, 1500), verbose=False)
+    scaler = jax_fit_scaler(jax_sample["HLVs"], verbose=False)
+    x = jax_apply_scaler(jax_sample["HLVs"], scaler=scaler, verbose=False)
+    noise = rng.normal(size=(len(x), 10)).astype(np.float32)
+    x_pred = np.asarray(jax_vae_apply(jparams, x, jax.random.PRNGKey(0), noise=noise)[0])
+    want = jax_metric_bank(x, x_pred, jparams, ("MAE", "Latent", "KLD", "JSD"),
+                           normal_losses=False)
+
+    sample = load_data(path, (0, 1500), verbose=False, device=CPU)
+    xt = apply_scaler(torch.from_numpy(sample["HLVs"]), scaler=Scaler(**vars(scaler)),
+                      verbose=False)
+    with torch.inference_mode():
+        pred = vae_apply(params, xt, noise=torch.from_numpy(noise))[0]
+        got = compute_metric_bank(xt, pred, params, ("MAE", "Latent", "KLD", "JSD"),
+                                  normal_losses=False, device=CPU)
+    np.testing.assert_allclose(xt.numpy(), x, **TOL)
+    for key in want:
+        ref = np.asarray(want[key])
+        tol = dict(rtol=2e-3, atol=1e-4 * np.abs(ref).max()) if key in ("KLD", "JSD") \
+            else dict(rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got[key], ref, err_msg=key, **tol)
+
+
+@pytest.fixture(scope="module")
+def scored(synth_dir, tmp_path_factory):
+    """The JAX CLI and the port's CLI on the same sample, checkpoint and scaler."""
+    tmp = tmp_path_factory.mktemp("score")
+    path = str(synth_dir / QCD)
+    jax_save_weights(jax_init_vae(jax.random.PRNGKey(4), JaxVAEConfig()), tmp / "model.npz")
+    jax_fit_scaler(jax_load_data(path, 4000, verbose=False)["HLVs"],
+                   scaler_out=tmp / "hlv.pkl", verbose=False)
+    common = ["--data", path, "--model_in", str(tmp / "model.npz"),
+              "--HLV_scaler_in", str(tmp / "hlv.pkl"), "--metrics", "MAE", "Latent",
+              "--n_jets", "3000", "--chunk", "1000"]
+    jax_score.main(common + ["--output", str(tmp / "jax.h5")])
+    score.main(common + ["--output", str(tmp / "port.h5"), "--device", "cpu"])
+    out = {}
+    for name in ("jax", "port"):
+        with hdf5.File(tmp / f"{name}.h5", "r") as f:
+            out[name] = {k: f[k][:] for k in f}
+    return out
+
+
+def test_cli_writes_the_same_keys_and_rows(scored):
+    assert set(scored["port"]) == set(scored["jax"]) == \
+        {"score_MAE", "score_Latent", "m", "pt", "weights"}
+    for key, val in scored["port"].items():
+        assert val.shape == (3000,) and val.dtype == np.float32 and np.isfinite(val).all()
+
+
+def test_cli_kinematics_and_latent_match_per_jet(scored):
+    for key in ("m", "pt", "weights"):
+        np.testing.assert_array_equal(scored["port"][key], scored["jax"][key])
+    np.testing.assert_allclose(scored["port"]["score_Latent"], scored["jax"]["score_Latent"],
+                               **TOL)
+
+
+def test_cli_mae_matches_in_mean(scored):
+    a, b = scored["port"]["score_MAE"], scored["jax"]["score_MAE"]
+    stderr = np.sqrt(a.var() / len(a) + b.var() / len(b))
+    assert abs(a.mean() - b.mean()) < 5 * stderr, (a.mean(), b.mean(), stderr)
+
+
+def test_cli_without_h5py_writes_the_same_file(tmp_path, monkeypatch, model):
+    """Where h5py is missing the port reads and writes HDF5 itself; the
+    scores are the same as through h5py."""
+    monkeypatch.setattr(hdf5, "_h5py", None)
+    ensure_synthetic_registry(tmp_path, n_events=1200, n_const_max=12,
+                              names=["QCD-Geneva"], seed=3)
+    data = str(tmp_path / QCD)
+    jax_save_weights(model[0], tmp_path / "model.npz")
+    args = ["--data", data, "--model_in", str(tmp_path / "model.npz"), "--metrics", "MAE",
+            "Latent", "KLD", "--chunk", "500", "--device", "cpu"]
+    score.main(args + ["--output", str(tmp_path / "lite.h5")])
+    monkeypatch.undo()
+    score.main(args + ["--output", str(tmp_path / "h5py.h5")])
+    import h5py
+    with h5py.File(tmp_path / "lite.h5", "r") as lite, h5py.File(tmp_path / "h5py.h5") as ref:
+        assert sorted(lite) == sorted(ref)
+        for key in ref:
+            np.testing.assert_array_equal(lite[key][()], ref[key][()])
+        assert len(ref["m"]) == 1200
+
+
+def test_cli_refuses_aae_and_missing_cuda(tmp_path):
+    with pytest.raises(NotImplementedError, match="AAE"):
+        score.main(["--data", "x", "--model_in", "y", "--model_type", "aae", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            score.main(["--data", "x", "--model_in", "y"])
