@@ -1,0 +1,231 @@
+"""OE-VAE training entry point on PyTorch/CUDA.
+
+Counterpart of the training half of ``atlasvae/cli/vae.py``: the same flag
+names and 'ON'/'OFF' string booleans, the same path wiring, sample
+selection, scaler fit, OoD load and train/valid ``BatchGenerator``s, then
+``train_model``, plus ``--device`` (default ``cuda``).  After training,
+``model_out`` is reloaded as a native npz.
+
+    python -m atlasvae_torch.cli.vae --n_train 1e5 --n_valid 5e4 --n_OoD 2e5 \\
+        --batch_size 1e4 --n_epochs 3 --lr 1e-3 --beta 2 --lamb 5 --OE_type MAE \\
+        --weight_type X-S --HLV_scaler_type RobustScaler --plotting OFF --output_dir out
+
+Not ported yet, and refused with ``NotImplementedError`` while the
+arguments are checked, before any data is loaded: the evaluation half
+(``--plotting ON`` or ``--apply_cuts ON``: ROC, decorrelation, BumpHunter
+and plots, ROADMAP Queue 1 items 5-6), ``--n_devices`` above 1 (item 11),
+and Keras ``.h5`` weights in or out (item 10).  ``run_ensemble`` waits for
+item 10 too.
+"""
+
+import os
+import sys
+from argparse import ArgumentParser
+from pathlib import Path
+
+_HOST = "cpu"  # data preparation runs on the host; the device gets packed batches
+
+
+def build_parser():
+    parser = ArgumentParser()
+    parser.add_argument("--n_train", default=1e6, type=float)
+    parser.add_argument("--n_valid", default=1e6, type=float)
+    parser.add_argument("--n_OoD", default=10e6, type=float)
+    parser.add_argument("--n_sig", default=1e6, type=float)
+    parser.add_argument("--n_const", default=20, type=int)
+    parser.add_argument("--n_dims", default=3, type=int)
+    parser.add_argument("--memGB", default=30, type=float,
+                        help="host-memory chunk budget per load")
+    parser.add_argument("--batch_size", default=1e4, type=float)
+    parser.add_argument("--n_epochs", default=100, type=int)
+    parser.add_argument("--FC_layers", default=[80, 40, 20, 10], type=int, nargs="+")
+    parser.add_argument("--lr", default=1e-3, type=float)
+    parser.add_argument("--beta", default=0, type=float)
+    parser.add_argument("--lamb", default=0, type=float)
+    parser.add_argument("--margin", default=1, type=float)
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--n_iter", default=1, type=int)
+    parser.add_argument("--OE_type", default="KLD")
+    parser.add_argument("--weight_type", default="X-S")
+    parser.add_argument("--model_in", default="")
+    parser.add_argument("--model_out", default="model.npz")
+    parser.add_argument("--const_scaler_type", default="")
+    parser.add_argument("--const_scaler_in", default="")
+    parser.add_argument("--const_scaler_out", default="")
+    parser.add_argument("--HLV_scaler_type", default="")
+    parser.add_argument("--HLV_scaler_in", default="")
+    parser.add_argument("--HLV_scaler_out", default="")
+    parser.add_argument("--hist_file", default="history.pkl")
+    parser.add_argument("--state_file", default="",
+                        help="full-train-state checkpoint (params + Adam state + lr "
+                             "schedule + generator state): resumes bit for bit")
+    parser.add_argument("--output_dir", default="outputs")
+    parser.add_argument("--plotting", default="ON")
+    parser.add_argument("--apply_cuts", default="OFF")
+    parser.add_argument("--normal_losses", default="ON")
+    parser.add_argument("--decorrelation", default="OFF")
+    parser.add_argument("--slurm_id", default=0, type=int)
+    parser.add_argument("--constituents", default="OFF")
+    parser.add_argument("--HLVs", default="ON")
+    parser.add_argument("--n_devices", default=0, type=int,
+                        help="kept for command-line compatibility; the port trains "
+                             "on one device (--device)")
+    parser.add_argument("--synthetic", default=0, type=float,
+                        help="generate synthetic datasets with N events each")
+    parser.add_argument("--bkg_data", default="QCD-Geneva")
+    parser.add_argument("--OoD_data", default="OoD-H")
+    parser.add_argument("--sig_data", default="2HDM-Geneva")
+    parser.add_argument("--npe", default=1000, type=int)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default cuda)")
+    return parser
+
+
+def _on(v):
+    return v.upper() == "ON" if isinstance(v, str) else bool(v)
+
+
+def _is_keras(path):
+    if str(path).endswith((".h5", ".hdf5")):
+        return True
+    if os.path.isfile(path):
+        with open(path, "rb") as f:
+            return f.read(8) == b"\x89HDF\r\n\x1a\n"
+    return False
+
+
+def _check_supported(args, out_root):
+    """Refuse, before any data is loaded, what the port does not run yet."""
+    if _on(args.plotting) or _on(args.apply_cuts):
+        raise NotImplementedError("--plotting ON / --apply_cuts ON run the evaluation "
+                                  "half (ROC, decorrelation, BumpHunter, plots), ported "
+                                  "with ROADMAP Queue 1 items 5-6; pass --plotting OFF "
+                                  "--apply_cuts OFF")
+    if args.n_devices > 1:
+        raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
+                                  "ROADMAP Queue 1 item 11")
+    if (args.model_in and _is_keras(os.path.join(out_root, args.model_in))) or \
+            _is_keras(args.model_out):
+        raise NotImplementedError("Keras .h5 weights are read and written with "
+                                  "train/keras_import.py and keras_export.py, ported with "
+                                  "ROADMAP Queue 1 item 10; use a native .npz")
+
+
+def _wire_paths(args):
+    """Path wiring + int coercion."""
+    for key in ["n_train", "n_valid", "n_OoD", "n_sig", "batch_size"]:
+        setattr(args, key, int(getattr(args, key)))
+    if args.const_scaler_out == "":
+        args.const_scaler_out = "const_" + args.const_scaler_type + ".pkl"
+    if args.HLV_scaler_out == "":
+        args.HLV_scaler_out = "HLV_" + args.HLV_scaler_type + ".pkl"
+    out_root = args.output_dir
+    for key in ["model_in", "model_out", "const_scaler_in", "const_scaler_out",
+                "HLV_scaler_in", "HLV_scaler_out", "hist_file"]:
+        setattr(args, key, out_root + "/" + getattr(args, key))
+    args.output_dir = out_root + "/plots"
+    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
+    return out_root
+
+
+def _select_samples(args):
+    """Sample selection + cuts: the train and valid index windows."""
+    from ..data import get_file, ensure_synthetic_registry, hdf5, HLV_LIST
+
+    if args.synthetic:
+        ensure_synthetic_registry(n_events=int(args.synthetic),
+                                  n_const_max=max(args.n_const, 20))
+    hlv_list = list(HLV_LIST)
+    input_dim = (args.n_dims * args.n_const) * _on(args.constituents) + \
+        len(hlv_list) * _on(args.HLVs)
+    with hdf5.File(get_file(args.bkg_data), "r") as f:
+        sample_size = len(f[next(iter(f.keys()))])
+    args.n_train = [0, min(args.n_train, max(sample_size - int(1e6), sample_size // 2))]
+    args.n_valid = [max(args.n_train[-1], sample_size - args.n_valid), sample_size]
+    gen_cuts = ['(sample["m"] >= 30)']
+    train_cuts = gen_cuts + ['(sample["pt"] <= 5000)']
+    valid_cuts = gen_cuts + ['(sample["pt"] <= 5000)']
+    return hlv_list, input_dim, train_cuts, valid_cuts
+
+
+def _make_generators(args, hlv_list, train_cuts, const_scaler, hlv_scaler):
+    """Scaler fit + OoD load + train/valid BatchGenerators, on the host."""
+    from ..data import load_data, BatchGenerator, fit_scaler, apply_scaler
+
+    if (args.const_scaler_type and const_scaler is None) or \
+       (args.HLV_scaler_type and hlv_scaler is None):
+        print("\nLOADING QCD TRAINING SAMPLE (scaler fit)")
+        n_jets = min(args.n_train[1], int(1e9 * args.memGB / args.n_const / args.n_dims / 4))
+        train_sample = load_data(args.bkg_data, n_jets, train_cuts, args.n_const,
+                                 args.n_dims, args.constituents, args.HLVs, hlv_list,
+                                 device=_HOST)
+        if _on(args.constituents) and const_scaler is None and args.const_scaler_type:
+            const_scaler = fit_scaler(train_sample["constituents"], args.n_dims,
+                                      args.const_scaler_out, args.const_scaler_type)
+        if _on(args.HLVs) and hlv_scaler is None and args.HLV_scaler_type:
+            hlv_scaler = fit_scaler(train_sample["HLVs"], args.n_dims, args.HLV_scaler_out,
+                                    args.HLV_scaler_type)
+    print("\nLOADING OUTLIER SAMPLE")
+    ood_sample = load_data(args.OoD_data, args.n_OoD, train_cuts, args.n_const, args.n_dims,
+                           args.constituents, args.HLVs, hlv_list, device=_HOST)
+    if "constituents" in ood_sample:
+        ood_sample["constituents"] = apply_scaler(ood_sample["constituents"], args.n_dims,
+                                                  const_scaler, "OoD", device=_HOST)
+    if "HLVs" in ood_sample:
+        ood_sample["HLVs"] = apply_scaler(ood_sample["HLVs"], args.n_dims, hlv_scaler, "OoD",
+                                          device=_HOST)
+    bin_sizes = {"m": 20, "pt": 40} \
+        if args.weight_type.split("_")[0] in ("flat", "OoD") else {"m": 10, "pt": 20}
+    common = dict(weight_type=args.weight_type, cuts=train_cuts,
+                  constituents=args.constituents, hlvs=args.HLVs, hlv_list=hlv_list,
+                  bin_sizes=bin_sizes, hlv_scaler=hlv_scaler, const_scaler=const_scaler,
+                  mem_gb=args.memGB)
+    train_gen = BatchGenerator(args.bkg_data, args.OoD_data, args.n_const, args.n_dims,
+                               args.n_train, ood_sample, is_train=True, **common)
+    valid_gen = BatchGenerator(args.bkg_data, args.OoD_data, args.n_const, args.n_dims,
+                               args.n_valid, ood_sample, **common)
+    return train_gen, valid_gen, const_scaler, hlv_scaler
+
+
+def main(argv=None):
+    import torch
+    from .. import resolve_device
+    from ..utils.logging import args_banner
+    from ..data.scalers import Scaler
+    from ..models import VAEConfig, init_vae
+    from ..train import train_model, load_pytree
+
+    args = build_parser().parse_args(argv)
+    _check_supported(args, args.output_dir)
+    device = resolve_device(args.device)
+    out_root = _wire_paths(args)
+    hlv_list, input_dim, train_cuts, _ = _select_samples(args)
+    print("\nPROGRAM ARGUMENTS:\n" + args_banner(args))
+
+    config = VAEConfig(fc_layers=tuple(args.FC_layers), input_dim=input_dim)
+    # --seed drives both the weight init and the reparameterization noise
+    params = init_vae(torch.Generator(device).manual_seed(args.seed), config, device=device)
+    if args.model_in != out_root + "/" and os.path.isfile(args.model_in):
+        print("\nLoading pre-trained weights from: " + args.model_in)
+        params = load_pytree(args.model_in, params)
+    const_scaler = hlv_scaler = None
+    if args.const_scaler_type and os.path.isfile(args.const_scaler_in):
+        const_scaler = Scaler.load(args.const_scaler_in)
+    if args.HLV_scaler_type and os.path.isfile(args.HLV_scaler_in):
+        hlv_scaler = Scaler.load(args.HLV_scaler_in)
+
+    if args.n_epochs > 0:
+        train_gen, valid_gen, const_scaler, hlv_scaler = _make_generators(
+            args, hlv_list, train_cuts, const_scaler, hlv_scaler)
+        state_file = out_root + "/" + args.state_file if args.state_file else None
+        params, _ = train_model(params, train_gen, valid_gen, args.OE_type, args.n_epochs,
+                                args.batch_size, args.beta, args.lamb, args.margin, args.lr,
+                                args.hist_file, args.model_in, args.model_out,
+                                seed=args.seed, state_file=state_file)
+        if os.path.isfile(args.model_out):
+            params = load_pytree(args.model_out, params)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

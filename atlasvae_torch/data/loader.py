@@ -1,7 +1,7 @@
 """Sample loading: HDF5 -> dict of float32 numpy arrays with derived kinematics.
 
-Counterpart of the scoring path's part of ``atlasvae/data/loader.py``
-(``load_data``, ``sample_cuts``, ``filtering``, ``HLV_LIST``).  The
+Counterpart of ``load_data``, ``sample_cuts``, ``filtering`` and
+``HLV_LIST`` of ``atlasvae/data/loader.py``.  The
 per-jet constituent math runs in torch on ``device`` (data/jets.py); cuts
 use the safe cut DSL (utils/expr.py).
 """
@@ -37,12 +37,9 @@ def load_data(data_type, idx, cuts=(), n_const=20, n_dims=3, constituents="OFF",
     Slice the HDF5 by index range, pt-sort + pad constituents, derive
     (pt, m) from constituent sums when absent, default JZW/weights, apply
     cuts, optionally drop the energy component (n_dims=3) and assemble the
-    HLV matrix with tau21/tau32.  Cross-section reweighting
-    (``adjust_weights``) comes with the data layer (ROADMAP Queue 1 item 4).
+    HLV matrix with tau21/tau32.  ``adjust_weights`` scales the weights by
+    the cross-section JZW-slice factors (data/weights.py).
     """
-    if adjust_weights:
-        raise NotImplementedError("adjust_weights needs data/weights.py, ported "
-                                  "with the data layer (ROADMAP Queue 1 item 4)")
     start = time.time()
     if np.isscalar(idx):
         idx = (0, int(idx))
@@ -82,6 +79,9 @@ def load_data(data_type, idx, cuts=(), n_const=20, n_dims=3, constituents="OFF",
 
     sample = sample_cuts(sample, cuts, dsids)
 
+    if adjust_weights:
+        from .weights import weights_factors
+        sample["weights"] = sample["weights"] * weights_factors(sample["JZW"], data_file)
     if pt_scaling and "constituents" in sample:
         sample["constituents"] = sample["constituents"] / np.float32(sample["pt"][:, None])
     if "constituents" in sample and n_dims == 3:

@@ -3,13 +3,15 @@
 Both packages keep the same tree ({'encoder': {...}, 'decoder': {...}})
 and the same (in, out) weight layout, so moving weights is a leaf-by-leaf
 conversion.  Pass the JAX tree as numpy arrays
-(``jax.tree.map(np.asarray, params)``); nothing here imports JAX.
+(``jax.tree.map(np.asarray, params)``); nothing here imports JAX.  The
+optimizer state of a JAX run carries across too (``adam_state_from_jax``).
 """
 
 import numpy as np
 import torch
 
 from .train.checkpoint import tree_map
+from .train.step import Adam
 
 
 def params_from_jax(tree_of_numpy, device="cuda"):
@@ -22,3 +24,11 @@ def params_from_jax(tree_of_numpy, device="cuda"):
 def params_to_numpy(params):
     """The port's tree of tensors -> the same tree of numpy arrays."""
     return tree_map(lambda leaf: leaf.detach().cpu().numpy(), params)
+
+
+def adam_state_from_jax(opt_state_numpy, device="cuda"):
+    """optax's ``(ScaleByAdamState(count, mu, nu), EmptyState())`` of
+    ``optax.adam(1.0)``, as numpy (``jax.tree.map(np.asarray, opt_state)``)
+    -> the port's ``Adam`` over the parameters' flat layout."""
+    adam = opt_state_numpy[0]
+    return Adam.from_trees(int(adam.count), adam.mu, adam.nu, device)

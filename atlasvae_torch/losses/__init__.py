@@ -1,3 +1,3 @@
-from .vae_losses import kld_loss
+from .vae_losses import reconstruction_loss, kld_loss, oe_loss, get_losses
 
-__all__ = ["kld_loss"]
+__all__ = ["reconstruction_loss", "kld_loss", "oe_loss", "get_losses"]

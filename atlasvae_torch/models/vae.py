@@ -2,9 +2,12 @@
 
 Counterpart of ``atlasvae/models/vae.py`` with the same parameter tree
 ({'encoder': {'hidden', 'mean', 'logvar'}, 'decoder': {'hidden', 'out'}}).
-On a CUDA tensor with ReLU activations ``encode`` runs the stack-forward
-kernel (ops/fused_vae.py, K2) and ``decode`` the fused dense-stack kernel
-(ops/fused_mlp.py, K1); on a CPU tensor both run their plain versions.
+With ReLU activations ``encode`` goes through ``fused_encoder`` and, when
+autograd records, ``decode`` through ``fused_decoder`` (ops/fused_vae.py:
+K2 forward, K3 backward on a CUDA tensor); with grad disabled (scoring
+under ``torch.inference_mode``) ``decode`` runs the fused dense-stack
+kernel K1 (ops/fused_mlp.py).  On a CPU tensor every one of them runs its
+plain version.
 """
 
 import dataclasses
@@ -13,7 +16,7 @@ import torch
 
 from .mlp import init_mlp, init_dense, dense_apply, mlp_apply
 from ..ops.fused_mlp import fused_mlp_apply
-from ..ops.fused_vae import fused_encoder
+from ..ops.fused_vae import fused_encoder, fused_decoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +77,8 @@ def reparameterize(z_mean, z_log_var, noise=None, generator=None):
 def decode(params, z, activation="relu"):
     dec = params["decoder"]
     if activation == "relu":
+        if torch.is_grad_enabled():
+            return fused_decoder(dec, z)
         return fused_mlp_apply(dec["hidden"] + [dec["out"]], z)
     return dense_apply(dec["out"], mlp_apply(dec["hidden"], z, activation))
 

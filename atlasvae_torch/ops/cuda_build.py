@@ -19,7 +19,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("fused_mlp", "fused_vae")
+SOURCES = ("fused_mlp", "fused_vae", "fused_vae_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -98,12 +98,14 @@ MAX_HEADS = 4
 
 def check_stack(x, hidden, heads, what):
     """Raise unless ``x`` (B, D0) and the (w, b) pairs of the hidden layers
-    and the heads form a stack the dense-stack kernel takes, forward only."""
+    and the heads form a stack the dense-stack kernels take.  A direct call
+    records no autograd graph: a gradient goes through
+    ``ops.fused_vae.FusedEncoder``/``FusedDecoder``, whose backward is K3."""
     tensors = [x] + [t for pair in list(hidden) + list(heads) for t in pair]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{what} is forward-only on CUDA; its backward "
-                                  "comes with the training slice (ROADMAP "
-                                  "Queue 2 item 3)")
+        raise NotImplementedError(f"{what} records no gradient; differentiate through "
+                                  "fused_encoder/fused_decoder (autograd Functions "
+                                  "whose backward is the stack_backward kernel)")
     for t in tensors:
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{what}: every tensor must be contiguous float32 on "

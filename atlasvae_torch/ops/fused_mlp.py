@@ -4,8 +4,10 @@ Counterpart of ``atlasvae/ops/fused_mlp.py``.  ``fused_mlp_apply`` runs a
 whole dense stack (ReLU hidden layers, linear or ReLU final layer) in one
 launch of ``csrc/fused_mlp.cu``, keeping every intermediate activation in
 shared memory.  On a CPU tensor it runs ``fused_mlp_plain``, the same
-function as chained ``x @ w + b`` and ReLU.  Forward only: training
-gradients come with the training slice.
+function as chained ``x @ w + b`` and ReLU.  Forward only, as the JAX
+kernel is: it is the decoder wherever grad is off (scoring, validation
+losses); a decoder that is trained goes through
+``ops.fused_vae.fused_decoder``, whose backward is K3.
 """
 
 import ctypes

@@ -1,4 +1,10 @@
-from .loop import features
-from .checkpoint import save_pytree, load_pytree, save_weights, load_weights
+from .loop import features, train_model, model_checkpoint
+from .checkpoint import (save_pytree, load_pytree, save_weights, load_weights, save_history,
+                         load_history)
+from .step import (make_vae_step_fns, clip_gradients, batch_load, Adam, TrainState,
+                   LoadCache)
 
-__all__ = ["features", "save_pytree", "load_pytree", "save_weights", "load_weights"]
+__all__ = ["features", "train_model", "model_checkpoint", "save_pytree", "load_pytree",
+           "save_weights", "load_weights", "save_history", "load_history",
+           "make_vae_step_fns", "clip_gradients", "batch_load", "Adam", "TrainState",
+           "LoadCache"]

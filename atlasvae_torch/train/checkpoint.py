@@ -1,13 +1,17 @@
-"""Parameter trees to and from npz, in the JAX package's format.
+"""Parameter trees to and from npz, in the JAX package's format, and the
+training history.
 
 Counterpart of ``atlasvae/train/checkpoint.py``: leaves are stored as
 ``leaf_<i>`` in the order ``jax.tree_util.tree_flatten`` gives them, which
 visits dict keys **sorted** (decoder before encoder, b before w, logvar
 before mean) and lists in order.  So a ``model.npz`` written by the JAX
-package's ``save_weights`` loads here unchanged, and back.
+package's ``save_weights`` loads here unchanged, and back.  The history is
+a pickled dict of lists of plain floats, which the JAX package's
+``load_history`` reads.
 """
 
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -82,3 +86,15 @@ def save_weights(params, path):
 
 def load_weights(path, template):
     return load_pytree(path, template)
+
+
+def save_history(history, path):
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({key: [float(v) for v in vals] for key, vals in history.items()}, f)
+    os.replace(tmp, path)  # rewritten every epoch; resume reads it back
+
+
+def load_history(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
