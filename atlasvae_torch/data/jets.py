@@ -1,12 +1,13 @@
 """Jet-constituent array functions in torch.
 
-Counterpart of ``atlasvae/data/jets.py`` without ``constituent_images``
-(ported with jet-ID).  The host-facing functions take numpy arrays (or
+Counterpart of ``atlasvae/data/jets.py``.  The host-facing functions take numpy arrays (or
 tensors), compute on ``device`` in chunks, and return numpy arrays, as the
 JAX package's wrappers do, so the loader's sample stays a dict of numpy
 arrays; ``jets_3v`` also converts a tensor where it lies, for the metric
 bank.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -131,6 +132,60 @@ def _cumulative_pt(jets):
 
 def constituent_pt_cumulative(jets, device="cuda"):
     return _chunked(_cumulative_pt, jets, device)
+
+
+def _image_bins(jets, n_pixels, extent, n_dims):
+    """Per constituent: the flat pixel index in a (delta-eta, delta-phi) grid
+    around the pt-weighted jet axis, and its pt weight (0 for padding).  pt
+    and |p| follow XLA's CPU arithmetic (the squares fused into the sum as
+    FMAs), as ``_pt`` does: a constituent one ulp off lands in the
+    neighbouring pixel."""
+    n = jets.shape[1] // n_dims
+    p = jets.reshape(-1, n, n_dims).to(torch.float32)
+    px, py, pz = (p[..., n_dims - 3 + i] for i in range(3))
+    pt2 = torch.addcmul(py * py, px, px)
+    pt = torch.sqrt(pt2)
+    p_tot = torch.sqrt(torch.addcmul(pt2, pz, pz))
+    ratio = torch.clamp(pz / torch.clamp_min(p_tot, 1e-30), -1 + 1e-6, 1 - 1e-6)
+    eta = torch.atanh(ratio)
+    phi = torch.atan2(py, px)
+    alive = (p.abs().sum(dim=-1) > 0).to(torch.float32)
+    w_sum = torch.clamp_min((pt * alive).sum(dim=1, keepdim=True), 1e-30)
+    eta_axis = (eta * pt * alive).sum(dim=1, keepdim=True) / w_sum
+    # circular mean for phi (no seam at -pi/pi)
+    sin_axis = (torch.sin(phi) * pt * alive).sum(dim=1, keepdim=True)
+    cos_axis = (torch.cos(phi) * pt * alive).sum(dim=1, keepdim=True)
+    phi_axis = torch.atan2(sin_axis, cos_axis)
+    deta = eta - eta_axis
+    dphi = torch.remainder(phi - phi_axis + math.pi, 2 * math.pi) - math.pi
+    ix = torch.clamp(((deta + extent) / (2 * extent) * n_pixels).to(torch.int32), 0, n_pixels - 1)
+    iy = torch.clamp(((dphi + extent) / (2 * extent) * n_pixels).to(torch.int32), 0, n_pixels - 1)
+    return ix * n_pixels + iy, pt * alive
+
+
+def _const_images(jets, n_pixels, extent, n_dims):
+    """pt-weighted images by scatter-add.  One constituent slot at a time:
+    within a call no two updates meet in a pixel, so the sums are taken in
+    constituent order on every device (one scatter over all slots would use
+    atomics on the card, in an order that changes from run to run)."""
+    flat_idx, wts = _image_bins(jets, n_pixels, extent, n_dims)
+    flat_idx = flat_idx.to(torch.int64)
+    images = torch.zeros((jets.shape[0], n_pixels * n_pixels), device=jets.device)
+    for j in range(flat_idx.shape[1]):
+        images.scatter_add_(1, flat_idx[:, j:j + 1], wts[:, j:j + 1])
+    return images.reshape(-1, n_pixels, n_pixels)
+
+
+def constituent_images(jets, n_pixels=16, extent=1.0, n_dims=4, device="cuda"):
+    """(jets, n_dims*n_const) flat constituents -> (jets, n_pixels, n_pixels)
+    pt-weighted (delta-eta, delta-phi) images centred on the jet axis, in
+    chunks on ``device``.  ``n_dims`` selects the layout: 4 = (E,px,py,pz)
+    blocks, 3 = (px,py,pz)."""
+    jets = np.asarray(jets)
+    if jets.shape[1] % n_dims != 0:
+        raise ValueError(f"constituent width {jets.shape[1]} is not a multiple of "
+                         f"n_dims={n_dims}")
+    return _chunked(lambda x: _const_images(x, n_pixels, extent, n_dims), jets, device)
 
 
 def drop_energy_component(jets):

@@ -1,7 +1,7 @@
 """Sample loading: HDF5 -> dict of float32 numpy arrays with derived kinematics.
 
-Counterpart of ``load_data``, ``sample_cuts``, ``filtering`` and
-``HLV_LIST`` of ``atlasvae/data/loader.py``.  The
+Counterpart of ``load_data``, ``sample_cuts``, ``make_sample``, ``filtering``
+and ``HLV_LIST`` of ``atlasvae/data/loader.py``.  The
 per-jet constituent math runs in torch on ``device`` (data/jets.py); cuts
 use the safe cut DSL (utils/expr.py).
 """
@@ -118,6 +118,26 @@ def sample_cuts(sample, cuts, dsids=None):
         mask = np.logical_and(mask, dsid_mask)
     if not np.all(mask):
         sample = {key: val[mask] for key, val in sample.items()}
+    return sample
+
+
+def make_sample(bkg_data, sig_data, bkg_idx=1, sig_idx=1, cuts=(), n_const=20, n_dims=4,
+                constituents="ON", hlvs="ON", hlv_list=None, var_list=None, dsids=None,
+                adjust_weights=False, shuffling=False, verbose=True, device="cuda"):
+    """Concatenated background+signal sample, optionally shuffled (numpy,
+    seed 0: the same order as the JAX package's)."""
+    sig_sample = load_data(sig_data, sig_idx, cuts, n_const, n_dims, constituents, hlvs,
+                           hlv_list, var_list, dsids, adjust_weights, verbose, device=device)
+    bkg_sample = load_data(bkg_data, bkg_idx, cuts, n_const, n_dims, constituents, hlvs,
+                           hlv_list, var_list, dsids, adjust_weights, verbose, device=device)
+    if "OoD" in str(sig_data):
+        from .pairing import ood_sampling
+        sig_sample = ood_sampling(bkg_sample, sig_sample)
+    keys = sorted(set(bkg_sample) & set(sig_sample))
+    sample = {key: np.concatenate([bkg_sample[key], sig_sample[key]]) for key in keys}
+    if shuffling:
+        order = np.random.default_rng(0).permutation(len(sample[keys[0]]))
+        sample = {key: val[order] for key, val in sample.items()}
     return sample
 
 

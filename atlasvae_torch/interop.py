@@ -1,8 +1,11 @@
 """Carry parameter trees between the JAX package and the port.
 
-Both packages keep the same tree ({'encoder': {...}, 'decoder': {...}})
-and the same (in, out) weight layout, so moving weights is a leaf-by-leaf
-conversion.  Pass the JAX tree as numpy arrays
+Both packages keep the same trees and layouts, so moving weights is a
+leaf-by-leaf conversion: the VAE's {'encoder': {...}, 'decoder': {...}} with
+(in, out) dense weights, and the jet-ID classifier's {'towers': {shape:
+[conv, ...]}, 'constituents': [...], 'scalars': [...], 'head': [...],
+'out': {...}} with channels-last (*kernel, c_in, c_out) conv weights and a
+trunk whose rows follow the towers' (h, w, c) flatten.  Pass the JAX tree as numpy arrays
 (``jax.tree.map(np.asarray, params)``); nothing here imports JAX.  The
 optimizer state of a JAX run carries across too (``adam_state_from_jax``).
 The EMD and KSD metrics have no weights, so constituents-mode scoring needs

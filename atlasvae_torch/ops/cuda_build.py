@@ -19,7 +19,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("fused_mlp", "fused_vae", "fused_vae_bwd", "emd_sinkhorn")
+SOURCES = ("fused_mlp", "fused_vae", "fused_vae_bwd", "emd_sinkhorn", "fused_conv",
+           "fused_conv_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -29,7 +29,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                (8192, 100) and (1,000, 233), the widest jet it takes, each
                beside the plain version in float64, with the same bits
                asked of a second call (no PyTorch call computes a staged
-               Sinkhorn, so it has no library yardstick);
+               Sinkhorn, so it has no library yardstick); the fused conv
+               block (K5) and its backward (K6) against their plain versions
+               at the jet-ID training batch (5,000 x 16x16x1 -> 3x3, 100
+               maps, pool 2x2), the predict chunk (20,000), a ragged batch,
+               the reference's default tower (500 x 64x64x1) and the odd
+               shapes of the CPU tests (two channels, pools of 3 and 4 with
+               a low pad, 130 maps) on dense and on sparse, tied images,
+               with the same bits asked of a second call, beside cuDNN's
+               conv + max_pool2d + relu (autograd through it for K6);
 4. slice    -- score a 200k-jet synthetic sample end to end through
                atlasvae_torch.cli.score with the launch counters set to 0
                just before; check rows, finiteness, that both kernels ran,
@@ -53,14 +61,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                a file), EMD and KSD against the plain CPU path on the first
                1,024 jets; print each metric's AUC (bkg against signal);
                then a warm timed run and a profiled run;
-7. kernels  -- one JSON line with every ported kernel;
-8. last line: {"ok": true, "device": {...}}.
+7. jetid    -- the jet-ID CNN at the CLI's default widths (16x16 image ->
+               conv 3x3/100 -> pool -> conv 3x3/100 -> pool -> 900; scalars
+               -> 200; trunk 200/200; softmax 2): train 3 epochs of 1e5 jets
+               in batches of 5,000 through atlasvae_torch.cli.jetid on
+               200,000-event synthetic files, the counters set to 0 just
+               before; check the epochs' ticker, the files, the
+               probabilities and that K5 ran once a training step,
+               validation batch and predict chunk and K6 once a training
+               step; then serve (--n_epochs 0 --model_in)
+               in the same folder: the same probabilities, no K6, and the
+               first 4,096 jets against the plain CPU path; accuracy, AUC
+               and rejections (synthetic data: no physics result); CUDA
+               against the plain CPU path at dropout 0 (first-step
+               gradients, 2-epoch losses); a warm timed run and a profiled
+               epoch;
+8. kernels  -- one JSON line with every ported kernel;
+9. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -107,7 +133,54 @@ KERNELS = {
     "emd_sinkhorn": dict(source="atlasvae_torch/csrc/emd_sinkhorn.cu",
                          replaces="atlasvae/ops/emd_pallas.py:45",
                          main_shape="emd_slice chunk"),
+    "fused_conv": dict(source="atlasvae_torch/csrc/fused_conv.cu",
+                       replaces="atlasvae/ops/fused_conv.py:112",
+                       main_shape="jetid train batch sparse"),
+    "fused_conv_backward": dict(source="atlasvae_torch/csrc/fused_conv_bwd.cu",
+                                replaces="atlasvae/ops/fused_conv.py:130",
+                                main_shape="jetid train batch sparse"),
 }
+
+# jet-ID: the CNN the CLI builds by default, on 200,000-event synthetic
+# files, cut to 3 epochs of 1e5 jets.
+JETID_EVENTS = 200_000
+JETID_TRAIN = 100_000
+JETID_BATCH = 5_000
+JETID_CHUNK = 20_000      # predict_classifier's chunk
+JETID_EPOCHS = 3
+JETID_IMAGE = 16
+JETID_ARGS = ["--NN_type", "CNN", "--mixed_precision", "OFF", "--plotting", "OFF",
+              "--synthetic", str(JETID_EVENTS), "--n_train", "1e5", "--n_valid", "5e4",
+              "--batch_size", "5e3"]
+JETID_REF_ROWS = 4096
+JETID_PARITY_BATCHES = 3
+CONV_SHAPES = [
+    # (name, N, H, W, C, kh, kw, M, pool)
+    ("jetid train batch", JETID_BATCH, 16, 16, 1, 3, 3, 100, (2, 2)),
+    ("jetid predict chunk", JETID_CHUNK, 16, 16, 1, 3, 3, 100, (2, 2)),
+    ("ragged batch", 1037, 16, 16, 1, 3, 3, 100, (2, 2)),
+    ("reference tower", 500, 64, 64, 1, 3, 3, 100, (2, 2)),
+    ("5x16x16 10 maps", 5, 16, 16, 1, 3, 3, 10, (2, 2)),
+    ("two channels pool 3", 3, 13, 11, 2, 3, 2, 7, (3, 3)),
+    ("pool 3 low pad", 4, 10, 10, 1, 2, 2, 5, (3, 3)),
+    ("130 maps", 2, 12, 9, 1, 3, 3, 130, (2, 2)),
+    ("pool 4", 3, 9, 9, 1, 3, 3, 4, (4, 4)),
+]
+CONV_GRAD_TOL = 2e-4        # dW/db leaf over its largest value, at test sizes
+CONV_GRAD_TOL_BIG = 3e-4    # at a thousand images and more
+# CUDA against the CPU through the whole CNN: a batch has 12.5 million conv
+# outputs behind a ReLU mask and a pool's argmax, and where one lies within
+# float32 rounding of 0 or of its neighbour the two libraries' convolutions
+# decide differently.  Each such element moves a tower leaf's gradient by one
+# element's share, about 1e-3 of a bias gradient's largest value at 5,000
+# jets; the dense leaves behind the towers do not see it.
+JETID_CONV_GRAD_TOL = 3e-3
+# ... and its 2-epoch loss series.  Adam's first steps move every weight by
+# about lr whatever the size of its gradient, so an element whose gradient is
+# rounding noise, or 0 on one side after such a flipped decision, parts by a
+# whole step: the series part by about 1e-4 after 6 steps (the VAE's dense
+# stacks have no such decisions and hold TRAIN_REL_TOL).
+JETID_LOSS_REL_TOL = 1e-3
 
 # Training: the canonical model with the vae.sh hyper-parameters, cut to
 # 3 epochs of 1e5 jets (200,000 synthetic events per sample).
@@ -124,16 +197,18 @@ TRAIN_REL_TOL = 1e-4    # per-epoch losses, CUDA path vs plain CPU path
 
 
 def counters():
-    from atlasvae_torch.ops import emd_cuda, fused_mlp, fused_vae
+    from atlasvae_torch.ops import emd_cuda, fused_conv_cuda, fused_mlp, fused_vae
     return {"fused_mlp": fused_mlp.launches, "stack_forward": fused_vae.launches,
             "stack_backward": fused_vae.backward_launches,
-            "emd_sinkhorn": emd_cuda.launches}
+            "emd_sinkhorn": emd_cuda.launches, "fused_conv": fused_conv_cuda.launches,
+            "fused_conv_backward": fused_conv_cuda.backward_launches}
 
 
 def reset_counters():
-    from atlasvae_torch.ops import emd_cuda, fused_mlp, fused_vae
+    from atlasvae_torch.ops import emd_cuda, fused_conv_cuda, fused_mlp, fused_vae
     fused_mlp.launches = fused_vae.launches = fused_vae.backward_launches = 0
     emd_cuda.launches = 0
+    fused_conv_cuda.launches = fused_conv_cuda.backward_launches = 0
 
 
 def log(phase, **facts):
@@ -392,6 +467,108 @@ def parity_emd(gen, batch, n, device, kind="near", n_iters=EMD_ITERS):
     return res
 
 
+def bound_conv(n, h, w, c, kh, kw, m, pool, backward):
+    """Least time (ms) for one call of the fused conv block or its backward
+    and what bounds it.  Forward: x, w, b read once, the pooled block written
+    once; 2*K FLOP per conv pixel and map (K = kh*kw*C taps), a compare per
+    conv pixel, a bias add and a clamp per pooled pixel.  Backward: x, w, b
+    and g read, dW and db written; the same recompute and compares, the ReLU
+    mask, and one FMA per pooled pixel, tap and map for dW plus an add for
+    db (only the window's first maximum gets gradient)."""
+    hc, wc = h - kh + 1, w - kw + 1
+    ho, wo = -(-hc // pool[0]), -(-wc // pool[1])
+    k = kh * kw * c
+    conv_px, pooled_px = n * hc * wc * m, n * ho * wo * m
+    flops = conv_px * (2 * k + 1) + 2 * pooled_px
+    nbytes = 4 * (n * h * w * c + k * m + m + pooled_px)
+    if backward:
+        flops += pooled_px * (2 * k + 1)
+        nbytes += 4 * (k * m + m)
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops, nbytes
+
+
+def parity_conv(gen, shape, sparse, device):
+    """K5 and K6 against their plain versions on the same inputs; the same
+    bits on a second call; times of kernel, plain version and the library
+    yardstick (cuDNN's conv2d, a -inf pad where XLA's SAME pool has one,
+    max_pool2d and relu in NCHW views; autograd through it for K6); bounds."""
+    import torch
+    import torch.nn.functional as F
+    from atlasvae_torch.ops import fused_conv, fused_conv_cuda
+    from atlasvae_torch.ops.pooling import same_pad_lo
+    name, n, h, wd, c, kh, kw, m, pool = shape
+    x = torch.randn((n, h, wd, c), generator=gen, device=device)
+    if sparse:   # jet images: a few lit pixels, so whole pool windows tie
+        x = x.abs() * (torch.rand(x.shape, generator=gen, device=device) < 0.08)
+    w = torch.randn((kh, kw, c, m), generator=gen, device=device) * 0.3
+    b = torch.randn((m,), generator=gen, device=device) * 0.1
+    want = fused_conv.conv1_pool_relu_plain(x, w, b, pool)
+    g = torch.randn(want.shape, generator=gen, device=device) / n
+
+    pads = []
+    for size, p in ((wd - kw + 1, pool[1]), (h - kh + 1, pool[0])):   # F.pad: last axis first
+        lo, out = same_pad_lo(size, p)
+        pads += [lo, out * p - size - lo]
+    x_lib, w_lib = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+    g_lib = g.permute(0, 3, 1, 2)
+
+    def library(w_=w_lib, b_=b):
+        z = F.conv2d(x_lib, w_, b_)
+        if any(pads):
+            z = F.pad(z, pads, value=float("-inf"))
+        return torch.relu(F.max_pool2d(z, pool))
+
+    def library_backward():
+        w_, b_ = w_lib.detach().requires_grad_(), b.detach().requires_grad_()
+        return torch.autograd.grad(library(w_, b_), (w_, b_), g_lib)
+
+    kernel = lambda: fused_conv_cuda.conv_pool_relu(x, w, b, pool)
+    kernel_bwd = lambda: fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool)
+    plain = lambda: fused_conv.conv1_pool_relu_plain(x, w, b, pool)
+    plain_bwd = lambda: fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, pool)
+
+    got, again = kernel(), kernel()
+    grads, grads_again, grads_want = kernel_bwd(), kernel_bwd(), plain_bwd()
+    lib = library().permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err_fwd = float(diff.max())
+    ok = bool((diff <= ATOL + RTOL * want.abs()).all()) and bool(torch.isfinite(got).all())
+    lib_ok = bool(((lib - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    same_bits = bool(torch.equal(got, again)) and all(
+        bool(torch.equal(a, b_)) for a, b_ in zip(grads, grads_again))
+    tol = CONV_GRAD_TOL_BIG if n >= 1000 else CONV_GRAD_TOL
+    err_bwd, rel_bwd, ok_bwd = 0.0, 0.0, True
+    for a, ref in zip(grads, grads_want):
+        d, scale = float((a - ref).abs().max()), float(ref.abs().max())
+        err_bwd, rel_bwd = max(err_bwd, d), max(rel_bwd, d / scale if scale > 0 else d)
+        ok_bwd &= a.shape == ref.shape and d <= tol * scale + 1e-12 and bool(torch.isfinite(a).all())
+    del got, again, want, lib, diff
+    iters = 30 if n * h * wd <= 2_000_000 else 10
+    out = {}
+    for kname, backward, fn, fn_plain, fn_lib in (
+            ("fused_conv", False, kernel, plain, library),
+            ("fused_conv_backward", True, kernel_bwd, plain_bwd, library_backward)):
+        b_ms, b_by, flops, nbytes = bound_conv(n, h, wd, c, kh, kw, m, pool, backward)
+        res = dict(shape=name + (" sparse" if sparse else ""), batch=n, image=[h, wd, c],
+                   kernel=[kh, kw], maps=m, pool=list(pool), sparse=sparse, same_bits=same_bits,
+                   ms=time_ms(fn, iters), plain_ms=time_ms(fn_plain, iters),
+                   library_ms=time_ms(fn_lib, iters), bound_ms=b_ms, bound_by=b_by,
+                   flops=flops, bytes=nbytes)
+        res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+        out[kname] = res
+    out["fused_conv"]["max_abs_err"] = err_fwd
+    out["fused_conv_backward"].update(max_abs_err=err_bwd, max_err_over_leaf_scale=rel_bwd)
+    if not (ok and ok_bwd and same_bits and lib_ok):
+        raise AssertionError(f"fused conv block vs its plain version at {out}: forward over atol "
+                             f"{ATOL} + rtol {RTOL}*|ref| ({not ok}), a dW/db leaf over {tol} * "
+                             f"its largest value ({not ok_bwd}), other bits on a second call "
+                             f"({not same_bits}), or the library yardstick computes another "
+                             f"function ({not lib_ok})")
+    return out
+
+
 def phase_device():
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -511,6 +688,22 @@ def phase_parity(device):
             library_ms="none", bound_ms=f"{res['bound_ms']:.4f}", bound_by=res["bound_by"],
             tflops=f"{res['tflops']:.2f}", jets_per_s=f"{res['jets_per_s']:.0f}")
         torch.cuda.empty_cache()
+    # K5 and K6: the jet-ID shapes on sparse images (what a jet image is),
+    # the CPU tests' odd shapes on dense and on sparse ones
+    for shape in CONV_SHAPES:
+        for sparse in ((True,) if shape[1] >= 500 else (False, True)):
+            for name, res in parity_conv(gen, shape, sparse, device).items():
+                results[name].append(res)
+                log("parity", kernel=name, shape=json.dumps(res["shape"]), batch=res["batch"],
+                    image=res["image"], maps=res["maps"], pool=res["pool"],
+                    max_abs_err=f"{res['max_abs_err']:.3g}",
+                    **({"max_err_over_leaf_scale": f"{res['max_err_over_leaf_scale']:.3g}"}
+                       if "max_err_over_leaf_scale" in res else {}),
+                    same_bits=res["same_bits"], ms=f"{res['ms']:.4f}",
+                    plain_ms=f"{res['plain_ms']:.4f}", library_ms=f"{res['library_ms']:.4f}",
+                    bound_ms=f"{res['bound_ms']:.4f}", bound_by=res["bound_by"],
+                    tflops=f"{res['tflops']:.2f}")
+            torch.cuda.empty_cache()
     return results
 
 
@@ -919,6 +1112,232 @@ def phase_emd_slice(device, workdir):
     return total, facts
 
 
+class _Echo(io.StringIO):
+    """Keeps what is printed while passing it on."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def _jetid_history(printed):
+    """The per-epoch series of a training run's ticker lines (the jet-ID CLI
+    writes no history file): JETID_EPOCHS finite epochs, the loss falling."""
+    import numpy as np
+    rows = re.findall(r"Epoch (\d+)/(\d+): loss=(\S+) acc=(\S+)% val_loss=(\S+) ", printed)
+    history = {"loss": [float(r[2]) for r in rows], "accuracy": [float(r[3]) for r in rows],
+               "val_loss": [float(r[4]) for r in rows]}
+    if [r[:2] for r in rows] != [(str(e + 1), str(JETID_EPOCHS)) for e in range(JETID_EPOCHS)] \
+            or not all(np.isfinite(v).all() for v in history.values()) \
+            or not history["loss"][-1] < history["loss"][0]:
+        raise AssertionError(f"jet-ID training history {history}: want {JETID_EPOCHS} finite "
+                             "epochs with a falling loss")
+    return history
+
+
+def _jetid_report(results_path, device):
+    """(view, labels, probabilities) of a results file and the numbers the
+    CLI prints from them."""
+    import pickle
+    import numpy as np
+    from atlasvae_torch.eval import auc_score, compo_matrix, discriminant
+    from atlasvae_torch.plotting.performance import background_rejection
+    with open(results_path, "rb") as f:
+        v_view, v_labels, probs = pickle.load(f)
+    n = len(v_labels)
+    if probs.shape != (n, 2) or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(axis=1) - 1).max() > 1e-5:
+        raise AssertionError(f"{results_path}: probabilities of shape {probs.shape} for {n} jets, "
+                             f"finite {np.isfinite(probs).all()}")
+    _, accuracy = compo_matrix(v_labels, (), probs)
+    view, y, disc = discriminant(v_view, v_labels, probs)
+    facts = dict(accuracy=float(accuracy), auc=float(auc_score(y, disc, view["weights"], device)),
+                 rejection=background_rejection(y, disc, view["weights"], device=device))
+    return v_view, v_labels, probs, facts
+
+
+def _jetid_parity(config, inputs, labels, device):
+    """The CUDA path against the plain CPU path at dropout 0, on the first
+    batches of a sample: first-step gradients per leaf, and a 2-epoch loss
+    series of train_classifier."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from atlasvae_torch.models import init_jetid
+    from atlasvae_torch.train.checkpoint import tree_flatten, tree_map
+    from atlasvae_torch.train.jetid_loop import batch_loss, train_classifier
+
+    config = dataclasses.replace(config, dropout=0.0)
+    n = JETID_PARITY_BATCHES * JETID_BATCH
+    train = {k: v[:n] for k, v in inputs.items()}
+    valid = {k: v[n:n + JETID_BATCH] for k, v in inputs.items()}
+    cpu = torch.device("cpu")
+    init = init_jetid(torch.Generator().manual_seed(21), config, device=cpu)
+    grads = {}
+    for d in (cpu, device):
+        params = tree_map(lambda t, d=d: t.detach().to(d).requires_grad_(), init)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v[:JETID_BATCH])).to(d)
+                 for k, v in train.items()}
+        loss, _ = batch_loss(params, config, batch,
+                             torch.from_numpy(labels[:JETID_BATCH]).to(d),
+                             torch.ones(JETID_BATCH, device=d), None)
+        grads[d] = [g.cpu() for g in torch.autograd.grad(loss, tree_flatten(params))]
+    # leaves in tree_flatten's order (sorted keys), towers flagged
+    in_tower = [key == "towers" for key in sorted(init) for _ in tree_flatten(init[key])]
+    grad_rel = {"dense": 0.0, "conv": 0.0}
+    for g_dev, g_cpu, conv in zip(grads[device], grads[cpu], in_tower):
+        scale, diff = float(g_cpu.abs().max()), float((g_dev - g_cpu).abs().max())
+        kind, tol = ("conv", JETID_CONV_GRAD_TOL) if conv else ("dense", GRAD_SCALE_TOL)
+        grad_rel[kind] = max(grad_rel[kind], diff / scale if scale > 0 else diff)
+        if diff > tol * scale:
+            raise AssertionError(f"jet-ID first-step gradient of a {kind} leaf differs: {diff} > "
+                                 f"{tol} * {scale}")
+    hists = {}
+    for d in (cpu, device):
+        _, hists[d] = train_classifier(tree_map(lambda t, d=d: t.detach().to(d), init), config,
+                                       train, labels[:n], valid, labels[n:n + JETID_BATCH],
+                                       epochs=2, batch_size=JETID_BATCH, verbose=False)
+    loss_rel = 0.0
+    for key in ("loss", "val_loss"):
+        got, want = np.asarray(hists[device][key]), np.asarray(hists[cpu][key])
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        loss_rel = max(loss_rel, rel)
+        if not rel <= JETID_LOSS_REL_TOL:
+            raise AssertionError(f"jet-ID {key}: CUDA {got} vs CPU {want}, rel {rel} > "
+                                 f"{JETID_LOSS_REL_TOL}")
+    return grad_rel, loss_rel
+
+
+def phase_jetid(device, workdir):
+    """Train and serve the jet-ID CNN through the CLI, hold the CUDA path
+    against the plain CPU path, then time and profile it."""
+    import numpy as np
+    import torch
+    from atlasvae_torch.cli import jetid as cli_jetid
+    from atlasvae_torch.models import JetIDConfig, init_jetid
+    from atlasvae_torch.train.checkpoint import load_pytree
+    from atlasvae_torch.train.jetid_loop import (predict_classifier, train_classifier,
+                                                 train_classifier_streaming)
+
+    os.makedirs(workdir)
+    out_dir = os.path.join(workdir, "out")
+    # --synthetic writes its files under the data directory; this is the last
+    # phase, so the setting stays
+    os.environ["ATLASVAE_DATA_DIR"] = os.path.join(workdir, "data")
+    args = JETID_ARGS + ["--output_dir", out_dir, "--device", str(device)]
+
+    # 1. train
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Echo()) as printed:
+        cli_jetid.main(args + ["--n_epochs", str(JETID_EPOCHS)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = counters()
+    history = _jetid_history(printed.getvalue())
+    for name in ("model.npz", "valid_results.pkl", "image_scale.pkl", "scaler_RobustScaler.pkl"):
+        if not os.path.isfile(os.path.join(out_dir, name)):
+            raise AssertionError(f"the jet-ID training run did not write {name}")
+    v_view, v_labels, probs, _ = _jetid_report(os.path.join(out_dir, "valid_results.pkl"), device)
+    n_valid = len(v_labels)
+    if n_valid < JETID_TRAIN:   # the CLI then trains on half the sample, not on --n_train jets
+        raise AssertionError(f"only {n_valid} validation jets: the sample is smaller than planned")
+    steps = -(-JETID_TRAIN // JETID_BATCH)
+    valid_batches = -(-n_valid // JETID_BATCH)
+    chunks = -(-n_valid // JETID_CHUNK)
+    want = {"fused_conv": JETID_EPOCHS * (steps + valid_batches) + chunks,
+            "fused_conv_backward": JETID_EPOCHS * steps}
+    for name, count in want.items():
+        if train_launches[name] != count:
+            raise AssertionError(f"{name} launched {train_launches[name]} times in the training "
+                                 f"run, want {count} ({JETID_EPOCHS} epochs of {steps} steps and "
+                                 f"{valid_batches} validation batches, {chunks} predict chunks)")
+    log("jetid", train_cli_s=f"{train_s:.3f}", valid_jets=n_valid, steps_per_epoch=steps,
+        valid_batches=valid_batches, predict_chunks=chunks, launches=json.dumps(train_launches),
+        history=json.dumps(history))
+
+    # 2. serve
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_jetid.main(args + ["--n_epochs", "0", "--model_in", "model.npz", "--results_out",
+                           "served.pkl"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = counters()
+    if serve_launches["fused_conv"] != chunks or serve_launches["fused_conv_backward"] != 0:
+        raise AssertionError(f"serving launched {serve_launches}: want fused_conv {chunks} times "
+                             "and no backward")
+    _, served_labels, served, report = _jetid_report(os.path.join(out_dir, "served.pkl"), device)
+    gap = float(np.abs(served - probs).max())
+    if not np.array_equal(served_labels, v_labels) or gap > 1e-6:
+        raise AssertionError(f"served probabilities differ from the training run's by {gap}")
+    config = JetIDConfig(n_classes=2, scalars=("HLVs",), scalar_dims=(v_view["HLVs"].shape[1],),
+                         nn_type="CNN", images=("images",),
+                         image_shapes=((JETID_IMAGE, JETID_IMAGE),), dropout=0.1, l2=1e-7)
+    inputs = {"HLVs": v_view["HLVs"], "images": v_view["images"]}
+    cpu = torch.device("cpu")
+    cpu_params = load_pytree(os.path.join(out_dir, "model.npz"),
+                             init_jetid(torch.Generator().manual_seed(0), config, device=cpu))
+    ref = predict_classifier(cpu_params, config, {k: v[:JETID_REF_ROWS] for k, v in inputs.items()})
+    ref_gap = float(np.abs(served[:JETID_REF_ROWS] - ref).max())
+    if not np.allclose(served[:JETID_REF_ROWS], ref, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"served probabilities differ from the plain CPU path: {ref_gap}")
+    log("jetid", serve_cli_s=f"{serve_s:.3f}", launches=json.dumps(serve_launches),
+        same_bits_as_training_run=bool(np.array_equal(served, probs)), max_gap=gap,
+        cpu_ref_rows=JETID_REF_ROWS, cpu_ref_max_gap=ref_gap,
+        accuracy=f"{report['accuracy']:.2f}", auc=f"{report['auc']:.4f}",
+        rejection=json.dumps(report["rejection"]), note="synthetic data: no physics result")
+
+    # 3. CUDA against the plain CPU path at dropout 0
+    t0 = time.perf_counter()
+    grad_rel, loss_rel = _jetid_parity(config, inputs, v_labels, device)
+    log("jetid", parity_s=f"{time.perf_counter() - t0:.2f}", grad_rel=json.dumps(grad_rel),
+        loss_rel=loss_rel)
+
+    # 4. a warm timed run on JETID_TRAIN of these jets, then a profiled epoch
+    train_in = {k: v[:JETID_TRAIN] for k, v in inputs.items()}
+    valid_in = {k: v[JETID_TRAIN:JETID_TRAIN + 50_000] for k, v in inputs.items()}
+    train_y, valid_y = v_labels[:JETID_TRAIN], v_labels[JETID_TRAIN:JETID_TRAIN + 50_000]
+    stamps = []
+
+    def loads():
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), counters()))
+        yield train_in, train_y, None
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), counters()))
+
+    params = init_jetid(torch.Generator(device).manual_seed(0), config, device=device)
+    reset_counters()
+    train_classifier_streaming(params, config, loads, valid_in, valid_y, JETID_EPOCHS,
+                               JETID_BATCH, verbose=False)
+    spans = [(stamps[2 * e], stamps[2 * e + 1]) for e in range(JETID_EPOCHS)]
+    warm_s = sum(end[0] - start[0] for start, end in spans[1:])
+    per_step = {name: (spans[-1][1][1][name] - spans[-1][0][1][name]) / steps
+                for name in ("fused_conv", "fused_conv_backward")}
+    predict_classifier(params, config, inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predict_classifier(params, config, inputs)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    idle = profile_slice(lambda: (train_classifier(params, config, train_in, train_y, valid_in,
+                                                   valid_y, epochs=1, batch_size=JETID_BATCH,
+                                                   verbose=False), torch.cuda.synchronize()),
+                         phase="jetid profile")
+    facts = dict(train_jets=JETID_TRAIN, steps_per_epoch=steps,
+                 warm_jets_per_s=JETID_TRAIN * (JETID_EPOCHS - 1) / warm_s,
+                 ms_per_step=warm_s / (steps * (JETID_EPOCHS - 1)) * 1e3,
+                 launches_per_step=per_step, predict_jets=n_valid,
+                 predict_jets_per_s=n_valid / predict_s, idle_share=idle, grad_rel=grad_rel,
+                 loss_rel=loss_rel, **report)
+    log("jetid", **{k: (json.dumps(v) if isinstance(v, dict) else v) for k, v in facts.items()})
+    total = {k: train_launches[k] + serve_launches[k] for k in train_launches}
+    return total, facts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -936,12 +1355,13 @@ def main():
         slice_launches, rate = phase_slice(device, workdir)
         train_launches, train = phase_train(device, workdir)
         emd_launches, emd_facts = phase_emd_slice(device, os.path.join(workdir, "emd_slice"))
+        jetid_launches, jetid_facts = phase_jetid(device, os.path.join(workdir, "jetid"))
 
     kernels = []
     for name, meta in KERNELS.items():
         main_shape = next(r for r in parity_results[name] if r["shape"] == meta["main_shape"])
         by_phase = {"slice": slice_launches[name], "train": train_launches[name],
-                    "emd_slice": emd_launches[name]}
+                    "emd_slice": emd_launches[name], "jetid": jetid_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -953,7 +1373,9 @@ def main():
             shapes=parity_results[name]))
     log("kernels", card=json.dumps(smi), slice_jets_per_s=f"{rate:.0f}",
         train_jets_per_s=f"{train['warm_jets_per_s']:.0f}",
-        emd_slice_jets_per_s=f"{emd_facts['warm_jets_per_s']:.0f}")
+        emd_slice_jets_per_s=f"{emd_facts['warm_jets_per_s']:.0f}",
+        jetid_train_jets_per_s=f"{jetid_facts['warm_jets_per_s']:.0f}",
+        jetid_predict_jets_per_s=f"{jetid_facts['predict_jets_per_s']:.0f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,10 @@ Sinkhorn EMD kernel: rtol 2e-5, atol 1e-6, the bar the JAX package holds
 its two forms of that function to (tests/test_emd.py); where the EMD is
 small beside the jets' total pt (a cloud against a permuted copy of itself)
 the atol is 1e-5 of the total pt, which is what float32 gives either form.
+The fused conv block (K5): atol 1e-5 + rtol 1e-5 against the plain version,
+whose convolution runs in full float32 (cuDNN's TF32 is turned off here);
+its backward (K6): dW and db within 2e-4 of each leaf's largest value, the
+bar of tests/test_fused_conv.py, and the same bits on a second call.
 """
 
 import numpy as np
@@ -23,7 +27,7 @@ import torch
 
 from atlasvae_torch.losses import get_losses
 from atlasvae_torch.models import VAEConfig, init_vae, vae_apply
-from atlasvae_torch.ops import emd, emd_cuda, fused_mlp, fused_vae
+from atlasvae_torch.ops import emd, emd_cuda, fused_conv, fused_conv_cuda, fused_mlp, fused_vae
 from atlasvae_torch.train import train_model
 from atlasvae_torch.train.checkpoint import tree_flatten, tree_map
 
@@ -37,6 +41,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -320,3 +325,95 @@ def test_emd_sinkhorn_rejects_bad_input(cuda):
     p, q = _clouds(gen, 2, emd_cuda.MAX_CONST, cuda)
     torch.testing.assert_close(emd_cuda.emd_sinkhorn(p, q), emd._sinkhorn_emd(p, q, 1.0, 100, 0.01),
                                rtol=2e-5, atol=1e-6)
+
+
+CONV_SHAPES = [
+    # (N, H, W, C, kh, kw, M, pool)
+    (5, 16, 16, 1, 3, 3, 10, (2, 2)),     # the shapes of tests/test_fused_conv.py
+    (3, 13, 11, 2, 3, 2, 7, (3, 3)),      # two channels, pool 3 with a low pad
+    (4, 10, 10, 1, 2, 2, 5, (3, 3)),
+    (2, 12, 9, 1, 3, 3, 130, (2, 2)),
+    (3, 9, 9, 1, 3, 3, 4, (4, 4)),
+    (1037, 16, 16, 1, 3, 3, 100, (2, 2)),  # the jet-ID tower, a ragged batch
+    (9, 64, 64, 1, 3, 3, 100, (2, 2)),    # the reference's default image: bands of rows
+    (3, 12, 12, 50, 3, 3, 70, (2, 2)),    # 450 taps: several tiles of maps
+    (2, 7, 40, 3, 2, 5, 1024, (1, 3)),    # the most maps the gate admits
+]
+GRAD_TOL = 2e-4
+
+
+def _conv_case(shape, device, sparse, seed=0):
+    n, h, wd, c, kh, kw, m, _ = shape
+    gen = torch.Generator().manual_seed(seed + n + 7 * m)
+    x = torch.randn((n, h, wd, c), generator=gen)
+    if sparse:   # jet images: a few lit pixels, so whole pool windows tie at 0
+        x = x.abs() * (torch.rand(x.shape, generator=gen) < 0.08)
+    w = torch.randn((kh, kw, c, m), generator=gen) * 0.3
+    b = torch.randn((m,), generator=gen) * 0.1
+    return x.to(device), w.to(device), b.to(device), gen
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_pool_relu_matches_plain(cuda, shape, sparse):
+    x, w, b, gen = _conv_case(shape, cuda, sparse)
+    pool = shape[-1]
+    before = fused_conv_cuda.launches
+    got = fused_conv_cuda.conv_pool_relu(x, w, b, pool)
+    assert fused_conv_cuda.launches == before + 1
+    want = fused_conv.conv1_pool_relu_plain(x, w, b, pool)
+    _close([got], [want])
+
+    g = (torch.randn(want.shape, generator=gen) / shape[0]).to(cuda)
+    before = fused_conv_cuda.backward_launches
+    dw, db = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool)
+    assert fused_conv_cuda.backward_launches == before + 1
+    dw_want, db_want = fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, pool)
+    for got_leaf, want_leaf in ((dw, dw_want), (db, db_want)):
+        assert got_leaf.shape == want_leaf.shape
+        scale = float(want_leaf.abs().max())
+        assert float((got_leaf - want_leaf).abs().max()) <= GRAD_TOL * scale + 1e-12
+    again = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+def test_fused_conv1_function_on_cuda_matches_cpu(cuda):
+    shape = (64, 16, 16, 2, 3, 3, 12, (2, 2))
+    x, w, b, _ = _conv_case(shape, "cpu", sparse=True)
+    grads = {}
+    for device in ("cpu", cuda):
+        leaves = [t.to(device).requires_grad_() for t in (w, b)]
+        out = fused_conv.fused_conv1_pool_relu(x.to(device), *leaves, shape[-1])
+        grads[str(device)] = [out.detach().cpu()] + \
+            [t.cpu() for t in torch.autograd.grad((out ** 2).sum(), leaves)]
+    out_cpu, dw_cpu, db_cpu = grads["cpu"]
+    out_dev, dw_dev, db_dev = grads[str(cuda)]
+    _close([out_dev], [out_cpu])
+    for got_leaf, want_leaf in ((dw_dev, dw_cpu), (db_dev, db_cpu)):
+        assert float((got_leaf - want_leaf).abs().max()) <= GRAD_TOL * float(want_leaf.abs().max())
+
+
+def test_conv_kernels_refuse_bad_input(cuda):
+    x, w, b, _ = _conv_case((4, 16, 16, 1, 3, 3, 10, (2, 2)), cuda, sparse=False)
+    pool = (2, 2)
+    g = torch.zeros((4, 7, 7, 10), device=cuda)
+    with pytest.raises(NotImplementedError, match="records no gradient"):
+        fused_conv_cuda.conv_pool_relu(x, w.clone().requires_grad_(), b, pool)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        fused_conv_cuda.conv_pool_relu(x.double(), w, b, pool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_conv_cuda.conv_pool_relu(x, w.cpu(), b, pool)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv_cuda.conv_pool_relu(x.permute(0, 2, 1, 3), w, b, pool)
+    with pytest.raises(ValueError, match="at most 512"):
+        fused_conv_cuda.conv_pool_relu(torch.zeros((2, 8, 8, 64), device=cuda),
+                                       torch.zeros((3, 3, 64, 4), device=cuda), b[:4], pool)
+    with pytest.raises(ValueError, match="does not fit"):
+        fused_conv_cuda.conv_pool_relu(x[:, :2].contiguous(), w, b, pool)
+    with pytest.raises(ValueError, match="2-D pool"):
+        fused_conv_cuda.conv_pool_relu(x, w, b, (2, 2, 2))
+    with pytest.raises(ValueError, match="not the output's shape"):
+        fused_conv_cuda.conv_pool_relu_backward(x, w, b, g[:, :6].contiguous(), pool)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros((1, 4, 40000, 1), device=cuda)
+        fused_conv_cuda.conv_pool_relu(wide, w, b, pool)

@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor the JAX package, and importing it
-touches no CUDA device and builds nothing."""
+"""The port imports neither JAX nor the JAX package, nor matplotlib (the
+machine with the card has none; the drawing functions import it in their
+bodies), and importing it touches no CUDA device and builds nothing."""
 
 import os
 import subprocess
@@ -14,9 +15,12 @@ names = [m.name for m in pkgutil.walk_packages(atlasvae_torch.__path__, "atlasva
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
+for name in ("atlasvae_torch.plotting.performance", "atlasvae_torch.cli.jetid",
+             "atlasvae_torch.models.jetid", "atlasvae_torch.train.jetid_loop",
+             "atlasvae_torch.ops.fused_conv_cuda", "atlasvae_torch.ops.pooling"):
+    assert name in names, name
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith("jax.") or m == "atlasvae"
-                or m.startswith("atlasvae."))
+                if m.split(".")[0] in ("jax", "atlasvae", "matplotlib"))
 assert not leaked, leaked
 import torch
 assert not torch.cuda.is_initialized()
