@@ -276,10 +276,6 @@ def main(argv=None):
         return 0
     _check_supported(args)
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        # float32 compute is float32 in every layer: cuDNN would run the
-        # later conv blocks in TF32 (about three decimal digits) by default
-        torch.backends.cudnn.allow_tf32 = False
     Path(out_root).mkdir(parents=True, exist_ok=True)
     if args.synthetic:
         ensure_synthetic_registry(n_events=int(args.synthetic),

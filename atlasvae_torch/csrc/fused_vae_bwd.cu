@@ -1,41 +1,60 @@
 // K3: backward of the dense stack with linear heads (K2's gradient: the VAE
 // encoder's and decoder's backward in every training step).
 //
-// Replaces atlasvae/ops/fused_vae.py:130 _stack_bwd_kernel (Pallas, TPU).
-// Per tile of rows it recomputes the forward activations, backpropagates the
-// head gradients through the heads and the ReLU masks, and sums dW/db over
-// all rows; dx only on request (the decoder needs dz, the encoder's input is
-// data).  The TPU kernel summed dW/db in output blocks revisited by a grid
-// that runs in order on one core, zeroed at grid step 0.  Here CTAs run in
-// parallel and in no order, so:
-//   * the grid is at most kMaxParts CTAs (a constant, not the card's SM
-//     count); CTA i takes tiles i, i + grid, i + 2*grid, ... and sums its
-//     dW/db into its own slice of a scratch buffer (no float atomics);
-//   * a second kernel sums the slices in slice order.
-// So the result is the same bits on every run and every card.
+// Replaces atlasvae/ops/fused_vae.py:130 _stack_bwd_kernel (Pallas, TPU): it
+// recomputes the forward activations, backpropagates the head gradients
+// through the heads and the ReLU masks, and sums dW/db over all rows; dx only
+// on request (the decoder needs dz, the encoder's input is data).  The TPU
+// kernel summed dW/db in output blocks revisited by a grid that runs in order
+// on one core.  Here CTAs run in parallel and in no order, so each CTA (or
+// row split) sums into its own slice of a scratch buffer, and a second kernel
+// adds the slices in slice order: the same bits on every run and every card,
+// no float atomics.  Two routes; ops/fused_vae.py::backward_plan picks one by
+// the stack's shape alone.
 //
-// Per tile of TM rows, in shared memory: every layer's activation (the
-// input tile and each hidden output, feature-major: act[k * S + row]), two
-// ping-pong gradient buffers, and one staged chunk of a weight matrix.  The
-// row-by-feature products (forward recompute, g @ W^T) reuse the register
-// tiling of dense_stack.cuh (8 rows x 4 columns a thread); the weight
-// gradient a^T g gives each thread 4 x 4 outputs and walks the rows four at
-// a time with float4 loads.  Ragged last tiles are zero-filled: a zero head
-// gradient row stays zero through every layer, so padded rows add nothing.
+// 1. The fused body (stack_bwd_kernel), for stacks no wider than 128 whose
+//    64-row tile fits a CTA (the canonical 12->80/40/20 + 2x10 VAE).  Per
+//    tile of rows, in shared memory: every layer's activation (feature-major,
+//    act[k * S + row]), two ping-pong gradient buffers and one staged chunk of
+//    a weight matrix; the row-by-feature products reuse the register tiling
+//    of dense_stack.cuh (8 rows x 4 columns a thread).  Bound at B = 10,000
+//    rows, canonical encoder, no dx: about 29 kFLOP and 128 B of HBM traffic
+//    a row, 230 FLOP/B, far above the f32 ridge of 20, so 4.4 us of f32 work
+//    on an H100, spread over 157 tiles on 132 SMs: one wave, bound by launch
+//    latency, barriers and occupancy.  One launch, all activations on chip,
+//    two CTAs an SM (93 KB of shared memory each).
 //
-// Bound on an H100, canonical encoder (12->80->40->20, heads 2x(20->10)) at
-// B = 10,000 rows without dx: per row the recompute of the hidden stack is
-// 4,960 MAC, dW of the hidden layers and heads 5,360 MAC, g @ W^T 4,400 MAC
-// (heads 400, 80<-40 3,200, 40<-20 800; none for the input layer): about
-// 29 kFLOP per row against 128 B of HBM traffic (48 B of x, 80 B of head
-// gradients), 230 FLOP/B, far above the f32 ridge of 20.  At 67 TFLOP/s that
-// is about 4.4 us of f32 work, spread over 157 tiles of 64 rows on 132 SMs:
-// one wave, so launch latency, barriers and occupancy bound it, not bytes.
-// The design keeps every activation of a tile on chip (no HBM round trip
-// between layers), runs 64-row tiles so that two CTAs fit an SM (93 KB of
-// shared memory each at canonical widths), and does the whole backward in
-// one launch plus one small reduction launch.
+// 2. The layer-wise route (the rest of this file), for everything else: the
+//    constituents-mode 312->256/128/64 + 2x32 encoder and its decoder, and
+//    stacks whose fused tile does not fit.  At 312 wide the fused body's
+//    tile held 200 KB (one CTA an SM), restaged all 500 KB of weights twice
+//    per 32 rows with uncoalesced transposed reads, and read-modified-wrote
+//    every CTA's whole dW slice per tile.  Here each product is one launch of
+//    the register-tiled GEMM of gemm_tile.cuh over the whole batch:
+//      recompute  a_l = relu(a_{l-1} W_l + b_l)          row product, a_l to a
+//                 scratch buffer of batch x sum(hidden widths): the one HBM
+//                 round trip the design accepts (1.8 GB at 1,000,003 rows);
+//      heads      dW_h = a_L^T g_h, db_h = sum g_h         split-K products;
+//                 g_L = (sum_h g_h W_h^T) * (a_L > 0)      one row product
+//                 over the concatenated heads, the mask in its epilogue,
+//                 written over a_L (read by its own thread just before);
+//      layer l    dW_l = a_{l-1}^T g_l, db_l = sum g_l     split-K;
+//                 g_{l-1} = (g_l W_l^T) * (a_{l-1} > 0)    over a_{l-1}, or
+//                 dx = g_1 W_1^T unmasked for the input layer;
+//    then one ordered reduction of the split slices.  A split-K CTA owns one
+//    output tile of dW and a fixed range of rows, keeps the tile in
+//    registers over the whole range and writes it once; db comes from the
+//    same pass.  Bound at 1,000,003 x 312->256/128/64 + 2x32: 582 GFLOP
+//    (recompute 120,832 MAC a row, dW 124,928, g W^T 45,056) over 67 TFLOP/s
+//    of f32, 8.7 ms; bytes (x, g, the activations' round trip) about 1 ms.
+//    So the design aims every product at the f32 FMA rate: up to 16 FMAs a
+//    shared-memory read, coalesced 16-byte global loads, two CTAs an SM
+//    (registers capped at 128 a thread), a weight gradient's tiles x splits
+//    at most 264 CTAs: one wave.
+#include <cstdint>
+
 #include "dense_stack.cuh"
+#include "gemm_tile.cuh"
 
 namespace atlasvae {
 
@@ -322,8 +341,10 @@ __global__ void reduce_partials(const float* __restrict__ partial, int n_parts, 
   out[p] = s;
 }
 
+constexpr int kFusedRows = 64;  // TM of the fused body
+
 struct BwdPlan {
-  int tm;
+  bool fits;  // every width at most 128 (else the layer-wise route)
   int n_parts;
   size_t smem;
 };
@@ -339,11 +360,11 @@ inline BwdPlan plan_bwd(long long batch, int n_hidden, const int* dims, int n_he
     if (i > 0 && dims[i] > g_width) g_width = dims[i];
   }
   BwdPlan p;
-  p.tm = widest <= 128 ? 64 : 32;
-  const int stride = p.tm + 4;
-  const int cols = kThreads / (p.tm / kRowsPerThread) * kColsPerThread;
+  p.fits = widest <= 128;
+  const int stride = kFusedRows + 4;
+  const int cols = kThreads / (kFusedRows / kRowsPerThread) * kColsPerThread;
   p.smem = sizeof(float) * ((size_t)(sum_dims + 2 * g_width) * stride + kChunkK * cols);
-  const long long tiles = (batch + p.tm - 1) / p.tm;
+  const long long tiles = (batch + kFusedRows - 1) / kFusedRows;
   p.n_parts = (int)(tiles < kMaxParts ? tiles : kMaxParts);
   return p;
 }
@@ -373,21 +394,20 @@ cudaError_t launch_bwd(BwdArgs& a, const BwdPlan& p, float* grads, cudaStream_t 
 
 }  // namespace atlasvae
 
-// Number of partial slices (rows of the scratch buffer) the backward of
-// this stack uses at this batch, or -1 if its tile does not fit a CTA's
-// shared memory.
-extern "C" int atlasvae_stack_backward_parts(long long batch, int n_hidden, const int* dims,
-                                             int n_heads, const int* head_dims) {
+// Number of partial slices (rows of the scratch buffer) the fused body uses
+// for this stack at this batch, or -1 if it does not take the stack.
+static int fused_parts(long long batch, int n_hidden, const int* dims, int n_heads,
+                       const int* head_dims) {
   using namespace atlasvae;
   if (n_hidden < 0 || n_hidden > kMaxHidden || n_heads < 1 || n_heads > kMaxHeads || batch < 1)
     return -1;
   const BwdPlan p = plan_bwd(batch, n_hidden, dims, n_heads, head_dims);
-  return p.smem > kMaxSmem ? -1 : p.n_parts;
+  return !p.fits || p.smem > kMaxSmem ? -1 : p.n_parts;
 }
 
 // grads: the parameter vector [dW_0, db_0, ..., dW_head0, db_head0, ...];
-// partial: (parts, n_params) scratch with parts from
-// atlasvae_stack_backward_parts; dx: (batch, dims[0]) or null.
+// partial: (parts, n_params) scratch, parts as ops/fused_vae.py::backward_plan
+// gives them; dx: (batch, dims[0]) or null.  The fused body.
 extern "C" int atlasvae_stack_backward(const void* x, long long batch, int n_hidden,
                                        const int* dims, const void* const* weights,
                                        const void* const* biases, int n_heads,
@@ -395,7 +415,7 @@ extern "C" int atlasvae_stack_backward(const void* x, long long batch, int n_hid
                                        const void* const* head_grads, void* dx, void* partial,
                                        int n_parts, void* grads, void* stream) {
   using namespace atlasvae;
-  if (atlasvae_stack_backward_parts(batch, n_hidden, dims, n_heads, head_dims) != n_parts)
+  if (fused_parts(batch, n_hidden, dims, n_heads, head_dims) != n_parts)
     return (int)cudaErrorInvalidValue;
   const BwdPlan p = plan_bwd(batch, n_hidden, dims, n_heads, head_dims);
   BwdArgs a = {};
@@ -427,5 +447,376 @@ extern "C" int atlasvae_stack_backward(const void* x, long long batch, int n_hid
   a.partial = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(grads);
-  return (int)(p.tm == 64 ? launch_bwd<64>(a, p, out, s) : launch_bwd<32>(a, p, out, s));
+  return (int)launch_bwd<kFusedRows>(a, p, out, s);
+}
+
+// ---------------------------------------------------------------------------
+// The layer-wise route.
+
+namespace atlasvae {
+namespace layers {
+
+using gemm::Operand;
+
+enum Epilogue { kBiasRelu = 0, kMask = 1, kPlain = 2 };
+
+// out (rows x n, row stride ldo) = epilogue(A B) over the whole batch.
+struct RowsArgs {
+  Operand a, b;
+  long long k;           // reduction length
+  long long rows;
+  int n;
+  float* out;
+  long long ldo;
+  const float* bias;     // kBiasRelu: relu(acc + bias[n])
+  const float* mask;     // kMask: acc * (mask[m * ldo + n] > 0); may be `out` itself
+  int epi;
+  int vec_out;           // float4 stores and mask/bias reads
+};
+
+// One slice of dW (m x n) and db (n) per row split: slice s at part + s * slice.
+struct SplitArgs {
+  Operand a, b;          // a: (i = input column, k = row); b: (k = row, i = output column)
+  long long batch;
+  long long rows_per_split;
+  int m, n;
+  int tiles_n;
+  float* part;
+  long long slice;
+  int vec_out;
+};
+
+__device__ __forceinline__ float epilogue(const RowsArgs& g, float v, long long m, int n,
+                                          float bias_n) {
+  if (g.epi == kBiasRelu) return fmaxf(v + bias_n, 0.f);
+  if (g.epi == kMask) return v * (g.mask[m * g.ldo + n] > 0.f ? 1.f : 0.f);
+  return v;
+}
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(gemm::kThreads, 2)
+rows_gemm_kernel(const __grid_constant__ RowsArgs g) {
+  using T = gemm::Tile<BM, BN, TM, TN>;
+  __shared__ __align__(16) float smem[T::kSmemFloats];
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  float acc[TM][TN], unused[TN];
+  gemm::mainloop<BM, BN, TM, TN>(g.a, g.b, m0, n0, 0, g.k, smem, acc, unused, false);
+  const int tx = threadIdx.x % T::kTX, ty = threadIdx.x / T::kTX;
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    const long long m = m0 + T::row(ty, r);
+    if (m >= g.rows) continue;
+    float* dst = g.out + m * g.ldo;
+#pragma unroll
+    for (int f = 0; f < TN / 4; ++f) {
+      const int n = n0 + T::col(tx, 4 * f);
+      if (g.vec_out) {  // n and g.n multiples of 4: the four columns are all in or all out
+        if (n >= g.n) continue;
+        float4 v = make_float4(acc[r][4 * f], acc[r][4 * f + 1], acc[r][4 * f + 2],
+                               acc[r][4 * f + 3]);
+        if (g.epi == kBiasRelu) {
+          const float4 b = __ldg(reinterpret_cast<const float4*>(g.bias + n));
+          v = make_float4(fmaxf(v.x + b.x, 0.f), fmaxf(v.y + b.y, 0.f), fmaxf(v.z + b.z, 0.f),
+                          fmaxf(v.w + b.w, 0.f));
+        } else if (g.epi == kMask) {
+          const float4 a = *reinterpret_cast<const float4*>(g.mask + m * g.ldo + n);
+          v = make_float4(v.x * (a.x > 0.f ? 1.f : 0.f), v.y * (a.y > 0.f ? 1.f : 0.f),
+                          v.z * (a.z > 0.f ? 1.f : 0.f), v.w * (a.w > 0.f ? 1.f : 0.f));
+        }
+        *reinterpret_cast<float4*>(dst + n) = v;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < g.n)
+            dst[n + j] = epilogue(g, acc[r][4 * f + j], m, n + j,
+                                  g.epi == kBiasRelu ? __ldg(g.bias + n + j) : 0.f);
+      }
+    }
+  }
+}
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__(gemm::kThreads, 2)
+split_gemm_kernel(const __grid_constant__ SplitArgs g) {
+  using T = gemm::Tile<BM, BN, TM, TN>;
+  __shared__ __align__(16) float smem[T::kSmemFloats];
+  const int s = blockIdx.x;
+  const int tile_m = blockIdx.y / g.tiles_n, tile_n = blockIdx.y % g.tiles_n;
+  const long long m0 = (long long)tile_m * BM;
+  const long long n0 = (long long)tile_n * BN;
+  const long long k_begin = s * g.rows_per_split;
+  const long long k_end = min(k_begin + g.rows_per_split, g.batch);
+  const bool want_db = tile_m == 0;
+  float acc[TM][TN], db[TN];
+  gemm::mainloop<BM, BN, TM, TN>(g.a, g.b, m0, n0, k_begin, k_end, smem, acc, db, want_db);
+  const int tx = threadIdx.x % T::kTX, ty = threadIdx.x / T::kTX;
+  float* const dw = g.part + s * g.slice;
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    const long long m = m0 + T::row(ty, r);
+    if (m >= g.m) continue;
+#pragma unroll
+    for (int f = 0; f < TN / 4; ++f) {
+      const long long n = n0 + T::col(tx, 4 * f);
+      if (g.vec_out) {
+        if (n < g.n)
+          *reinterpret_cast<float4*>(dw + m * g.n + n) =
+              make_float4(acc[r][4 * f], acc[r][4 * f + 1], acc[r][4 * f + 2], acc[r][4 * f + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < g.n) dw[m * g.n + n + j] = acc[r][4 * f + j];
+      }
+    }
+  }
+  if (want_db && ty == 0) {  // the first row group's threads hold the column sums
+    float* const dbs = dw + (long long)g.m * g.n;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const long long n = n0 + T::col(tx, j);
+      if (n < g.n) dbs[n] = db[j];
+    }
+  }
+}
+
+// grads[p] = sum over the splits of p's layer, in split order.
+struct ReduceArgs {
+  int n_layers;
+  long long off[kMaxLayers + 1];  // layer i's dW/db in grads: [off[i], off[i + 1])
+  long long base[kMaxLayers];     // its first slice in partial; slices follow at stride size
+  int splits[kMaxLayers];
+};
+
+__global__ void reduce_splits(const float* __restrict__ partial, const __grid_constant__ ReduceArgs r,
+                              float* __restrict__ grads) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= r.off[r.n_layers]) return;
+  int i = 0;
+  while (p >= r.off[i + 1]) ++i;
+  const long long size = r.off[i + 1] - r.off[i];
+  const float* src = partial + r.base[i] + (p - r.off[i]);
+  float s = 0.f;
+  for (int k = 0; k < r.splits[i]; ++k) s += src[k * size];
+  grads[p] = s;
+}
+
+// Tile shapes (BM, BN, TM, TN), indexed as GEMM_TILES in ops/fused_vae.py.
+constexpr int kNumTiles = 5;
+
+template <int BM, int BN, int TM, int TN>
+cudaError_t launch_rows_t(const RowsArgs& g, cudaStream_t st) {
+  const dim3 grid((unsigned)((g.rows + BM - 1) / BM), (unsigned)((g.n + BN - 1) / BN));
+  rows_gemm_kernel<BM, BN, TM, TN><<<grid, gemm::kThreads, 0, st>>>(g);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN, int TM, int TN>
+cudaError_t launch_split_t(SplitArgs g, int splits, cudaStream_t st) {
+  g.tiles_n = (g.n + BN - 1) / BN;
+  const dim3 grid((unsigned)splits, (unsigned)(((g.m + BM - 1) / BM) * g.tiles_n));
+  split_gemm_kernel<BM, BN, TM, TN><<<grid, gemm::kThreads, 0, st>>>(g);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rows(int tile, const RowsArgs& g, cudaStream_t st) {
+  switch (tile) {
+    case 0: return launch_rows_t<128, 128, 8, 8>(g, st);
+    case 1: return launch_rows_t<128, 64, 8, 4>(g, st);
+    case 2: return launch_rows_t<128, 32, 4, 4>(g, st);
+    case 3: return launch_rows_t<64, 128, 4, 8>(g, st);
+    case 4: return launch_rows_t<64, 64, 4, 4>(g, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_split(int tile, const SplitArgs& g, int splits, cudaStream_t st) {
+  switch (tile) {
+    case 0: return launch_split_t<128, 128, 8, 8>(g, splits, st);
+    case 1: return launch_split_t<128, 64, 8, 4>(g, splits, st);
+    case 2: return launch_split_t<128, 32, 4, 4>(g, splits, st);
+    case 3: return launch_split_t<64, 128, 4, 8>(g, splits, st);
+    case 4: return launch_split_t<64, 64, 4, 4>(g, splits, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+inline void set_vec(Operand& o) {
+  bool v = o.k_contig ? o.kbeg[o.nseg] % 4 == 0 : o.extent % 4 == 0;
+  for (int s = 0; s < o.nseg; ++s)
+    v = v && aligned16(o.p[s]) && o.ld[s] % 4 == 0 && o.kbeg[s] % 4 == 0;
+  o.vec = v;
+}
+
+// (i, k) at p[i * ld + k] for k < k_len
+inline Operand k_contig(const float* p, long long ld, long long extent, int k_len) {
+  Operand o = {};
+  o.p[0] = p;
+  o.ld[0] = ld;
+  o.kbeg[1] = k_len;
+  o.nseg = 1;
+  o.k_contig = 1;
+  o.extent = extent;
+  set_vec(o);
+  return o;
+}
+
+// (i, k) at p[k * ld + i]
+inline Operand i_contig(const float* p, long long ld, long long extent) {
+  Operand o = {};
+  o.p[0] = p;
+  o.ld[0] = ld;
+  o.nseg = 1;
+  o.extent = extent;
+  set_vec(o);
+  return o;
+}
+
+inline RowsArgs rows_args(const Operand& a, const Operand& b, long long k, long long rows, int n,
+                          float* out, int epi, const float* bias, const float* mask) {
+  RowsArgs g = {};
+  g.a = a;
+  g.b = b;
+  g.k = k;
+  g.rows = rows;
+  g.n = n;
+  g.out = out;
+  g.ldo = n;
+  g.epi = epi;
+  g.bias = bias;
+  g.mask = mask;
+  g.vec_out = n % 4 == 0 && aligned16(out) && (epi != kBiasRelu || aligned16(bias)) &&
+              (epi != kMask || aligned16(mask));
+  return g;
+}
+
+}  // namespace layers
+}  // namespace atlasvae
+
+// The layer-wise route.  acts: batch x sum(dims[1..n_hidden]) floats of
+// scratch (hidden activations, then the gradients written over them);
+// partial: each layer's split slices, hidden layers then heads, layer i's
+// splits x (dims_in * dims_out + dims_out) floats; row_tiles (2 n_hidden + 1)
+// and split_plan (3 per layer: tile, splits, rows per split) as
+// ops/fused_vae.py::backward_plan gives them.  Returns the first CUDA error.
+extern "C" int atlasvae_stack_backward_layers(
+    const void* x, long long batch, int n_hidden, const int* dims, const void* const* weights,
+    const void* const* biases, int n_heads, const int* head_dims,
+    const void* const* head_weights, const void* const* head_grads, void* dx, void* acts,
+    void* partial, const int* row_tiles, const int* split_plan, void* grads, void* stream) {
+  using namespace atlasvae;
+  using namespace atlasvae::layers;
+  const int L = n_hidden;
+  if (L < 0 || L > kMaxHidden || n_heads < 1 || n_heads > kMaxHeads || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  const int n_layers = L + n_heads;
+  for (int i = 0; i < 2 * L + 1; ++i)
+    if (row_tiles[i] < 0 || row_tiles[i] >= kNumTiles)
+      return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_layers; ++i) {
+    const int* sp = split_plan + 3 * i;
+    if (sp[0] < 0 || sp[0] >= kNumTiles || sp[1] < 1 || sp[2] < 1 ||
+        (long long)sp[1] * sp[2] < batch || (long long)(sp[1] - 1) * sp[2] >= batch)
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* const* W = reinterpret_cast<const float* const*>(weights);
+  const float* const* Bv = reinterpret_cast<const float* const*>(biases);
+  const float* const* HW = reinterpret_cast<const float* const*>(head_weights);
+  const float* const* G = reinterpret_cast<const float* const*>(head_grads);
+  float* const DX = static_cast<float*>(dx);
+  float* const P = static_cast<float*>(partial);
+
+  // act[0] = x; act[l + 1] = hidden layer l's output, then its gradient
+  float* act[kMaxHidden + 1];
+  act[0] = const_cast<float*>(static_cast<const float*>(x));
+  long long off = 0;
+  for (int l = 0; l < L; ++l) {
+    act[l + 1] = static_cast<float*>(acts) + off;
+    off += batch * dims[l + 1];
+  }
+  const int dL = dims[L];
+  int head_total = 0;
+  for (int h = 0; h < n_heads; ++h) head_total += head_dims[h];
+
+  // each layer's dW/db: its place in grads, its slices in partial
+  ReduceArgs red = {};
+  red.n_layers = n_layers;
+  long long base = 0;
+  for (int i = 0; i < n_layers; ++i) {
+    const long long k = i < L ? dims[i] : dL;
+    const long long n = i < L ? dims[i + 1] : head_dims[i - L];
+    red.off[i + 1] = red.off[i] + k * n + n;
+    red.base[i] = base;
+    red.splits[i] = split_plan[3 * i + 1];
+    base += red.splits[i] * (k * n + n);
+  }
+  auto weight_grad = [&](int i, const float* a, const float* g, int k, int n) {
+    SplitArgs s = {};
+    s.a = i_contig(a, k, k);
+    s.b = i_contig(g, n, n);
+    s.batch = batch;
+    s.rows_per_split = split_plan[3 * i + 2];
+    s.m = k;
+    s.n = n;
+    s.part = P + red.base[i];
+    s.slice = (long long)k * n + n;
+    s.vec_out = n % 4 == 0 && s.slice % 4 == 0 && aligned16(s.part);
+    return launch_split(split_plan[3 * i], s, split_plan[3 * i + 1], st);
+  };
+  cudaError_t err;
+#define K3_TRY(call)          \
+  if ((err = (call)) != cudaSuccess) return (int)err
+
+  // 1. recompute the hidden activations
+  for (int l = 0; l < L; ++l)
+    K3_TRY(launch_rows(row_tiles[l],
+                       rows_args(k_contig(act[l], dims[l], batch, dims[l]),
+                                 i_contig(W[l], dims[l + 1], dims[l + 1]), dims[l], batch,
+                                 dims[l + 1], act[l + 1], kBiasRelu, Bv[l], nullptr),
+                       st));
+  // 2. the heads' dW/db, then g_L = (sum_h g_h W_h^T) * (a_L > 0) over a_L
+  for (int h = 0; h < n_heads; ++h)
+    K3_TRY(weight_grad(L + h, act[L], G[h], dL, head_dims[h]));
+  if (L > 0 || DX != nullptr) {
+    Operand a = {}, b = {};
+    a.nseg = b.nseg = n_heads;
+    a.k_contig = b.k_contig = 1;
+    a.extent = batch;
+    b.extent = dL;
+    for (int h = 0; h < n_heads; ++h) {
+      a.p[h] = G[h];
+      b.p[h] = HW[h];
+      a.ld[h] = b.ld[h] = head_dims[h];
+      a.kbeg[h + 1] = b.kbeg[h + 1] = a.kbeg[h] + head_dims[h];
+    }
+    set_vec(a);
+    set_vec(b);
+    float* out = L > 0 ? act[L] : DX;
+    K3_TRY(launch_rows(row_tiles[L],
+                       rows_args(a, b, head_total, batch, dL, out, L > 0 ? kMask : kPlain,
+                                 nullptr, L > 0 ? act[L] : nullptr),
+                       st));
+  }
+  // 3. hidden layers, last first: dW/db, then the gradient one layer down
+  for (int i = L - 1; i >= 0; --i) {
+    const int k = dims[i], n = dims[i + 1];
+    K3_TRY(weight_grad(i, act[i], act[i + 1], k, n));
+    if (i > 0 || DX != nullptr) {
+      float* out = i > 0 ? act[i] : DX;
+      K3_TRY(launch_rows(row_tiles[L + 1 + i],
+                         rows_args(k_contig(act[i + 1], n, batch, n), k_contig(W[i], n, k, n),
+                                   n, batch, k, out, i > 0 ? kMask : kPlain, nullptr,
+                                   i > 0 ? act[i] : nullptr),
+                         st));
+    }
+  }
+#undef K3_TRY
+  // 4. the ordered sum of the splits
+  const long long n_params = red.off[n_layers];
+  reduce_splits<<<(unsigned)((n_params + 255) / 256), 256, 0, st>>>(P, red,
+                                                                     static_cast<float*>(grads));
+  return (int)cudaGetLastError();
 }

@@ -3,28 +3,34 @@ K3 (backward), their plain twins, and the autograd Functions around them.
 
 Counterpart of ``atlasvae/ops/fused_vae.py``.  ``stack_forward`` runs a ReLU
 hidden stack and then ``n_heads`` linear heads on the last hidden
-activation in one launch of ``csrc/fused_vae.cu``; ``stack_backward``
-recomputes that forward per tile of rows, backpropagates head gradients
-through the heads and the ReLU masks and sums dW/db over all rows in
-``csrc/fused_vae_bwd.cu`` (plus one launch that reduces its per-CTA
-partial sums in a fixed order).  ``FusedEncoder`` and ``FusedDecoder`` are
-the ``torch.autograd.Function`` counterparts of the JAX custom VJPs: K2
-forward, K3 backward; the encoder returns a zero gradient for its input
-(data in every training graph), the decoder returns dz.  On a CPU tensor
-every wrapper runs its plain version.
+activation in one launch of ``csrc/fused_vae.cu``.  ``stack_backward``
+backpropagates head gradients through the heads and the ReLU masks and sums
+dW/db over all rows (``csrc/fused_vae_bwd.cu``), by one of two routes that
+``backward_plan`` picks from the stack's shape: the fused body recomputes
+the forward per 64-row tile in shared memory (stacks no wider than 128); the
+layer-wise route runs one register-tiled GEMM launch per product over the
+whole batch, with the hidden activations in a device scratch buffer (every
+other stack, constituents mode among them).  Both end in one launch that
+adds per-CTA or per-split partial sums in a fixed order.  ``FusedEncoder``
+and ``FusedDecoder`` are the ``torch.autograd.Function`` counterparts of the
+JAX custom VJPs: K2 forward, K3 backward; the encoder returns a zero
+gradient for its input (data in every training graph), the decoder returns
+dz.  On a CPU tensor every wrapper runs its plain version.
 """
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from . import cuda_build
 
-# Kernel launches made by stack_forward (K2) and stack_backward (K3); reset
-# and read by chip_smoke.py.
+# Kernel launches made by stack_forward (K2) and stack_backward (K3: its
+# fused body, and its layer-wise route); reset and read by chip_smoke.py.
 launches = 0
 backward_launches = 0
+layered_backward_launches = 0
 
 
 def stack_forward_plain(x, hidden, heads):
@@ -104,38 +110,142 @@ def stack_backward_plain(x, hidden, heads, head_grads, want_dx):
     return dws, dbs, (g if want_dx else None)
 
 
+# K3's routes.  The fused body (csrc/fused_vae_bwd.cu, stack_bwd_kernel)
+# keeps every activation of a 64-row tile in shared memory; it takes a stack
+# whose widths are all at most 128 and whose tile fits a CTA.  Every other
+# stack takes the layer-wise route: register-tiled GEMM launches over the
+# whole batch (csrc/gemm_tile.cuh), one per product, with the activations in
+# a device scratch buffer.  The shape alone decides.
+FUSED_ROWS = 64                 # TM of stack_bwd_kernel
+FUSED_MAX_WIDTH = 128
+FUSED_MAX_PARTS = 264           # kMaxParts: partial slices, 2 per SM of an H100
+MAX_SMEM = 232448               # a CTA's shared memory on sm_90
+# The layer-wise route's CTA output tiles (rows, columns), in the order of
+# kTiles in csrc/fused_vae_bwd.cu; a row product (batch rows) takes one of the
+# first three, a weight-gradient product (in x out) any.
+GEMM_TILES = ((128, 128), (128, 64), (128, 32), (64, 128), (64, 64))
+GEMM_THREAD_TILES = ((8, 8), (8, 4), (4, 4), (4, 8), (4, 4))  # outputs a thread
+GEMM_CHUNK = 8                  # rows of the reduction a staged chunk holds
+SPLIT_CTAS = 264                # one wave of a weight-gradient launch: 2 CTAs an SM
+SPLIT_MIN_ROWS = 64             # fewest batch rows a split sums
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How K3 runs one stack at one batch size, and the device scratch it
+    allocates (float32 counts).
+
+    route        "fused" or "layers".
+    n_parts      fused: partial slices, one per CTA.
+    row_tiles    layers: GEMM_TILES index of each row product, indexed as
+                 the recompute of hidden layer l (l < L), the head gradient
+                 (L), and the gradient through hidden layer i (L + 1 + i).
+    splits       layers: (tile, splits, rows per split) of the weight
+                 gradient of each layer, hidden layers first, then the heads.
+    act_floats   layers: batch x the sum of the hidden widths.
+    partial_floats  per-split dW/db slices (fused: per-CTA)."""
+    route: str
+    n_parts: int = 0
+    row_tiles: tuple = ()
+    splits: tuple = ()
+    act_floats: int = 0
+    partial_floats: int = 0
+
+    @property
+    def scratch_bytes(self):
+        return 4 * (self.act_floats + self.partial_floats)
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _fused_fits(dims, head_dims):
+    """The fused body's tile fits: mirror of plan_bwd in fused_vae_bwd.cu."""
+    head_total = sum(head_dims)
+    if max(max(dims), head_total) > FUSED_MAX_WIDTH:
+        return False
+    g_width = max([head_total] + list(dims[1:]))
+    cols = 256 // (FUSED_ROWS // 8) * 4
+    smem = 4 * ((sum(dims) + 2 * g_width) * (FUSED_ROWS + 4) + 16 * cols)
+    return smem <= MAX_SMEM
+
+
+def _tile_cost(t, m, n):
+    """Shared-memory reads of an m x n product under tile t, per k: its
+    padded output area times the float4 reads a thread makes per output
+    (TM / 4 + TN / 4 for TM x TN outputs): 1/16 for 8 x 8, 3/32 for 8 x 4,
+    1/8 for 4 x 4.  Then the fewest CTA tiles; on a tie the later tile."""
+    bm, bn = GEMM_TILES[t]
+    tm, tn = GEMM_THREAD_TILES[t]
+    tiles = _ceil(m, bm) * _ceil(n, bn)
+    return tiles * bm * bn * (tm // 4 + tn // 4) / (tm * tn), tiles, -t
+
+
+def _row_tile(n):
+    """The column tile (of 128, 64, 32; 128 rows) of a row product with n
+    output columns."""
+    return min(range(3), key=lambda t: _tile_cost(t, 128, n))
+
+
+def _split(batch, m, n):
+    """(tile, splits, rows per split) of an m x n weight gradient summed over
+    the batch: the tile of least cost, and as many row splits as keep
+    tiles x splits within one wave of two CTAs an SM."""
+    tile = min(range(len(GEMM_TILES)), key=lambda t: _tile_cost(t, m, n))
+    tiles = _tile_cost(tile, m, n)[1]
+    splits = max(1, min(SPLIT_CTAS // tiles, _ceil(batch, SPLIT_MIN_ROWS)))
+    rows = _ceil(_ceil(batch, splits), GEMM_CHUNK) * GEMM_CHUNK
+    return tile, _ceil(batch, rows), rows
+
+
+@functools.cache
+def backward_plan(batch, dims, head_dims, want_dx):
+    """K3's route and scratch for a stack of input/hidden widths ``dims``
+    and head widths ``head_dims`` at ``batch`` rows."""
+    layers = [(dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
+    layers += [(dims[-1], n) for n in head_dims]
+    n_params = sum(k * n + n for k, n in layers)
+    if _fused_fits(dims, head_dims):
+        n_parts = min(_ceil(batch, FUSED_ROWS), FUSED_MAX_PARTS)
+        return BackwardPlan("fused", n_parts=n_parts, partial_floats=n_parts * n_params)
+    if batch >= 2 ** 31:
+        raise ValueError(f"stack_backward: at most 2**31 - 1 rows, got {batch}")
+    n_hidden = len(dims) - 1
+    row_tiles = tuple(_row_tile(n) for n in dims[1:]) + (_row_tile(dims[-1]),) \
+        + tuple(_row_tile(n) for n in dims[:-1])
+    splits = tuple(_split(batch, k, n) for k, n in layers)
+    return BackwardPlan("layers", row_tiles=row_tiles, splits=splits,
+                        act_floats=batch * sum(dims[1:]),
+                        partial_floats=sum(s * (k * n + n)
+                                           for (_, s, _), (k, n) in zip(splits, layers)))
+
+
 @functools.cache
 def _backward_entries():
     lib = cuda_build.load("fused_vae_bwd")
-    parts = lib.atlasvae_stack_backward_parts
-    parts.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p]
-    parts.restype = ctypes.c_int
-    fn = lib.atlasvae_stack_backward
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return parts, fn
-
-
-@functools.cache
-def _n_parts(batch, dims, head_dims):
-    """How many per-CTA partial slices K3 writes for this batch and stack."""
-    n_parts = _backward_entries()[0](batch, len(dims) - 1, cuda_build.int_array(dims),
-                                     len(head_dims), cuda_build.int_array(head_dims))
-    if n_parts < 0:
-        raise ValueError("stack_backward: the stack's tile does not fit a CTA's shared "
-                         "memory (too wide)")
-    return n_parts
+    fused = lib.atlasvae_stack_backward
+    fused.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fused.restype = ctypes.c_int
+    layers = lib.atlasvae_stack_backward_layers
+    layers.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p]
+    layers.restype = ctypes.c_int
+    return fused, layers
 
 
 def stack_backward(x, hidden, heads, head_grads, want_dx):
     """K3 on a CUDA tensor (the plain version on a CPU tensor): the
     gradients of ``stack_forward(x, hidden, heads)`` for the head-output
-    gradients ``head_grads``, as (dws, dbs, dx)."""
-    global backward_launches
+    gradients ``head_grads``, as (dws, dbs, dx).  The route follows
+    ``backward_plan``."""
+    global backward_launches, layered_backward_launches
     if x.device.type == "cpu":
         return stack_backward_plain(x, hidden, heads, head_grads, want_dx)
     if x.device.type != "cuda":
@@ -154,26 +264,36 @@ def stack_backward(x, hidden, heads, head_grads, want_dx):
         raise ValueError("stack_backward: empty batch")
     shapes = [tuple(w.shape) for w, _ in list(hidden) + list(heads)]
     sizes = [n for k, m in shapes for n in (k * m, m)]
-    grads = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
-    dx = torch.empty_like(x) if want_dx else None
     dims = (x.shape[1],) + tuple(w.shape[1] for w, _ in hidden)
     head_dims = tuple(w.shape[1] for w, _ in heads)
-    n_parts = _n_parts(batch, dims, head_dims)
-    dims, head_dims = cuda_build.int_array(dims), cuda_build.int_array(head_dims)
-    partial = torch.empty((n_parts, grads.numel()), device=x.device, dtype=torch.float32)
+    plan = backward_plan(batch, dims, head_dims, bool(want_dx))
+    grads = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x) if want_dx else None
+    partial = torch.empty(plan.partial_floats, device=x.device, dtype=torch.float32)
+    c_dims, c_head_dims = cuda_build.int_array(dims), cuda_build.int_array(head_dims)
     ws = cuda_build.pointer_array([w for w, _ in hidden])
     bs = cuda_build.pointer_array([b for _, b in hidden])
     hws = cuda_build.pointer_array([w for w, _ in heads])
     gs = cuda_build.pointer_array(head_grads)
+    fused, layers = _backward_entries()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    common = (x.data_ptr(), batch, len(hidden), ctypes.addressof(c_dims), ctypes.addressof(ws),
+              ctypes.addressof(bs), len(heads), ctypes.addressof(c_head_dims),
+              ctypes.addressof(hws), ctypes.addressof(gs), dx.data_ptr() if want_dx else None)
     with torch.cuda.device(x.device):
-        err = _backward_entries()[1](
-            x.data_ptr(), batch, len(hidden), ctypes.addressof(dims), ctypes.addressof(ws),
-            ctypes.addressof(bs), len(heads), ctypes.addressof(head_dims),
-            ctypes.addressof(hws), ctypes.addressof(gs), dx.data_ptr() if want_dx else None,
-            partial.data_ptr(), n_parts, grads.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "stack_backward kernel")
-    backward_launches += 1
+        if plan.route == "fused":
+            err = fused(*common, partial.data_ptr(), plan.n_parts, grads.data_ptr(), stream)
+        else:
+            acts = torch.empty(plan.act_floats, device=x.device, dtype=torch.float32)
+            row_tiles = cuda_build.int_array(plan.row_tiles)
+            splits = cuda_build.int_array([v for split in plan.splits for v in split])
+            err = layers(*common, acts.data_ptr(), partial.data_ptr(), ctypes.addressof(row_tiles),
+                         ctypes.addressof(splits), grads.data_ptr(), stream)
+    cuda_build.check(err, f"stack_backward kernel ({plan.route} route)")
+    if plan.route == "fused":
+        backward_launches += 1
+    else:
+        layered_backward_launches += 1
     flat = grads.split(sizes)
     dws = [flat[2 * i].view(shape) for i, shape in enumerate(shapes)]
     dbs = [flat[2 * i + 1] for i in range(len(shapes))]

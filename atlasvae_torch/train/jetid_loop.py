@@ -54,6 +54,15 @@ def _correct_sum(probs, labels, weights):
     return ((probs.argmax(dim=1) == labels) * weights).sum()
 
 
+def strict_float32():
+    """cuDNN in full float32 for the convolutions inside the block: its
+    default, TF32, keeps about three decimal digits.  The flag is restored on
+    exit, and cuDNN's other settings are kept as the caller left them."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
 def batch_loss(params, config, inputs, labels, weights, generator):
     """(training loss of one batch, its [loss, accuracy] metrics)."""
     probs = jetid_apply(params, config, inputs, generator=generator, train=True)
@@ -68,15 +77,16 @@ def train_epoch(state, config, lr, generator, inputs, labels, weights):
     """One Adam step per batch of a packed load; returns the (n_batches, 2)
     [loss, accuracy] metrics on the device."""
     out = []
-    for i in range(labels.shape[0]):
-        loss, metrics = batch_loss(state.params, config, {k: v[i] for k, v in inputs.items()},
-                                   labels[i], weights[i], generator)
-        grads = torch.autograd.grad(loss, state.leaves, allow_unused=True,
-                                    materialize_grads=True)
-        with torch.no_grad():
-            flat = clip_gradients(torch.cat([g.reshape(-1) for g in grads]))
-            state.adam.step(state.flat, flat, lr)
-        out.append(metrics)
+    with strict_float32():
+        for i in range(labels.shape[0]):
+            loss, metrics = batch_loss(state.params, config, {k: v[i] for k, v in inputs.items()},
+                                       labels[i], weights[i], generator)
+            grads = torch.autograd.grad(loss, state.leaves, allow_unused=True,
+                                        materialize_grads=True)
+            with torch.no_grad():
+                flat = clip_gradients(torch.cat([g.reshape(-1) for g in grads]))
+                state.adam.step(state.flat, flat, lr)
+            out.append(metrics)
     return torch.stack(out)
 
 
@@ -85,7 +95,7 @@ def eval_epoch(params, config, inputs, labels, weights):
     term times the weight sum, the weight sum, the weighted count of correct
     jets."""
     out = []
-    with torch.no_grad():
+    with torch.no_grad(), strict_float32():
         reg = config.l2 * l2_penalty(params) if config.l2 else 0.0
         for i in range(labels.shape[0]):
             probs = jetid_apply(params, config, {k: v[i] for k, v in inputs.items()})
@@ -256,7 +266,7 @@ def predict_classifier(params, config, inputs, batch_size=20_000):
     device = tree_flatten(params)[0].device
     n = len(next(iter(inputs.values())))
     out = []
-    with torch.no_grad():
+    with torch.no_grad(), strict_float32():
         for i in range(0, n, batch_size):
             chunk = {k: torch.from_numpy(np.ascontiguousarray(
                 np.asarray(v)[i:i + batch_size], np.float32)).to(device)

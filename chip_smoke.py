@@ -16,8 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                the forward kernel as encoder and as one-head decoder at
                both) and at B = 1,000,003 rows (a ragged tile) for the
                canonical and the constituents-mode 312->256/128/64/32
-               stacks, and the backward kernel at the training batch and
-               1,000,003 rows; time
+               stacks, and the backward kernel (K3) in both roles at the
+               training batch and 1,000,003 rows, canonical (its fused
+               body) and constituents-mode (its layer-wise route, also at
+               the 10,000-row batch of const_train), with the same bits
+               asked of a second call; time
                kernel, plain version, a torch.addmm/relu chain (library
                yardstick: its forward, or autograd through it) and the
                bound; the forward kernels also at the constituents-mode
@@ -51,7 +54,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                the CUDA path against the plain CPU path (first-step
                gradients, 2-epoch losses with injected noise), and score
                the trained weights through atlasvae_torch.cli.score;
-6. emd_slice -- constituents mode at full width: 65,536 synthetic QCD and
+6. const_train -- train the constituents-mode OE-VAE (300->256/128/64/32,
+               100 synthetic constituents a jet, a RobustScaler on them;
+               the train phase's hyper-parameters, 3 epochs of 1e5 jets in
+               batches of 1e4) through atlasvae_torch.cli.vae with the
+               counters set to 0 just before; check the history, the
+               weights and that K3 ran its layer-wise route exactly 4 times
+               a step (two encoders, two decoders) and its fused body
+               never; time a warm run (epochs 2-3), profile one epoch (idle
+               share, K3's device time and calls), and hold the first
+               step's gradients against the plain CPU path;
+7. emd_slice -- constituents mode at full width: 65,536 synthetic QCD and
                65,536 synthetic signal jets of 100 constituents, a
                RobustScaler fitted on the constituents, a seeded
                300->256/128/64/32 VAE, scored through atlasvae_torch.cli.score
@@ -61,7 +74,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                a file), EMD and KSD against the plain CPU path on the first
                1,024 jets; print each metric's AUC (bkg against signal);
                then a warm timed run and a profiled run;
-7. jetid    -- the jet-ID CNN at the CLI's default widths (16x16 image ->
+8. jetid    -- the jet-ID CNN at the CLI's default widths (16x16 image ->
                conv 3x3/100 -> pool -> conv 3x3/100 -> pool -> 900; scalars
                -> 200; trunk 200/200; softmax 2): train 3 epochs of 1e5 jets
                in batches of 5,000 through atlasvae_torch.cli.jetid on
@@ -76,8 +89,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                against the plain CPU path at dropout 0 (first-step
                gradients, 2-epoch losses); a warm timed run and a profiled
                epoch;
-8. kernels  -- one JSON line with every ported kernel;
-9. last line: {"ok": true, "device": {...}}.
+9. kernels  -- one JSON line with every ported kernel (K3 as two entries,
+               one a route);
+10. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -119,6 +133,11 @@ EMD_STAGES = 10
 EMD_RTOL, EMD_ATOL = 2e-5, 1e-6   # kernel vs plain version, same inputs, same card
 EMD_MASS_TOL = 1e-5               # of min(sum pt), where the EMD is small beside it
 EMD_FEW_ITERS = 20
+# Constituents-mode training: the emd_slice model, 100 constituents, trained
+# with TRAIN_ARGS (const_train phase)
+CONST_LAYERS = EMD_LAYERS
+CONST_ARGS = ["--constituents", "ON", "--HLVs", "OFF", "--n_const", str(EMD_CONST), "--n_dims", "3",
+              "--FC_layers", *map(str, CONST_LAYERS), "--const_scaler_type", "RobustScaler"]
 
 KERNELS = {
     "fused_mlp": dict(source="atlasvae_torch/csrc/fused_mlp.cu",
@@ -130,6 +149,10 @@ KERNELS = {
     "stack_backward": dict(source="atlasvae_torch/csrc/fused_vae_bwd.cu",
                            replaces="atlasvae/ops/fused_vae.py:130",
                            main_shape="train encoder"),
+    # K3's layer-wise route: the stacks its fused body does not take
+    "stack_backward_layers": dict(source="atlasvae_torch/csrc/fused_vae_bwd.cu",
+                                  replaces="atlasvae/ops/fused_vae.py:130",
+                                  main_shape="const_train encoder"),
     "emd_sinkhorn": dict(source="atlasvae_torch/csrc/emd_sinkhorn.cu",
                          replaces="atlasvae/ops/emd_pallas.py:45",
                          main_shape="emd_slice chunk"),
@@ -200,6 +223,7 @@ def counters():
     from atlasvae_torch.ops import emd_cuda, fused_conv_cuda, fused_mlp, fused_vae
     return {"fused_mlp": fused_mlp.launches, "stack_forward": fused_vae.launches,
             "stack_backward": fused_vae.backward_launches,
+            "stack_backward_layers": fused_vae.layered_backward_launches,
             "emd_sinkhorn": emd_cuda.launches, "fused_conv": fused_conv_cuda.launches,
             "fused_conv_backward": fused_conv_cuda.backward_launches}
 
@@ -207,6 +231,7 @@ def counters():
 def reset_counters():
     from atlasvae_torch.ops import emd_cuda, fused_conv_cuda, fused_mlp, fused_vae
     fused_mlp.launches = fused_vae.launches = fused_vae.backward_launches = 0
+    fused_vae.layered_backward_launches = 0
     emd_cuda.launches = 0
     fused_conv_cuda.launches = fused_conv_cuda.backward_launches = 0
 
@@ -270,9 +295,27 @@ def bound_backward(batch, d0, hidden, heads, want_dx):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops, nbytes
 
 
+def kernel_device_ms(fn):
+    """Device ms of each kernel one call of fn launches, in launch order
+    (torch.profiler, after a warm call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name.split("(")[0].replace("void ", "").replace("atlasvae::layers::", ""),
+             round(e.device_time_total / 1e3, 4))
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def parity_backward(params, role, x, gen):
     """K3 vs its plain version on the same inputs and head gradients (a
-    mean-loss scale, N(0, 1) / B); timings, autograd yardstick and bound."""
+    mean-loss scale, N(0, 1) / B), and the same bits on a second call;
+    timings, autograd yardstick and bound.  Returns (the KERNELS name of the
+    route backward_plan takes, result)."""
     import torch
     from atlasvae_torch.ops import fused_vae
     hidden, heads = stack_pairs(params, role)
@@ -293,9 +336,14 @@ def parity_backward(params, role, x, gen):
                 for k in range(len(hidden), len(hidden) + len(heads))]
         return torch.autograd.grad(outs, leaves + ([xin] if want_dx else []), grads)
 
-    got, want = kernel(), plain()
+    dims = tuple([x.shape[1]] + [w.shape[1] for w, _ in hidden])
+    route = fused_vae.backward_plan(batch, dims, tuple(w.shape[1] for w, _ in heads), want_dx).route
+    got, again, want = kernel(), kernel(), plain()
     torch.cuda.synchronize()
-    err, rel, ok = 0.0, 0.0, True
+    same_bits = all(bool(torch.equal(a, b)) for a, b in
+                    zip(got[0] + got[1] + [got[2]] * want_dx, again[0] + again[1] + [again[2]] * want_dx))
+    del again
+    err, rel, ok = 0.0, 0.0, same_bits
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         diff = float((g - w).abs().max())
         scale = float(w.abs().max())
@@ -307,17 +355,21 @@ def parity_backward(params, role, x, gen):
         ok &= bool((diff <= ATOL + RTOL * want[2].abs()).all())
     b_ms, b_by, flops, nbytes = bound_backward(batch, x.shape[1], hidden, heads, want_dx)
     iters = 50 if batch < BIG_B else 10
+    del got, want
     res = dict(batch=batch, widths=[x.shape[1]] + [w.shape[1] for w, _ in hidden]
-               + [sum(w.shape[1] for w, _ in heads)], want_dx=want_dx, max_abs_err=err,
+               + [sum(w.shape[1] for w, _ in heads)], want_dx=want_dx, route=route,
+               same_bits=same_bits, max_abs_err=err,
                max_err_over_leaf_scale=rel, ms=time_ms(kernel, iters),
                plain_ms=time_ms(plain, iters), library_ms=time_ms(library, iters),
                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
     res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    if route == "layers" and batch == BIG_B:
+        res["launch_ms"] = kernel_device_ms(kernel)
     if not ok:
         raise AssertionError(f"stack_backward disagrees with its plain version at {res}: "
-                             f"dW/db leaf over {GRAD_SCALE_TOL}*max|leaf| or dx over "
-                             f"atol {ATOL} + rtol {RTOL}*|ref|")
-    return res
+                             f"dW/db leaf over {GRAD_SCALE_TOL}*max|leaf|, dx over "
+                             f"atol {ATOL} + rtol {RTOL}*|ref|, or other bits on a second call")
+    return ("stack_backward" if route == "fused" else "stack_backward_layers"), res
 
 
 def parity(name, params, role, x):
@@ -637,26 +689,30 @@ def phase_parity(device):
         del params, x, z
         torch.cuda.empty_cache()
     # K3 at the training batch and at 1,000,003 rows: the canonical encoder
-    # (two heads, no dx) and decoder (one head, dx); constituents encoder
-    bwd_configs = [("train", VAEConfig(), TRAIN_BATCH, ("encoder", "decoder")),
-                   ("canonical", VAEConfig(), BIG_B, ("encoder", "decoder")),
-                   ("constituents", VAEConfig(fc_layers=(256, 128, 64, 32), input_dim=312),
-                    BIG_B, ("encoder",))]
-    for shape, cfg, batch, roles in bwd_configs:
+    # (two heads, no dx) and decoder (one head, dx) on the fused body; the
+    # constituents-mode encoder and decoder, 312 wide and at const_train's
+    # 300-wide batch, on the layer-wise route
+    bwd_configs = [("train", VAEConfig(), TRAIN_BATCH),
+                   ("canonical", VAEConfig(), BIG_B),
+                   ("constituents", VAEConfig(fc_layers=(256, 128, 64, 32), input_dim=312), BIG_B),
+                   ("const_train", VAEConfig(fc_layers=CONST_LAYERS, input_dim=3 * EMD_CONST),
+                    TRAIN_BATCH)]
+    for shape, cfg, batch in bwd_configs:
         params = init_vae(gen, cfg, device=device)
-        for role in roles:
+        for role in ("encoder", "decoder"):
             width = cfg.input_dim if role == "encoder" else cfg.fc_layers[-1]
             x = torch.randn((batch, width), generator=gen, device=device)
-            res = parity_backward(params, role, x, gen)
+            name, res = parity_backward(params, role, x, gen)
             res["shape"] = f"{shape} {role}"
-            results["stack_backward"].append(res)
-            log("parity", kernel="stack_backward", shape=res["shape"], batch=batch,
-                widths=res["widths"], want_dx=res["want_dx"],
+            results[name].append(res)
+            log("parity", kernel=name, shape=json.dumps(res["shape"]), batch=batch,
+                widths=res["widths"], want_dx=res["want_dx"], same_bits=res["same_bits"],
                 max_abs_err=f"{res['max_abs_err']:.3g}",
                 max_err_over_leaf_scale=f"{res['max_err_over_leaf_scale']:.3g}",
                 ms=f"{res['ms']:.4f}", plain_ms=f"{res['plain_ms']:.4f}",
                 library_ms=f"{res['library_ms']:.4f}", bound_ms=f"{res['bound_ms']:.4f}",
-                bound_by=res["bound_by"], tflops=f"{res['tflops']:.2f}")
+                bound_by=res["bound_by"], tflops=f"{res['tflops']:.2f}",
+                **({"launch_ms": json.dumps(res["launch_ms"])} if "launch_ms" in res else {}))
             del x
         del params
         torch.cuda.empty_cache()
@@ -709,7 +765,8 @@ def phase_parity(device):
 
 def profile_slice(run, phase="profile"):
     """A profiled run of a path: device busy share of the wall time, and
-    the device time of the busiest kernels.  Returns the idle share.
+    the device time of the busiest kernels.  Returns the idle share and the
+    device-side rows (microseconds, name, count).
 
     Busy time sums the device-side events only (kernels, copies, memsets):
     a host operator's own device time repeats the time of the kernels it
@@ -731,7 +788,7 @@ def profile_slice(run, phase="profile"):
     log(phase, wall_ms=f"{wall_us / 1e3:.2f}", device_busy_ms=f"{busy_us / 1e3:.3f}",
         idle_share=f"{1 - busy_us / wall_us:.4f}", device_events=sum(r[2] for r in rows),
         top=json.dumps([(k[:60], n, round(d / 1e3, 4)) for d, k, n in rows[:10]]))
-    return 1 - busy_us / wall_us
+    return 1 - busy_us / wall_us, rows
 
 
 def phase_slice(device, workdir):
@@ -837,10 +894,11 @@ class _Stamped(list):
         return super().__iter__()
 
 
-def _train_parity(load, device):
+def _train_parity(load, device, cfg=None, losses=True):
     """The CUDA training path against the plain CPU path on the first 5
-    batches of a load: first-step gradients per leaf, and 2 epochs of
-    losses with one injected noise stream."""
+    batches of a load: first-step gradients per leaf, and (``losses``) 2
+    epochs of losses with one injected noise stream.  ``cfg``: the model's
+    VAEConfig (default: the canonical one)."""
     import numpy as np
     import torch
     from atlasvae_torch.losses import get_losses
@@ -849,19 +907,21 @@ def _train_parity(load, device):
     from atlasvae_torch.train.checkpoint import tree_flatten, tree_map
     from atlasvae_torch.train.loop import features
 
+    cfg = cfg or VAEConfig()
+    latent = cfg.fc_layers[-1]
     n = 5 * TRAIN_BATCH
     bkg, ood = load
     small = ({"HLVs": features(bkg)[:n], "weights": bkg["weights"][:n]},
              {"HLVs": features(ood)[:n], "weights": ood["weights"][:n]})
     rng = np.random.default_rng(5)
-    noise = {(phase, e): (rng.standard_normal((nb, TRAIN_BATCH if phase == "train" else n, 10))
+    noise = {(phase, e): (rng.standard_normal((nb, TRAIN_BATCH if phase == "train" else n, latent))
                           .astype(np.float32),
-                          rng.standard_normal((nb, TRAIN_BATCH if phase == "train" else n, 10))
+                          rng.standard_normal((nb, TRAIN_BATCH if phase == "train" else n, latent))
                           .astype(np.float32))
              for e in range(2) for phase, nb in (("train", 5), ("valid", 1))}
     source = lambda phase, epoch, load_idx, n_batches, batch: noise[(phase, epoch)]
     cpu = torch.device("cpu")
-    init = init_vae(torch.Generator().manual_seed(21), VAEConfig(), device=cpu)
+    init = init_vae(torch.Generator().manual_seed(21), cfg, device=cpu)
     on = {d: tree_map(lambda t, d=d: t.detach().to(d).requires_grad_(), init)
           for d in (cpu, device)}
 
@@ -883,6 +943,8 @@ def _train_parity(load, device):
         if diff > GRAD_SCALE_TOL * scale:
             raise AssertionError(f"first-step gradient leaf differs: {diff} > "
                                  f"{GRAD_SCALE_TOL} * {scale}")
+    if not losses:
+        return grad_rel, None
 
     hists = {}
     for d in (cpu, device):
@@ -925,6 +987,9 @@ def phase_train(device, workdir):
     for name in ("stack_forward", "stack_backward"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the training path")
+    if launches["stack_backward_layers"] != 0:
+        raise AssertionError("the canonical model's backward left the fused body: "
+                             f"{launches['stack_backward_layers']} layer-wise calls")
     with open(os.path.join(out_dir, "history.pkl"), "rb") as f:
         history = pickle.load(f)
     for key, vals in history.items():
@@ -965,9 +1030,9 @@ def phase_train(device, workdir):
     warm_rate = jets * (TRAIN_EPOCHS - 1) / warm_s
     epoch_s = (t_end - stamps[2][1]) / (TRAIN_EPOCHS - 1)
     per_step = {name: (spans[-1][3][name] - spans[-1][2][name]) / steps for name in launches}
-    idle = profile_slice(lambda: (train_model(params, [load], [vload], "MAE", 1, TRAIN_BATCH,
-                                              2.0, 5.0, 1.0, 1e-3), torch.cuda.synchronize()),
-                         phase="train profile")
+    idle, _ = profile_slice(lambda: (train_model(params, [load], [vload], "MAE", 1, TRAIN_BATCH,
+                                                 2.0, 5.0, 1.0, 1e-3), torch.cuda.synchronize()),
+                            phase="train profile")
     grad_rel, loss_rel = _train_parity(load, device)
 
     # the two paths meet: score the trained weights through cli.score
@@ -986,6 +1051,100 @@ def phase_train(device, workdir):
                  launches_per_step=per_step, idle_share=idle, grad_rel=grad_rel,
                  loss_rel=loss_rel, scored_mae_mean=float(mae.mean()))
     log("train", **{k: (json.dumps(v) if isinstance(v, dict) else v) for k, v in facts.items()})
+    return launches, facts
+
+
+K3_LAYER_KERNELS = ("rows_gemm_kernel", "split_gemm_kernel", "reduce_splits")
+
+
+def phase_const_train(device, workdir):
+    """Train the constituents-mode OE-VAE (300->256/128/64/32, 100
+    constituents, TRAIN_ARGS) through the CLI with the counters set to 0 just
+    before: every K3 call of a step takes the layer-wise route.  Check the
+    launch counts, the history and the weights; time a warm run (epochs 2-3),
+    profile one epoch, and hold the first step's gradients against the plain
+    CPU path."""
+    import pickle
+    import numpy as np
+    import torch
+    from atlasvae_torch.cli import vae as cli_vae
+    from atlasvae_torch.data import ensure_synthetic_registry
+    from atlasvae_torch.models import VAEConfig, init_vae
+    from atlasvae_torch.train import train_model, load_pytree
+
+    t0 = time.perf_counter()
+    os.makedirs(workdir)
+    ensure_synthetic_registry(workdir, n_events=TRAIN_EVENTS, n_const_max=EMD_CONST,
+                              names=["QCD-Geneva", "OoD-H"], seed=0)
+    setup_s = time.perf_counter() - t0
+    cfg = VAEConfig(fc_layers=CONST_LAYERS, input_dim=3 * EMD_CONST)
+    out_dir = os.path.join(workdir, "train")
+    args = TRAIN_ARGS + CONST_ARGS + ["--output_dir", out_dir, "--device", str(device)]
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_vae.main(args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = counters()
+    with open(os.path.join(out_dir, "history.pkl"), "rb") as f:
+        history = pickle.load(f)
+    for key, vals in history.items():
+        if len(vals) != TRAIN_EPOCHS or not np.isfinite(vals).all():
+            raise AssertionError(f"history[{key!r}] = {vals}: want {TRAIN_EPOCHS} finite epochs")
+    load_pytree(os.path.join(out_dir, "model.npz"),
+                init_vae(torch.Generator(device).manual_seed(0), cfg, device=device))
+
+    # the same data, prepared once, for the count check, a timed warm run and a profile
+    parsed = cli_vae.build_parser().parse_args(args)
+    cli_vae._wire_paths(parsed)
+    hlv_list, _, train_cuts, _ = cli_vae._select_samples(parsed)
+    train_gen, valid_gen, _, _ = cli_vae._make_generators(parsed, hlv_list, train_cuts,
+                                                          None, None)
+    load, vload = train_gen[0], valid_gen[0]
+    jets = len(load[0]["weights"])
+    steps = -(-jets // TRAIN_BATCH)
+    want = 4 * steps * TRAIN_EPOCHS   # two encoders and two decoders a step
+    if launches["stack_backward_layers"] != want or launches["stack_backward"] != 0:
+        raise AssertionError(f"K3 in the training run: layer-wise route "
+                             f"{launches['stack_backward_layers']} times (want {want}: 4 a step, "
+                             f"{steps} steps, {TRAIN_EPOCHS} epochs), fused body "
+                             f"{launches['stack_backward']} (want 0)")
+    log("const_train", setup_s=f"{setup_s:.2f}", cli_s=f"{cli_s:.3f}", jets_per_epoch=jets,
+        launches=json.dumps(launches), history=json.dumps(history))
+
+    stamps = []
+    params = init_vae(torch.Generator(device).manual_seed(0), cfg, device=device)
+    timed_dir = os.path.join(workdir, "timed")
+    os.makedirs(timed_dir)
+    reset_counters()
+    train_model(params, _Stamped([load], stamps, "train"), _Stamped([vload], stamps, "valid"),
+                "MAE", TRAIN_EPOCHS, TRAIN_BATCH, 2.0, 5.0, 1.0, 1e-3,
+                hist_file=os.path.join(timed_dir, "history.pkl"),
+                model_out=os.path.join(timed_dir, "model.npz"))
+    torch.cuda.synchronize()
+    spans = [(stamps[2 * e][1], stamps[2 * e + 1][1], stamps[2 * e][2], stamps[2 * e + 1][2])
+             for e in range(TRAIN_EPOCHS)]
+    warm_s = sum(t1 - t0 for t0, t1, _, _ in spans[1:])
+    per_step = {name: (spans[-1][3][name] - spans[-1][2][name]) / steps for name in launches}
+    if per_step["stack_backward_layers"] != 4 or per_step["stack_backward"] != 0:
+        raise AssertionError(f"K3 launches a step in the timed run: {per_step}")
+    before = counters()["stack_backward_layers"]
+    idle, rows = profile_slice(lambda: (train_model(params, [load], [vload], "MAE", 1, TRAIN_BATCH,
+                                                    2.0, 5.0, 1.0, 1e-3), torch.cuda.synchronize()),
+                               phase="const_train profile")
+    k3_calls = counters()["stack_backward_layers"] - before
+    k3_rows = [r for r in rows if any(k in r[1] for k in K3_LAYER_KERNELS)]
+    grad_rel, _ = _train_parity(load, device, cfg, losses=False)
+    facts = dict(jets_per_epoch=jets, steps_per_epoch=steps,
+                 warm_jets_per_s=jets * (TRAIN_EPOCHS - 1) / warm_s,
+                 ms_per_step=warm_s / (steps * (TRAIN_EPOCHS - 1)) * 1e3,
+                 launches_per_step=per_step, idle_share=idle,
+                 k3_profiled_calls=k3_calls,
+                 k3_profiled_kernels=sum(r[2] for r in k3_rows),
+                 k3_profiled_device_ms=sum(r[0] for r in k3_rows) / 1e3,
+                 device_busy_ms=sum(r[0] for r in rows) / 1e3, grad_rel=grad_rel)
+    log("const_train", **{k: (json.dumps(v) if isinstance(v, dict) else v) for k, v in facts.items()})
     return launches, facts
 
 
@@ -1101,8 +1260,8 @@ def phase_emd_slice(device, workdir):
     t0 = time.perf_counter()
     run(names[0], os.path.join(workdir, "scores_warm.h5"))
     warm_s = time.perf_counter() - t0
-    idle = profile_slice(lambda: run(names[0], os.path.join(workdir, "scores_profiled.h5")),
-                         phase="emd_slice profile")
+    idle, _ = profile_slice(lambda: run(names[0], os.path.join(workdir, "scores_profiled.h5")),
+                            phase="emd_slice profile")
     total = {k: sum(launches[name][k] for name in names) for k in launches[names[0]]}
     facts = dict(jets=EMD_EVENTS, cold_s=cold_s[names[0]], warm_s=warm_s,
                  warm_jets_per_s=EMD_EVENTS / warm_s, idle_share=idle,
@@ -1323,10 +1482,10 @@ def phase_jetid(device, workdir):
     predict_classifier(params, config, inputs)
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
-    idle = profile_slice(lambda: (train_classifier(params, config, train_in, train_y, valid_in,
-                                                   valid_y, epochs=1, batch_size=JETID_BATCH,
-                                                   verbose=False), torch.cuda.synchronize()),
-                         phase="jetid profile")
+    idle, _ = profile_slice(lambda: (train_classifier(params, config, train_in, train_y, valid_in,
+                                                      valid_y, epochs=1, batch_size=JETID_BATCH,
+                                                      verbose=False), torch.cuda.synchronize()),
+                            phase="jetid profile")
     facts = dict(train_jets=JETID_TRAIN, steps_per_epoch=steps,
                  warm_jets_per_s=JETID_TRAIN * (JETID_EPOCHS - 1) / warm_s,
                  ms_per_step=warm_s / (steps * (JETID_EPOCHS - 1)) * 1e3,
@@ -1354,6 +1513,7 @@ def main():
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         slice_launches, rate = phase_slice(device, workdir)
         train_launches, train = phase_train(device, workdir)
+        const_launches, const_facts = phase_const_train(device, os.path.join(workdir, "const_train"))
         emd_launches, emd_facts = phase_emd_slice(device, os.path.join(workdir, "emd_slice"))
         jetid_launches, jetid_facts = phase_jetid(device, os.path.join(workdir, "jetid"))
 
@@ -1361,7 +1521,8 @@ def main():
     for name, meta in KERNELS.items():
         main_shape = next(r for r in parity_results[name] if r["shape"] == meta["main_shape"])
         by_phase = {"slice": slice_launches[name], "train": train_launches[name],
-                    "emd_slice": emd_launches[name], "jetid": jetid_launches[name]}
+                    "const_train": const_launches[name], "emd_slice": emd_launches[name],
+                    "jetid": jetid_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -1373,6 +1534,7 @@ def main():
             shapes=parity_results[name]))
     log("kernels", card=json.dumps(smi), slice_jets_per_s=f"{rate:.0f}",
         train_jets_per_s=f"{train['warm_jets_per_s']:.0f}",
+        const_train_jets_per_s=f"{const_facts['warm_jets_per_s']:.0f}",
         emd_slice_jets_per_s=f"{emd_facts['warm_jets_per_s']:.0f}",
         jetid_train_jets_per_s=f"{jetid_facts['warm_jets_per_s']:.0f}",
         jetid_predict_jets_per_s=f"{jetid_facts['predict_jets_per_s']:.0f}")

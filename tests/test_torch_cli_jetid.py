@@ -79,6 +79,32 @@ def test_predict_only_run_reproduces_the_probabilities(trained, capsys):
     np.testing.assert_array_equal(again[1], first[1])
 
 
+@pytest.mark.parametrize("flag", [True, False])
+def test_cli_leaves_cudnn_tf32_as_it_found_it(trained, monkeypatch, tmp_path, flag):
+    """The convolutions run with cuDNN's TF32 off (train/jetid_loop.py holds
+    it off around them); the process-wide flag is the caller's before and
+    after."""
+    from atlasvae_torch.train import jetid_loop
+    seen = []
+
+    def apply(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return real(*args, **kwargs)
+
+    real = jetid_loop.jetid_apply
+    monkeypatch.setattr(jetid_loop, "jetid_apply", apply)
+    _, root, argv = trained
+    argv = [str(tmp_path) if a == str(root) else a for a in argv]
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = flag
+    try:
+        assert cli.main(argv + ["--n_epochs", "1"]) == 0
+        assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert seen and not any(seen)
+
+
 def test_report_matches_the_jax_cli_on_the_same_weights(trained, tmp_path, capsys):
     mode, root, argv = trained
     capsys.readouterr()

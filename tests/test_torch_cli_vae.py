@@ -29,25 +29,40 @@ ARGS = ["--n_train", "2000", "--n_valid", "1000", "--n_OoD", "3000", "--batch_si
         "--weight_type", "X-S", "--HLV_scaler_type", "RobustScaler", "--plotting", "OFF"]
 
 
-@pytest.fixture(scope="module")
-def runs(synth_dir, tmp_path_factory):
+# The canonical HLV model, and constituents mode (8 constituents x (px, py,
+# pz) through a 24->16/8/4 stack): the extra arguments, the model's widths and
+# the scaler file each run writes.
+MODES = {
+    "canonical": ([], {}, "HLV_RobustScaler.pkl"),
+    "constituents": (["--constituents", "ON", "--HLVs", "OFF", "--n_const", "8", "--n_dims", "3",
+                      "--const_scaler_type", "RobustScaler", "--FC_layers", "16", "8", "4"],
+                     dict(fc_layers=(16, 8, 4), input_dim=24), "const_RobustScaler.pkl"),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(MODES))
+def runs(request, synth_dir, tmp_path_factory):
     for name in ("QCD-Geneva", "OoD-H"):
         registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
-    out = {}
+    extra_args, widths, scaler = MODES[request.param]
+    out = {"widths": widths, "scaler": scaler}
     for side, main, extra in (("port", vae.main, ["--device", "cpu"]),
                               ("jax", jax_vae.main, [])):
-        root = tmp_path_factory.mktemp(side)
-        assert main(ARGS + ["--output_dir", str(root)] + extra) == 0
+        root = tmp_path_factory.mktemp(f"{side}_{request.param}")
+        assert main(ARGS + extra_args + ["--output_dir", str(root)] + extra) == 0
         out[side] = root
     return out
 
 
 def test_writes_the_same_files_and_history_keys(runs):
     hist = {}
-    for side, root in runs.items():
-        assert (root / "model.npz").is_file() and (root / "HLV_RobustScaler.pkl").is_file()
+    for side in ("port", "jax"):
+        root = runs[side]
+        assert (root / "model.npz").is_file() and (root / runs["scaler"]).is_file()
         with open(root / "history.pkl", "rb") as f:
             hist[side] = pickle.load(f)
+    assert sorted(p.name for p in runs["port"].iterdir()) == \
+        sorted(p.name for p in runs["jax"].iterdir())
     assert list(hist["port"]) == list(hist["jax"]) == ["MSE", "KLD", "OE", "Train loss",
                                                        "Valid loss"]
     for key, vals in hist["port"].items():
@@ -56,8 +71,9 @@ def test_writes_the_same_files_and_history_keys(runs):
 
 
 def test_weights_load_in_either_package(runs):
-    template = init_vae(torch.Generator().manual_seed(0), VAEConfig(), device="cpu")
-    jax_template = jax_init_vae(jax.random.PRNGKey(0), JaxVAEConfig())
+    template = init_vae(torch.Generator().manual_seed(0), VAEConfig(**runs["widths"]),
+                        device="cpu")
+    jax_template = jax_init_vae(jax.random.PRNGKey(0), JaxVAEConfig(**runs["widths"]))
     loaded = {"jax": tree_flatten(load_pytree(str(runs["jax"] / "model.npz"), template)),
               "port": jax.tree_util.tree_leaves(
                   jax_load_pytree(str(runs["port"] / "model.npz"), jax_template))}

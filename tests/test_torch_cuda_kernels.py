@@ -24,6 +24,7 @@ bar of tests/test_fused_conv.py, and the same bits on a second call.
 import numpy as np
 import pytest
 import torch
+from torch_gaps import assert_close
 
 from atlasvae_torch.losses import get_losses
 from atlasvae_torch.models import VAEConfig, init_vae, vae_apply
@@ -102,7 +103,9 @@ def test_vae_apply_on_cuda_matches_cpu(cuda):
     on_card = tree_map(lambda t: t.to(cuda), params)
     with torch.inference_mode():
         got = vae_apply(on_card, x.to(cuda), noise=noise.to(cuda))
-    _close([g.cpu() for g in got], want)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_close(g, w, f"vae_apply output {i}", rtol=RTOL, atol=ATOL)
 
 
 def test_kernels_refuse_autograd_and_bad_input(cuda):
@@ -131,6 +134,29 @@ def _close_grads(got, want, scale_tol):
         torch.testing.assert_close(dx, want[2], atol=ATOL, rtol=RTOL)
 
 
+def _k3_counts():
+    return fused_vae.backward_launches, fused_vae.layered_backward_launches
+
+
+def _check_stack_backward(cuda, batch, dims, head_dims, want_dx, scale_tol, seed):
+    """One K3 call against its plain version, on the route backward_plan
+    names (one launch counted there, none on the other), and the same bits on
+    a second call (split or per-CTA partials summed in a fixed order)."""
+    gen = torch.Generator().manual_seed(seed)
+    hidden, heads = _stack(gen, dims, head_dims, cuda)
+    x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
+    grads = [(torch.randn((batch, n), generator=gen) / batch).to(cuda) for n in head_dims]
+    route = fused_vae.backward_plan(batch, tuple(dims), tuple(head_dims), want_dx).route
+    before = _k3_counts()
+    got = fused_vae.stack_backward(x, hidden, heads, grads, want_dx)
+    assert _k3_counts() == (before[0] + (route == "fused"), before[1] + (route == "layers"))
+    _close_grads(got, fused_vae.stack_backward_plain(x, hidden, heads, grads, want_dx), scale_tol)
+    again = fused_vae.stack_backward(x, hidden, heads, grads, want_dx)
+    for a, b in zip(got[0] + got[1] + [got[2]] * want_dx, again[0] + again[1] + [again[2]] * want_dx):
+        assert torch.equal(a, b)
+    return route
+
+
 @pytest.mark.parametrize("batch", [1, 7, 65, 1000])
 @pytest.mark.parametrize("dims,head_dims,want_dx", [
     ((12, 80, 40, 20), (10, 10), False),   # canonical encoder
@@ -138,20 +164,42 @@ def _close_grads(got, want, scale_tol):
     ((5,), (3,), True),                    # heads only
     ((3, 1, 7), (2, 2, 2, 2), True),       # four heads, width 1
     ((13, 17, 9), (5, 5), False),          # odd widths
-    ((130, 33, 9), (5, 6), True),          # 32-row tiles (width > 128)
+    ((130, 33, 9), (5, 6), True),          # wider than 128: the layer-wise route
 ])
 def test_stack_backward_matches_plain(cuda, batch, dims, head_dims, want_dx):
-    gen = torch.Generator().manual_seed(batch * 10 + len(dims))
-    hidden, heads = _stack(gen, dims, head_dims, cuda)
-    x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
-    grads = [(torch.randn((batch, n), generator=gen) / batch).to(cuda) for n in head_dims]
-    before = fused_vae.backward_launches
-    got = fused_vae.stack_backward(x, hidden, heads, grads, want_dx)
-    assert fused_vae.backward_launches == before + 1
-    _close_grads(got, fused_vae.stack_backward_plain(x, hidden, heads, grads, want_dx), 1e-5)
-    again = fused_vae.stack_backward(x, hidden, heads, grads, want_dx)
-    for a, b in zip(got[0] + got[1], again[0] + again[1]):
-        assert torch.equal(a, b)   # per-CTA partials summed in a fixed order
+    route = _check_stack_backward(cuda, batch, dims, head_dims, want_dx, 1e-5,
+                                  batch * 10 + len(dims))
+    assert route == ("layers" if max(dims) > 128 else "fused")
+
+
+# the constituents-mode stacks (100 constituents x (px, py, pz) in training,
+# 312 wide in the parity phase), and a stack whose fused tile does not fit
+WIDE_STACKS = {
+    "const_encoder": ((300, 256, 128, 64), (32, 32), False),
+    "const_decoder": ((32, 64, 128, 256), (300,), True),
+    "const_encoder_312": ((312, 256, 128, 64), (32, 32), False),
+    "const_decoder_312": ((32, 64, 128, 256), (312,), True),
+    "eight_hidden_128": ((128,) * 9, (16, 16), True),
+}
+
+
+@pytest.mark.parametrize("batch", [1, 65, 1000, 10_000])
+@pytest.mark.parametrize("name", sorted(WIDE_STACKS))
+def test_stack_backward_layered_route_matches_plain(cuda, name, batch):
+    dims, head_dims, want_dx = WIDE_STACKS[name]
+    tol = 1e-5 if batch <= 1000 else 3e-4
+    assert _check_stack_backward(cuda, batch, dims, head_dims, want_dx, tol, batch) == "layers"
+
+
+def test_stack_backward_layered_ragged_split_edges(cuda):
+    """A batch that is no multiple of a chunk or of a split: each weight
+    gradient's last split is short and ends mid-chunk."""
+    batch = 22_741
+    dims, head_dims, _ = WIDE_STACKS["const_encoder"]
+    plan = fused_vae.backward_plan(batch, dims, head_dims, True)
+    assert all(batch % rows and batch % rows % fused_vae.GEMM_CHUNK
+               for _, _, rows in plan.splits)
+    assert _check_stack_backward(cuda, batch, dims, head_dims, True, 3e-4, 17) == "layers"
 
 
 def test_stack_backward_rejects_bad_head_gradients(cuda):
@@ -161,7 +209,7 @@ def test_stack_backward_rejects_bad_head_gradients(cuda):
     good = [torch.randn((9, 2), generator=gen).to(cuda),
             torch.randn((9, 3), generator=gen).to(cuda)]
     wide = torch.randn((9, 6), generator=gen).to(cuda)
-    before = fused_vae.backward_launches
+    before = _k3_counts()
     for grads in (good[:1],                                 # one gradient for two heads
                   [good[0], good[1][:8].contiguous()],     # wrong shape
                   [good[0], good[1].double()],             # float64
@@ -171,7 +219,7 @@ def test_stack_backward_rejects_bad_head_gradients(cuda):
             fused_vae.stack_backward(x, hidden, heads, grads, True)
     with pytest.raises(ValueError, match="empty batch"):
         fused_vae.stack_backward(x[:0], hidden, heads, [g[:0] for g in good], True)
-    assert fused_vae.backward_launches == before
+    assert _k3_counts() == before
 
 
 @pytest.mark.parametrize("batch", [64 * 264 * 2 + 5, 32 * 264 + 33])
@@ -417,3 +465,57 @@ def test_conv_kernels_refuse_bad_input(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         wide = torch.zeros((1, 4, 40000, 1), device=cuda)
         fused_conv_cuda.conv_pool_relu(wide, w, b, pool)
+
+
+def test_train_classifier_holds_cudnn_float32_with_the_flag_on(cuda, monkeypatch):
+    """A library caller that leaves cuDNN's process-wide TF32 flag at its
+    default (True): train_classifier still runs every convolution in float32,
+    so the first step's gradients match the plain CPU path at the CLI's bars
+    (3e-3 of a tower leaf's largest value, 3e-4 of a dense leaf's), and the
+    flag is True again afterwards."""
+    from atlasvae_torch.models import JetIDConfig, init_jetid
+    from atlasvae_torch.train import jetid_loop
+    config = JetIDConfig(n_classes=2, scalars=("HLVs",), scalar_dims=(6,), nn_type="CNN",
+                         images=("images",), image_shapes=((16, 16),), cnn_maps=(24, 16),
+                         fcn_neurons=(32, 16), branch_neurons=(32,), dropout=0.0, l2=1e-7)
+    rng = np.random.default_rng(11)
+    n = 512
+    labels = rng.integers(0, 2, n)
+    images = np.abs(rng.normal(size=(n, 16, 16))) * (rng.random((n, 16, 16)) < 0.12)
+    inputs = {"HLVs": rng.normal(size=(n, 6)).astype(np.float32),
+              "images": images.astype(np.float32)}
+    first_grads, seen = {}, []
+    real_clip, real_apply = jetid_loop.clip_gradients, jetid_loop.jetid_apply
+
+    def clip(flat):
+        first_grads.setdefault(flat.device.type, flat.detach().cpu().clone())
+        return real_clip(flat)
+
+    def apply(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return real_apply(*args, **kwargs)
+
+    monkeypatch.setattr(jetid_loop, "clip_gradients", clip)
+    monkeypatch.setattr(jetid_loop, "jetid_apply", apply)
+    init = init_jetid(torch.Generator().manual_seed(3), config, device="cpu")
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for device in ("cpu", cuda):
+            jetid_loop.train_classifier(tree_map(lambda t: t.to(device), init), config, inputs,
+                                        labels, inputs, labels, epochs=1, batch_size=n,
+                                        verbose=False)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert seen and not any(seen)
+    sizes = [t.numel() for t in tree_flatten(init)]
+    towers = [key == "towers" for key in sorted(init) for _ in tree_flatten(init[key])]
+    leaves = zip(first_grads["cuda"].split(sizes), first_grads["cpu"].split(sizes), towers)
+    for i, (got, want, tower) in enumerate(leaves):
+        tol = 3e-3 if tower else 3e-4
+        gap = (got - want).abs()
+        at = int(gap.argmax())
+        assert float(gap[at]) <= tol * float(want.abs().max()), \
+            f"leaf {i} ({'tower' if tower else 'dense'}): gap {float(gap[at])} at {at} over " \
+            f"{tol} * {float(want.abs().max())}"

@@ -28,6 +28,9 @@ STACKS = {
     "odd": ((13, 17, 9), (5, 5), False),               # odd widths
     "odd_dx": ((13, 17, 9), (5, 5), True),
     "heads_only": ((7,), (3,), True),
+    # constituents mode (100 constituents x (px, py, pz)): the layer-wise route
+    "const_encoder": ((300, 256, 128, 64), (32, 32), False),
+    "const_decoder": ((32, 64, 128, 256), (300,), True),
 }
 
 
@@ -139,3 +142,56 @@ def test_stack_backward_runs_plain_version_on_cpu():
     dws, dbs, dx = fused_vae.stack_backward(x, hidden, heads, [torch.ones(4, 2)], True)
     assert dws[0].shape == (3, 2) and dbs[0].tolist() == [4.0, 4.0]
     assert dx.shape == (4, 3) and not dx.any()
+
+
+@pytest.mark.parametrize("dims,head_dims,route", [
+    ((12, 80, 40, 20), (10, 10), "fused"),            # canonical encoder
+    ((10, 20, 40, 80), (12,), "fused"),               # canonical decoder
+    ((5,), (3,), "fused"),
+    ((128, 128, 128), (64, 64), "fused"),             # 128 wide and the tile fits
+    ((130, 33, 9), (5, 6), "layers"),                 # a layer wider than 128
+    ((12, 80), (129,), "layers"),                     # heads wider than 128 together
+    ((128,) * 9, (16, 16), "layers"),                 # fits no CTA: "too wide" before
+    ((300, 256, 128, 64), (32, 32), "layers"),        # constituents encoder
+    ((32, 64, 128, 256), (300,), "layers"),           # constituents decoder
+])
+@pytest.mark.parametrize("batch", [1, 10_000, 1_000_003])
+def test_backward_route_follows_the_shape(dims, head_dims, route, batch):
+    for want_dx in (False, True):
+        plan = fused_vae.backward_plan(batch, dims, head_dims, want_dx)
+        assert plan.route == route
+        n_params = sum(k * n + n for k, n in zip(dims, dims[1:])) + \
+            sum(dims[-1] * n + n for n in head_dims)
+        if route == "fused":
+            assert plan.n_parts == min(-(-batch // fused_vae.FUSED_ROWS), fused_vae.FUSED_MAX_PARTS)
+            assert plan.partial_floats == plan.n_parts * n_params and plan.act_floats == 0
+            continue
+        n_hidden = len(dims) - 1
+        assert len(plan.row_tiles) == 2 * n_hidden + 1
+        assert len(plan.splits) == n_hidden + len(head_dims)
+        assert plan.act_floats == batch * sum(dims[1:])
+        layers = list(zip(dims, dims[1:])) + [(dims[-1], n) for n in head_dims]
+        for (tile, splits, rows), (k, n) in zip(plan.splits, layers):
+            bm, bn = fused_vae.GEMM_TILES[tile]
+            assert splits * -(-k // bm) * -(-n // bn) <= fused_vae.SPLIT_CTAS or splits == 1
+            assert (splits - 1) * rows < batch <= splits * rows and rows % fused_vae.GEMM_CHUNK == 0
+        assert plan.partial_floats == sum(s * (k * n + n)
+                                          for (_, s, _), (k, n) in zip(plan.splits, layers))
+
+
+def test_backward_scratch_at_a_million_rows():
+    """What one K3 call allocates at 1,000,003 rows of the constituents-mode
+    encoder: the hidden activations (1.8 GB, the one round trip through
+    device memory the layer-wise route takes) and the split slices."""
+    batch = 1_000_003
+    plan = fused_vae.backward_plan(batch, (312, 256, 128, 64), (32, 32), False)
+    assert plan.route == "layers"
+    assert plan.act_floats == batch * 448
+    # 128 x 128 tiles where the product is wide enough, 64 x 64 for the heads
+    assert plan.splits == ((0, 44, 22728), (0, 132, 7576), (1, 264, 3792), (4, 264, 3792),
+                           (4, 264, 3792))
+    assert plan.partial_floats == 44 * 80_128 + 132 * 32_896 + 264 * 8_256 + 2 * 264 * 2_080
+    assert plan.scratch_bytes == 4 * (448_001_344 + plan.partial_floats) == 1_836_588_288
+    # the canonical encoder keeps the fused body: 264 slices of its parameters
+    canonical = fused_vae.backward_plan(batch, (12, 80, 40, 20), (10, 10), False)
+    assert canonical.route == "fused" and canonical.scratch_bytes == 4 * 264 * 5_520

@@ -16,6 +16,7 @@ port alone.
 import numpy as np
 import pytest
 import torch
+from torch_gaps import assert_close
 
 import jax
 
@@ -93,7 +94,7 @@ def test_jetid_apply_matches_jax(rng, name):
     want = np.asarray(jax_jetid.jetid_apply(jparams, jcfg, inputs))
     got = jetid.jetid_apply(params, cfg, {k: torch.from_numpy(v) for k, v in inputs.items()})
     assert got.shape == want.shape == (7, cfg.n_classes)
-    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    assert_close(got, want, f"{name} probabilities", rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got.sum(dim=1).numpy(), 1.0, atol=1e-6)
 
 
@@ -175,7 +176,7 @@ def test_model_npz_loads_in_the_other_package(rng, tmp_path, name, direction):
         for a, b in zip(jax.tree_util.tree_leaves(loaded), jax.tree_util.tree_leaves(jparams)):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
         got = np.asarray(jax_jetid.jetid_apply(loaded, jcfg, inputs))
-    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert_close(got, want, f"{direction} probabilities", rtol=TOL, atol=TOL)
 
 
 def test_dropout_properties(rng):

@@ -24,6 +24,7 @@ same bits from run to run, tests/test_jetid.py):
 import numpy as np
 import pytest
 import torch
+from torch_gaps import assert_close
 
 import jax
 import jax.numpy as jnp
@@ -80,13 +81,18 @@ def _init(jcfg, seed=0):
 
 
 def _leaf_gap(got_tree, want_tree):
-    """Largest |got - want| over a leaf's largest |want|, over the leaves."""
-    worst = 0.0
-    for got, want in zip(tree_flatten(params_to_numpy(got_tree)),
-                         jax.tree_util.tree_leaves(jax.tree.map(np.asarray, want_tree))):
+    """(largest |got - want| over a leaf's largest |want|, where): the worst
+    leaf's number in tree order and the flat index of its largest gap."""
+    worst, where = 0.0, None
+    for i, (got, want) in enumerate(zip(tree_flatten(params_to_numpy(got_tree)),
+                                        jax.tree_util.tree_leaves(jax.tree.map(np.asarray,
+                                                                               want_tree)))):
         assert got.shape == want.shape
-        worst = max(worst, float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)))
-    return worst
+        gap = np.abs(got - want)
+        rel = float(gap.max() / max(np.abs(want).max(), 1e-30))
+        if rel > worst or where is None:
+            worst, where = max(worst, rel), f"leaf {i} {want.shape} index {int(gap.argmax())}"
+    return worst, where
 
 
 @pytest.mark.parametrize("name", ["cnn", "fcn"])
@@ -109,9 +115,9 @@ def test_first_step_gradients_match_jax(name):
     grads = torch.autograd.grad(loss, leaves)
     np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-6)
     assert float(metrics[0]) == float(loss.detach())
-    for got, ref in zip(grads, jax.tree_util.tree_leaves(want)):
+    for i, (got, ref) in enumerate(zip(grads, jax.tree_util.tree_leaves(want))):
         ref = np.asarray(ref)
-        assert np.abs(got.numpy() - ref).max() <= GRAD_TOL * np.abs(ref).max()
+        assert_close(got, ref, f"{name} gradient leaf {i}", atol=GRAD_TOL * np.abs(ref).max())
 
 
 def test_ce_loss_matches_jax_and_floors_the_probability(rng):
@@ -157,12 +163,13 @@ def test_train_classifier_matches_jax(tmp_path, name, class_weight):
     assert set(hist) == set(jhist) == {"loss", "val_loss", "accuracy", "val_accuracy"}
     for key in jhist:
         assert len(hist[key]) == 3
-        np.testing.assert_allclose(hist[key], jhist[key], rtol=SERIES_RTOL, err_msg=key)
+        assert_close(hist[key], jhist[key], f"history {key}", rtol=SERIES_RTOL)
     assert hist["loss"][-1] < hist["loss"][0]
-    assert _leaf_gap(best, jbest) <= WEIGHT_TOL
+    gap, where = _leaf_gap(best, jbest)
+    assert gap <= WEIGHT_TOL, f"best weights: {gap} at {where}"
     # the checkpoint is the best epoch's weights, in the other package's format
     saved = load_pytree(str(tmp_path / "jax.npz"), best)
-    assert _leaf_gap(saved, jbest) == 0.0
+    assert _leaf_gap(saved, jbest)[0] == 0.0
     on_disk = load_pytree(str(tmp_path / "port.npz"), best)
     assert all(torch.equal(a, b) for a, b in zip(tree_flatten(on_disk), tree_flatten(best)))
 
@@ -170,7 +177,7 @@ def test_train_classifier_matches_jax(tmp_path, name, class_weight):
     carried = params_from_jax(jax.tree.map(np.asarray, jbest), device="cpu")
     got = jetid_loop.predict_classifier(carried, cfg, v_inputs, batch_size=50)   # ragged chunks
     assert got.shape == want.shape == (120, 2) and got.dtype == np.float32
-    np.testing.assert_allclose(got, want, rtol=PROB_TOL, atol=PROB_TOL)
+    assert_close(got, want, "predicted probabilities", rtol=PROB_TOL, atol=PROB_TOL)
 
 
 @pytest.mark.parametrize("monitor", ["loss", "val_accuracy"])

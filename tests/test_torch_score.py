@@ -17,6 +17,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_gaps import assert_close
 
 from atlasvae.cli import score as jax_score
 from atlasvae.data import load_data as jax_load_data, apply_scaler as jax_apply_scaler, \
@@ -64,7 +65,7 @@ def test_metric_bank_matches_jax(rng, model, normal_losses):
                               normal_losses=normal_losses, device=CPU)
     assert set(got) == set(want)
     for key in want:
-        np.testing.assert_allclose(got[key], np.asarray(want[key]), err_msg=key, **TOL)
+        assert_close(got[key], np.asarray(want[key]), f"metric {key}", **TOL)
     if not normal_losses:
         assert np.max(got["KLD"][:8]) == np.finfo(np.float32).max
 
