@@ -1,5 +1,7 @@
 // Dense ReLU stack + linear heads, one CTA per tile of rows, f32 on the
-// CUDA cores.  Shared by fused_mlp.cu (K1) and fused_vae.cu (K2).
+// CUDA cores: the fused body of K1 (fused_mlp.cu) and K2 (fused_vae.cu), for
+// stacks no wider than 128, and the fused segments of their layer-wise route
+// (stack_layers.cuh).
 //
 // Work per tile of TM rows:
 //   1. the x tile is read once from HBM (coalesced: a tile of rows is one
@@ -10,8 +12,7 @@
 //      mean|logvar) and writes each head's rows to its own output.
 // Weights are staged through shared memory in chunks of kChunkK rows by
 // NC columns, zero-filled past the layer's edge, so widths that are not a
-// multiple of 4 or 8 need no padding of the arrays in HBM; a 312x256
-// first layer (constituents mode) never has to fit whole.
+// multiple of 4 or 8 need no padding of the arrays in HBM.
 //
 // Each of the 256 threads owns an 8-row x 4-column register tile: per k
 // it reads two float4 of activations (rows) and one float4 of weights
@@ -28,6 +29,9 @@ constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 8;
 constexpr int kColsPerThread = 4;
 constexpr int kChunkK = 16;
+constexpr int kStackRows = 128;       // TM of the fused body
+constexpr int kMaxFusedWidth = 128;   // wider stacks take the layer-wise route
+constexpr size_t kSmemPerSM = 233472; // an SM's 228 KB on sm_90, 1 KB of it reserved per CTA
 
 struct StackArgs {
   const float* x;              // (batch, dims[0]) row-major
@@ -42,7 +46,8 @@ struct StackArgs {
   const float* hb[kMaxHeads];
   float* out[kMaxHeads];       // (batch, head_dims[h])
   int final_relu;              // ReLU on the heads too (fused_mlp final_activation="relu")
-  int max_width;               // max(dims[0..n_hidden]): rows of each activation buffer
+  int max_width;               // max(dims[0..n_hidden]), at most kMaxFusedWidth
+  int act_rows[2];             // rows of the two activation buffers (launch_dense_stack sets them)
 };
 
 template <int TM>
@@ -54,9 +59,9 @@ struct TileShape {
 };
 
 template <int TM>
-inline size_t stack_smem_bytes(int max_width) {
+inline size_t stack_smem_bytes(const int (&act_rows)[2]) {
   using T = TileShape<TM>;
-  return sizeof(float) * (2ull * max_width * T::kStride + kChunkK * T::kCols);
+  return sizeof(float) * ((size_t)(act_rows[0] + act_rows[1]) * T::kStride + kChunkK * T::kCols);
 }
 
 __device__ __forceinline__ int head_of(const StackArgs& a, int n, int* col) {
@@ -78,8 +83,8 @@ dense_stack_kernel(const __grid_constant__ StackArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* const act0 = smem;
-  float* const act1 = smem + (size_t)a.max_width * S;
-  float* const ws = smem + 2ull * a.max_width * S;
+  float* const act1 = smem + (size_t)a.act_rows[0] * S;
+  float* const ws = smem + (size_t)(a.act_rows[0] + a.act_rows[1]) * S;
 
   const int tid = threadIdx.x;
   const int r0 = (tid / T::kColGroups) * kRowsPerThread;
@@ -183,24 +188,31 @@ dense_stack_kernel(const __grid_constant__ StackArgs a) {
   }
 }
 
-template <int TM>
-inline cudaError_t launch_tm(const StackArgs& a, cudaStream_t stream) {
-  const size_t smem = stack_smem_bytes<TM>(a.max_width);
+// One CTA per 128-row tile.  The two activation buffers hold max_width rows
+// each, unless that lets only one CTA fit an SM: then each holds as few rows
+// as its layers need (layer l reads buffer l % 2), so that the 128 -> 64
+// segment of the constituents-mode encoder takes 105 KB and two CTAs fit.
+// Equal buffers otherwise: at the canonical widths the smaller buffers fit
+// three CTAs an SM, which made the 65,536-row scoring chunk slower on an
+// H100 (512 tiles: 1.3 waves of 396 in place of 1.9 of 264).  Returns the
+// launch error, or cudaSuccess.
+inline cudaError_t launch_dense_stack(StackArgs a, cudaStream_t stream) {
+  constexpr int TM = kStackRows;
+  if (a.batch <= 0) return cudaSuccess;
+  if (a.max_width > kMaxFusedWidth) return cudaErrorInvalidValue;
+  a.act_rows[0] = a.act_rows[1] = a.max_width;
+  if (2 * (stack_smem_bytes<TM>(a.act_rows) + 1024) > kSmemPerSM) {
+    a.act_rows[0] = a.act_rows[1] = 0;
+    for (int l = 0; l <= a.n_hidden; ++l)
+      if (a.dims[l] > a.act_rows[l & 1]) a.act_rows[l & 1] = a.dims[l];
+  }
+  const size_t smem = stack_smem_bytes<TM>(a.act_rows);
   cudaError_t err = cudaFuncSetAttribute(dense_stack_kernel<TM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned grid = (unsigned)((a.batch + TM - 1) / TM);
   dense_stack_kernel<TM><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-// Tile rows: 128 while two 128-row activation buffers stay small (every
-// canonical width), else 32 rows so a 312-wide input still leaves room for
-// two CTAs on an SM.  Returns the launch error, or cudaSuccess.
-inline cudaError_t launch_dense_stack(const StackArgs& a, cudaStream_t stream) {
-  if (a.batch <= 0) return cudaSuccess;
-  if (a.max_width <= 128) return launch_tm<128>(a, stream);
-  return launch_tm<32>(a, stream);
 }
 
 }  // namespace atlasvae

@@ -13,14 +13,16 @@
 // f32 FMAs, not bandwidth.  The design keeps every intermediate activation in
 // shared memory (no HBM round trip between layers) and gives each thread an
 // 8x4 register tile, so that each pair of shared-memory loads feeds 32 FMAs.
-#include "dense_stack.cuh"
+// The constituents-mode decoder 32->64/128/256->312 (246 kFLOP a row) takes
+// the layer-wise route (stack_layers.cuh), as K2's encoder does.
+#include "stack_layers.cuh"
 
-extern "C" int atlasvae_fused_mlp_forward(const void* x, long long batch, int n_layers,
-                                          const int* dims, const void* const* weights,
-                                          const void* const* biases, void* out, int final_relu,
-                                          void* stream) {
+namespace {
+
+atlasvae::StackArgs make_args(const void* x, long long batch, int n_layers, const int* dims,
+                              const void* const* weights, const void* const* biases, void* out,
+                              int final_relu) {
   using namespace atlasvae;
-  if (n_layers < 1 || n_layers > kMaxHidden + 1) return (int)cudaErrorInvalidValue;
   StackArgs a = {};
   a.x = static_cast<const float*>(x);
   a.batch = batch;
@@ -40,5 +42,33 @@ extern "C" int atlasvae_fused_mlp_forward(const void* x, long long batch, int n_
   a.hb[0] = static_cast<const float*>(biases[n_layers - 1]);
   a.out[0] = static_cast<float*>(out);
   a.final_relu = final_relu;
-  return (int)launch_dense_stack(a, static_cast<cudaStream_t>(stream));
+  return a;
+}
+
+}  // namespace
+
+// The fused body: the whole stack in one launch.
+extern "C" int atlasvae_fused_mlp_forward(const void* x, long long batch, int n_layers,
+                                          const int* dims, const void* const* weights,
+                                          const void* const* biases, void* out, int final_relu,
+                                          void* stream) {
+  using namespace atlasvae;
+  if (n_layers < 1 || n_layers > kMaxHidden + 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_dense_stack(
+      make_args(x, batch, n_layers, dims, weights, biases, out, final_relu),
+      static_cast<cudaStream_t>(stream));
+}
+
+// The layer-wise route: the segments of ops/fused_vae.py::forward_plan.
+extern "C" int atlasvae_fused_mlp_forward_layers(const void* x, long long batch, int n_layers,
+                                                 const int* dims, const void* const* weights,
+                                                 const void* const* biases, void* out,
+                                                 int final_relu, int n_segments,
+                                                 const int* segments, void* buf0, void* buf1,
+                                                 void* stream) {
+  using namespace atlasvae;
+  if (n_layers < 1 || n_layers > kMaxHidden + 1) return (int)cudaErrorInvalidValue;
+  return (int)forward_layers(make_args(x, batch, n_layers, dims, weights, biases, out, final_relu),
+                             n_segments, segments, static_cast<float*>(buf0),
+                             static_cast<float*>(buf1), static_cast<cudaStream_t>(stream));
 }

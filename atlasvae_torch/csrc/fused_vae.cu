@@ -1,5 +1,5 @@
 // K2: stack forward with n linear heads (the VAE encoder on the scoring
-// path, and again for the Latent metric).
+// path, and again for the Latent metric; every training forward).
 //
 // Replaces atlasvae/ops/fused_vae.py:_stack_fwd_kernel (Pallas, TPU): a
 // ReLU hidden stack, then n_heads linear heads on the last hidden
@@ -13,18 +13,19 @@
 // 128 bytes of HBM traffic (48 in, 80 out), about 84 FLOP/byte: above the
 // f32 CUDA-core ridge (20 FLOP/byte), so it is bound by f32 FMAs.  The
 // design keeps the activations in shared memory and feeds 32 FMAs from each
-// three shared-memory vector loads (dense_stack.cuh).
-#include "dense_stack.cuh"
+// three shared-memory vector loads (dense_stack.cuh).  The constituents-mode
+// encoder 312->256/128/64 + 2x32 does 250 kFLOP a row, 3.7 ms of f32 work
+// at 1,000,003 rows; it takes the layer-wise route (stack_layers.cuh), whose
+// wide layers run on the tensor cores in 3xTF32.
+#include "stack_layers.cuh"
 
-extern "C" int atlasvae_stack_forward(const void* x, long long batch, int n_hidden,
-                                      const int* dims, const void* const* weights,
-                                      const void* const* biases, int n_heads,
-                                      const int* head_dims, const void* const* head_weights,
-                                      const void* const* head_biases, void* const* outs,
-                                      void* stream) {
+namespace {
+
+atlasvae::StackArgs make_args(const void* x, long long batch, int n_hidden, const int* dims,
+                              const void* const* weights, const void* const* biases, int n_heads,
+                              const int* head_dims, const void* const* head_weights,
+                              const void* const* head_biases, void* const* outs) {
   using namespace atlasvae;
-  if (n_hidden < 0 || n_hidden > kMaxHidden || n_heads < 1 || n_heads > kMaxHeads)
-    return (int)cudaErrorInvalidValue;
   StackArgs a = {};
   a.x = static_cast<const float*>(x);
   a.batch = batch;
@@ -46,5 +47,40 @@ extern "C" int atlasvae_stack_forward(const void* x, long long batch, int n_hidd
     a.out[h] = static_cast<float*>(outs[h]);
   }
   a.final_relu = 0;
-  return (int)launch_dense_stack(a, static_cast<cudaStream_t>(stream));
+  return a;
+}
+
+bool valid(int n_hidden, int n_heads) {
+  using namespace atlasvae;
+  return n_hidden >= 0 && n_hidden <= kMaxHidden && n_heads >= 1 && n_heads <= kMaxHeads;
+}
+
+}  // namespace
+
+// The fused body: the whole stack in one launch.
+extern "C" int atlasvae_stack_forward(const void* x, long long batch, int n_hidden,
+                                      const int* dims, const void* const* weights,
+                                      const void* const* biases, int n_heads,
+                                      const int* head_dims, const void* const* head_weights,
+                                      const void* const* head_biases, void* const* outs,
+                                      void* stream) {
+  if (!valid(n_hidden, n_heads)) return (int)cudaErrorInvalidValue;
+  return (int)atlasvae::launch_dense_stack(
+      make_args(x, batch, n_hidden, dims, weights, biases, n_heads, head_dims, head_weights,
+                head_biases, outs),
+      static_cast<cudaStream_t>(stream));
+}
+
+// The layer-wise route: the segments of ops/fused_vae.py::forward_plan.
+extern "C" int atlasvae_stack_forward_layers(
+    const void* x, long long batch, int n_hidden, const int* dims, const void* const* weights,
+    const void* const* biases, int n_heads, const int* head_dims,
+    const void* const* head_weights, const void* const* head_biases, void* const* outs,
+    int n_segments, const int* segments, void* buf0, void* buf1, void* stream) {
+  if (!valid(n_hidden, n_heads)) return (int)cudaErrorInvalidValue;
+  return (int)atlasvae::forward_layers(
+      make_args(x, batch, n_hidden, dims, weights, biases, n_heads, head_dims, head_weights,
+                head_biases, outs),
+      n_segments, segments, static_cast<float*>(buf0), static_cast<float*>(buf1),
+      static_cast<cudaStream_t>(stream));
 }

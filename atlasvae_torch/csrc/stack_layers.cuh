@@ -1,0 +1,124 @@
+// K1 and K2's layer-wise route: a dense stack wider than the fused body
+// takes well, run as the segments ops/fused_vae.py::forward_plan cuts it
+// into, every launch of one forward from one host call.
+//
+// Why: at constituents-mode width (312 -> 256 -> 128 -> 64 + 2 x 32) the
+// fused body (dense_stack.cuh) drops to 32-row tiles to fit two 312-wide
+// activation buffers, and restages every layer's weights through shared
+// memory for each of them: 500 KB of weights per 32 rows, with scalar loads
+// that overlap no FMA.  It ran at about 8 TFLOP/s on an H100, 4-4.5x slower
+// than cuBLAS.  Here a wide layer (input or output wider than 128) is one
+// row product over the whole batch (gemm_tf32.cuh), whose tile reads each
+// weight chunk once per 128 rows, and whose output goes through device
+// memory to the next segment: one round trip of the activation, as K3's
+// layer-wise route accepts.  A run of narrow layers stays one launch of the
+// fused body, activations on chip, at its 128-row tile.
+//
+// segments: n_segments x kSegmentInts ints (kind, first layer, last layer
+// exclusive, column tile, output buffer), the stack's layers counted with
+// the heads as layer n_hidden; buf0/buf1: scratch of the sizes the plan
+// gives.  Returns the first CUDA error.
+#pragma once
+
+#include "dense_stack.cuh"
+#include "gemm_tf32.cuh"
+
+namespace atlasvae {
+
+constexpr int kSegmentInts = 5;
+constexpr int kFusedSegment = 0;
+constexpr int kRowSegment = 1;
+constexpr int kTileCols[3] = {128, 64, 32};  // a row segment's column tile: FORWARD_TILE_COLS
+
+inline cudaError_t forward_layers(const StackArgs& a, int n_segments, const int* segments,
+                                  float* buf0, float* buf1, cudaStream_t st) {
+  const int n_layers = a.n_hidden + 1;
+  if (n_segments < 1 || n_segments > n_layers) return cudaErrorInvalidValue;
+  float* const buf[2] = {buf0, buf1};
+  // check the whole plan before the first launch
+  int expect = 0;
+  for (int s = 0; s < n_segments; ++s) {
+    const int* g = segments + kSegmentInts * s;
+    const bool last_segment = s == n_segments - 1;
+    if (g[1] != expect || g[2] <= g[1] || g[2] > n_layers || (g[0] != kFusedSegment &&
+        (g[0] != kRowSegment || g[2] != g[1] + 1 || g[3] < 0 || g[3] >= 3)) ||
+        (last_segment ? g[4] != -1 : (g[4] < 0 || g[4] > 1 || buf[g[4]] == nullptr)))
+      return cudaErrorInvalidValue;
+    expect = g[2];
+  }
+  if (expect != n_layers) return cudaErrorInvalidValue;
+  if (a.batch <= 0) return cudaSuccess;
+
+  const float* in = a.x;
+  for (int s = 0; s < n_segments; ++s) {
+    const int* g = segments + kSegmentInts * s;
+    const int first = g[1], last = g[2];
+    const bool heads = last == n_layers;
+    float* const out = heads ? nullptr : buf[g[4]];
+    cudaError_t err;
+    if (g[0] == kFusedSegment) {
+      // layers first .. last - 2 are its hidden layers, last - 1 its head
+      StackArgs f = {};
+      f.x = in;
+      f.batch = a.batch;
+      f.n_hidden = last - first - 1;
+      f.max_width = 0;
+      for (int i = 0; i <= f.n_hidden; ++i) {
+        f.dims[i] = a.dims[first + i];
+        if (f.dims[i] > f.max_width) f.max_width = f.dims[i];
+      }
+      for (int i = 0; i < f.n_hidden; ++i) {
+        f.w[i] = a.w[first + i];
+        f.b[i] = a.b[first + i];
+      }
+      if (heads) {
+        f.n_heads = a.n_heads;
+        for (int h = 0; h < a.n_heads; ++h) {
+          f.head_dims[h] = a.head_dims[h];
+          f.hw[h] = a.hw[h];
+          f.hb[h] = a.hb[h];
+          f.out[h] = a.out[h];
+        }
+        f.final_relu = a.final_relu;
+      } else {
+        f.n_heads = 1;
+        f.head_dims[0] = a.dims[last];
+        f.hw[0] = a.w[last - 1];
+        f.hb[0] = a.b[last - 1];
+        f.out[0] = out;
+        f.final_relu = 1;
+      }
+      err = launch_dense_stack(f, st);
+    } else {
+      // one layer: a hidden layer (bias + ReLU) or the heads' columns together
+      tf32::RowsArgs r = {};
+      r.a = in;
+      r.rows = a.batch;
+      r.k = a.dims[first];
+      if (heads) {
+        r.nseg = a.n_heads;
+        for (int h = 0; h < a.n_heads; ++h) {
+          r.nbeg[h + 1] = r.nbeg[h] + a.head_dims[h];
+          r.w[h] = a.hw[h];
+          r.bias[h] = a.hb[h];
+          r.out[h] = a.out[h];
+        }
+        r.relu = a.final_relu;
+      } else {
+        r.nseg = 1;
+        r.nbeg[1] = a.dims[first + 1];
+        r.w[0] = a.w[first];
+        r.bias[0] = a.b[first];
+        r.out[0] = out;
+        r.relu = 1;
+      }
+      r.n = r.nbeg[r.nseg];
+      err = tf32::launch_rows(kTileCols[g[3]], r, st);
+    }
+    if (err != cudaSuccess) return err;
+    in = out;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace atlasvae

@@ -89,9 +89,10 @@ def load(name):
     return _LIBS[name]
 
 
-# Widest input/hidden layer whose two 32-row activation buffers and weight
-# chunk fit a CTA's 227 KB of shared memory (stack_smem_bytes<32> in
-# csrc/dense_stack.cuh); kMaxHidden and kMaxHeads bound the layer counts.
+# Widest input/hidden layer the dense-stack wrappers accept.  Stacks wider
+# than 128 take the layer-wise routes of K1-K3, which keep no layer in shared
+# memory and could take wider ones; the bound keeps the port to the widths it
+# is tested at.  kMaxHidden and kMaxHeads bound the layer counts.
 MAX_WIDTH = 750
 MAX_HIDDEN = 8
 MAX_HEADS = 4

@@ -1,23 +1,29 @@
 """Fused dense-stack forward: hand-written CUDA kernel K1 and its plain twin.
 
 Counterpart of ``atlasvae/ops/fused_mlp.py``.  ``fused_mlp_apply`` runs a
-whole dense stack (ReLU hidden layers, linear or ReLU final layer) in one
-launch of ``csrc/fused_mlp.cu``, keeping every intermediate activation in
-shared memory.  On a CPU tensor it runs ``fused_mlp_plain``, the same
-function as chained ``x @ w + b`` and ReLU.  Forward only, as the JAX
-kernel is: it is the decoder wherever grad is off (scoring, validation
-losses); a decoder that is trained goes through
+whole dense stack (ReLU hidden layers, linear or ReLU final layer) on a CUDA
+tensor by the route ``ops.fused_vae.forward_plan`` picks from its shape, as
+K2 does: one launch of ``csrc/fused_mlp.cu``'s fused body, every
+intermediate activation in shared memory, where no width exceeds 128; else
+its layer-wise route, in one C call.  On a CPU tensor it runs
+``fused_mlp_plain``, the same function as chained ``x @ w + b`` and ReLU.
+Forward only, as the JAX kernel is: it is the decoder wherever grad is off
+(scoring, validation losses); a decoder that is trained goes through
 ``ops.fused_vae.fused_decoder``, whose backward is K3.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from . import cuda_build
+from .fused_vae import forward_plan, layered_args
 
-# Kernel launches made by fused_mlp_apply (reset and read by chip_smoke.py).
+# Kernel launches made by fused_mlp_apply: its fused body, and its layer-wise
+# route (reset and read by chip_smoke.py).
 launches = 0
+layered_launches = 0
 
 
 def _check_args(activation, final_activation):
@@ -37,19 +43,26 @@ def fused_mlp_plain(layers, x, activation="relu", final_activation="linear"):
     return h
 
 
-def _entry():
-    fn = cuda_build.load("fused_mlp").atlasvae_fused_mlp_forward
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+@functools.cache
+def _entries():
+    lib = cuda_build.load("fused_mlp")
+    fused = lib.atlasvae_fused_mlp_forward
+    fused.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p]
+    fused.restype = ctypes.c_int
+    layers = lib.atlasvae_fused_mlp_forward_layers
+    layers.argtypes = fused.argtypes[:-1] + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                             ctypes.c_void_p, ctypes.c_void_p]
+    layers.restype = ctypes.c_int
+    return fused, layers
 
 
 def fused_mlp_apply(layers, x, activation="relu", final_activation="linear"):
-    """Apply a dense stack (list of {'w','b'}, w shaped (in, out)) in one
-    fused kernel on a CUDA tensor; the plain version on a CPU tensor."""
-    global launches
+    """Apply a dense stack (list of {'w','b'}, w shaped (in, out)) on a CUDA
+    tensor: one fused kernel, or the segments of ``forward_plan``; the plain
+    version on a CPU tensor."""
+    global launches, layered_launches
     _check_args(activation, final_activation)
     if x.device.type == "cpu":
         return fused_mlp_plain(layers, x, activation, final_activation)
@@ -59,16 +72,26 @@ def fused_mlp_apply(layers, x, activation="relu", final_activation="linear"):
         raise ValueError("fused_mlp_apply: empty stack")
     pairs = [(l["w"], l["b"]) for l in layers]
     cuda_build.check_stack(x, pairs[:-1], pairs[-1:], "fused_mlp_apply")
-    out = torch.empty((x.shape[0], pairs[-1][0].shape[1]), device=x.device,
-                      dtype=torch.float32)
-    dims = cuda_build.int_array([x.shape[1]] + [w.shape[1] for w, _ in pairs])
+    widths = (x.shape[1],) + tuple(w.shape[1] for w, _ in pairs)
+    plan = forward_plan(x.shape[0], widths[:-1], widths[-1:])
+    out = torch.empty((x.shape[0], widths[-1]), device=x.device, dtype=torch.float32)
+    dims = cuda_build.int_array(widths)
     ws = cuda_build.pointer_array([w for w, _ in pairs])
     bs = cuda_build.pointer_array([b for _, b in pairs])
-    fn = _entry()
+    fused, layered = _entries()
+    common = (x.data_ptr(), x.shape[0], len(pairs), ctypes.addressof(dims),
+              ctypes.addressof(ws), ctypes.addressof(bs), out.data_ptr(),
+              int(final_activation == "relu"))
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), x.shape[0], len(pairs), ctypes.addressof(dims),
-                 ctypes.addressof(ws), ctypes.addressof(bs), out.data_ptr(),
-                 int(final_activation == "relu"), torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "fused_mlp kernel")
-    launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "fused":
+            err = fused(*common, stream)
+        else:
+            args, _keep = layered_args(plan, x)   # _keep: the scratch, until the call returns
+            err = layered(*common, *args, stream)
+    cuda_build.check(err, f"fused_mlp kernel ({plan.route} route)")
+    if plan.route == "fused":
+        launches += 1
+    else:
+        layered_launches += 1
     return out

@@ -26,9 +26,11 @@ import torch
 
 from . import cuda_build
 
-# Kernel launches made by stack_forward (K2) and stack_backward (K3: its
-# fused body, and its layer-wise route); reset and read by chip_smoke.py.
+# Kernel launches made by stack_forward (K2: its fused body, and its
+# layer-wise route) and stack_backward (K3: the same two); reset and read by
+# chip_smoke.py.
 launches = 0
+layered_launches = 0
 backward_launches = 0
 layered_backward_launches = 0
 
@@ -43,42 +45,157 @@ def stack_forward_plain(x, hidden, heads):
     return tuple(h @ w + b for w, b in heads)
 
 
+# K1 and K2's routes.  A stack whose widths are all at most FUSED_MAX_WIDTH
+# runs as one launch of the fused body (csrc/dense_stack.cuh), every
+# activation of a row tile in shared memory.  Any other stack is cut into
+# segments (forward_plan), launched in order by one C call
+# (csrc/stack_layers.cuh): a run of narrow layers stays one fused launch, each
+# wide layer is one row product over the whole batch.  The shape alone decides.
+FUSED_SEGMENT, ROW_SEGMENT = 0, 1
+# A row segment's column tiles (csrc/gemm_tf32.cuh, 128 rows each): 8 warps
+# of 32 columns and cols / 32 m16 tiles each.
+FORWARD_TILE_COLS = (128, 64, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """Layers [first, last) of a stack, counted with the heads as layer
+    len(dims) - 1 of width sum(head_dims).
+
+    kind  FUSED_SEGMENT: one launch of the fused body; a segment that ends
+          before the heads writes its last layer, with ReLU, as its one head.
+          ROW_SEGMENT: one layer, one row product over the batch, bias and
+          ReLU (or, for the heads, the last layer's activation) in its
+          epilogue; the heads' columns are one product, each head written to
+          its own output.
+    tile  ROW_SEGMENT: the FORWARD_TILE_COLS index of its column tile.
+    out   the scratch buffer (0 or 1) it writes, or -1: the stack's outputs."""
+    kind: int
+    first: int
+    last: int
+    tile: int = 0
+    out: int = -1
+
+    def ints(self):
+        return (self.kind, self.first, self.last, self.tile, self.out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """How K1/K2 run one stack at one batch size: its segments in order, and
+    the floats of the two scratch buffers the segments pass activations in
+    (each a multiple of 4, so that the second starts 16-byte aligned)."""
+    segments: tuple
+    buf_floats: tuple = (0, 0)
+
+    @property
+    def route(self):
+        one = len(self.segments) == 1 and self.segments[0].kind == FUSED_SEGMENT
+        return "fused" if one else "layers"
+
+    @property
+    def scratch_bytes(self):
+        return 4 * sum(self.buf_floats)
+
+
+def _forward_tile(n):
+    """The column tile of a row product with n output columns: the least
+    padded width times 1 + the fragment elements a warp loads and splits per
+    mma (per k-step 8 of the weights and 4 per m16 tile, for 12 mma per m16
+    tile: 1/2, 2/3 and 1 at 128, 64 and 32 columns); on a tie the wider."""
+    def cost(t):
+        cols = FORWARD_TILE_COLS[t]
+        mt = cols // 32
+        return _ceil(n, cols) * cols * (1 + (8 + 4 * mt) / (12 * mt)), t
+    return min(range(len(FORWARD_TILE_COLS)), key=cost)
+
+
 @functools.cache
-def _forward_entry():
-    fn = cuda_build.load("fused_vae").atlasvae_stack_forward
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def forward_plan(batch, dims, head_dims):
+    """K1/K2's segments and scratch for a stack of input/hidden widths
+    ``dims`` and head widths ``head_dims`` at ``batch`` rows."""
+    widths = tuple(dims) + (sum(head_dims),)
+    narrow = [max(widths[l], widths[l + 1]) <= FUSED_MAX_WIDTH for l in range(len(dims))]
+    spans, first = [], 0
+    for l in range(1, len(dims) + 1):
+        if l == len(dims) or not (narrow[l] and narrow[l - 1]):
+            spans.append((first, l))
+            first = l
+    segments, bufs = [], [0, 0]
+    for i, (first, last) in enumerate(spans):
+        final = i == len(spans) - 1
+        out = -1 if final else i % 2
+        if not final:
+            bufs[out] = max(bufs[out], _ceil(batch * widths[last], 4) * 4)
+        if narrow[first]:
+            segments.append(Segment(FUSED_SEGMENT, first, last, out=out))
+        else:
+            segments.append(Segment(ROW_SEGMENT, first, last, _forward_tile(widths[last]), out))
+    return ForwardPlan(tuple(segments), tuple(bufs))
+
+
+@functools.cache
+def _forward_entries():
+    lib = cuda_build.load("fused_vae")
+    fused = lib.atlasvae_stack_forward
+    fused.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fused.restype = ctypes.c_int
+    layers = lib.atlasvae_stack_forward_layers
+    layers.argtypes = fused.argtypes[:-1] + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                             ctypes.c_void_p, ctypes.c_void_p]
+    layers.restype = ctypes.c_int
+    return fused, layers
+
+
+def layered_args(plan, x):
+    """The arguments (n_segments, segment ints, buffer 0, buffer 1) that a
+    layered plan adds to its C call, and what must stay alive until the call
+    returns: the scratch tensor holding both buffers and the ints."""
+    scratch = torch.empty(sum(plan.buf_floats), device=x.device, dtype=torch.float32)
+    base = scratch.data_ptr()
+    segs = cuda_build.int_array([v for seg in plan.segments for v in seg.ints()])
+    return (len(plan.segments), ctypes.addressof(segs), base if plan.buf_floats[0] else None,
+            base + 4 * plan.buf_floats[0] if plan.buf_floats[1] else None), (scratch, segs)
 
 
 def stack_forward(x, hidden, heads):
-    """Hidden ReLU stack + linear heads in one kernel on a CUDA tensor; the
-    plain version on a CPU tensor."""
-    global launches
+    """Hidden ReLU stack + linear heads on a CUDA tensor: one kernel, or the
+    segments of ``forward_plan``; the plain version on a CPU tensor."""
+    global launches, layered_launches
     if x.device.type == "cpu":
         return stack_forward_plain(x, hidden, heads)
     if x.device.type != "cuda":
         raise ValueError(f"stack_forward: unsupported device {x.device}")
     cuda_build.check_stack(x, hidden, heads, "stack_forward")
-    outs = [torch.empty((x.shape[0], w.shape[1]), device=x.device, dtype=torch.float32)
-            for w, _ in heads]
-    dims = cuda_build.int_array([x.shape[1]] + [w.shape[1] for w, _ in hidden])
+    dims = (x.shape[1],) + tuple(w.shape[1] for w, _ in hidden)
+    head_widths = tuple(w.shape[1] for w, _ in heads)
+    plan = forward_plan(x.shape[0], dims, head_widths)
+    outs = [torch.empty((x.shape[0], n), device=x.device, dtype=torch.float32)
+            for n in head_widths]
+    c_dims, head_dims = cuda_build.int_array(dims), cuda_build.int_array(head_widths)
     ws = cuda_build.pointer_array([w for w, _ in hidden])
     bs = cuda_build.pointer_array([b for _, b in hidden])
-    head_dims = cuda_build.int_array([w.shape[1] for w, _ in heads])
     hws = cuda_build.pointer_array([w for w, _ in heads])
     hbs = cuda_build.pointer_array([b for _, b in heads])
     out_ptrs = cuda_build.pointer_array(outs)
-    fn = _forward_entry()
+    fused, layers = _forward_entries()
+    common = (x.data_ptr(), x.shape[0], len(hidden), ctypes.addressof(c_dims),
+              ctypes.addressof(ws), ctypes.addressof(bs), len(heads), ctypes.addressof(head_dims),
+              ctypes.addressof(hws), ctypes.addressof(hbs), ctypes.addressof(out_ptrs))
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), x.shape[0], len(hidden), ctypes.addressof(dims),
-                 ctypes.addressof(ws), ctypes.addressof(bs), len(heads),
-                 ctypes.addressof(head_dims), ctypes.addressof(hws), ctypes.addressof(hbs),
-                 ctypes.addressof(out_ptrs), torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "stack_forward kernel")
-    launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "fused":
+            err = fused(*common, stream)
+        else:
+            args, _keep = layered_args(plan, x)   # _keep: the scratch, until the call returns
+            err = layers(*common, *args, stream)
+    cuda_build.check(err, f"stack_forward kernel ({plan.route} route)")
+    if plan.route == "fused":
+        launches += 1
+    else:
+        layered_launches += 1
     return tuple(outs)
 
 

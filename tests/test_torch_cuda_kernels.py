@@ -61,12 +61,25 @@ def _close(got, want):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL)
 
 
+def _k2_counts():
+    return fused_vae.launches, fused_vae.layered_launches
+
+
+def _k1_counts():
+    return fused_mlp.launches, fused_mlp.layered_launches
+
+
+def _counted(route, before):
+    """The (fused body, layer-wise route) counts after one call on ``route``."""
+    return before[0] + (route == "fused"), before[1] + (route == "layers")
+
+
 @pytest.mark.parametrize("batch", [1, 7, 129, 1000])
 @pytest.mark.parametrize("dims,head_dims", [
     ((12, 80, 40, 20), (10, 10)),      # canonical encoder
     ((5,), (3,)),                      # heads only
     ((3, 1, 7), (2, 2, 2, 2)),         # four heads, width 1
-    ((130, 33, 9), (5, 6)),            # 32-row tiles (width > 128)
+    ((130, 33, 9), (5, 6)),            # width > 128: the layer-wise route
     ((312, 256, 128, 64), (32, 32)),   # constituents-mode encoder
     ((10, 20, 40, 80), (12,)),         # canonical decoder (training forward)
 ])
@@ -74,9 +87,11 @@ def test_stack_forward_matches_plain(cuda, batch, dims, head_dims):
     gen = torch.Generator().manual_seed(batch * 1000 + len(dims))
     hidden, heads = _stack(gen, dims, head_dims, cuda)
     x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
-    before = fused_vae.launches
+    route = fused_vae.forward_plan(batch, tuple(dims), tuple(head_dims)).route
+    assert route == ("layers" if max(dims) > 128 else "fused")
+    before = _k2_counts()
     got = fused_vae.stack_forward(x, hidden, heads)
-    assert fused_vae.launches == before + 1
+    assert _k2_counts() == _counted(route, before)
     _close(got, fused_vae.stack_forward_plain(x, hidden, heads))
 
 
@@ -88,10 +103,77 @@ def test_fused_mlp_matches_plain(cuda, batch, dims, final):
     hidden, heads = _stack(gen, dims[:-1], dims[-1:], cuda)
     layers = [{"w": w, "b": b} for w, b in hidden + heads]
     x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
-    before = fused_mlp.launches
+    route = fused_vae.forward_plan(batch, dims[:-1], dims[-1:]).route
+    assert route == ("layers" if max(dims) > 128 else "fused")
+    before = _k1_counts()
     got = fused_mlp.fused_mlp_apply(layers, x, final_activation=final)
-    assert fused_mlp.launches == before + 1
+    assert _k1_counts() == _counted(route, before)
     _close([got], [fused_mlp.fused_mlp_plain(layers, x, final_activation=final)])
+
+
+# K1/K2's layer-wise route: the constituents-mode stacks (300 wide in
+# training, 312 in the parity phase), an odd stack whose widths turn off the
+# 16-byte copies and stores, and wide heads that are one product
+WIDE_FORWARD = {
+    "const_encoder": ((300, 256, 128, 64), (32, 32)),
+    "const_encoder_312": ((312, 256, 128, 64), (32, 32)),
+    "const_decoder": ((32, 64, 128, 256), (300,)),
+    "const_decoder_312": ((32, 64, 128, 256), (312,)),
+    "odd": ((301, 130, 33), (5, 5)),
+    "wide_heads": ((12, 80), (129, 67, 5)),
+}
+
+
+@pytest.mark.parametrize("batch", [1, 7, 129, 1000, 10_007])
+@pytest.mark.parametrize("name", sorted(WIDE_FORWARD))
+def test_stack_forward_layered_route_matches_plain(cuda, name, batch):
+    dims, head_dims = WIDE_FORWARD[name]
+    gen = torch.Generator().manual_seed(batch + len(name))
+    hidden, heads = _stack(gen, dims, head_dims, cuda)
+    x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
+    assert fused_vae.forward_plan(batch, dims, head_dims).route == "layers"
+    before = _k2_counts()
+    got = fused_vae.stack_forward(x, hidden, heads)
+    assert _k2_counts() == _counted("layers", before)
+    _close(got, fused_vae.stack_forward_plain(x, hidden, heads))
+    again = fused_vae.stack_forward(x, hidden, heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("batch", [1, 7, 129, 1000, 10_007])
+@pytest.mark.parametrize("final", ["linear", "relu"])
+@pytest.mark.parametrize("name", sorted(WIDE_FORWARD))
+def test_fused_mlp_layered_route_matches_plain(cuda, name, final, batch):
+    dims, head_dims = WIDE_FORWARD[name]
+    widths = dims + head_dims[:1]
+    gen = torch.Generator().manual_seed(batch * 3 + len(name))
+    hidden, heads = _stack(gen, widths[:-1], widths[-1:], cuda)
+    layers = [{"w": w, "b": b} for w, b in hidden + heads]
+    x = torch.randn((batch, widths[0]), generator=gen).to(cuda)
+    assert fused_vae.forward_plan(batch, widths[:-1], widths[-1:]).route == "layers"
+    before = _k1_counts()
+    got = fused_mlp.fused_mlp_apply(layers, x, final_activation=final)
+    assert _k1_counts() == _counted("layers", before)
+    _close([got], [fused_mlp.fused_mlp_plain(layers, x, final_activation=final)])
+    assert torch.equal(got, fused_mlp.fused_mlp_apply(layers, x, final_activation=final))
+
+
+def test_canonical_forward_stays_one_fused_launch(cuda):
+    """The canonical encoder and decoder keep the fused body: one launch a
+    call, the layer-wise route never, at the scoring chunk as at one row."""
+    gen = torch.Generator().manual_seed(8)
+    params = init_vae(gen, VAEConfig(), device=cuda)
+    enc, dec = params["encoder"], params["decoder"]
+    hidden = [(l["w"], l["b"]) for l in enc["hidden"]]
+    heads = [(enc["mean"]["w"], enc["mean"]["b"]), (enc["logvar"]["w"], enc["logvar"]["b"])]
+    layers = dec["hidden"] + [dec["out"]]
+    for batch in (1, 65_536):
+        x = torch.randn((batch, 12), generator=gen).to(cuda)
+        z = torch.randn((batch, 10), generator=gen).to(cuda)
+        k1, k2 = _k1_counts(), _k2_counts()
+        fused_vae.stack_forward(x, hidden, heads)
+        fused_mlp.fused_mlp_apply(layers, z)
+        assert _k2_counts() == (k2[0] + 1, k2[1]) and _k1_counts() == (k1[0] + 1, k1[1])
 
 
 def test_vae_apply_on_cuda_matches_cpu(cuda):
@@ -103,9 +185,14 @@ def test_vae_apply_on_cuda_matches_cpu(cuda):
     on_card = tree_map(lambda t: t.to(cuda), params)
     with torch.inference_mode():
         got = vae_apply(on_card, x.to(cuda), noise=noise.to(cuda))
+    # the same model in float64, so that a failure says which side left it
+    f64 = vae_apply(tree_map(lambda t: t.double(), params), x.double(), noise=noise.double())
     assert len(got) == len(want)
-    for i, (g, w) in enumerate(zip(got, want)):
-        assert_close(g, w, f"vae_apply output {i}", rtol=RTOL, atol=ATOL)
+    for i, (g, w, r) in enumerate(zip(got, want, f64)):
+        card_gap = float((g.cpu().double() - r).abs().max())
+        cpu_gap = float((w.double() - r).abs().max())
+        assert_close(g, w, f"vae_apply output {i} (card against float64 {card_gap:.3g}, "
+                     f"CPU against float64 {cpu_gap:.3g})", rtol=RTOL, atol=ATOL)
 
 
 def test_kernels_refuse_autograd_and_bad_input(cuda):

@@ -77,3 +77,120 @@ def test_check_stack_rejects(case, error):
         x.requires_grad_()
     with pytest.raises(error):
         cuda_build.check_stack(x, hidden, heads, "stack_forward")
+
+
+# K1/K2's route: forward_plan cuts a stack into fused segments (runs of
+# layers no wider than 128, the heads counted as one layer of their summed
+# width) and row segments (one wider layer each)
+F, R = fused_vae.FUSED_SEGMENT, fused_vae.ROW_SEGMENT
+
+
+@pytest.mark.parametrize("dims,head_dims,segments", [
+    ((12, 80, 40, 20), (10, 10), [(F, 0, 4)]),               # canonical encoder
+    ((10, 20, 40, 80), (12,), [(F, 0, 4)]),                  # canonical decoder
+    ((5,), (3,), [(F, 0, 1)]),                               # heads only
+    ((128, 128, 128), (64, 64), [(F, 0, 3)]),                # 128 wide: still fused
+    ((300, 256, 128, 64), (32, 32), [(R, 0, 1), (R, 1, 2), (F, 2, 4)]),   # constituents encoder
+    ((312, 256, 128, 64), (32, 32), [(R, 0, 1), (R, 1, 2), (F, 2, 4)]),
+    ((32, 64, 128, 256), (300,), [(F, 0, 2), (R, 2, 3), (R, 3, 4)]),      # constituents decoder
+    ((32, 64, 128, 256), (312,), [(F, 0, 2), (R, 2, 3), (R, 3, 4)]),
+    ((129, 64), (8,), [(R, 0, 1), (F, 1, 2)]),
+    ((130, 33, 9), (5, 6), [(R, 0, 1), (F, 1, 3)]),
+    ((301, 130, 33), (5, 5), [(R, 0, 1), (R, 1, 2), (F, 2, 3)]),
+    ((32, 313), (5,), [(R, 0, 1), (R, 1, 2)]),
+    ((12, 80), (100, 29), [(F, 0, 1), (R, 1, 2)]),           # heads wider than 128 together
+    ((200,), (3,), [(R, 0, 1)]),
+])
+@pytest.mark.parametrize("batch", [1, 10_000, 1_000_003])
+def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
+    plan = fused_vae.forward_plan(batch, dims, head_dims)
+    assert [(s.kind, s.first, s.last) for s in plan.segments] == segments
+    assert plan.route == ("fused" if segments == [(F, 0, len(dims))] else "layers")
+    widths = dims + (sum(head_dims),)
+    # every layer once and in order; each segment's widths on its side of 128
+    assert plan.segments[0].first == 0 and plan.segments[-1].last == len(dims)
+    assert all(a.last == b.first for a, b in zip(plan.segments, plan.segments[1:]))
+    need = [0, 0]
+    for i, seg in enumerate(plan.segments):
+        span = widths[seg.first:seg.last + 1]
+        if seg.kind == F:
+            assert max(span) <= fused_vae.FUSED_MAX_WIDTH
+        else:
+            assert seg.last == seg.first + 1 and max(span) > fused_vae.FUSED_MAX_WIDTH
+            assert seg.tile == fused_vae._forward_tile(widths[seg.last])
+        # ping-pong: each segment but the last writes the other buffer
+        if seg is plan.segments[-1]:
+            assert seg.out == -1
+        else:
+            assert seg.out == i % 2
+            need[seg.out] = max(need[seg.out], batch * widths[seg.last])
+    assert all(f >= n and f % 4 == 0 and f - n < 4 for f, n in zip(plan.buf_floats, need))
+    assert plan.scratch_bytes == 4 * sum(plan.buf_floats)
+
+
+@pytest.mark.parametrize("n,cols", [(312, 64), (300, 64), (256, 128), (128, 128), (201, 128),
+                                    (130, 64), (64, 64), (33, 64), (32, 32), (10, 32)])
+def test_forward_tile_pads_least(n, cols):
+    """A row segment's column tile: 312 and 300 columns pad to 320 in 64-wide
+    tiles (384 in 128-wide ones), 256 fill two 128-wide tiles."""
+    assert fused_vae.FORWARD_TILE_COLS[fused_vae._forward_tile(n)] == cols
+
+
+def test_forward_scratch_at_a_million_rows():
+    """What one K2/K1 call allocates at 1,000,003 rows of the constituents
+    stacks: the two hidden activations that pass through device memory
+    (1.5 GB); the canonical stacks allocate nothing."""
+    batch = 1_000_003
+    enc = fused_vae.forward_plan(batch, (312, 256, 128, 64), (32, 32))
+    assert enc.buf_floats == (256_000_768, 128_000_384)
+    assert enc.scratch_bytes == 1_536_004_608
+    dec = fused_vae.forward_plan(batch, (32, 64, 128, 256), (312,))
+    assert dec.buf_floats == (128_000_384, 256_000_768)
+    assert fused_vae.forward_plan(batch, (12, 80, 40, 20), (10, 10)).scratch_bytes == 0
+
+
+def walk_plan(plan, x, layers, n_heads, final_relu):
+    """The plan's segments in plain PyTorch: ``layers`` are the stack's
+    (w, b) pairs, the last ``n_heads`` its heads; activations pass through
+    two buffers of the plan's sizes.  Returns the head outputs."""
+    n_hidden = len(layers) - n_heads
+    bufs = [torch.full((f,), float("nan")) for f in plan.buf_floats]
+    h = x
+    for seg in plan.segments:
+        for l in range(seg.first, seg.last):
+            if l < n_hidden:
+                h = torch.relu(h @ layers[l][0] + layers[l][1])
+            else:
+                outs = [h @ w + b for w, b in layers[n_hidden:]]
+                return tuple(torch.relu(o) if final_relu else o for o in outs)
+        buf = bufs[seg.out]
+        buf[:h.numel()] = h.reshape(-1)
+        h = buf[:h.numel()].view(h.shape)
+    raise AssertionError("the plan never reached the heads")
+
+
+@pytest.mark.parametrize("role", ["encoder", "decoder"])
+def test_plan_walk_matches_plain_and_jax(rng, role):
+    """At a small constituents-shaped stack (the widths of 100 constituents,
+    37 rows) the plain walk of K2's plan equals the port's plain version and
+    the JAX kernel (Pallas interpret mode) to atol 1e-5."""
+    from atlasvae.ops.fused_vae import _stack_fwd as jax_stack_fwd
+
+    dims, head_dims = {"encoder": ((300, 256, 128, 64), (32, 32)),
+                       "decoder": ((32, 64, 128, 256), (300,))}[role]
+    pairs = [((rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32),
+              rng.normal(size=n).astype(np.float32))
+             for k, n in list(zip(dims, dims[1:])) + [(dims[-1], n) for n in head_dims]]
+    x = rng.normal(size=(37, dims[0])).astype(np.float32)
+    t_pairs = [(torch.from_numpy(w), torch.from_numpy(b)) for w, b in pairs]
+    n_hidden = len(dims) - 1
+    plan = fused_vae.forward_plan(37, dims, head_dims)
+    assert plan.route == "layers"
+    got = walk_plan(plan, torch.from_numpy(x), t_pairs, len(head_dims), False)
+    want = jax_stack_fwd(x, pairs[:n_hidden], pairs[n_hidden:])
+    plain = fused_vae.stack_forward(torch.from_numpy(x), t_pairs[:n_hidden], t_pairs[n_hidden:])
+    assert len(got) == len(want) == len(plain) == len(head_dims)
+    for g, w, p, n in zip(got, want, plain, head_dims):
+        assert g.shape == (37, n)
+        torch.testing.assert_close(g, p, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
