@@ -5,20 +5,36 @@
 // Replaces atlasvae/ops/fused_conv.py:112 _fwd_kernel (Pallas, TPU).  That
 // kernel built an im2col patch matrix per conv row and fed the matrix unit;
 // its layout (W on the lane axis, K and M padded to the tile) is the TPU's
-// and has no place here.  Here a CTA takes work items of a few images by a
-// band of pooled rows (fused_conv.cuh), keeps their input rows and a tile of
-// the weights in shared memory, and a thread owns one (pooled pixel, map)
-// at a time: it sums the taps of every conv pixel of the window, keeps the
-// largest, adds the bias and clamps at 0.  Maps run fastest over the
-// threads, so a warp reads one broadcast input word and consecutive weights
-// per FMA and writes consecutive output words.
+// and has no place here.  Two routes, chosen from the shape by
+// ops/fused_conv_cuda.py `route`:
+//
+// * The register route (conv_pool_relu_tiles_kernel): 3x3 taps, one
+//   channel, a 2x2 pool and at most 128 maps, the jet-ID CNN's first block.
+//   A thread keeps the 9 taps and the bias of four consecutive maps in
+//   registers, loaded once, and walks a few pooled pixels: it loads the
+//   pixel's 4x4 input patch into registers once, sums the four conv pixels
+//   of the window for its four maps from them, keeps the largest of each,
+//   adds the bias, clamps at 0 and writes the four maps as one 16-byte
+//   store.  Threads run over the maps first, then the pixels, so a warp
+//   writes consecutive words of the channels-last output.
+// * The band route (conv_pool_relu_kernel), every other shape the gate takes
+//   (more channels, other taps and pools, up to 1024 maps): a CTA takes work
+//   items of a few images by a band of pooled rows (fused_conv.cuh), keeps
+//   their input rows and a tile of the weights in shared memory, and a
+//   thread owns one (pooled pixel, map) at a time, reading both operands of
+//   each FMA from shared memory.
+//
+// Both sum each conv pixel's taps with the same chain of FMAs, from 0 in
+// (dy, dx, c) order, and keep the first position of the window that reaches
+// the maximum (rows, then columns, strictly greater), as K6
+// (fused_conv_bwd.cu) recomputes them.
 //
 // Bound on an H100 at the jet-ID training batch (5,000 x 16x16x1, 3x3, 100
 // maps, pool 2x2): 5.1 MB read, 98 MB written, 1.8 GFLOP: the write bounds
 // it (0.03 ms at 3.35 TB/s; 0.026 ms of f32 work at 67 TFLOP/s).  The
-// pre-pool block (392 MB) never exists.  Two shared-memory loads per FMA keep
-// this kernel at a fraction of the f32 peak: register tiles over the window
-// and the maps are the next step.
+// pre-pool block (392 MB) never exists.
+#include <cstdint>
+
 #include "fused_conv.cuh"
 
 namespace atlasvae {
@@ -60,9 +76,86 @@ conv_pool_relu_kernel(const __grid_constant__ ConvArgs a) {
   }
 }
 
+// The register route.  blockDim (map groups, pixel slots): thread (mg, slot)
+// takes maps 4 mg .. 4 mg + 3 of pooled pixels first + k * slots, k < kTilePixels.
+constexpr int kTileMaps = 128;   // ops/fused_conv_cuda.py TILE_MAX_MAPS
+constexpr int kTilePixels = 8;
+
+__global__ void __launch_bounds__(256)
+conv_pool_relu_tiles_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                            const float* __restrict__ b, float* __restrict__ out, int H, int W,
+                            int M, int Ho, int Wo, int pixels, bool vec2, bool vec4) {
+  const int m0 = 4 * threadIdx.x;
+  const int Hc = H - 2, Wc = W - 2;
+  float wr[9][4], br[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool live = m0 + j < M;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) wr[k][j] = live ? __ldg(w + (size_t)k * M + m0 + j) : 0.f;
+    br[j] = live ? __ldg(b + m0 + j) : 0.f;
+  }
+  const int first = blockIdx.x * blockDim.y * kTilePixels + threadIdx.y;
+#pragma unroll 2
+  for (int k = 0; k < kTilePixels; ++k) {
+    const int pix = first + k * blockDim.y;
+    if (pix >= pixels) break;
+    const int ox = pix % Wo, rest = pix / Wo;
+    const int oy = rest % Ho;
+    const float* img = x + (size_t)(rest / Ho) * H * W;
+    const int y0 = 2 * oy, x0 = 2 * ox;   // a 2x2 SAME pool pads only on the high side
+    float patch[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* row = img + (size_t)(y0 + i) * W + x0;
+      const bool inside = y0 + i < H;
+      if (vec2) {   // W even: the row's four floats lie inside the image
+        const float2* row2 = reinterpret_cast<const float2*>(row);
+        const float2 lo = inside ? __ldg(row2) : make_float2(0.f, 0.f);
+        const float2 hi = inside ? __ldg(row2 + 1) : make_float2(0.f, 0.f);
+        patch[i][0] = lo.x;
+        patch[i][1] = lo.y;
+        patch[i][2] = hi.x;
+        patch[i][3] = hi.y;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) patch[i][j] = inside && x0 + j < W ? __ldg(row + j) : 0.f;
+      }
+    }
+    float best[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool valid = y0 + t < Hc && x0 + q < Wc;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float acc = 0.f;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+              acc = fmaf(patch[t + dy][q + dx], wr[3 * dy + dx][j], acc);
+          if (valid && acc > best[j]) best[j] = acc;   // strictly: a later tie does not take over
+        }
+      }
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = fmaxf(best[j] + br[j], 0.f);
+    float* dst = out + (size_t)pix * M + m0;
+    if (vec4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (m0 + j < M) dst[j] = o[j];
+    }
+  }
+}
+
 }  // namespace atlasvae
 
-// out (N, Ho, Wo, M).  Returns 0, a cudaError, -1 for a shape outside the
+// The band route: out (N, Ho, Wo, M).  Returns 0, a cudaError, -1 for a shape outside the
 // gate (K = kh*kw*C <= 512, M <= 1024, the kernel inside the image) or -2
 // when one pooled row of one image does not fit a CTA's shared memory.
 extern "C" int atlasvae_conv_pool_relu(const void* x, const void* w, const void* b, void* out,
@@ -83,5 +176,29 @@ extern "C" int atlasvae_conv_pool_relu(const void* x, const void* w, const void*
   const long long cap = 132 * 8;  // 8 CTAs of 256 threads fill an SM; a constant, not the card's
   const int grid = (int)(a.p.items < cap ? a.p.items : cap);
   conv_pool_relu_kernel<<<grid, kConvThreads, a.p.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The register route: x (N, H, W, 1), w (3, 3, 1, M), out (N, Ho, Wo, M)
+// for a 2x2 pool.  Returns 0, a cudaError, or -1 for a shape it does not
+// take (M above 128, an image smaller than the taps, 2^31 pooled pixels).
+extern "C" int atlasvae_conv_pool_relu_tiles(const void* x, const void* w, const void* b,
+                                             void* out, int N, int H, int W, int M,
+                                             void* stream) {
+  using namespace atlasvae;
+  if (N < 1 || H < 3 || W < 3 || M < 1 || M > kTileMaps) return -1;
+  const int Ho = (H - 2 + 1) / 2, Wo = (W - 2 + 1) / 2;
+  const long long pixels = (long long)N * Ho * Wo;
+  if (pixels > 2147483647LL - 256LL * kTilePixels) return -1;
+  const int groups = (M + 3) / 4;
+  const int slots = 256 / groups;
+  const long long per_cta = (long long)slots * kTilePixels;
+  const long long grid = (pixels + per_cta - 1) / per_cta;
+  const bool vec2 = W % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  const bool vec4 = M % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  conv_pool_relu_tiles_kernel<<<(unsigned)grid, dim3(groups, slots), 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<float*>(out), H, W, M, Ho, Wo, (int)pixels, vec2, vec4);
   return (int)cudaGetLastError();
 }

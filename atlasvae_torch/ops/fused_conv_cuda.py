@@ -1,10 +1,13 @@
 """K5 and K6: the jet-ID towers' input conv block and its backward as
 hand-written CUDA kernels.
 
-``conv_pool_relu`` launches ``csrc/fused_conv.cu`` and ``conv_pool_relu_backward``
-``csrc/fused_conv_bwd.cu`` (plus its launch that adds the per-CTA partial
-sums in a fixed order) on contiguous float32 CUDA tensors.  They compute
-what ``ops.fused_conv.conv1_pool_relu_plain`` and
+``conv_pool_relu`` launches ``csrc/fused_conv.cu`` by one of two routes that
+``route`` picks from the shape: the register route (3x3 taps, one channel,
+a 2x2 pool, at most 128 maps: the jet-ID CNN's first block) or the band
+route (every other shape the gate takes).  ``conv_pool_relu_backward``
+launches ``csrc/fused_conv_bwd.cu`` (plus its launch that adds the per-CTA
+partial sums in a fixed order).  Both take contiguous float32 CUDA tensors
+and compute what ``ops.fused_conv.conv1_pool_relu_plain`` and
 ``conv1_pool_relu_backward_plain`` compute; ``ops.fused_conv.FusedConv1``
 chooses between kernel and plain version by the tensors' device.  Both raise
 on anything the kernels do not take and never run another path.
@@ -17,23 +20,37 @@ import torch
 
 from . import cuda_build
 
-# Kernel launches made by conv_pool_relu (K5) and conv_pool_relu_backward
-# (K6); reset and read by chip_smoke.py.
+# Kernel launches made by conv_pool_relu (K5: its register route, its band
+# route) and conv_pool_relu_backward (K6); reset and read by chip_smoke.py.
 launches = 0
+band_launches = 0
 backward_launches = 0
 
 MAX_TAPS = 512    # kh * kw * C
 MAX_MAPS = 1024
+ROUTES = ("tiles", "bands")
+TILE_MAX_MAPS = 128   # kTileMaps in csrc/fused_conv.cu
 
 _SHAPE = [ctypes.c_int] * 9
 
 
 @functools.cache
-def _forward_entry():
-    fn = cuda_build.load("fused_conv").atlasvae_conv_pool_relu
-    fn.argtypes = [ctypes.c_void_p] * 4 + _SHAPE + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _forward_entries():
+    lib = cuda_build.load("fused_conv")
+    bands, tiles = lib.atlasvae_conv_pool_relu, lib.atlasvae_conv_pool_relu_tiles
+    bands.argtypes = [ctypes.c_void_p] * 4 + _SHAPE + [ctypes.c_void_p]
+    tiles.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    bands.restype = tiles.restype = ctypes.c_int
+    return tiles, bands
+
+
+def route(x_shape, w_shape, pool):
+    """K5's route for a shape the kernels take: "tiles" for 3x3 taps on one
+    channel, a 2x2 pool and at most TILE_MAX_MAPS maps, "bands" for the rest."""
+    kh, kw, c, m = w_shape
+    if c == 1 and (kh, kw) == (3, 3) and tuple(pool) == (2, 2) and m <= TILE_MAX_MAPS:
+        return "tiles"
+    return "bands"
 
 
 @functools.cache
@@ -97,17 +114,38 @@ def _raise(err, what, x, w):
     cuda_build.check(err, f"{what} kernel")
 
 
-def conv_pool_relu(x, w, b, pool):
-    """K5: relu(maxpool_SAME(conv2d_VALID(x, w)) + b) -> (N, Ho, Wo, M)."""
-    global launches
+def conv_pool_relu(x, w, b, pool, force_route=None):
+    """K5: relu(maxpool_SAME(conv2d_VALID(x, w)) + b) -> (N, Ho, Wo, M).
+    ``force_route`` ("tiles" or "bands") runs a route other than ``route``
+    picks, where it takes the shape: for tests and timings only."""
+    global launches, band_launches
     shape = _check("conv_pool_relu", x, w, b, pool)
+    which = route(x.shape, w.shape, shape[7:])
+    if force_route == "bands":
+        which = "bands"
+    elif force_route == "tiles" and which != "tiles":
+        raise ValueError(f"conv_pool_relu: the register route takes 3x3 taps on one channel, "
+                         f"a 2x2 pool and at most {TILE_MAX_MAPS} maps, got w "
+                         f"{tuple(w.shape)}, pool {tuple(shape[7:])}")
+    elif force_route not in (None, "tiles", "bands"):
+        raise ValueError(f"conv_pool_relu: force_route must be one of {ROUTES}, "
+                         f"got {force_route!r}")
     out = torch.empty(out_shape(x.shape, w.shape, shape[7:]), device=x.device,
                       dtype=torch.float32)
+    tiles, bands = _forward_entries()
+    n, h, wd, _, _, _, m, _, _ = shape
     with torch.cuda.device(x.device):
-        err = _forward_entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               *shape, torch.cuda.current_stream().cuda_stream)
-    _raise(err, "conv_pool_relu", x, w)
-    launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if which == "tiles":
+            err = tiles(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, wd, m,
+                        stream)
+        else:
+            err = bands(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), *shape, stream)
+    _raise(err, f"conv_pool_relu ({which} route)", x, w)
+    if which == "tiles":
+        launches += 1
+    else:
+        band_launches += 1
     return out
 
 

@@ -30,14 +30,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                route (its per-launch device ms at 1,000,003 rows), with the
                same bits asked of a second call; the wrapper's host time of
                one canonical K1 call; the Sinkhorn
-               EMD kernel against its plain version at (8192, 100),
+               EMD kernel (K4) against its plain version at (8192, 100),
                (65,536, 20), (1,000, 128) and at the scoring path's chunk
                (13,421, 100), 100 iterations, and at 20 iterations on a
                permuted copy (true EMD 0) and on a far transport at
                (8192, 100) and (1,000, 233), the widest jet it takes, each
                beside the plain version in float64, with the same bits
                asked of a second call (no PyTorch call computes a staged
-               Sinkhorn, so it has no library yardstick); the fused conv
+               Sinkhorn, so it has no library yardstick): every jet of at
+               most 128 constituents on its register route, with the wide
+               route's time on the same clouds beside it, the 233-wide
+               ones on the wide route; the fused conv
                block (K5) and its backward (K6) against their plain versions
                at the jet-ID training batch (5,000 x 16x16x1 -> 3x3, 100
                maps, pool 2x2), the predict chunk (20,000), a ragged batch,
@@ -45,7 +48,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                shapes of the CPU tests (two channels, pools of 3 and 4 with
                a low pad, 130 maps) on dense and on sparse, tied images,
                with the same bits asked of a second call, beside cuDNN's
-               conv + max_pool2d + relu (autograd through it for K6);
+               conv + max_pool2d + relu (autograd through it for K6): K5's
+               register route at the jet-ID shapes (3x3, one channel, pool
+               2x2, at most 128 maps), with its band route's time on the
+               same inputs beside it, the band route at the odd shapes;
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
                also against float64, with the card's bits asked again at
@@ -82,7 +88,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                with MAE, Latent, KLD, JSD, EMD and KSD, the counters set to
                0 just before each file; check rows, finiteness, that K1
                and K2 ran on their layer-wise route only and the EMD
-               kernel 5 times a file, EMD and KSD against the plain CPU path on the first
+               kernel 5 times a file on its register route and never on
+               its wide route, EMD and KSD against the plain CPU path on the first
                1,024 jets; print each metric's AUC (bkg against signal);
                then a warm timed run and a profiled run;
 8. jetid    -- the jet-ID CNN at the CLI's default widths (16x16 image ->
@@ -92,7 +99,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                200,000-event synthetic files, the counters set to 0 just
                before; check the epochs' ticker, the files, the
                probabilities and that K5 ran once a training step,
-               validation batch and predict chunk and K6 once a training
+               validation batch and predict chunk, on its register route
+               and never on its band route, and K6 once a training
                step; then serve (--n_epochs 0 --model_in)
                in the same folder: the same probabilities, no K6, and the
                first 4,096 jets against the plain CPU path; accuracy, AUC
@@ -100,7 +108,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                against the plain CPU path at dropout 0 (first-step
                gradients, 2-epoch losses); a warm timed run and a profiled
                epoch;
-9. kernels  -- one JSON line with every ported kernel (K1, K2 and K3 as two
+9. kernels  -- one JSON line with every ported kernel (K1 to K5 as two
                entries each, one a route);
 10. last line: {"ok": true, "device": {...}}.
 
@@ -172,12 +180,21 @@ KERNELS = {
     "stack_backward_layers": dict(source="atlasvae_torch/csrc/fused_vae_bwd.cu",
                                   replaces="atlasvae/ops/fused_vae.py:130",
                                   main_shape="const_train encoder"),
+    # K4's register route (jets of at most 128 constituents) and its wide route
     "emd_sinkhorn": dict(source="atlasvae_torch/csrc/emd_sinkhorn.cu",
                          replaces="atlasvae/ops/emd_pallas.py:45",
                          main_shape="emd_slice chunk"),
+    "emd_sinkhorn_wide": dict(source="atlasvae_torch/csrc/emd_sinkhorn.cu",
+                              replaces="atlasvae/ops/emd_pallas.py:45",
+                              main_shape="1000x233 far"),
+    # K5's register route (the jet-ID block: 3x3, one channel, pool 2x2) and
+    # its band route (every other shape)
     "fused_conv": dict(source="atlasvae_torch/csrc/fused_conv.cu",
                        replaces="atlasvae/ops/fused_conv.py:112",
                        main_shape="jetid train batch sparse"),
+    "fused_conv_bands": dict(source="atlasvae_torch/csrc/fused_conv.cu",
+                             replaces="atlasvae/ops/fused_conv.py:112",
+                             main_shape="two channels pool 3"),
     "fused_conv_backward": dict(source="atlasvae_torch/csrc/fused_conv_bwd.cu",
                                 replaces="atlasvae/ops/fused_conv.py:130",
                                 main_shape="jetid train batch sparse"),
@@ -246,7 +263,9 @@ def counters():
             "stack_forward_layers": fused_vae.layered_launches,
             "stack_backward": fused_vae.backward_launches,
             "stack_backward_layers": fused_vae.layered_backward_launches,
-            "emd_sinkhorn": emd_cuda.launches, "fused_conv": fused_conv_cuda.launches,
+            "emd_sinkhorn": emd_cuda.launches, "emd_sinkhorn_wide": emd_cuda.wide_launches,
+            "fused_conv": fused_conv_cuda.launches,
+            "fused_conv_bands": fused_conv_cuda.band_launches,
             "fused_conv_backward": fused_conv_cuda.backward_launches}
 
 
@@ -255,8 +274,9 @@ def reset_counters():
     fused_mlp.launches = fused_vae.launches = fused_vae.backward_launches = 0
     fused_mlp.layered_launches = fused_vae.layered_launches = 0
     fused_vae.layered_backward_launches = 0
-    emd_cuda.launches = 0
-    fused_conv_cuda.launches = fused_conv_cuda.backward_launches = 0
+    emd_cuda.launches = emd_cuda.wide_launches = 0
+    fused_conv_cuda.launches = fused_conv_cuda.band_launches = 0
+    fused_conv_cuda.backward_launches = 0
 
 
 def log(phase, **facts):
@@ -544,6 +564,11 @@ def parity_emd(gen, batch, n, device, kind="near", n_iters=EMD_ITERS):
     # epilogue cost beside the iterations (9 in 10 of them left out)
     res["ms_one_iter_a_stage"] = time_ms(
         lambda: emd_cuda.emd_sinkhorn(p, q, 1.0, EMD_STAGES, EMD_EPS, EMD_STAGES), 10, 2)
+    res["route"] = emd_cuda.route(n)[0]
+    if res["route"] == "tiles":   # the wide route on the same clouds, for comparison
+        res["wide_route_ms"] = time_ms(
+            lambda: emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, EMD_EPS, EMD_STAGES,
+                                          force_route="wide"), 10, 2)
     if not ok or not same_bits:
         raise AssertionError(f"emd_sinkhorn vs its plain version at {res}: gap over rtol "
                              f"{EMD_RTOL}*|ref| + " + (f"{EMD_MASS_TOL}*min(sum pt)" if kind == "permuted"
@@ -608,6 +633,7 @@ def parity_conv(gen, shape, sparse, device):
         w_, b_ = w_lib.detach().requires_grad_(), b.detach().requires_grad_()
         return torch.autograd.grad(library(w_, b_), (w_, b_), g_lib)
 
+    which = fused_conv_cuda.route(x.shape, w.shape, pool)
     kernel = lambda: fused_conv_cuda.conv_pool_relu(x, w, b, pool)
     kernel_bwd = lambda: fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool)
     plain = lambda: fused_conv.conv1_pool_relu_plain(x, w, b, pool)
@@ -632,8 +658,9 @@ def parity_conv(gen, shape, sparse, device):
     del got, again, want, lib, diff
     iters = 30 if n * h * wd <= 2_000_000 else 10
     out = {}
+    fwd_name = "fused_conv" if which == "tiles" else "fused_conv_bands"
     for kname, backward, fn, fn_plain, fn_lib in (
-            ("fused_conv", False, kernel, plain, library),
+            (fwd_name, False, kernel, plain, library),
             ("fused_conv_backward", True, kernel_bwd, plain_bwd, library_backward)):
         b_ms, b_by, flops, nbytes = bound_conv(n, h, wd, c, kh, kw, m, pool, backward)
         res = dict(shape=name + (" sparse" if sparse else ""), batch=n, image=[h, wd, c],
@@ -643,7 +670,11 @@ def parity_conv(gen, shape, sparse, device):
                    flops=flops, bytes=nbytes)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         out[kname] = res
-    out["fused_conv"]["max_abs_err"] = err_fwd
+    out[fwd_name]["max_abs_err"] = err_fwd
+    out[fwd_name]["route"] = which
+    if which == "tiles":   # the band route on the same inputs, for comparison
+        out[fwd_name]["bands_route_ms"] = time_ms(
+            lambda: fused_conv_cuda.conv_pool_relu(x, w, b, pool, force_route="bands"), iters)
     out["fused_conv_backward"].update(max_abs_err=err_bwd, max_err_over_leaf_scale=rel_bwd)
     if not (ok and ok_bwd and same_bits and lib_ok):
         raise AssertionError(f"fused conv block vs its plain version at {out}: forward over atol "
@@ -769,8 +800,9 @@ def phase_parity(device):
     for shape, batch, n, kind, n_iters in cases:
         res = parity_emd(gen, batch, n, device, kind, n_iters)
         res["shape"] = shape
-        results["emd_sinkhorn"].append(res)
-        log("parity", kernel="emd_sinkhorn", shape=json.dumps(shape), batch=batch, n_const=n,
+        name = "emd_sinkhorn" if res["route"] == "tiles" else "emd_sinkhorn_wide"
+        results[name].append(res)
+        log("parity", kernel=name, shape=json.dumps(shape), batch=batch, n_const=n,
             n_iters=n_iters, mean_emd=f"{res['mean_emd']:.4g}", mean_mass=f"{res['mean_mass']:.4g}",
             max_abs_err=f"{res['max_abs_err']:.3g}", max_rel_err=f"{res['max_rel_err']:.3g}",
             err_over_mass=f"{res['err_over_mass']:.3g}",
@@ -778,6 +810,7 @@ def phase_parity(device):
             plain_vs_f64_over_mass=f"{res['plain_vs_f64_over_mass']:.3g}",
             same_bits=res["same_bits"], ms=f"{res['ms']:.4f}",
             ms_one_iter_a_stage=f"{res['ms_one_iter_a_stage']:.4f}",
+            **({"wide_route_ms": f"{res['wide_route_ms']:.4f}"} if "wide_route_ms" in res else {}),
             plain_ms=f"{res['plain_ms']:.4f}",
             library_ms="none", bound_ms=f"{res['bound_ms']:.4f}", bound_by=res["bound_by"],
             tflops=f"{res['tflops']:.2f}", jets_per_s=f"{res['jets_per_s']:.0f}")
@@ -794,6 +827,8 @@ def phase_parity(device):
                     **({"max_err_over_leaf_scale": f"{res['max_err_over_leaf_scale']:.3g}"}
                        if "max_err_over_leaf_scale" in res else {}),
                     same_bits=res["same_bits"], ms=f"{res['ms']:.4f}",
+                    **({"bands_route_ms": f"{res['bands_route_ms']:.4f}"}
+                       if "bands_route_ms" in res else {}),
                     plain_ms=f"{res['plain_ms']:.4f}", library_ms=f"{res['library_ms']:.4f}",
                     bound_ms=f"{res['bound_ms']:.4f}", bound_by=res["bound_by"],
                     tflops=f"{res['tflops']:.2f}")
@@ -803,8 +838,9 @@ def phase_parity(device):
 
 def profile_slice(run, phase="profile"):
     """A profiled run of a path: device busy share of the wall time, and
-    the device time of the busiest kernels.  Returns the idle share and the
-    device-side rows (microseconds, name, count).
+    the device time of the busiest kernels and of the port's own kernels.
+    Returns the idle share and the device-side rows (microseconds, name,
+    count).
 
     Busy time sums the device-side events only (kernels, copies, memsets):
     a host operator's own device time repeats the time of the kernels it
@@ -825,7 +861,8 @@ def profile_slice(run, phase="profile"):
     busy_us = sum(r[0] for r in rows)
     log(phase, wall_ms=f"{wall_us / 1e3:.2f}", device_busy_ms=f"{busy_us / 1e3:.3f}",
         idle_share=f"{1 - busy_us / wall_us:.4f}", device_events=sum(r[2] for r in rows),
-        top=json.dumps([(k[:60], n, round(d / 1e3, 4)) for d, k, n in rows[:10]]))
+        top=json.dumps([(k[:60], n, round(d / 1e3, 4)) for d, k, n in rows[:10]]),
+        ours=json.dumps([(k[:60], n, round(d / 1e3, 4)) for d, k, n in rows if "atlasvae::" in k]))
     return 1 - busy_us / wall_us, rows
 
 
@@ -1269,9 +1306,12 @@ def phase_emd_slice(device, workdir):
                 raise AssertionError(f"kernel {kernel} scoring {name}: layer-wise route "
                                      f"{launches[name][kernel + '_layers']} times (want > 0), "
                                      f"fused body {launches[name][kernel]} (want 0)")
-        if launches[name]["emd_sinkhorn"] != want_emd_launches:
+        if (launches[name]["emd_sinkhorn"] != want_emd_launches
+                or launches[name]["emd_sinkhorn_wide"] != 0):
             raise AssertionError(f"emd_sinkhorn launched {launches[name]['emd_sinkhorn']} times "
-                                 f"scoring {name}, want {want_emd_launches}")
+                                 f"on the register route and {launches[name]['emd_sinkhorn_wide']} "
+                                 f"on the wide route scoring {name}, want {want_emd_launches} "
+                                 "and 0")
 
     # reference: the plain CPU path on the first jets of the background file,
     # with the latent noise the scorer drew for its chunk (CUDA generator 0)
@@ -1468,7 +1508,7 @@ def phase_jetid(device, workdir):
     valid_batches = -(-n_valid // JETID_BATCH)
     chunks = -(-n_valid // JETID_CHUNK)
     want = {"fused_conv": JETID_EPOCHS * (steps + valid_batches) + chunks,
-            "fused_conv_backward": JETID_EPOCHS * steps}
+            "fused_conv_bands": 0, "fused_conv_backward": JETID_EPOCHS * steps}
     for name, count in want.items():
         if train_launches[name] != count:
             raise AssertionError(f"{name} launched {train_launches[name]} times in the training "
@@ -1487,9 +1527,10 @@ def phase_jetid(device, workdir):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     serve_launches = counters()
-    if serve_launches["fused_conv"] != chunks or serve_launches["fused_conv_backward"] != 0:
+    if (serve_launches["fused_conv"] != chunks or serve_launches["fused_conv_bands"] != 0
+            or serve_launches["fused_conv_backward"] != 0):
         raise AssertionError(f"serving launched {serve_launches}: want fused_conv {chunks} times "
-                             "and no backward")
+                             "on its register route, none on the band route and no backward")
     _, served_labels, served, report = _jetid_report(os.path.join(out_dir, "served.pkl"), device)
     gap = float(np.abs(served - probs).max())
     if not np.array_equal(served_labels, v_labels) or gap > 1e-6:

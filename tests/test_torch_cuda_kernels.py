@@ -434,10 +434,71 @@ def test_emd_sinkhorn_small_emd_beside_large_pt(cuda, batch, n, kind):
     assert bool(((want - exact).abs() <= 2e-5 * exact.abs() + 1e-5 * mass).all())
 
 
+# K4's two routes at the widths around their edges: the register route's
+# tiles (8, 16, 20, 32 packed a warp or less a pair; 64, 112, 128 several
+# warps) and the wide route, which takes every n up to MAX_CONST
+EMD_WIDTHS = [1, 20, 32, 33, 100, 128, emd_cuda.MAX_CONST]
+EMD_ROUTE_CASES = [(n, which) for n in EMD_WIDTHS for which in emd_cuda.ROUTES
+                   if which == "wide" or n <= emd_cuda.TILES[-1]]
+
+
+def _route_counts():
+    return emd_cuda.launches, emd_cuda.wide_launches
+
+
+@pytest.mark.parametrize("kind", ["near", "permuted", "far"])
+@pytest.mark.parametrize("n,which", EMD_ROUTE_CASES)
+def test_emd_sinkhorn_routes_match_plain(cuda, n, which, kind):
+    """Each route at each width, on a ragged batch (the packed tiles' last
+    CTA half full): the near clouds at 100 iterations, rtol 2e-5 / atol 1e-6;
+    a permuted copy (true EMD 0) and a far copy at 20 iterations, the bars of
+    test_emd_sinkhorn_small_emd_beside_large_pt; the same bits on a second
+    call; one launch counted on the route, none on the other."""
+    gen = torch.Generator().manual_seed(31 * n + len(kind))
+    p, q = _clouds(gen, 67, n, cuda)
+    n_iters = 100
+    if kind != "near":
+        q = p.flip(1).contiguous()
+        n_iters = 20
+    if kind == "far":
+        q[..., 1] += 0.8
+        q[..., 2] -= 0.6
+    before = _route_counts()
+    got = emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, 0.01, force_route=which)
+    assert _route_counts() == (before[0] + (which == "tiles"), before[1] + (which == "wide"))
+    want = emd._sinkhorn_emd(p, q, 1.0, n_iters, 0.01)
+    assert got.shape == (67,) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, 0.01, force_route=which))
+    if kind != "permuted":
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
+        return
+    mass = torch.minimum(p[..., 0].clamp_min(0).sum(1), q[..., 0].clamp_min(0).sum(1))
+    assert bool(((got - want).abs() <= 2e-5 * want.abs() + 1e-5 * mass).all())
+
+
+def test_emd_sinkhorn_takes_the_route_of_its_width(cuda):
+    """Without force_route every width runs the route ``route`` names, and
+    the register route refuses a jet wider than its largest tile."""
+    gen = torch.Generator().manual_seed(5)
+    for n in EMD_WIDTHS:
+        p, q = _clouds(gen, 3, n, cuda)
+        before = _route_counts()
+        emd_cuda.emd_sinkhorn(p, q, 1.0, 5, 0.01)
+        which = emd_cuda.route(n)[0]
+        assert _route_counts() == (before[0] + (which == "tiles"), before[1] + (which == "wide"))
+    wide = _clouds(gen, 3, emd_cuda.TILES[-1] + 1, cuda)
+    before = _route_counts()
+    with pytest.raises(ValueError, match="register route takes at most"):
+        emd_cuda.emd_sinkhorn(*wide, force_route="tiles")
+    with pytest.raises(ValueError, match="force_route"):
+        emd_cuda.emd_sinkhorn(*wide, force_route="fast")
+    assert _route_counts() == before
+
+
 def test_emd_sinkhorn_rejects_bad_input(cuda):
     gen = torch.Generator().manual_seed(9)
     p, q = _clouds(gen, 4, 6, cuda)
-    before = emd_cuda.launches
+    before = _route_counts()
     wide = torch.zeros((4, 6, 4), device=cuda)
     for bad_p, bad_q in ((p.double(), q.double()),               # float64
                          (p, q[:, :5].contiguous()),             # other n
@@ -455,7 +516,7 @@ def test_emd_sinkhorn_rejects_bad_input(cuda):
         emd_cuda.emd_sinkhorn(p, q, eps_final=0.0)
     with pytest.raises(NotImplementedError, match="no gradient"):
         emd_cuda.emd_sinkhorn(p.clone().requires_grad_(), q)
-    assert emd_cuda.launches == before
+    assert _route_counts() == before
     # the widest jet the kernel takes still runs
     p, q = _clouds(gen, 2, emd_cuda.MAX_CONST, cuda)
     torch.testing.assert_close(emd_cuda.emd_sinkhorn(p, q), emd._sinkhorn_emd(p, q, 1.0, 100, 0.01),
@@ -488,16 +549,33 @@ def _conv_case(shape, device, sparse, seed=0):
     return x.to(device), w.to(device), b.to(device), gen
 
 
+def _conv_route(shape):
+    n, h, wd, c, kh, kw, m, pool = shape
+    return fused_conv_cuda.route((n, h, wd, c), (kh, kw, c, m), pool)
+
+
+# K5's band route takes every shape, its register route the jet-ID block's
+CONV_ROUTE_CASES = [(shape, which) for shape in CONV_SHAPES for which in fused_conv_cuda.ROUTES
+                    if which == "bands" or _conv_route(shape) == "tiles"]
+
+
+def _conv_counts():
+    return fused_conv_cuda.launches, fused_conv_cuda.band_launches
+
+
 @pytest.mark.parametrize("sparse", [False, True])
-@pytest.mark.parametrize("shape", CONV_SHAPES)
-def test_conv_pool_relu_matches_plain(cuda, shape, sparse):
+@pytest.mark.parametrize("shape,which", CONV_ROUTE_CASES)
+def test_conv_pool_relu_matches_plain(cuda, shape, which, sparse):
+    """Each route of K5 at each shape it takes, the same bits on a second
+    call and one launch counted on that route; then K6 at the same shape."""
     x, w, b, gen = _conv_case(shape, cuda, sparse)
     pool = shape[-1]
-    before = fused_conv_cuda.launches
-    got = fused_conv_cuda.conv_pool_relu(x, w, b, pool)
-    assert fused_conv_cuda.launches == before + 1
+    before = _conv_counts()
+    got = fused_conv_cuda.conv_pool_relu(x, w, b, pool, force_route=which)
+    assert _conv_counts() == (before[0] + (which == "tiles"), before[1] + (which == "bands"))
     want = fused_conv.conv1_pool_relu_plain(x, w, b, pool)
     _close([got], [want])
+    assert torch.equal(got, fused_conv_cuda.conv_pool_relu(x, w, b, pool, force_route=which))
 
     g = (torch.randn(want.shape, generator=gen) / shape[0]).to(cuda)
     before = fused_conv_cuda.backward_launches
@@ -528,6 +606,28 @@ def test_fused_conv1_function_on_cuda_matches_cpu(cuda):
         assert float((got_leaf - want_leaf).abs().max()) <= GRAD_TOL * float(want_leaf.abs().max())
 
 
+def test_conv_pool_relu_takes_the_route_of_its_shape(cuda):
+    """Without force_route every shape runs the route ``route`` names, and
+    the two routes give the same bits where both take the shape (one chain
+    of FMAs a conv pixel, the same first-match rule)."""
+    for shape in CONV_SHAPES:
+        x, w, b, _ = _conv_case(shape, cuda, sparse=True)
+        before = _conv_counts()
+        got = fused_conv_cuda.conv_pool_relu(x, w, b, shape[-1])
+        which = _conv_route(shape)
+        assert _conv_counts() == (before[0] + (which == "tiles"), before[1] + (which == "bands"))
+        if which == "tiles":
+            assert torch.equal(got, fused_conv_cuda.conv_pool_relu(x, w, b, shape[-1],
+                                                                   force_route="bands"))
+    x, w, b, _ = _conv_case(CONV_SHAPES[1], cuda, sparse=False)
+    before = _conv_counts()
+    with pytest.raises(ValueError, match="register route takes"):
+        fused_conv_cuda.conv_pool_relu(x, w, b, CONV_SHAPES[1][-1], force_route="tiles")
+    with pytest.raises(ValueError, match="force_route"):
+        fused_conv_cuda.conv_pool_relu(x, w, b, CONV_SHAPES[1][-1], force_route="fast")
+    assert _conv_counts() == before
+
+
 def test_conv_kernels_refuse_bad_input(cuda):
     x, w, b, _ = _conv_case((4, 16, 16, 1, 3, 3, 10, (2, 2)), cuda, sparse=False)
     pool = (2, 2)
@@ -549,9 +649,12 @@ def test_conv_kernels_refuse_bad_input(cuda):
         fused_conv_cuda.conv_pool_relu(x, w, b, (2, 2, 2))
     with pytest.raises(ValueError, match="not the output's shape"):
         fused_conv_cuda.conv_pool_relu_backward(x, w, b, g[:, :6].contiguous(), pool)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="shared memory"):   # the band route stages rows
         wide = torch.zeros((1, 4, 40000, 1), device=cuda)
-        fused_conv_cuda.conv_pool_relu(wide, w, b, pool)
+        fused_conv_cuda.conv_pool_relu(wide, w, b, pool, force_route="bands")
+    # the register route keeps no row in shared memory: the same image runs
+    torch.testing.assert_close(fused_conv_cuda.conv_pool_relu(wide, w, b, pool),
+                               fused_conv.conv1_pool_relu_plain(wide, w, b, pool))
 
 
 def test_train_classifier_holds_cudnn_float32_with_the_flag_on(cuda, monkeypatch):

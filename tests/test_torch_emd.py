@@ -236,3 +236,35 @@ def test_cuda_wrapper_checks_before_it_launches(rng):
     np.testing.assert_array_equal(
         emd._emd_batch(torch.from_numpy(jp), torch.from_numpy(jq), 1.0, 10, 0.01).numpy(),
         _plain(jp, jq, 10))
+
+
+def test_route_choice_covers_every_width_once():
+    """Every jet width the kernel takes has exactly one route: the register
+    route's smallest tile that holds it up to the largest tile, the wide
+    route above; widths outside 1..MAX_CONST are refused."""
+    tiles = emd_cuda.TILES
+    assert list(tiles) == sorted(set(tiles)) and tiles[-1] < emd_cuda.MAX_CONST
+    taken = {which: [] for which in emd_cuda.ROUTES}
+    for n in range(1, emd_cuda.MAX_CONST + 1):
+        which, tile = emd_cuda.route(n)
+        taken[which].append(n)
+        if which == "tiles":
+            assert tile == min(t for t in tiles if t >= n)
+        else:
+            assert tile is None and n > tiles[-1]
+    assert taken["tiles"] == list(range(1, tiles[-1] + 1))
+    assert taken["wide"] == list(range(tiles[-1] + 1, emd_cuda.MAX_CONST + 1))
+    for n in (0, emd_cuda.MAX_CONST + 1):
+        with pytest.raises(ValueError, match=f"at most {emd_cuda.MAX_CONST}"):
+            emd_cuda.route(n)
+
+
+@pytest.mark.parametrize("force_route", [None, "tiles", "wide", "fast"])
+def test_cuda_wrapper_refuses_cpu_tensors_on_every_route(rng, force_route):
+    """Whatever route is asked for, a CPU tensor is refused before anything
+    is built or launched."""
+    jp, jq = _clouds(rng, 2, 4)
+    before = (emd_cuda.launches, emd_cuda.wide_launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        emd_cuda.emd_sinkhorn(torch.from_numpy(jp), torch.from_numpy(jq), force_route=force_route)
+    assert (emd_cuda.launches, emd_cuda.wide_launches) == before == (0, 0)

@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from atlasvae.ops import fused_conv as jax_fused
-from atlasvae_torch.ops import fused_conv
+from atlasvae_torch.ops import fused_conv, fused_conv_cuda
 
 FWD_TOL = 2e-6
 GRAD_TOL = 2e-4
@@ -132,3 +132,42 @@ def test_a_cuda_tensor_never_takes_the_plain_version():
     w = torch.zeros((3, 3, 1, 4), device="meta")
     with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
         fused_conv.fused_conv1_pool_relu(x, w, torch.zeros(4, device="meta"), (2, 2))
+
+
+# chip_smoke.py's CONV_SHAPES (name, N, H, W, C, kh, kw, M, pool) and the
+# route K5 takes at each: the jet-ID block's shapes on the register route,
+# the odd ones on the band route
+CHIP_CONV_ROUTES = {
+    "jetid train batch": "tiles", "jetid predict chunk": "tiles", "ragged batch": "tiles",
+    "reference tower": "tiles", "5x16x16 10 maps": "tiles", "two channels pool 3": "bands",
+    "pool 3 low pad": "bands", "130 maps": "bands", "pool 4": "bands",
+}
+
+
+def test_route_choice_takes_each_chip_smoke_shape():
+    import chip_smoke
+    assert {shape[0] for shape in chip_smoke.CONV_SHAPES} == set(CHIP_CONV_ROUTES)
+    for name, n, h, wd, c, kh, kw, m, pool in chip_smoke.CONV_SHAPES:
+        assert fused_conv.supported((n, h, wd, c), (kh, kw, c, m), pool)
+        assert fused_conv_cuda.route((n, h, wd, c), (kh, kw, c, m), pool) == \
+            CHIP_CONV_ROUTES[name], name
+    # the register route's edges: one more map, another pool, another kernel
+    assert fused_conv_cuda.route((8, 16, 16, 1), (3, 3, 1, 128), (2, 2)) == "tiles"
+    assert fused_conv_cuda.route((8, 16, 16, 1), (3, 3, 1, 129), (2, 2)) == "bands"
+    assert fused_conv_cuda.route((8, 16, 16, 1), (3, 3, 1, 100), (3, 3)) == "bands"
+    assert fused_conv_cuda.route((8, 16, 16, 1), (2, 3, 1, 100), (2, 2)) == "bands"
+
+
+@pytest.mark.parametrize("force_route", [None, "tiles", "bands", "fast"])
+def test_cuda_wrappers_refuse_cpu_tensors_before_launching(force_route):
+    """Whatever route is asked for, K5's and K6's wrappers refuse a CPU
+    tensor before anything is built or launched."""
+    x, w, b = torch.zeros((2, 16, 16, 1)), torch.zeros((3, 3, 1, 8)), torch.zeros(8)
+    counts = lambda: (fused_conv_cuda.launches, fused_conv_cuda.band_launches,
+                      fused_conv_cuda.backward_launches)
+    before = counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_conv_cuda.conv_pool_relu(x, w, b, (2, 2), force_route=force_route)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_conv_cuda.conv_pool_relu_backward(x, w, b, torch.zeros((2, 7, 7, 8)), (2, 2))
+    assert counts() == before == (0, 0, 0)
