@@ -76,9 +76,9 @@ conv_pool_relu_kernel(const __grid_constant__ ConvArgs a) {
   }
 }
 
-// The register route.  blockDim (map groups, pixel slots): thread (mg, slot)
-// takes maps 4 mg .. 4 mg + 3 of pooled pixels first + k * slots, k < kTilePixels.
-constexpr int kTileMaps = 128;   // ops/fused_conv_cuda.py TILE_MAX_MAPS
+// The register route (fused_conv.cuh: kTileMaps, the tile_* helpers).
+// blockDim (map groups, pixel slots): thread (mg, slot) takes maps
+// 4 mg .. 4 mg + 3 of pooled pixels first + k * slots, k < kTilePixels.
 constexpr int kTilePixels = 8;
 
 __global__ void __launch_bounds__(256)
@@ -88,13 +88,7 @@ conv_pool_relu_tiles_kernel(const float* __restrict__ x, const float* __restrict
   const int m0 = 4 * threadIdx.x;
   const int Hc = H - 2, Wc = W - 2;
   float wr[9][4], br[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const bool live = m0 + j < M;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) wr[k][j] = live ? __ldg(w + (size_t)k * M + m0 + j) : 0.f;
-    br[j] = live ? __ldg(b + m0 + j) : 0.f;
-  }
+  tile_load_weights(w, b, M, m0, wr, br);
   const int first = blockIdx.x * blockDim.y * kTilePixels + threadIdx.y;
 #pragma unroll 2
   for (int k = 0; k < kTilePixels; ++k) {
@@ -102,43 +96,11 @@ conv_pool_relu_tiles_kernel(const float* __restrict__ x, const float* __restrict
     if (pix >= pixels) break;
     const int ox = pix % Wo, rest = pix / Wo;
     const int oy = rest % Ho;
-    const float* img = x + (size_t)(rest / Ho) * H * W;
-    const int y0 = 2 * oy, x0 = 2 * ox;   // a 2x2 SAME pool pads only on the high side
-    float patch[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* row = img + (size_t)(y0 + i) * W + x0;
-      const bool inside = y0 + i < H;
-      if (vec2) {   // W even: the row's four floats lie inside the image
-        const float2* row2 = reinterpret_cast<const float2*>(row);
-        const float2 lo = inside ? __ldg(row2) : make_float2(0.f, 0.f);
-        const float2 hi = inside ? __ldg(row2 + 1) : make_float2(0.f, 0.f);
-        patch[i][0] = lo.x;
-        patch[i][1] = lo.y;
-        patch[i][2] = hi.x;
-        patch[i][3] = hi.y;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) patch[i][j] = inside && x0 + j < W ? __ldg(row + j) : 0.f;
-      }
-    }
-    float best[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const bool valid = y0 + t < Hc && x0 + q < Wc;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float acc = 0.f;
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-            for (int dx = 0; dx < 3; ++dx)
-              acc = fmaf(patch[t + dy][q + dx], wr[3 * dy + dx][j], acc);
-          if (valid && acc > best[j]) best[j] = acc;   // strictly: a later tie does not take over
-        }
-      }
+    const int y0 = 2 * oy, x0 = 2 * ox;
+    float patch[4][4], best[4];
+    int at[4];
+    tile_load_patch(x + (size_t)(rest / Ho) * H * W, H, W, y0, x0, vec2, patch);
+    tile_pool_window(patch, wr, Hc, Wc, y0, x0, best, at);
     float o[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[j] = fmaxf(best[j] + br[j], 0.f);

@@ -10,9 +10,11 @@
 //
 // A work item is (a group of nb images) x (a band of rb pooled rows).  Its
 // input rows sit in shared memory beside one tile of the weights (K x mt);
-// items whose maps do not fit one tile walk the tiles in turn.  Both kernels
-// sum the taps of a conv pixel with the same chain of FMAs, so the backward
-// sees the bits the forward pooled.
+// items whose maps do not fit one tile walk the tiles in turn.  The register
+// routes of both (tile_* below) keep no rows in shared memory: a thread holds
+// four maps' taps and one pooled pixel's input patch in registers.  Every
+// route sums the taps of a conv pixel with the same chain of FMAs, so the
+// backward sees the bits the forward pooled.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -204,6 +206,84 @@ __device__ __forceinline__ void conv_pixel_of(const ConvShape& s, const ConvItem
   const int r = pix / s.Wo;
   *oy = it.oy0 + r % it.n_rows;
   *img = r / it.n_rows;
+}
+
+// The register routes of K5 and K6: 3x3 taps, one channel, a 2x2 pool
+// (which pads only on the high side) and at most kTileMaps maps.  A thread
+// keeps four consecutive maps, m0 .. m0 + 3, and walks pooled pixels.
+constexpr int kTileMaps = 128;   // ops/fused_conv_cuda.py TILE_MAX_MAPS
+
+// The 9 taps and the bias of the thread's four maps; 0 past M.
+__device__ __forceinline__ void tile_load_weights(const float* __restrict__ w,
+                                                  const float* __restrict__ b, int M, int m0,
+                                                  float (&wr)[9][4], float (&br)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool live = m0 + j < M;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) wr[k][j] = live ? __ldg(w + (size_t)k * M + m0 + j) : 0.f;
+    br[j] = live ? __ldg(b + m0 + j) : 0.f;
+  }
+}
+
+// The 4x4 input patch at rows y0.., columns x0.. of one H x W image, 0
+// outside it.  vec2 (W even, the image 8-byte aligned): two 8-byte loads a
+// row, which then lie inside the image.
+__device__ __forceinline__ void tile_load_patch(const float* __restrict__ img, int H, int W,
+                                                int y0, int x0, bool vec2,
+                                                float (&patch)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* row = img + (size_t)(y0 + i) * W + x0;
+    const bool inside = y0 + i < H;
+    if (vec2) {
+      const float2* row2 = reinterpret_cast<const float2*>(row);
+      const float2 lo = inside ? __ldg(row2) : make_float2(0.f, 0.f);
+      const float2 hi = inside ? __ldg(row2 + 1) : make_float2(0.f, 0.f);
+      patch[i][0] = lo.x;
+      patch[i][1] = lo.y;
+      patch[i][2] = hi.x;
+      patch[i][3] = hi.y;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) patch[i][j] = inside && x0 + j < W ? __ldg(row + j) : 0.f;
+    }
+  }
+}
+
+// The pool window whose first conv pixel is (y0, x0): for each of the four
+// maps the largest conv output and its position at = 2 t + q, the first
+// strictly greater one in row order, positions at or past (Hc, Wc) skipped.
+// Each conv pixel is one chain of FMAs from 0 in (dy, dx) order, the band
+// route's chain, so both routes of K5 and K6 see the same bits.
+__device__ __forceinline__ void tile_pool_window(const float (&patch)[4][4],
+                                                 const float (&wr)[9][4], int Hc, int Wc,
+                                                 int y0, int x0, float (&best)[4],
+                                                 int (&at)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    best[j] = -INFINITY;
+    at[j] = 0;
+  }
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const bool valid = y0 + t < Hc && x0 + q < Wc;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+            acc = fmaf(patch[t + dy][q + dx], wr[3 * dy + dx][j], acc);
+        if (valid && acc > best[j]) {   // strictly: a later tie does not take over
+          best[j] = acc;
+          at[j] = 2 * t + q;
+        }
+      }
+    }
 }
 
 }  // namespace atlasvae

@@ -1,13 +1,16 @@
 """K5 and K6: the jet-ID towers' input conv block and its backward as
 hand-written CUDA kernels.
 
-``conv_pool_relu`` launches ``csrc/fused_conv.cu`` by one of two routes that
-``route`` picks from the shape: the register route (3x3 taps, one channel,
-a 2x2 pool, at most 128 maps: the jet-ID CNN's first block) or the band
-route (every other shape the gate takes).  ``conv_pool_relu_backward``
-launches ``csrc/fused_conv_bwd.cu`` (plus its launch that adds the per-CTA
-partial sums in a fixed order).  Both take contiguous float32 CUDA tensors
-and compute what ``ops.fused_conv.conv1_pool_relu_plain`` and
+Each has two routes, which ``route`` picks from the shape alike for both:
+the register route (3x3 taps, one channel, a 2x2 pool, at most 128 maps:
+the jet-ID CNN's first block), where a thread keeps four maps' taps and
+sums in registers, and the band route (every other shape the gate takes),
+where a CTA stages a band of input rows and a tile of weights in shared
+memory.  ``conv_pool_relu`` launches ``csrc/fused_conv.cu``;
+``conv_pool_relu_backward`` launches ``csrc/fused_conv_bwd.cu``, whose CTAs
+write partial sums that a second launch adds in a fixed order.  Both take
+contiguous float32 CUDA tensors and compute what
+``ops.fused_conv.conv1_pool_relu_plain`` and
 ``conv1_pool_relu_backward_plain`` compute; ``ops.fused_conv.FusedConv1``
 chooses between kernel and plain version by the tensors' device.  Both raise
 on anything the kernels do not take and never run another path.
@@ -20,16 +23,18 @@ import torch
 
 from . import cuda_build
 
-# Kernel launches made by conv_pool_relu (K5: its register route, its band
-# route) and conv_pool_relu_backward (K6); reset and read by chip_smoke.py.
+# Kernel launches made by conv_pool_relu (K5) and conv_pool_relu_backward
+# (K6), each counted by route (register, band); reset and read by
+# chip_smoke.py.
 launches = 0
 band_launches = 0
 backward_launches = 0
+band_backward_launches = 0
 
 MAX_TAPS = 512    # kh * kw * C
 MAX_MAPS = 1024
 ROUTES = ("tiles", "bands")
-TILE_MAX_MAPS = 128   # kTileMaps in csrc/fused_conv.cu
+TILE_MAX_MAPS = 128   # kTileMaps in csrc/fused_conv.cuh
 
 _SHAPE = [ctypes.c_int] * 9
 
@@ -45,25 +50,46 @@ def _forward_entries():
 
 
 def route(x_shape, w_shape, pool):
-    """K5's route for a shape the kernels take: "tiles" for 3x3 taps on one
-    channel, a 2x2 pool and at most TILE_MAX_MAPS maps, "bands" for the rest."""
+    """The route of K5 and K6 for a shape the kernels take: "tiles" for 3x3
+    taps on one channel, a 2x2 pool and at most TILE_MAX_MAPS maps, "bands"
+    for the rest."""
     kh, kw, c, m = w_shape
     if c == 1 and (kh, kw) == (3, 3) and tuple(pool) == (2, 2) and m <= TILE_MAX_MAPS:
         return "tiles"
     return "bands"
 
 
+def pick_route(what, x_shape, w_shape, pool, force_route=None):
+    """``route``, or ``force_route`` ("tiles" or "bands") where that route
+    takes the shape: for tests and timings only.  Raises before anything is
+    built or launched."""
+    which = route(x_shape, w_shape, pool)
+    if force_route == "bands":
+        return "bands"
+    if force_route == "tiles" and which != "tiles":
+        raise ValueError(f"{what}: the register route takes 3x3 taps on one channel, a 2x2 "
+                         f"pool and at most {TILE_MAX_MAPS} maps, got w {tuple(w_shape)}, "
+                         f"pool {tuple(pool)}")
+    if force_route not in (None, *ROUTES):
+        raise ValueError(f"{what}: force_route must be one of {ROUTES}, got {force_route!r}")
+    return which
+
+
 @functools.cache
 def _backward_entries():
     lib = cuda_build.load("fused_conv_bwd")
-    parts = lib.atlasvae_conv_backward_parts
-    parts.argtypes = _SHAPE
-    parts.restype = ctypes.c_int
-    fn = lib.atlasvae_conv_backward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + _SHAPE \
+    tiles_parts, bands_parts = lib.atlasvae_conv_backward_tiles_parts, \
+        lib.atlasvae_conv_backward_parts
+    tiles, bands = lib.atlasvae_conv_backward_tiles, lib.atlasvae_conv_backward
+    tiles_parts.argtypes = [ctypes.c_int] * 4
+    bands_parts.argtypes = _SHAPE
+    tiles.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    bands.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + _SHAPE \
         + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return parts, fn
+    for fn in (tiles_parts, bands_parts, tiles, bands):
+        fn.restype = ctypes.c_int
+    return tiles_parts, tiles, bands_parts, bands
 
 
 def _check(what, x, w, b, pool, g=None):
@@ -120,16 +146,7 @@ def conv_pool_relu(x, w, b, pool, force_route=None):
     picks, where it takes the shape: for tests and timings only."""
     global launches, band_launches
     shape = _check("conv_pool_relu", x, w, b, pool)
-    which = route(x.shape, w.shape, shape[7:])
-    if force_route == "bands":
-        which = "bands"
-    elif force_route == "tiles" and which != "tiles":
-        raise ValueError(f"conv_pool_relu: the register route takes 3x3 taps on one channel, "
-                         f"a 2x2 pool and at most {TILE_MAX_MAPS} maps, got w "
-                         f"{tuple(w.shape)}, pool {tuple(shape[7:])}")
-    elif force_route not in (None, "tiles", "bands"):
-        raise ValueError(f"conv_pool_relu: force_route must be one of {ROUTES}, "
-                         f"got {force_route!r}")
+    which = pick_route("conv_pool_relu", x.shape, w.shape, shape[7:], force_route)
     out = torch.empty(out_shape(x.shape, w.shape, shape[7:]), device=x.device,
                       dtype=torch.float32)
     tiles, bands = _forward_entries()
@@ -150,27 +167,44 @@ def conv_pool_relu(x, w, b, pool, force_route=None):
 
 
 @functools.cache
-def _n_parts(shape):
-    return _backward_entries()[0](*shape)
+def _n_parts(which, shape):
+    """Partial slices (rows of the scratch buffer) K6 uses on a route."""
+    tiles_parts, _, bands_parts, _ = _backward_entries()
+    if which == "tiles":
+        n, h, wd, _, _, _, m, _, _ = shape
+        return tiles_parts(n, h, wd, m)
+    return bands_parts(*shape)
 
 
-def conv_pool_relu_backward(x, w, b, g, pool):
+def conv_pool_relu_backward(x, w, b, g, pool, force_route=None):
     """K6: (dW, db) of ``conv_pool_relu(x, w, b, pool)`` for the gradient
-    ``g`` of its output.  The input's gradient is not computed."""
-    global backward_launches
-    shape = _check("conv_pool_relu_backward", x, w, b, pool, g)
+    ``g`` of its output, on the route ``route`` picks (``force_route`` as for
+    ``conv_pool_relu``).  The input's gradient is not computed."""
+    global backward_launches, band_backward_launches
+    what = "conv_pool_relu_backward"
+    shape = _check(what, x, w, b, pool, g)
     if tuple(g.shape) != out_shape(x.shape, w.shape, shape[7:]):
-        raise ValueError(f"conv_pool_relu_backward: g {tuple(g.shape)} is not the output's "
+        raise ValueError(f"{what}: g {tuple(g.shape)} is not the output's "
                          f"shape {out_shape(x.shape, w.shape, shape[7:])}")
-    n_parts = _n_parts(shape)
-    _raise(min(n_parts, 0), "conv_pool_relu_backward", x, w)
+    which = pick_route(what, x.shape, w.shape, shape[7:], force_route)
+    n_parts = _n_parts(which, shape)
+    _raise(min(n_parts, 0), f"{what} ({which} route)", x, w)
     n_params = w.numel() + b.numel()
     partial = torch.empty((n_parts, n_params), device=x.device, dtype=torch.float32)
     grads = torch.empty(n_params, device=x.device, dtype=torch.float32)
+    _, tiles, _, bands = _backward_entries()
+    n, h, wd, _, _, _, m, _, _ = shape
     with torch.cuda.device(x.device):
-        err = _backward_entries()[1](x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
-                                     partial.data_ptr(), n_parts, grads.data_ptr(), *shape,
-                                     torch.cuda.current_stream().cuda_stream)
-    _raise(err, "conv_pool_relu_backward", x, w)
-    backward_launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        pointers = (x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                    n_parts, grads.data_ptr())
+        if which == "tiles":
+            err = tiles(*pointers, n, h, wd, m, stream)
+        else:
+            err = bands(*pointers, *shape, stream)
+    _raise(err, f"{what} ({which} route)", x, w)
+    if which == "tiles":
+        backward_launches += 1
+    else:
+        band_backward_launches += 1
     return grads[:w.numel()].view(w.shape), grads[w.numel():]

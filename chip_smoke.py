@@ -49,9 +49,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                a low pad, 130 maps) on dense and on sparse, tied images,
                with the same bits asked of a second call, beside cuDNN's
                conv + max_pool2d + relu (autograd through it for K6): K5's
-               register route at the jet-ID shapes (3x3, one channel, pool
-               2x2, at most 128 maps), with its band route's time on the
-               same inputs beside it, the band route at the odd shapes;
+               and K6's register routes at the jet-ID shapes (3x3, one
+               channel, pool 2x2, at most 128 maps), with their band
+               routes' times on the same inputs beside them (K6's band
+               route held to the plain version there too), the band routes
+               at the odd shapes;
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
                also against float64, with the card's bits asked again at
@@ -99,16 +101,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                200,000-event synthetic files, the counters set to 0 just
                before; check the epochs' ticker, the files, the
                probabilities and that K5 ran once a training step,
-               validation batch and predict chunk, on its register route
-               and never on its band route, and K6 once a training
-               step; then serve (--n_epochs 0 --model_in)
+               validation batch and predict chunk, and K6 once a training
+               step, each on its register route and never on its band
+               route; then serve (--n_epochs 0 --model_in)
                in the same folder: the same probabilities, no K6, and the
                first 4,096 jets against the plain CPU path; accuracy, AUC
                and rejections (synthetic data: no physics result); CUDA
                against the plain CPU path at dropout 0 (first-step
                gradients, 2-epoch losses); a warm timed run and a profiled
                epoch;
-9. kernels  -- one JSON line with every ported kernel (K1 to K5 as two
+9. kernels  -- one JSON line with every ported kernel (K1 to K6 as two
                entries each, one a route);
 10. last line: {"ok": true, "device": {...}}.
 
@@ -195,9 +197,13 @@ KERNELS = {
     "fused_conv_bands": dict(source="atlasvae_torch/csrc/fused_conv.cu",
                              replaces="atlasvae/ops/fused_conv.py:112",
                              main_shape="two channels pool 3"),
+    # K6's register route and its band route, as K5's
     "fused_conv_backward": dict(source="atlasvae_torch/csrc/fused_conv_bwd.cu",
                                 replaces="atlasvae/ops/fused_conv.py:130",
                                 main_shape="jetid train batch sparse"),
+    "fused_conv_backward_bands": dict(source="atlasvae_torch/csrc/fused_conv_bwd.cu",
+                                      replaces="atlasvae/ops/fused_conv.py:130",
+                                      main_shape="two channels pool 3"),
 }
 
 # jet-ID: the CNN the CLI builds by default, on 200,000-event synthetic
@@ -266,7 +272,8 @@ def counters():
             "emd_sinkhorn": emd_cuda.launches, "emd_sinkhorn_wide": emd_cuda.wide_launches,
             "fused_conv": fused_conv_cuda.launches,
             "fused_conv_bands": fused_conv_cuda.band_launches,
-            "fused_conv_backward": fused_conv_cuda.backward_launches}
+            "fused_conv_backward": fused_conv_cuda.backward_launches,
+            "fused_conv_backward_bands": fused_conv_cuda.band_backward_launches}
 
 
 def reset_counters():
@@ -276,7 +283,7 @@ def reset_counters():
     fused_vae.layered_backward_launches = 0
     emd_cuda.launches = emd_cuda.wide_launches = 0
     fused_conv_cuda.launches = fused_conv_cuda.band_launches = 0
-    fused_conv_cuda.backward_launches = 0
+    fused_conv_cuda.backward_launches = fused_conv_cuda.band_backward_launches = 0
 
 
 def log(phase, **facts):
@@ -602,7 +609,9 @@ def parity_conv(gen, shape, sparse, device):
     """K5 and K6 against their plain versions on the same inputs; the same
     bits on a second call; times of kernel, plain version and the library
     yardstick (cuDNN's conv2d, a -inf pad where XLA's SAME pool has one,
-    max_pool2d and relu in NCHW views; autograd through it for K6); bounds."""
+    max_pool2d and relu in NCHW views; autograd through it for K6); bounds.
+    At a shape the register routes take, the band routes' times beside
+    theirs, and K6's band route held to the plain version as well."""
     import torch
     import torch.nn.functional as F
     from atlasvae_torch.ops import fused_conv, fused_conv_cuda
@@ -641,6 +650,9 @@ def parity_conv(gen, shape, sparse, device):
 
     got, again = kernel(), kernel()
     grads, grads_again, grads_want = kernel_bwd(), kernel_bwd(), plain_bwd()
+    bands_bwd = lambda: fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool,
+                                                                force_route="bands")
+    grads_bands = bands_bwd() if which == "tiles" else grads
     lib = library().permute(0, 2, 3, 1)
     torch.cuda.synchronize()
     diff = (got - want).abs()
@@ -650,18 +662,26 @@ def parity_conv(gen, shape, sparse, device):
     same_bits = bool(torch.equal(got, again)) and all(
         bool(torch.equal(a, b_)) for a, b_ in zip(grads, grads_again))
     tol = CONV_GRAD_TOL_BIG if n >= 1000 else CONV_GRAD_TOL
-    err_bwd, rel_bwd, ok_bwd = 0.0, 0.0, True
-    for a, ref in zip(grads, grads_want):
-        d, scale = float((a - ref).abs().max()), float(ref.abs().max())
-        err_bwd, rel_bwd = max(err_bwd, d), max(rel_bwd, d / scale if scale > 0 else d)
-        ok_bwd &= a.shape == ref.shape and d <= tol * scale + 1e-12 and bool(torch.isfinite(a).all())
+
+    def leaf_errors(leaves):   # (max abs error, over the leaf's largest value, within tol)
+        err, rel, fine = 0.0, 0.0, True
+        for a, ref in zip(leaves, grads_want):
+            d, scale = float((a - ref).abs().max()), float(ref.abs().max())
+            err, rel = max(err, d), max(rel, d / scale if scale > 0 else d)
+            fine &= a.shape == ref.shape and d <= tol * scale + 1e-12 and bool(torch.isfinite(a).all())
+        return err, rel, fine
+
+    err_bwd, rel_bwd, ok_bwd = leaf_errors(grads)
+    _, rel_bands, ok_bands = leaf_errors(grads_bands)
+    ok_bwd &= ok_bands
     del got, again, want, lib, diff
     iters = 30 if n * h * wd <= 2_000_000 else 10
     out = {}
     fwd_name = "fused_conv" if which == "tiles" else "fused_conv_bands"
+    bwd_name = "fused_conv_backward" if which == "tiles" else "fused_conv_backward_bands"
     for kname, backward, fn, fn_plain, fn_lib in (
             (fwd_name, False, kernel, plain, library),
-            ("fused_conv_backward", True, kernel_bwd, plain_bwd, library_backward)):
+            (bwd_name, True, kernel_bwd, plain_bwd, library_backward)):
         b_ms, b_by, flops, nbytes = bound_conv(n, h, wd, c, kh, kw, m, pool, backward)
         res = dict(shape=name + (" sparse" if sparse else ""), batch=n, image=[h, wd, c],
                    kernel=[kh, kw], maps=m, pool=list(pool), sparse=sparse, same_bits=same_bits,
@@ -672,10 +692,13 @@ def parity_conv(gen, shape, sparse, device):
         out[kname] = res
     out[fwd_name]["max_abs_err"] = err_fwd
     out[fwd_name]["route"] = which
-    if which == "tiles":   # the band route on the same inputs, for comparison
+    out[bwd_name]["route"] = which
+    if which == "tiles":   # the band routes on the same inputs, for comparison
         out[fwd_name]["bands_route_ms"] = time_ms(
             lambda: fused_conv_cuda.conv_pool_relu(x, w, b, pool, force_route="bands"), iters)
-    out["fused_conv_backward"].update(max_abs_err=err_bwd, max_err_over_leaf_scale=rel_bwd)
+        out[bwd_name].update(bands_route_ms=time_ms(bands_bwd, iters),
+                             bands_route_err_over_leaf_scale=rel_bands)
+    out[bwd_name].update(max_abs_err=err_bwd, max_err_over_leaf_scale=rel_bwd)
     if not (ok and ok_bwd and same_bits and lib_ok):
         raise AssertionError(f"fused conv block vs its plain version at {out}: forward over atol "
                              f"{ATOL} + rtol {RTOL}*|ref| ({not ok}), a dW/db leaf over {tol} * "
@@ -1508,7 +1531,8 @@ def phase_jetid(device, workdir):
     valid_batches = -(-n_valid // JETID_BATCH)
     chunks = -(-n_valid // JETID_CHUNK)
     want = {"fused_conv": JETID_EPOCHS * (steps + valid_batches) + chunks,
-            "fused_conv_bands": 0, "fused_conv_backward": JETID_EPOCHS * steps}
+            "fused_conv_bands": 0, "fused_conv_backward": JETID_EPOCHS * steps,
+            "fused_conv_backward_bands": 0}
     for name, count in want.items():
         if train_launches[name] != count:
             raise AssertionError(f"{name} launched {train_launches[name]} times in the training "
@@ -1528,7 +1552,8 @@ def phase_jetid(device, workdir):
     serve_s = time.perf_counter() - t0
     serve_launches = counters()
     if (serve_launches["fused_conv"] != chunks or serve_launches["fused_conv_bands"] != 0
-            or serve_launches["fused_conv_backward"] != 0):
+            or serve_launches["fused_conv_backward"] != 0
+            or serve_launches["fused_conv_backward_bands"] != 0):
         raise AssertionError(f"serving launched {serve_launches}: want fused_conv {chunks} times "
                              "on its register route, none on the band route and no backward")
     _, served_labels, served, report = _jetid_report(os.path.join(out_dir, "served.pkl"), device)

@@ -534,6 +534,10 @@ CONV_SHAPES = [
     (9, 64, 64, 1, 3, 3, 100, (2, 2)),    # the reference's default image: bands of rows
     (3, 12, 12, 50, 3, 3, 70, (2, 2)),    # 450 taps: several tiles of maps
     (2, 7, 40, 3, 2, 5, 1024, (1, 3)),    # the most maps the gate admits
+    (3, 15, 17, 1, 3, 3, 8, (2, 2)),      # odd Hc, Wc and W: the high pad, no 8-byte loads
+    (4, 16, 16, 1, 3, 3, 3, (2, 2)),      # one partly live group of four maps
+    (6, 16, 16, 1, 3, 3, 126, (2, 2)),    # M % 4 != 0: scalar loads of g
+    (5, 14, 15, 1, 3, 3, 128, (2, 2)),    # the register route's widest
 ]
 GRAD_TOL = 2e-4
 
@@ -554,7 +558,8 @@ def _conv_route(shape):
     return fused_conv_cuda.route((n, h, wd, c), (kh, kw, c, m), pool)
 
 
-# K5's band route takes every shape, its register route the jet-ID block's
+# K5's and K6's band routes take every shape, their register routes the
+# jet-ID block's
 CONV_ROUTE_CASES = [(shape, which) for shape in CONV_SHAPES for which in fused_conv_cuda.ROUTES
                     if which == "bands" or _conv_route(shape) == "tiles"]
 
@@ -563,11 +568,23 @@ def _conv_counts():
     return fused_conv_cuda.launches, fused_conv_cuda.band_launches
 
 
+def _conv_backward_counts():
+    return fused_conv_cuda.backward_launches, fused_conv_cuda.band_backward_launches
+
+
+def _grads_close(got, want):
+    """dW and db within GRAD_TOL of each leaf's largest value."""
+    for got_leaf, want_leaf in zip(got, want):
+        assert got_leaf.shape == want_leaf.shape
+        scale = float(want_leaf.abs().max())
+        assert float((got_leaf - want_leaf).abs().max()) <= GRAD_TOL * scale + 1e-12
+
+
 @pytest.mark.parametrize("sparse", [False, True])
 @pytest.mark.parametrize("shape,which", CONV_ROUTE_CASES)
 def test_conv_pool_relu_matches_plain(cuda, shape, which, sparse):
-    """Each route of K5 at each shape it takes, the same bits on a second
-    call and one launch counted on that route; then K6 at the same shape."""
+    """Each route of K5 and of K6 at each shape it takes, the same bits on a
+    second call and one launch counted on that route only."""
     x, w, b, gen = _conv_case(shape, cuda, sparse)
     pool = shape[-1]
     before = _conv_counts()
@@ -578,15 +595,12 @@ def test_conv_pool_relu_matches_plain(cuda, shape, which, sparse):
     assert torch.equal(got, fused_conv_cuda.conv_pool_relu(x, w, b, pool, force_route=which))
 
     g = (torch.randn(want.shape, generator=gen) / shape[0]).to(cuda)
-    before = fused_conv_cuda.backward_launches
-    dw, db = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool)
-    assert fused_conv_cuda.backward_launches == before + 1
-    dw_want, db_want = fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, pool)
-    for got_leaf, want_leaf in ((dw, dw_want), (db, db_want)):
-        assert got_leaf.shape == want_leaf.shape
-        scale = float(want_leaf.abs().max())
-        assert float((got_leaf - want_leaf).abs().max()) <= GRAD_TOL * scale + 1e-12
-    again = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool)
+    before = _conv_backward_counts()
+    dw, db = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool, force_route=which)
+    assert _conv_backward_counts() == (before[0] + (which == "tiles"),
+                                       before[1] + (which == "bands"))
+    _grads_close((dw, db), fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, pool))
+    again = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool, force_route=which)
     assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
 
 
@@ -607,25 +621,69 @@ def test_fused_conv1_function_on_cuda_matches_cpu(cuda):
 
 
 def test_conv_pool_relu_takes_the_route_of_its_shape(cuda):
-    """Without force_route every shape runs the route ``route`` names, and
-    the two routes give the same bits where both take the shape (one chain
-    of FMAs a conv pixel, the same first-match rule)."""
+    """Without force_route every shape runs the route ``route`` names, K5
+    and K6 alike; K5's two routes give the same bits where both take the
+    shape (one chain of FMAs a conv pixel, the same first-match rule), and
+    K6's agree within the gate (their sums run in other orders)."""
     for shape in CONV_SHAPES:
-        x, w, b, _ = _conv_case(shape, cuda, sparse=True)
+        x, w, b, gen = _conv_case(shape, cuda, sparse=True)
+        pool = shape[-1]
         before = _conv_counts()
-        got = fused_conv_cuda.conv_pool_relu(x, w, b, shape[-1])
+        got = fused_conv_cuda.conv_pool_relu(x, w, b, pool)
         which = _conv_route(shape)
         assert _conv_counts() == (before[0] + (which == "tiles"), before[1] + (which == "bands"))
+        g = (torch.randn(got.shape, generator=gen) / shape[0]).to(cuda)
+        before = _conv_backward_counts()
+        grads = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool)
+        assert _conv_backward_counts() == (before[0] + (which == "tiles"),
+                                           before[1] + (which == "bands"))
         if which == "tiles":
-            assert torch.equal(got, fused_conv_cuda.conv_pool_relu(x, w, b, shape[-1],
+            assert torch.equal(got, fused_conv_cuda.conv_pool_relu(x, w, b, pool,
                                                                    force_route="bands"))
+            _grads_close(grads, fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool,
+                                                                        force_route="bands"))
     x, w, b, _ = _conv_case(CONV_SHAPES[1], cuda, sparse=False)
-    before = _conv_counts()
+    g = torch.zeros(fused_conv_cuda.out_shape(x.shape, w.shape, CONV_SHAPES[1][-1]), device=cuda)
+    before = _conv_counts() + _conv_backward_counts()
     with pytest.raises(ValueError, match="register route takes"):
         fused_conv_cuda.conv_pool_relu(x, w, b, CONV_SHAPES[1][-1], force_route="tiles")
     with pytest.raises(ValueError, match="force_route"):
         fused_conv_cuda.conv_pool_relu(x, w, b, CONV_SHAPES[1][-1], force_route="fast")
-    assert _conv_counts() == before
+    with pytest.raises(ValueError, match="register route takes"):
+        fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, CONV_SHAPES[1][-1],
+                                                force_route="tiles")
+    with pytest.raises(ValueError, match="force_route"):
+        fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, CONV_SHAPES[1][-1],
+                                                force_route="fast")
+    assert _conv_counts() + _conv_backward_counts() == before
+
+
+@pytest.mark.parametrize("which", fused_conv_cuda.ROUTES)
+def test_conv_backward_routes_tied_windows_to_the_first_match(cuda, which):
+    """Windows that tie: w all ones sums each 3x3 sub-patch, and three of
+    four 4x4 images light two pixels that several positions of their one
+    window see alike.  dW must take the first position in row order, db
+    count each window once, as the plain version does, bit for bit (integer
+    sums).  Sparse
+    images whose windows tie at 0 too: an all-zero image gives db the
+    window count where b > 0 and dW 0."""
+    x = torch.zeros((4, 4, 4, 1))
+    x[0, 0, 0] = x[0, 3, 3] = 1     # positions (0, 0) and (1, 1) tie
+    x[1, 0, 3] = x[1, 3, 0] = 1     # (0, 1) and (1, 0)
+    x[2, 1, 1] = x[2, 2, 2] = 1     # all four
+    x[3, 1, 3] = x[3, 3, 1] = 1     # (1, 1) alone is largest: a later position takes over
+    w, b = torch.ones((3, 3, 1, 8)), torch.tensor([0.5, -0.5, 0.25, 0.0, 1.0, -1.0, 2.0, 0.1])
+    g = torch.ones((4, 1, 1, 8))
+    want = fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, (2, 2))
+    args = [t.to(cuda) for t in (x, w, b, g)]
+    got = fused_conv_cuda.conv_pool_relu_backward(*args, (2, 2), force_route=which)
+    assert all(torch.equal(a.cpu(), r) for a, r in zip(got, want))
+    assert torch.equal(want[0][:, :, 0, 0], torch.tensor([[1.0, 0, 2], [0, 1, 0], [1, 0, 1]]))
+    zero = torch.zeros((3, 16, 16, 1), device=cuda)
+    dw, db = fused_conv_cuda.conv_pool_relu_backward(
+        zero, args[1], args[2], torch.ones((3, 7, 7, 8), device=cuda), (2, 2), force_route=which)
+    assert torch.equal(db.cpu(), 3 * 49 * (b > 0).float())
+    assert not dw.any()
 
 
 def test_conv_kernels_refuse_bad_input(cuda):
@@ -652,9 +710,16 @@ def test_conv_kernels_refuse_bad_input(cuda):
     with pytest.raises(ValueError, match="shared memory"):   # the band route stages rows
         wide = torch.zeros((1, 4, 40000, 1), device=cuda)
         fused_conv_cuda.conv_pool_relu(wide, w, b, pool, force_route="bands")
-    # the register route keeps no row in shared memory: the same image runs
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_conv_cuda.conv_pool_relu_backward(wide, w, b, torch.zeros((1, 1, 19999, 10),
+                                                                        device=cuda),
+                                                pool, force_route="bands")
+    # the register routes keep no row in shared memory: the same image runs
     torch.testing.assert_close(fused_conv_cuda.conv_pool_relu(wide, w, b, pool),
                                fused_conv.conv1_pool_relu_plain(wide, w, b, pool))
+    g_wide = torch.randn((1, 1, 19999, 10), device=cuda)
+    _grads_close(fused_conv_cuda.conv_pool_relu_backward(wide, w, b, g_wide, pool),
+                 fused_conv.conv1_pool_relu_backward_plain(wide, w, b, g_wide, pool))
 
 
 def test_train_classifier_holds_cudnn_float32_with_the_flag_on(cuda, monkeypatch):

@@ -158,16 +158,38 @@ def test_route_choice_takes_each_chip_smoke_shape():
     assert fused_conv_cuda.route((8, 16, 16, 1), (2, 3, 1, 100), (2, 2)) == "bands"
 
 
+@pytest.mark.parametrize("name", sorted(CHIP_CONV_ROUTES))
+def test_backward_route_choice_takes_each_chip_smoke_shape(name):
+    """K6 takes K5's route at each chip_smoke.py shape; "bands" may be forced
+    anywhere, "tiles" only where the register route takes the shape, and an
+    unknown name is refused."""
+    import chip_smoke
+    n, h, wd, c, kh, kw, m, pool = next(s[1:] for s in chip_smoke.CONV_SHAPES if s[0] == name)
+    x_shape, w_shape = (n, h, wd, c), (kh, kw, c, m)
+    what = "conv_pool_relu_backward"
+    assert fused_conv_cuda.pick_route(what, x_shape, w_shape, pool) == CHIP_CONV_ROUTES[name]
+    assert fused_conv_cuda.pick_route(what, x_shape, w_shape, pool, "bands") == "bands"
+    if CHIP_CONV_ROUTES[name] == "tiles":
+        assert fused_conv_cuda.pick_route(what, x_shape, w_shape, pool, "tiles") == "tiles"
+    else:
+        with pytest.raises(ValueError, match=f"{what}: the register route takes"):
+            fused_conv_cuda.pick_route(what, x_shape, w_shape, pool, "tiles")
+    with pytest.raises(ValueError, match="force_route must be one of"):
+        fused_conv_cuda.pick_route(what, x_shape, w_shape, pool, "fast")
+
+
 @pytest.mark.parametrize("force_route", [None, "tiles", "bands", "fast"])
 def test_cuda_wrappers_refuse_cpu_tensors_before_launching(force_route):
     """Whatever route is asked for, K5's and K6's wrappers refuse a CPU
     tensor before anything is built or launched."""
     x, w, b = torch.zeros((2, 16, 16, 1)), torch.zeros((3, 3, 1, 8)), torch.zeros(8)
     counts = lambda: (fused_conv_cuda.launches, fused_conv_cuda.band_launches,
-                      fused_conv_cuda.backward_launches)
+                      fused_conv_cuda.backward_launches, fused_conv_cuda.band_backward_launches)
     before = counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_conv_cuda.conv_pool_relu(x, w, b, (2, 2), force_route=force_route)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        fused_conv_cuda.conv_pool_relu_backward(x, w, b, torch.zeros((2, 7, 7, 8)), (2, 2))
-    assert counts() == before == (0, 0, 0)
+        fused_conv_cuda.conv_pool_relu_backward(x, w, b, torch.zeros((2, 7, 7, 8)), (2, 2),
+                                                force_route=force_route)
+    assert counts() == before == (0, 0, 0, 0)
+    assert not fused_conv_cuda._backward_entries.cache_info().currsize
