@@ -12,10 +12,11 @@ selection, scaler fit, OoD load and train/valid ``BatchGenerator``s, then
 
 Not ported yet, and refused with ``NotImplementedError`` while the
 arguments are checked, before any data is loaded: the evaluation half
-(``--plotting ON`` or ``--apply_cuts ON``: ROC, decorrelation, BumpHunter
-and plots, ROADMAP Queue 1 items 5-6), ``--n_devices`` above 1 (item 11),
-and Keras ``.h5`` weights in or out (item 10).  ``run_ensemble`` waits for
-item 10 too.
+(``--plotting ON`` or ``--apply_cuts ON``: ``_evaluate`` and the plots,
+ROADMAP Queue 1 item 6; the numbers it draws, decorrelation and BumpHunter,
+are in ``eval/deco.py``, ``eval/bump.py`` and ``stats/``), ``--n_devices``
+above 1 (item 11), and Keras ``.h5`` weights in or out (item 10).
+``run_ensemble`` waits for item 10 too.
 """
 
 import os
@@ -98,9 +99,8 @@ def _check_supported(args, out_root):
     """Refuse, before any data is loaded, what the port does not run yet."""
     if _on(args.plotting) or _on(args.apply_cuts):
         raise NotImplementedError("--plotting ON / --apply_cuts ON run the evaluation "
-                                  "half (ROC, decorrelation, BumpHunter, plots), ported "
-                                  "with ROADMAP Queue 1 items 5-6; pass --plotting OFF "
-                                  "--apply_cuts OFF")
+                                  "half (_evaluate and its plots), ported with ROADMAP "
+                                  "Queue 1 item 6; pass --plotting OFF --apply_cuts OFF")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
                                   "ROADMAP Queue 1 item 11")

@@ -10,12 +10,13 @@ package without importing the JAX one.
 """
 
 import dataclasses
-import math
 import pickle
 import time
 
 import numpy as np
 import torch
+
+from ..ops.gammainc import _ndtr, _ndtri as _shared_ndtri
 
 _N_QUANTILES = 10_000
 
@@ -215,47 +216,11 @@ def _linspace01(n, device):
     return torch.cat([step, torch.ones(1, device=device)])
 
 
-_F32 = dict(dtype=torch.float32)
-_ACKLAM_A = (-3.969683028665376e+01, 2.209460984245205e+02, -2.759285104469687e+02,
-             1.383577518672690e+02, -3.066479806614716e+01, 2.506628277459239e+00)
-_ACKLAM_B = (-5.447609879822406e+01, 1.615858368580409e+02, -1.556989798598866e+02,
-             6.680131188771972e+01, -1.328068155288572e+01)
-_ACKLAM_C = (-7.784894002430293e-03, -3.223964580411365e-01, -2.400758277161838e+00,
-             -2.549732539343734e+00, 4.374664141464968e+00, 2.938163982698783e+00)
-_ACKLAM_D = (7.784695709041462e-03, 3.224671290700398e-01, 2.445134137142996e+00,
-             3.754408661907416e+00)
-
-
-def _ndtr(x):
-    return 0.5 * torch.special.erfc(-x / torch.sqrt(torch.tensor(2.0, device=x.device)))
-
-
-def _ndtri(p, p_lo=1e-7):
-    """Acklam's inverse normal CDF + one Halley refinement in float32
-    (copy of atlasvae/ops/gammainc.py:_ndtri; the scalers call it with
-    p_lo=1e-7, sklearn's +-5.2 sigma saturation)."""
-    dev = p.device
-    a, b, c, d = (torch.tensor(t, device=dev, **_F32)
-                  for t in (_ACKLAM_A, _ACKLAM_B, _ACKLAM_C, _ACKLAM_D))
-    p = torch.clamp(p, p_lo, 1.0 - 1e-7)
-    plow, phigh = 0.02425, 1 - 0.02425
-
-    def tail(q):
-        r = torch.sqrt(-2 * torch.log(q))
-        return (((((c[0] * r + c[1]) * r + c[2]) * r + c[3]) * r + c[4]) * r + c[5]) / \
-               ((((d[0] * r + d[1]) * r + d[2]) * r + d[3]) * r + 1)
-
-    def middle(pm):
-        q = pm - 0.5
-        r = q * q
-        return (((((a[0] * r + a[1]) * r + a[2]) * r + a[3]) * r + a[4]) * r + a[5]) * q / \
-               (((((b[0] * r + b[1]) * r + b[2]) * r + b[3]) * r + b[4]) * r + 1)
-
-    x = torch.where(p < plow, tail(p), torch.where(p > phigh, -tail(1 - p), middle(p)))
-    e = _ndtr(x) - p
-    u = e * torch.sqrt(torch.tensor(2 * math.pi, device=dev, **_F32)) * \
-        torch.exp(torch.clamp(x * x / 2, max=60.0))
-    return x - u / (1 + x * u / 2)
+def _ndtri(p):
+    """Inverse standard-normal CDF, clipped to [1e-7, 1-1e-7] (sklearn's
+    QuantileTransformer saturates at the same +-5.2 sigma).  Delegates to
+    the one Acklam+Halley implementation in ops/gammainc.py."""
+    return _shared_ndtri(p, p_lo=1e-7)
 
 
 def _quantile_transform(x, quantiles):

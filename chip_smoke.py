@@ -64,7 +64,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                on their fused body and never on the layer-wise route,
                and MAE/Latent against the plain CPU path on the first jets;
                then time a warm run and profile a third (device busy share);
-5. train    -- train the canonical OE-VAE (vae.sh hyper-parameters, 3
+5. evaluate -- the number half of vae.sh's evaluation (cli/vae.py::_evaluate
+               and eval/results.py::plot_results of the JAX package, in their
+               order): 200,000 synthetic QCD-Geneva and 200,000 2HDM-Geneva
+               events through make_sample (the valid cuts), the signal
+               weights divided by 1e3, the slice phase's RobustScaler and
+               seed-7 canonical VAE in chunks of 10,000 (K2 and K1, the
+               counters set to 0 just before), filtering, the metric bank
+               MAE/Latent/KLD/JSD with loss_mapping, mass_deco in its 2d form,
+               bump_scan over 100 cuts and bump_hunter at the best cut with
+               npe 1000; wall ms of each step, host ms of the per-cut
+               histograms, CUDA-event ms, launches and bound of the 101-cut
+               batched scan and of bump_hunter's scan of 1,001 histograms;
+               fails unless that scan on the card matches the CPU on the data
+               and 50 injected pseudo-histograms (log p rtol 1e-5 / atol 1e-6,
+               the same windows, bin significances rtol 1e-5), every window's
+               log p is within 2e-5 of float64 scipy, the card's Poisson draws
+               repeat with the seed, a constructed tie reports the first
+               window, and the best cut's local sigma is finite and positive;
+6. train    -- train the canonical OE-VAE (vae.sh hyper-parameters, 3
                epochs of 1e5 jets in batches of 1e4) through
                atlasvae_torch.cli.vae with the counters set to 0 just
                before; check the history, the weights and that K2 and K3
@@ -72,7 +90,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                the CUDA path against the plain CPU path (first-step
                gradients, 2-epoch losses with injected noise), and score
                the trained weights through atlasvae_torch.cli.score;
-6. const_train -- train the constituents-mode OE-VAE (300->256/128/64/32,
+7. const_train -- train the constituents-mode OE-VAE (300->256/128/64/32,
                100 synthetic constituents a jet, a RobustScaler on them;
                the train phase's hyper-parameters, 3 epochs of 1e5 jets in
                batches of 1e4) through atlasvae_torch.cli.vae with the
@@ -83,7 +101,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                (epochs 2-3), profile one epoch (idle share, K2's and K3's
                device time, share and calls), and hold the first
                step's gradients against the plain CPU path;
-7. emd_slice -- constituents mode at full width: 65,536 synthetic QCD and
+8. emd_slice -- constituents mode at full width: 65,536 synthetic QCD and
                65,536 synthetic signal jets of 100 constituents, a
                RobustScaler fitted on the constituents, a seeded
                300->256/128/64/32 VAE, scored through atlasvae_torch.cli.score
@@ -94,7 +112,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                its wide route, EMD and KSD against the plain CPU path on the first
                1,024 jets; print each metric's AUC (bkg against signal);
                then a warm timed run and a profiled run;
-8. jetid    -- the jet-ID CNN at the CLI's default widths (16x16 image ->
+9. jetid    -- the jet-ID CNN at the CLI's default widths (16x16 image ->
                conv 3x3/100 -> pool -> conv 3x3/100 -> pool -> 900; scalars
                -> 200; trunk 200/200; softmax 2): train 3 epochs of 1e5 jets
                in batches of 5,000 through atlasvae_torch.cli.jetid on
@@ -110,9 +128,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                against the plain CPU path at dropout 0 (first-step
                gradients, 2-epoch losses); a warm timed run and a profiled
                epoch;
-9. kernels  -- one JSON line with every ported kernel (K1 to K6 as two
+10. kernels -- one JSON line with every ported kernel (K1 to K6 as two
                entries each, one a route);
-10. last line: {"ok": true, "device": {...}}.
+11. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -155,6 +173,27 @@ EMD_RTOL, EMD_ATOL = 2e-5, 1e-6   # kernel vs plain version, same inputs, same c
 EMD_MASS_TOL = 1e-5               # of min(sum pt), where the EMD is small beside it
 EMD_FEW_ITERS = 20
 # Constituents-mode training: the emd_slice model, 100 constituents, trained
+# The evaluation half of vae.sh (docs/MIGRATION.md:24-28: --decorrelation=ON,
+# --npe 1000): the steps of atlasvae/cli/vae.py::_evaluate and
+# eval/results.py::plot_results that compute numbers, on the slice phase's
+# scaler and seed-7 weights.
+EVAL_EVENTS = 200_000          # QCD-Geneva and 2HDM-Geneva each
+EVAL_CHUNK = 10_000            # cli/vae.py's prediction chunk
+EVAL_METRICS = ["Latent", "MAE", "KLD", "JSD"]
+EVAL_CUTS = 100
+EVAL_NPE = 1000
+EVAL_PARITY_PSEUDO = 50        # injected pseudo-histograms of the card-against-CPU check
+EVAL_F64_REL = 2e-5            # log p against float64 scipy (tests/test_gammainc_sweep.py)
+EVAL_SEED = 0
+# Elementwise operations of one log_gammainc_lower/_upper element, counted
+# from atlasvae_torch/ops/gammainc.py (a transcendental counts as one): per
+# loop step 4 of the series and 18 of the continued fraction, and about 390
+# outside the loops (two Stirling prefactors, two Temme evaluations, the
+# selects); the scan adds about 12 a window (sums, masks, selects) and the
+# significance (sigma_from_log_pval: _ndtri and 6 Newton steps) about 250.
+SERIES_OPS, CF_OPS, GAMMAINC_FIXED_OPS, WINDOW_OPS, SIGMA_OPS = 4, 18, 390, 12, 250
+
+
 # with TRAIN_ARGS (const_train phase)
 CONST_LAYERS = EMD_LAYERS
 CONST_ARGS = ["--constituents", "ON", "--HLVs", "OFF", "--n_const", str(EMD_CONST), "--n_dims", "3",
@@ -979,6 +1018,254 @@ def phase_slice(device, workdir):
     return launches, rate
 
 
+def gammainc_ops():
+    from atlasvae_torch.ops.gammainc import _N_ITER
+    return (_N_ITER - 1) * (SERIES_OPS + CF_OPS) + GAMMAINC_FIXED_OPS
+
+
+def valid_windows(ref, widths, steps):
+    """Windows a scan of one histogram against ``ref`` must evaluate:
+    inside [first, last + 1) of its non-empty bins, at each width's stride."""
+    import numpy as np
+    non0 = np.nonzero(np.asarray(ref) > 0)[0]
+    if not len(non0):
+        return 0
+    span = int(non0.max()) + 1 - int(non0.min())
+    return sum(max(0, (span - w) // s + 1) for w, s in zip(widths, steps))
+
+
+def bound_scan(n_windows, n_bins_sig, bytes_moved):
+    """(ms, "bytes" or "operations") for n_windows p-values and n_bins_sig
+    per-bin significances (two tails + sigma each)."""
+    flop = n_windows * (gammainc_ops() + WINDOW_OPS) + \
+        n_bins_sig * (2 * gammainc_ops() + SIGMA_OPS)
+    by_ops, by_bytes = flop / PEAK_F32_FLOPS * 1e3, bytes_moved / PEAK_HBM_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes"), flop
+
+
+def launches_and_busy(fn):
+    """Kernels one call of fn launches on the card (copies and memsets not
+    counted) and their device ms."""
+    events = kernel_device_ms(fn)
+    kernels = [(n, ms) for n, ms in events if not n.startswith(("Memcpy", "Memset"))]
+    return len(kernels), sum(ms for _, ms in events)
+
+
+def check_against_f64(log_pvals, hists, ref, widths, hinf, hsup):
+    """Each window's log p from the card against scipy's float64 gammainc
+    on the same float32 window sums, where scipy does not underflow:
+    returns (windows compared, largest |d log p| / max(|log p|, 1))."""
+    import numpy as np
+    import torch
+    from scipy.special import gammainc
+    from atlasvae_torch.stats.bumphunter import _window_sums
+    worst, count = 0.0, 0
+    for wi, w in enumerate(widths):
+        nh = _window_sums(torch.tensor(hists), w).double().numpy()
+        nr = _window_sums(torch.tensor(ref), w).double().numpy()[None, :]
+        pos = np.arange(nh.shape[1])
+        ok = (nh > nr) & (nr > 0) & ((pos >= hinf) & (pos + w <= hsup))[None, :]
+        with np.errstate(divide="ignore"):
+            true = np.log(gammainc(nh, np.maximum(nr, 1e-30)))
+        ok &= np.isfinite(true)
+        got = log_pvals[wi][:, :nh.shape[1]].astype(np.float64)
+        err = np.abs(got - true) / np.maximum(np.abs(true), 1.0)
+        count += int(ok.sum())
+        worst = max(worst, float(err[ok].max(initial=0.0)))
+    return count, worst
+
+
+def phase_evaluate(device, workdir):
+    import numpy as np
+    import torch
+    from atlasvae_torch.data import (ensure_synthetic_registry, make_sample, apply_scaler,
+                                     filtering, Scaler, HLV_LIST)
+    from atlasvae_torch.eval import compute_metric_bank, loss_mapping, mass_deco
+    from atlasvae_torch.eval import bump
+    from atlasvae_torch.models import VAEConfig, init_vae, vae_apply
+    from atlasvae_torch.stats import BumpHunter1D, batched_local_sigma, scan_histograms
+    from atlasvae_torch.stats.bumphunter import _bin_significance, _poisson_pseudo
+    from atlasvae_torch.train.checkpoint import load_pytree
+    from atlasvae_torch.train.loop import features
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    wall = {}
+
+    def step(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    ensure_synthetic_registry(workdir, n_events=EVAL_EVENTS, n_const_max=20,
+                              names=["QCD-Geneva", "2HDM-Geneva"], seed=0)
+    cuts = ['(sample["m"] >= 30)', '(sample["pt"] <= 5000)']     # cli/vae.py's valid cuts
+    params = load_pytree(os.path.join(workdir, "model.npz"),
+                         init_vae(torch.Generator(device).manual_seed(0), VAEConfig(),
+                                  device=device))
+    scaler = Scaler.load(os.path.join(workdir, "HLV_RobustScaler.pkl"))
+
+    reset_counters()
+    t_phase = time.perf_counter()
+    sample = step("sample", lambda: make_sample(
+        "QCD-Geneva", "2HDM-Geneva", EVAL_EVENTS, EVAL_EVENTS, cuts, 20, 3, "OFF", "ON",
+        list(HLV_LIST), verbose=False, device=device))
+    y_true = np.where(sample["JZW"] == -1, 0, 1)
+    sample["weights"][y_true == 0] /= 1e3          # cli/vae.py:208-209 (Geneva signal)
+    x_true = step("scale", lambda: apply_scaler(torch.as_tensor(sample["HLVs"], device=device),
+                                                3, scaler, verbose=False))
+    sample["HLVs"] = x_true
+    x_true = features(sample).contiguous()
+    gen = torch.Generator(device).manual_seed(0)
+
+    def predict():
+        with torch.inference_mode():
+            return torch.cat([vae_apply(params, x_true[i:i + EVAL_CHUNK], gen)[0]
+                              for i in range(0, len(x_true), EVAL_CHUNK)])
+    x_pred = step("predict", predict)
+    sample["HLVs"] = x_true = x_true.cpu().numpy()
+    y_true, x_true, x_pred, sample = step("filtering", lambda: filtering(
+        y_true, x_true, x_pred.cpu().numpy(), sample))
+    x_losses = step("metrics", lambda: {k: loss_mapping(v) for k, v in compute_metric_bank(
+        x_true, x_pred, params, EVAL_METRICS, 3, sample, normal_losses=False,
+        device=device).items()})
+    mae = step("deco", lambda: mass_deco(y_true, sample, x_losses["MAE"], deco="2d"))
+    best = step("bump_scan", lambda: bump.bump_scan(
+        y_true, mae, "MAE", sample, "2HDM-Geneva", None, n_cuts=EVAL_CUTS, npe=EVAL_NPE,
+        make_plots=False, device=device))
+    if best is None:
+        raise AssertionError("bump_scan found no cut with 100 background jets")
+    cut_sample = {k: v[mae > best["loss"]] for k, v in sample.items() if k != "HLVs"}
+    loc_sigma, max_sigma = step("bump_hunter", lambda: bump.bump_hunter(
+        cut_sample, m_range=(0, 800), bin_size=5, npe=EVAL_NPE, device=device))
+    phase_ms = (time.perf_counter() - t_phase) * 1e3
+    launches = counters()
+    for name in ("fused_mlp", "stack_forward"):
+        if launches[name] <= 0 or launches[name + "_layers"] != 0:
+            raise AssertionError(f"kernel {name} in evaluate: fused body {launches[name]} "
+                                 f"times (want > 0), layer-wise route "
+                                 f"{launches[name + '_layers']} (want 0)")
+    if not (np.isfinite(loc_sigma) and loc_sigma > 0):
+        raise AssertionError(f"loc_sigma at the best cut is {loc_sigma}")
+    log("evaluate", jets=len(y_true), signal=int((y_true == 0).sum()),
+        phase_ms=f"{phase_ms:.1f}", wall_ms=json.dumps({k: round(v, 3) for k, v in wall.items()}),
+        deco_host_ms=f"{wall['deco']:.3f}", best_cut=json.dumps(
+            {"metric": best["metric"], "eff": float(best["eff"]), "loss": float(best["loss"])}),
+        loc_sigma=f"{loc_sigma:.6g}", max_sigma=f"{max_sigma}",
+        launches=json.dumps({k: launches[k] for k in ("fused_mlp", "stack_forward")}))
+
+    # the cut scan's parts, on the same inputs: host histograms, then the
+    # 101-cut batched scan on the card
+    t0 = time.perf_counter()
+    thresholds, _, idx = bump._cut_grid(y_true, mae, sample["weights"], EVAL_CUTS, "bkg", device)
+    grid_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    hist_sample = {k: sample[k] for k in ("JZW", "m", "pt", "weights")}
+    data_hists, bkg_hists, kept = bump._cut_histograms(mae, thresholds, idx, hist_sample,
+                                                       (0, 800), 5)
+    data_mat, bkg_mat = bump.pad_hist_matrices(data_hists, bkg_hists, EVAL_CUTS + 1)
+    hist_ms = (time.perf_counter() - t0) * 1e3
+    widths, steps = bump._WIDTHS, bump._STEPS
+    dm, bm = (torch.as_tensor(m, dtype=torch.float32, device=device) for m in (data_mat, bkg_mat))
+    local = lambda: batched_local_sigma(dm, bm, widths, steps, device=device)
+    local_ms = time_ms(local, iters=5, warmup=1)
+    local_launches, local_busy = launches_and_busy(local)
+    n_win = sum(valid_windows(b, widths, steps) for b in bkg_hists)
+    n_bins = sum(len(b) for b in bkg_hists)
+    rows, cols = data_mat.shape
+    local_bytes = 2 * rows * cols * 4 + rows * (4 + 8 + 8) + rows * cols * 4
+    (local_bound, local_by), local_flop = bound_scan(n_win, n_bins, local_bytes)
+    log("evaluate", scan="batched_local_sigma", cuts=len(kept), matrix=json.dumps([rows, cols]),
+        grid_ms=f"{grid_ms:.3f}", histograms_host_ms=f"{hist_ms:.3f}",
+        ms=f"{local_ms:.4f}", device_busy_ms=f"{local_busy:.4f}", launches=local_launches,
+        windows=n_win, bins=n_bins, flop=f"{local_flop:.4g}", bound_ms=f"{local_bound:.6f}",
+        bound_by=local_by)
+
+    # bump_hunter's scan at the best cut: the data and 1,000 pseudo-histograms
+    bins = bump._adaptive_bins(cut_sample["m"][cut_sample["JZW"] != -1], (0, 800), 5)
+    is_bkg = cut_sample["JZW"] != -1
+    data_hist = np.histogram(cut_sample["m"], bins=bins, range=(0, 800),
+                             weights=cut_sample["weights"])[0]
+    bkg_hist = np.histogram(cut_sample["m"][is_bkg], bins=bins, range=(0, 800),
+                            weights=cut_sample["weights"][is_bkg])[0]
+    hunter = BumpHunter1D(rang=[0, 800], width_min=2, width_max=6, width_step=1, scan_step=1,
+                          npe=EVAL_NPE, seed=None, bins=bins, device=device)
+    hunter.bump_scan(data_hist, bkg_hist, is_hist=True, verbose=False)
+    again = hunter.bump_info(data_hist, is_hist=True, verbose=False)
+    if again != loc_sigma:
+        raise AssertionError(f"BumpHunter1D at the best cut gives loc_sigma {again}, "
+                             f"bump_hunter {loc_sigma}")
+    hw, hs = hunter._widths(len(data_hist))
+    n_true = len(data_hist)
+    pad = (-n_true) % 32
+    data_p = np.pad(data_hist, (0, pad)).astype(np.float32)
+    bkg_p = np.pad(bkg_hist, (0, pad)).astype(np.float32)
+    hinf, hsup = hunter._scan_range(bkg_p)
+    ref_t = torch.as_tensor(bkg_p, device=device)
+    hists_t = torch.cat([torch.as_tensor(data_p, device=device)[None],
+                         _poisson_pseudo(torch.Generator(device).manual_seed(0), ref_t,
+                                         EVAL_NPE)])
+    scan = lambda: scan_histograms(hists_t, ref_t, hw, hs, hinf, hsup, device=device)
+    scan_ms = time_ms(scan, iters=5, warmup=1)
+    scan_launches, scan_busy = launches_and_busy(scan)
+    k, n = hists_t.shape
+    scan_bytes = (k * n + n) * 4 + k * (4 + 8 + 8 + 4) + len(hw) * k * n * 4
+    (scan_bound, scan_by), scan_flop = bound_scan(k * valid_windows(bkg_p, hw, hs), 0, scan_bytes)
+    log("evaluate", scan="bump_hunter", histograms=k, bins=n_true, padded_bins=n,
+        ms=f"{scan_ms:.4f}", device_busy_ms=f"{scan_busy:.4f}", launches=scan_launches,
+        windows=k * valid_windows(bkg_p, hw, hs), flop=f"{scan_flop:.4g}",
+        bound_ms=f"{scan_bound:.6f}", bound_by=scan_by,
+        global_pval=hunter.global_Pval, significance=f"{hunter.significance:.6g}",
+        best_eff=f"{float(best['eff']):.6g}")
+
+    # card against CPU: the data and 50 injected pseudo-histograms
+    rng = np.random.default_rng(EVAL_SEED)
+    hists = np.concatenate([data_p[None], rng.poisson(
+        bkg_p, (EVAL_PARITY_PSEUDO, n)).astype(np.float32)])
+    cpu = torch.device("cpu")
+    on_card = [t.cpu() for t in scan_histograms(hists, bkg_p, hw, hs, hinf, hsup, device=device)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        on_cpu = scan_histograms(hists, bkg_p, hw, hs, hinf, hsup, device=cpu)
+        sig_cpu = _bin_significance(torch.tensor(data_p), torch.tensor(bkg_p))
+    finally:
+        torch.set_num_threads(threads)
+    sig_card = _bin_significance(torch.tensor(data_p, device=device),
+                                 torch.tensor(bkg_p, device=device)).cpu()
+    gap = lambda a, b, rtol, atol: float(((a - b).abs() - (atol + rtol * b.abs())).max())
+    cpu_excess = {"min_log_pval": gap(on_card[0], on_cpu[0], 1e-5, 1e-6),
+                  "log_pvals": gap(on_card[4], on_cpu[4], 1e-5, 1e-6),
+                  "bin_sigma": gap(sig_card, sig_cpu, 1e-5, 1e-6)}
+    same_window = bool(torch.equal(on_card[1], on_cpu[1]) and torch.equal(on_card[2], on_cpu[2]))
+    # card against float64 scipy on the same float32 window sums
+    n_f64, f64_err = check_against_f64(on_card[4].numpy(), hists, bkg_p, hw, hinf, hsup)
+    # determinism of the card's draws, and the first minimum on a constructed tie
+    draws = [_poisson_pseudo(torch.Generator(device).manual_seed(s), ref_t, EVAL_NPE)
+             for s in (EVAL_SEED, EVAL_SEED)]
+    same_draws = bool(torch.equal(*draws))
+    tie = np.full(64, 100.0, np.float32)
+    tie_hist = tie.copy()
+    tie_hist[[10, 11, 40, 41]] += 80
+    tie_out = scan_histograms(np.tile(tie_hist, (3, 1)), tie, hw, hs, 0, 64, device=device)
+    first_min = bool((tie_out[1] == 10).all() and (tie_out[2] == 2).all())
+    log("evaluate", check="card_vs_cpu", histograms=len(hists),
+        excess_over_bar=json.dumps(cpu_excess), same_window=same_window,
+        f64_windows=n_f64, f64_max_rel_log_err=f"{f64_err:.3g}", same_draws=same_draws,
+        first_minimum_on_tie=first_min)
+    if not (max(cpu_excess.values()) <= 0 and same_window and n_f64 > 0
+            and f64_err <= EVAL_F64_REL and same_draws and first_min):
+        raise AssertionError(
+            f"evaluate checks: card against CPU over rtol 1e-5 / atol 1e-6 by {cpu_excess}, "
+            f"same window {same_window}; against float64 {f64_err:.3g} (bar {EVAL_F64_REL}) "
+            f"on {n_f64} windows; same draws {same_draws}; first minimum {first_min}")
+    return launches, dict(scan_ms=scan_ms, scan_launches=scan_launches, scan_bound=scan_bound,
+                          local_ms=local_ms, local_launches=local_launches,
+                          local_bound=local_bound, loc_sigma=loc_sigma)
+
+
 class _Stamped(list):
     """A list of loads that notes the time (after a device sync) and the
     launch counters each time train_model starts iterating it."""
@@ -1754,6 +2041,7 @@ def main():
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_root) as workdir:
         slice_launches, rate = phase_slice(device, workdir)
+        eval_launches, eval_facts = phase_evaluate(device, workdir)
         train_launches, train = phase_train(device, workdir)
         const_launches, const_facts = phase_const_train(device, os.path.join(workdir, "const_train"))
         emd_launches, emd_facts = phase_emd_slice(device, os.path.join(workdir, "emd_slice"))
@@ -1762,7 +2050,8 @@ def main():
     kernels = []
     for name, meta in KERNELS.items():
         main_shape = next(r for r in parity_results[name] if r["shape"] == meta["main_shape"])
-        by_phase = {"slice": slice_launches[name], "train": train_launches[name],
+        by_phase = {"slice": slice_launches[name], "evaluate": eval_launches[name],
+                    "train": train_launches[name],
                     "const_train": const_launches[name], "emd_slice": emd_launches[name],
                     "jetid": jetid_launches[name]}
         kernels.append(dict(
@@ -1779,7 +2068,9 @@ def main():
         const_train_jets_per_s=f"{const_facts['warm_jets_per_s']:.0f}",
         emd_slice_jets_per_s=f"{emd_facts['warm_jets_per_s']:.0f}",
         jetid_train_jets_per_s=f"{jetid_facts['warm_jets_per_s']:.0f}",
-        jetid_predict_jets_per_s=f"{jetid_facts['predict_jets_per_s']:.0f}")
+        jetid_predict_jets_per_s=f"{jetid_facts['predict_jets_per_s']:.0f}",
+        evaluate_bump_hunter_scan_ms=f"{eval_facts['scan_ms']:.4f}",
+        evaluate_cut_scan_ms=f"{eval_facts['local_ms']:.4f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

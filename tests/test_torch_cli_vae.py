@@ -85,8 +85,8 @@ def test_weights_load_in_either_package(runs):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--plotting", "ON"], "items 5-6"),
-    (["--apply_cuts", "ON"], "items 5-6"),
+    (["--plotting", "ON"], "Queue 1 item 6"),
+    (["--apply_cuts", "ON"], "Queue 1 item 6"),
     (["--n_devices", "2"], "item 11"),
     (["--model_in", "weights.h5"], "item 10"),
     (["--model_out", "model.h5"], "item 10"),

@@ -17,7 +17,10 @@ for name in names:
 assert len(names) >= 20, names
 for name in ("atlasvae_torch.plotting.performance", "atlasvae_torch.cli.jetid",
              "atlasvae_torch.models.jetid", "atlasvae_torch.train.jetid_loop",
-             "atlasvae_torch.ops.fused_conv_cuda", "atlasvae_torch.ops.pooling"):
+             "atlasvae_torch.ops.fused_conv_cuda", "atlasvae_torch.ops.pooling",
+             "atlasvae_torch.ops.gammainc", "atlasvae_torch.stats.bumphunter",
+             "atlasvae_torch.stats.deprecation", "atlasvae_torch.stats.fit",
+             "atlasvae_torch.eval.deco", "atlasvae_torch.eval.bump"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "atlasvae", "matplotlib"))
