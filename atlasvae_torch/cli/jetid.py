@@ -7,21 +7,26 @@ with the Keras-style callbacks, prediction and the accuracy / AUC /
 background-rejection report, plus ``--device`` (default ``cuda``).  Data are
 prepared on the host; the device gets packed batches.
 
-    python -m atlasvae_torch.cli.jetid --NN_type CNN --mixed_precision OFF \\
-        --plotting OFF --synthetic 200000 --n_train 1e5 --n_valid 5e4 \\
-        --n_epochs 3 --output_dir out
-    python -m atlasvae_torch.cli.jetid --NN_type CNN --mixed_precision OFF \\
-        --plotting OFF --n_train 1e5 --n_valid 5e4 --n_epochs 0 \\
+    python -m atlasvae_torch.cli.jetid --NN_type CNN --plotting OFF \\
+        --synthetic 200000 --n_train 1e5 --n_valid 5e4 --n_epochs 3 \\
+        --weight_type flattening --bkg_ratio 1 --output_dir out
+    python -m atlasvae_torch.cli.jetid --NN_type CNN --plotting OFF \\
+        --n_train 1e5 --n_valid 5e4 --n_epochs 0 \\
         --model_in model.npz --output_dir out          # predict only
+
+``--mixed_precision AUTO``, the default, computes the CNN in bfloat16 with
+float32 master weights, as the JAX package does (``OFF``: float32); the FCN
+in float32 (``ON``: bfloat16).  ``--weight_type`` picks a (pt, |eta|)
+histogram-matching sample-weight scheme; ``--generator ON`` streams the
+training slice in chunks of ``--memGB`` per epoch (FCN only, as in the JAX
+package), with scalers fitted on the first chunk and the weight scheme
+computed per chunk.
 
 Not ported yet, and refused with ``NotImplementedError`` while the
 arguments are checked, before any data is loaded (ROADMAP Queue 1):
-``--n_folds`` above 1 and ``--vmap_folds ON`` (item 10), ``--generator ON``,
-``--feature_removal ON`` and ``--weight_type`` other than ``none`` (item 9),
-``--n_devices`` above 1 (item 11), ``--plotting ON`` (item 6), Keras ``.h5``
-weights in or out (item 10) and bfloat16 compute (item 9): ``--mixed_precision
-AUTO``, the default, resolves to bfloat16 for ``--NN_type CNN`` as in the JAX
-package and is therefore refused there; pass ``--mixed_precision OFF``.
+``--n_folds`` above 1 and ``--vmap_folds ON`` (item 10),
+``--feature_removal ON`` (item 9), ``--n_devices`` above 1 (item 11),
+``--plotting ON`` (item 6) and Keras ``.h5`` weights in or out (item 10).
 """
 
 import os
@@ -94,7 +99,7 @@ def build_parser():
     parser.add_argument("--train_cuts", default="",
                         help="extra cut expression on the training slice")
     parser.add_argument("--generator", default="OFF",
-                        help="stream training chunks per epoch (not ported)")
+                        help="stream training chunks per epoch (FCN mode)")
     parser.add_argument("--memGB", default=30, type=float,
                         help="host-memory chunk budget in generator mode")
     parser.add_argument("--model_in", default="")
@@ -121,8 +126,7 @@ def build_parser():
     parser.add_argument("--feature_removal", default="OFF")
     parser.add_argument("--mixed_precision", default="AUTO",
                         help="bfloat16 compute with float32 master weights.  AUTO resolves "
-                             "to ON for CNN and OFF for FCN, as in the JAX package; the "
-                             "port computes in float32 and refuses ON")
+                             "to ON for CNN and OFF for FCN, as in the JAX package")
     parser.add_argument("--valid_cuts", default="")
     parser.add_argument("--bkg_data", default="QCD-Geneva")
     parser.add_argument("--sig_data", default="top-Geneva")
@@ -142,6 +146,7 @@ def resolve_compute_dtype(mixed_precision, nn_type):
 
 
 ETA_REGIONS = ("0.0-1.3", "1.3-1.6", "1.6-2.5")
+WEIGHT_TYPES = ("bkg_ratio", "flattening", "match2class", "match2max")
 
 
 def _on(v):
@@ -162,9 +167,6 @@ def _check_supported(args):
     if args.n_folds > 1 or _on(args.vmap_folds):
         raise NotImplementedError("--n_folds > 1 / --vmap_folds ON: k-fold cross-validation "
                                   "is ported with ROADMAP Queue 1 item 10")
-    if _on(args.generator):
-        raise NotImplementedError("--generator ON: streamed training chunks (merge_samples, "
-                                  "the chunk loop) are ported with ROADMAP Queue 1 item 9")
     if _on(args.feature_removal):
         raise NotImplementedError("--feature_removal ON is ported with ROADMAP Queue 1 "
                                   "item 9")
@@ -174,19 +176,11 @@ def _check_supported(args):
     if _on(args.plotting):
         raise NotImplementedError("--plotting ON draws ROC curves and class distributions, "
                                   "ported with ROADMAP Queue 1 item 6; pass --plotting OFF")
-    if args.weight_type != "none":
-        raise NotImplementedError(f"--weight_type {args.weight_type}: the sample-weight "
-                                  "schemes are ported with ROADMAP Queue 1 item 9")
     if (args.model_in and _is_keras(os.path.join(args.output_dir, args.model_in))) or \
             _is_keras(args.model_out):
         raise NotImplementedError("Keras .h5 weights are read and written with "
                                   "train/keras_import.py and keras_export.py, ported with "
                                   "ROADMAP Queue 1 item 10; use a native .npz")
-    if resolve_compute_dtype(args.mixed_precision, args.NN_type) != "float32":
-        raise NotImplementedError("bfloat16 compute is ported with ROADMAP Queue 1 item 9 "
-                                  "(the fused conv kernels are float32); --mixed_precision "
-                                  "AUTO resolves to bfloat16 for --NN_type CNN: pass "
-                                  "--mixed_precision OFF")
 
 
 def _eta_cuts(args, sample):
@@ -263,7 +257,7 @@ def main(argv=None):
     from ..models import JetIDConfig, init_jetid
     from ..train.jetid_loop import train_classifier, predict_classifier
     from ..train.checkpoint import load_pytree
-    from ..eval.jetid_eval import make_labels, get_class_weight
+    from ..eval.jetid_eval import make_labels, get_class_weight, get_sample_weights
 
     args = build_parser().parse_args(argv)
     for key in ["n_train", "n_valid", "n_eval", "batch_size"]:
@@ -285,12 +279,29 @@ def main(argv=None):
     hlv_list = list(HLV_LIST)
     cuts = ['(sample["m"] >= 30)', '(sample["pt"] <= 5000)']
     n_total = args.n_train + args.n_valid
-    sample = make_sample(args.bkg_data, args.sig_data, n_total, n_total, cuts, args.n_const,
-                         args.n_dims, args.constituents, args.HLVs, hlv_list,
-                         shuffling=True, device=_HOST)
+    streaming = _on(args.generator)
+    first_chunk = None
+    if streaming:
+        # only the validation slice is held; training chunks stream per epoch
+        if args.NN_type == "CNN":
+            raise SystemExit("--generator ON supports the plain training path "
+                             "(no k-fold CV / feature removal / CNN images)")
+        chunk = int(1e9 * args.memGB / max(args.n_const * args.n_dims * 4, 1))
+        chunk = max(args.batch_size, min(chunk, args.n_train))
+        sample = make_sample(args.bkg_data, args.sig_data, [args.n_train, n_total],
+                             [args.n_train, n_total], cuts, args.n_const, args.n_dims,
+                             args.constituents, args.HLVs, hlv_list, shuffling=True,
+                             device=_HOST)
+        first_chunk = make_sample(args.bkg_data, args.sig_data, [0, chunk], [0, chunk], cuts,
+                                  args.n_const, args.n_dims, args.constituents, args.HLVs,
+                                  hlv_list, shuffling=True, device=_HOST)
+    else:
+        sample = make_sample(args.bkg_data, args.sig_data, n_total, n_total, cuts, args.n_const,
+                             args.n_dims, args.constituents, args.HLVs, hlv_list,
+                             shuffling=True, device=_HOST)
     labels = make_labels(sample, args.n_classes)
     n = len(labels)
-    n_train = min(args.n_train, n // 2)
+    n_train = 0 if streaming else min(args.n_train, n // 2)
     train_idx, valid_idx = np.arange(n_train), np.arange(n_train, n)
     if args.train_cuts or args.valid_cuts:
         from ..utils.expr import evaluate_cut
@@ -341,15 +352,18 @@ def main(argv=None):
     params = init_jetid(torch.Generator(device).manual_seed(0), config, device=device)
 
     # scaling only when ON and scalar branches exist
+    # generator mode fits the scalers on the first training chunk
     scaling = bool(scalars) and _on(args.scaling)
     scaler_in = _resolve_in(args.scaler_in, out_root) if scaling else None
+    scaler = t_scaler = None
     if scaler_in:
         print("Loaded HLV scaler from:", scaler_in)
-        sample["HLVs"] = apply_scaler(sample["HLVs"], scaler=Scaler.load(scaler_in),
-                                      device=_HOST)
+        scaler = Scaler.load(scaler_in)
+        sample["HLVs"] = apply_scaler(sample["HLVs"], scaler=scaler, device=_HOST)
     elif args.scaler_type and scaling:
         scaler_out = args.scaler_out or f"scaler_{args.scaler_type}.pkl"
-        scaler = fit_scaler(sample["HLVs"][train_idx], scaler_out=out_root + "/" + scaler_out,
+        fit_rows = first_chunk["HLVs"] if streaming else sample["HLVs"][train_idx]
+        scaler = fit_scaler(fit_rows, scaler_out=out_root + "/" + scaler_out,
                             scaler_type=args.scaler_type)
         sample["HLVs"] = apply_scaler(sample["HLVs"], scaler=scaler, device=_HOST)
 
@@ -360,7 +374,8 @@ def main(argv=None):
             t_scaler = Scaler.load(t_scaler_in)
             print("Loaded track scaler from:", t_scaler_in)
         else:
-            fit_rows = sample["constituents"][train_idx if len(train_idx) else slice(None)]
+            fit_rows = first_chunk["constituents"] if streaming else \
+                sample["constituents"][train_idx if len(train_idx) else slice(None)]
             print("Fitting track scaler", end="")
             t_scaler = fit_scaler(fit_rows, n_dims=args.n_dims,
                                   scaler_out=out_root + "/" + args.t_scaler_out,
@@ -380,14 +395,86 @@ def main(argv=None):
             out[name] = sample[name][idx]
         return out
 
+    class_source = make_labels(first_chunk, args.n_classes) if streaming else labels[train_idx]
+    class_weight = get_class_weight(class_source, args.bkg_ratio)
+    sample_weight = None
+    if not streaming and args.weight_type in WEIGHT_TYPES:
+        train_view = {k: np.asarray(v)[train_idx] for k, v in sample.items() if np.ndim(v) >= 1}
+        sample_weight, _ = get_sample_weights(train_view, labels[train_idx], args.weight_type,
+                                              args.bkg_ratio)
+        # sparse (pt, eta) bins give inf ratios: those rows get weight 0 (or
+        # a NaN loss would stop the training), uniform weights if all do
+        sample_weight = np.where(np.isfinite(sample_weight), sample_weight,
+                                 0.0).astype(np.float32)
+        if sample_weight.sum() <= 0:
+            print("weight scheme degenerate -> uniform")
+            sample_weight = None
+
     model_out = out_root + "/" + args.model_out
-    if args.n_epochs > 0:
-        state_file = out_root + "/" + args.state_file if args.state_file else None
+    state_file = out_root + "/" + args.state_file if args.state_file else None
+    if args.n_epochs > 0 and streaming:
+        from ..train.jetid_loop import train_classifier_streaming
+        from ..utils.chunks import index_ranges
+        # the JAX package also tunes glibc's heap for the chunk buffers here
+        # (utils/hostmem.py::enable_heap_reuse); that is left out on purpose
+
+        def load_iter():
+            for lo, hi in index_ranges(args.n_train, bin_size=chunk):
+                ch = make_sample(args.bkg_data, args.sig_data, [lo, hi], [lo, hi], cuts,
+                                 args.n_const, args.n_dims, args.constituents, args.HLVs,
+                                 hlv_list, shuffling=True, verbose=False, device=_HOST)
+                if args.train_cuts:   # applied per chunk in generator mode
+                    from ..utils.expr import evaluate_cut
+                    keep = evaluate_cut(args.train_cuts, {k: np.asarray(v) for k, v in ch.items()
+                                                          if np.ndim(v) >= 1})
+                    ch = {k: np.asarray(v)[keep] if np.ndim(v) >= 1 else v
+                          for k, v in ch.items()}
+                ch_labels = make_labels(ch, args.n_classes)
+                if scalars and scaler is not None:
+                    ch["HLVs"] = apply_scaler(ch["HLVs"], scaler=scaler, verbose=False,
+                                              device=_HOST)
+                if const_dim and t_scaler is not None:
+                    ch["constituents"] = apply_scaler(ch["constituents"], args.n_dims, t_scaler,
+                                                      tag="tracks", reshape=True, verbose=False,
+                                                      device=_HOST)
+                w = np.ones(len(ch_labels), np.float32) if class_weight is None else \
+                    np.asarray([class_weight[int(l)] for l in ch_labels], np.float32)
+                if args.weight_type in WEIGHT_TYPES:
+                    # the scheme per chunk: a small chunk's sparse bins give
+                    # inf/NaN rows (weight 0); a chunk that degenerates
+                    # keeps its class weights alone
+                    sw, _ = get_sample_weights({k: np.asarray(v) for k, v in ch.items()
+                                                if np.ndim(v) >= 1}, ch_labels,
+                                               args.weight_type, args.bkg_ratio)
+                    sw = np.asarray(sw, np.float32)
+                    sw = np.where(np.isfinite(sw), sw, 0.0)
+                    if sw.sum() > 0:
+                        w = w * sw
+                    else:
+                        print("chunk weight scheme degenerate -> uniform")
+                inputs = {}
+                if scalars:
+                    inputs["HLVs"] = ch["HLVs"]
+                if const_dim:
+                    inputs["constituents"] = ch["constituents"]
+                yield inputs, ch_labels, w
+
+        # --n_eval: per-epoch validation on the first n_eval rows of the
+        # validation slice; the results use all of it
+        eval_idx = valid_idx[:args.n_eval] if args.n_eval else valid_idx
+        if args.n_eval:
+            print(f"Per-epoch validation on {len(eval_idx)} of {len(valid_idx)} validation "
+                  "jets (--n_eval)")
+        params, _ = train_classifier_streaming(
+            params, config, load_iter, inputs_for(eval_idx), labels[eval_idx], args.n_epochs,
+            args.batch_size, args.lr, args.patience, model_out, state_file=state_file,
+            verbose=bool(args.verbose), monitor=args.metrics)
+    elif args.n_epochs > 0:
         params, _ = train_classifier(
             params, config, inputs_for(train_idx), labels[train_idx], inputs_for(valid_idx),
             labels[valid_idx], args.n_epochs, args.batch_size, args.lr, args.patience,
-            get_class_weight(labels[train_idx], args.bkg_ratio), None, model_out,
-            state_file=state_file, verbose=bool(args.verbose), monitor=args.metrics)
+            class_weight, sample_weight, model_out, state_file=state_file,
+            verbose=bool(args.verbose), monitor=args.metrics)
     elif args.model_in and os.path.isfile(out_root + "/" + args.model_in):
         params = load_pytree(out_root + "/" + args.model_in, params)
 

@@ -29,6 +29,15 @@
 // the maximum (rows, then columns, strictly greater), as K6
 // (fused_conv_bwd.cu) recomputes them.
 //
+// Both routes come in float and in bf16 (the _bf16 entry points; x, w, b
+// and out all bf16): bf16 is widened to float where it is loaded, the sums,
+// the pool, the bias and the clamp run in float as the Pallas kernel's f32
+// accumulation does, and the output is rounded once to bf16 where it is
+// stored (fused_conv.cuh `narrow`).  The register route then writes four
+// maps as one 8-byte store.  At the jet-ID training batch in bf16 the bytes
+// halve (x 2.6 MB, out 49 MB: 0.015 ms at 3.35 TB/s) and the float work
+// bounds it (0.026 ms at 67 TFLOP/s).
+//
 // Bound on an H100 at the jet-ID training batch (5,000 x 16x16x1, 3x3, 100
 // maps, pool 2x2): 5.1 MB read, 98 MB written, 1.8 GFLOP: the write bounds
 // it (0.03 ms at 3.35 TB/s; 0.026 ms of f32 work at 67 TFLOP/s).  The
@@ -39,8 +48,9 @@
 
 namespace atlasvae {
 
+template <typename T>
 __global__ void __launch_bounds__(kConvThreads)
-conv_pool_relu_kernel(const __grid_constant__ ConvArgs a) {
+conv_pool_relu_kernel(const __grid_constant__ ConvArgs<T> a) {
   extern __shared__ float smem[];
   const ConvShape& s = a.s;
   const ConvPlan& p = a.p;
@@ -70,7 +80,7 @@ conv_pool_relu_kernel(const __grid_constant__ ConvArgs a) {
         const float z = conv_pool_pixel(s, xs + img * img_stride, it.ylo, oy, ox, ws + m,
                                         p.mt, &by, &bx);
         a.out[(((size_t)(it.n0 + img) * s.Ho + oy) * s.Wo + ox) * s.M + m0 + m] =
-            fmaxf(z + __ldg(a.b + m0 + m), 0.f);
+            narrow<T>(fmaxf(z + load_widened(a.b + m0 + m), 0.f));
       }
     }
   }
@@ -81,9 +91,10 @@ conv_pool_relu_kernel(const __grid_constant__ ConvArgs a) {
 // 4 mg .. 4 mg + 3 of pooled pixels first + k * slots, k < kTilePixels.
 constexpr int kTilePixels = 8;
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-conv_pool_relu_tiles_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                            const float* __restrict__ b, float* __restrict__ out, int H, int W,
+conv_pool_relu_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            const T* __restrict__ b, T* __restrict__ out, int H, int W,
                             int M, int Ho, int Wo, int pixels, bool vec2, bool vec4) {
   const int m0 = 4 * threadIdx.x;
   const int Hc = H - 2, Wc = W - 2;
@@ -104,50 +115,47 @@ conv_pool_relu_tiles_kernel(const float* __restrict__ x, const float* __restrict
     float o[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[j] = fmaxf(best[j] + br[j], 0.f);
-    float* dst = out + (size_t)pix * M + m0;
+    T* dst = out + (size_t)pix * M + m0;
     if (vec4) {
-      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      store_quad(dst, o);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (m0 + j < M) dst[j] = o[j];
+        if (m0 + j < M) dst[j] = narrow<T>(o[j]);
     }
   }
 }
 
-}  // namespace atlasvae
-
-// The band route: out (N, Ho, Wo, M).  Returns 0, a cudaError, -1 for a shape outside the
-// gate (K = kh*kw*C <= 512, M <= 1024, the kernel inside the image) or -2
-// when one pooled row of one image does not fit a CTA's shared memory.
-extern "C" int atlasvae_conv_pool_relu(const void* x, const void* w, const void* b, void* out,
-                                       int N, int H, int W, int C, int kh, int kw, int M, int ph,
-                                       int pw, void* stream) {
-  using namespace atlasvae;
-  ConvArgs a = {};
+// The band route: out (N, Ho, Wo, M).  Returns 0, a cudaError, -1 for a
+// shape outside the gate (K = kh*kw*C <= 512, M <= 1024, the kernel inside
+// the image) or -2 when one pooled row of one image does not fit a CTA's
+// shared memory.
+template <typename T>
+int conv_forward_bands(const void* x, const void* w, const void* b, void* out, int N, int H,
+                       int W, int C, int kh, int kw, int M, int ph, int pw, void* stream) {
+  ConvArgs<T> a = {};
   if (!conv_shape(N, H, W, C, kh, kw, M, ph, pw, &a.s)) return -1;
   if (!conv_plan(a.s, false, &a.p)) return -2;
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.b = static_cast<const float*>(b);
-  a.out = static_cast<float*>(out);
-  cudaError_t err = cudaFuncSetAttribute(conv_pool_relu_kernel,
+  a.x = static_cast<const T*>(x);
+  a.w = static_cast<const T*>(w);
+  a.b = static_cast<const T*>(b);
+  a.out = static_cast<T*>(out);
+  cudaError_t err = cudaFuncSetAttribute(conv_pool_relu_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)a.p.smem);
   if (err != cudaSuccess) return (int)err;
   const long long cap = 132 * 8;  // 8 CTAs of 256 threads fill an SM; a constant, not the card's
   const int grid = (int)(a.p.items < cap ? a.p.items : cap);
-  conv_pool_relu_kernel<<<grid, kConvThreads, a.p.smem, static_cast<cudaStream_t>(stream)>>>(a);
+  conv_pool_relu_kernel<T><<<grid, kConvThreads, a.p.smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The register route: x (N, H, W, 1), w (3, 3, 1, M), out (N, Ho, Wo, M)
 // for a 2x2 pool.  Returns 0, a cudaError, or -1 for a shape it does not
 // take (M above 128, an image smaller than the taps, 2^31 pooled pixels).
-extern "C" int atlasvae_conv_pool_relu_tiles(const void* x, const void* w, const void* b,
-                                             void* out, int N, int H, int W, int M,
-                                             void* stream) {
-  using namespace atlasvae;
+template <typename T>
+int conv_forward_tiles(const void* x, const void* w, const void* b, void* out, int N, int H,
+                       int W, int M, void* stream) {
   if (N < 1 || H < 3 || W < 3 || M < 1 || M > kTileMaps) return -1;
   const int Ho = (H - 2 + 1) / 2, Wo = (W - 2 + 1) / 2;
   const long long pixels = (long long)N * Ho * Wo;
@@ -156,11 +164,41 @@ extern "C" int atlasvae_conv_pool_relu_tiles(const void* x, const void* w, const
   const int slots = 256 / groups;
   const long long per_cta = (long long)slots * kTilePixels;
   const long long grid = (pixels + per_cta - 1) / per_cta;
-  const bool vec2 = W % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
-  const bool vec4 = M % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  conv_pool_relu_tiles_kernel<<<(unsigned)grid, dim3(groups, slots), 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<float*>(out), H, W, M, Ho, Wo, (int)pixels, vec2, vec4);
+  const bool vec2 = W % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
+  const bool vec4 = M % 4 == 0 && reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T)) == 0;
+  conv_pool_relu_tiles_kernel<T><<<(unsigned)grid, dim3(groups, slots), 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
+      static_cast<T*>(out), H, W, M, Ho, Wo, (int)pixels, vec2, vec4);
   return (int)cudaGetLastError();
+}
+
+}  // namespace atlasvae
+
+// The entry points: float (x, w, b, out all float32) and _bf16 (all bf16),
+// the band route and the register route of each, with the returns above.
+extern "C" int atlasvae_conv_pool_relu(const void* x, const void* w, const void* b, void* out,
+                                       int N, int H, int W, int C, int kh, int kw, int M, int ph,
+                                       int pw, void* stream) {
+  return atlasvae::conv_forward_bands<float>(x, w, b, out, N, H, W, C, kh, kw, M, ph, pw,
+                                             stream);
+}
+
+extern "C" int atlasvae_conv_pool_relu_bf16(const void* x, const void* w, const void* b,
+                                            void* out, int N, int H, int W, int C, int kh,
+                                            int kw, int M, int ph, int pw, void* stream) {
+  return atlasvae::conv_forward_bands<atlasvae::bf16>(x, w, b, out, N, H, W, C, kh, kw, M, ph,
+                                                      pw, stream);
+}
+
+extern "C" int atlasvae_conv_pool_relu_tiles(const void* x, const void* w, const void* b,
+                                             void* out, int N, int H, int W, int M,
+                                             void* stream) {
+  return atlasvae::conv_forward_tiles<float>(x, w, b, out, N, H, W, M, stream);
+}
+
+extern "C" int atlasvae_conv_pool_relu_tiles_bf16(const void* x, const void* w, const void* b,
+                                                  void* out, int N, int H, int W, int M,
+                                                  void* stream) {
+  return atlasvae::conv_forward_tiles<atlasvae::bf16>(x, w, b, out, N, H, W, M, stream);
 }

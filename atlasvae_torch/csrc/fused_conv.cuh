@@ -15,11 +15,61 @@
 // four maps' taps and one pooled pixel's input patch in registers.  Every
 // route sums the taps of a conv pixel with the same chain of FMAs, so the
 // backward sees the bits the forward pooled.
+//
+// x, w, b, the output and g are all float or all bf16 (the element type T
+// of the kernels).  A bf16 value is widened to float where it is loaded (a
+// product of two bf16 values is exact in float) and everything after runs
+// as the float kernels run; an output is rounded once, where it is stored
+// (narrow).  Shared memory and the partial sums hold floats either way.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace atlasvae {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float load_widened(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_widened(const bf16* p) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// Two consecutive elements, 8 bytes (float) or 4 (bf16) aligned.
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
+// Four consecutive elements, 16 bytes (float) or 8 (bf16) aligned.
+__device__ __forceinline__ float4 load_quad(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load_quad(const bf16* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
+template <typename T> __device__ __forceinline__ T narrow(float v);
+template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 narrow<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Four values stored as one 16-byte (float) or 8-byte (bf16) word.
+__device__ __forceinline__ void store_quad(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_quad(bf16* dst, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
+                                              bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
+}
 
 constexpr int kConvThreads = 256;
 constexpr size_t kConvMaxSmem = 232448;  // a CTA's shared memory on sm_90
@@ -110,14 +160,15 @@ inline bool conv_plan(const ConvShape& s, bool backward, ConvPlan* p) {
   return true;
 }
 
+template <typename T>
 struct ConvArgs {
   ConvShape s;
   ConvPlan p;
-  const float* x;    // (N, H, W, C)
-  const float* w;    // (K, M)
-  const float* b;    // (M,)
-  float* out;        // forward: (N, Ho, Wo, M)
-  const float* g;    // backward: (N, Ho, Wo, M)
+  const T* x;        // (N, H, W, C)
+  const T* w;        // (K, M)
+  const T* b;        // (M,)
+  T* out;            // forward: (N, Ho, Wo, M)
+  const T* g;        // backward: (N, Ho, Wo, M)
   float* partial;    // backward: (grid, K*M + M), one slice a CTA
 };
 
@@ -143,24 +194,26 @@ __device__ __forceinline__ ConvItem conv_item(const ConvShape& s, const ConvPlan
 }
 
 // The item's input rows -> xs, image after image, rows_in * WC floats apart.
-__device__ __forceinline__ void conv_stage_rows(const ConvArgs& a, const ConvItem& it,
+template <typename T>
+__device__ __forceinline__ void conv_stage_rows(const ConvArgs<T>& a, const ConvItem& it,
                                                 float* xs) {
   const ConvShape& s = a.s;
   const int len = it.rows * s.WC;
   for (int img = 0; img < it.nb; ++img) {
-    const float* src = a.x + ((size_t)(it.n0 + img) * s.H + it.ylo) * s.WC;
+    const T* src = a.x + ((size_t)(it.n0 + img) * s.H + it.ylo) * s.WC;
     float* dst = xs + (size_t)img * a.p.rows_in * s.WC;
-    for (int i = threadIdx.x; i < len; i += kConvThreads) dst[i] = __ldg(src + i);
+    for (int i = threadIdx.x; i < len; i += kConvThreads) dst[i] = load_widened(src + i);
   }
 }
 
 // Maps m0 .. m0 + mcur of the weights -> ws[k * mt + m].
-__device__ __forceinline__ void conv_stage_weights(const ConvArgs& a, int m0, int mcur,
+template <typename T>
+__device__ __forceinline__ void conv_stage_weights(const ConvArgs<T>& a, int m0, int mcur,
                                                    float* ws) {
   const int mt = a.p.mt;
   for (int i = threadIdx.x; i < a.s.K * mcur; i += kConvThreads) {
     const int k = i / mcur, m = i - k * mcur;
-    ws[k * mt + m] = __ldg(a.w + (size_t)k * a.s.M + m0 + m);
+    ws[k * mt + m] = load_widened(a.w + (size_t)k * a.s.M + m0 + m);
   }
 }
 
@@ -214,39 +267,41 @@ __device__ __forceinline__ void conv_pixel_of(const ConvShape& s, const ConvItem
 constexpr int kTileMaps = 128;   // ops/fused_conv_cuda.py TILE_MAX_MAPS
 
 // The 9 taps and the bias of the thread's four maps; 0 past M.
-__device__ __forceinline__ void tile_load_weights(const float* __restrict__ w,
-                                                  const float* __restrict__ b, int M, int m0,
+template <typename T>
+__device__ __forceinline__ void tile_load_weights(const T* __restrict__ w,
+                                                  const T* __restrict__ b, int M, int m0,
                                                   float (&wr)[9][4], float (&br)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const bool live = m0 + j < M;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) wr[k][j] = live ? __ldg(w + (size_t)k * M + m0 + j) : 0.f;
-    br[j] = live ? __ldg(b + m0 + j) : 0.f;
+    for (int k = 0; k < 9; ++k) wr[k][j] = live ? load_widened(w + (size_t)k * M + m0 + j) : 0.f;
+    br[j] = live ? load_widened(b + m0 + j) : 0.f;
   }
 }
 
 // The 4x4 input patch at rows y0.., columns x0.. of one H x W image, 0
-// outside it.  vec2 (W even, the image 8-byte aligned): two 8-byte loads a
-// row, which then lie inside the image.
-__device__ __forceinline__ void tile_load_patch(const float* __restrict__ img, int H, int W,
+// outside it.  vec2 (W even, the image aligned to two elements): two pair
+// loads a row, which then lie inside the image.
+template <typename T>
+__device__ __forceinline__ void tile_load_patch(const T* __restrict__ img, int H, int W,
                                                 int y0, int x0, bool vec2,
                                                 float (&patch)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float* row = img + (size_t)(y0 + i) * W + x0;
+    const T* row = img + (size_t)(y0 + i) * W + x0;
     const bool inside = y0 + i < H;
     if (vec2) {
-      const float2* row2 = reinterpret_cast<const float2*>(row);
-      const float2 lo = inside ? __ldg(row2) : make_float2(0.f, 0.f);
-      const float2 hi = inside ? __ldg(row2 + 1) : make_float2(0.f, 0.f);
+      const float2 lo = inside ? load_pair(row) : make_float2(0.f, 0.f);
+      const float2 hi = inside ? load_pair(row + 2) : make_float2(0.f, 0.f);
       patch[i][0] = lo.x;
       patch[i][1] = lo.y;
       patch[i][2] = hi.x;
       patch[i][3] = hi.y;
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) patch[i][j] = inside && x0 + j < W ? __ldg(row + j) : 0.f;
+      for (int j = 0; j < 4; ++j)
+        patch[i][j] = inside && x0 + j < W ? load_widened(row + j) : 0.f;
     }
   }
 }

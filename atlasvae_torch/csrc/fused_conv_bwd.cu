@@ -38,6 +38,13 @@
 //   patch[tap] * gradient, a thread per map the gradient for db.  Step 2
 //   spends three shared-memory loads on an FMA.
 //
+// Both routes come in float and in bf16 (the _bf16 entry points; x, w, b
+// and g all bf16): each bf16 value is widened to float where it is loaded,
+// g too, the recompute, the mask and every sum run in float exactly as in
+// the float kernels, and the partial slices stay float; conv_reduce_partials
+// rounds each finished dW and db element once to bf16, the dtype of w and
+// b, as the Pallas kernel's wrapper casts its float sums back.
+//
 // Bound on an H100 at the jet-ID training batch (5,000 x 16x16x1, 3x3, 100
 // maps, pool 2x2): x 5.1 MB and g 98 MB read, 4 KB written: 0.031 ms at 3.35
 // TB/s; 1.91 GFLOP to recompute and pool the conv, 0.47 GFLOP for dW and
@@ -51,8 +58,9 @@ namespace atlasvae {
 constexpr int kMaxParts = 264;  // the band route's partial slices at most
 constexpr long long kMaxScratch = 1LL << 25;  // floats of scratch (128 MB) at most
 
+template <typename T>
 __global__ void __launch_bounds__(kConvThreads)
-conv_pool_relu_bwd_kernel(const __grid_constant__ ConvArgs a) {
+conv_pool_relu_bwd_kernel(const __grid_constant__ ConvArgs<T> a) {
   extern __shared__ float smem[];
   const ConvShape& s = a.s;
   const ConvPlan& p = a.p;
@@ -90,8 +98,9 @@ conv_pool_relu_bwd_kernel(const __grid_constant__ ConvArgs a) {
         const float zmax = conv_pool_pixel(s, xs + (size_t)img * img_stride, it.ylo, oy, ox,
                                            ws + m, p.mt, &by, &bx);
         float gr = 0.f;
-        if (by >= 0 && zmax + __ldg(a.b + m0 + m) > 0.f)
-          gr = __ldg(a.g + (((size_t)(it.n0 + img) * s.Ho + oy) * s.Wo + ox) * s.M + m0 + m);
+        if (by >= 0 && zmax + load_widened(a.b + m0 + m) > 0.f)
+          gr = load_widened(a.g + (((size_t)(it.n0 + img) * s.Ho + oy) * s.Wo + ox) * s.M + m0 +
+                            m);
         gz[pix * p.mt + m] = gr;
         // a masked pixel points at the item's first patch: 0 * finite = 0
         patch[pix * p.mt + m] =
@@ -125,9 +134,10 @@ conv_pool_relu_bwd_kernel(const __grid_constant__ ConvArgs a) {
 constexpr int kTileParts = 264;   // CTAs, and partial slices, at most
 constexpr int kTileRed = 10 * 4 * 256;   // (9 taps + db) x 4 maps x 256 threads
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-conv_pool_relu_bwd_tiles_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                                const float* __restrict__ b, const float* __restrict__ g,
+conv_pool_relu_bwd_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                                const T* __restrict__ b, const T* __restrict__ g,
                                 float* __restrict__ partial, int H, int W, int M, int Ho, int Wo,
                                 int pixels, int per_thread, bool vec2, bool vec4) {
   __shared__ __align__(16) float red[kTileRed];
@@ -151,17 +161,17 @@ conv_pool_relu_bwd_tiles_kernel(const float* __restrict__ x, const float* __rest
     const int pix = first + k * slots;
     if (pix >= pixels) break;
     const int y0 = 2 * oy, x0 = 2 * ox;
-    const float* gp = g + (size_t)pix * M + m0;
+    const T* gp = g + (size_t)pix * M + m0;
     float gv[4];
     if (vec4) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(gp));
+      const float4 t = load_quad(gp);
       gv[0] = t.x;
       gv[1] = t.y;
       gv[2] = t.z;
       gv[3] = t.w;
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = m0 + j < M ? __ldg(gp + j) : 0.f;
+      for (int j = 0; j < 4; ++j) gv[j] = m0 + j < M ? load_widened(gp + j) : 0.f;
     }
     float patch[4][4], best[4];
     int at[4];
@@ -215,15 +225,16 @@ conv_pool_relu_bwd_tiles_kernel(const float* __restrict__ x, const float* __rest
   }
 }
 
-// out[i] = the sum over slices j of partial[j][i].  Warp v of a CTA adds
-// the slices of its run, v * span .. (v + 1) * span - 1, in slice order for
-// 32 consecutive i; then the warps' sums are added in warp order.  The
-// order depends on n_parts alone.
+// out[i] = the sum over slices j of partial[j][i], rounded once to T.
+// Warp v of a CTA adds the slices of its run, v * span .. (v + 1) * span -
+// 1, in slice order for 32 consecutive i; then the warps' sums are added in
+// warp order.  The order depends on n_parts alone.
 constexpr int kReduceWarps = 8;
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kReduceWarps)
 conv_reduce_partials(const float* __restrict__ partial, int n_parts, int n_params,
-                     float* __restrict__ out) {
+                     T* __restrict__ out) {
   __shared__ float sums[kReduceWarps][32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int i = blockIdx.x * 32 + lane;
@@ -240,14 +251,14 @@ conv_reduce_partials(const float* __restrict__ partial, int n_parts, int n_param
     float total = 0.f;
 #pragma unroll
     for (int v = 0; v < kReduceWarps; ++v) total += sums[v][lane];
-    out[i] = total;
+    out[i] = narrow<T>(total);
   }
 }
 
-inline int conv_reduce(const float* partial, int n_parts, int n_params, float* out,
-                       cudaStream_t s) {
-  conv_reduce_partials<<<(n_params + 31) / 32, 32 * kReduceWarps, 0, s>>>(partial, n_parts,
-                                                                          n_params, out);
+template <typename T>
+int conv_reduce(const float* partial, int n_parts, int n_params, T* out, cudaStream_t s) {
+  conv_reduce_partials<T><<<(n_params + 31) / 32, 32 * kReduceWarps, 0, s>>>(partial, n_parts,
+                                                                             n_params, out);
   return (int)cudaGetLastError();
 }
 
@@ -268,8 +279,9 @@ inline int conv_tiles_plan(int N, int H, int W, int M, int* groups, int* slots,
   return (int)parts;
 }
 
-inline int conv_bwd_prepare(int N, int H, int W, int C, int kh, int kw, int M, int ph, int pw,
-                            ConvArgs* a) {
+template <typename T>
+int conv_bwd_prepare(int N, int H, int W, int C, int kh, int kw, int M, int ph, int pw,
+                     ConvArgs<T>* a) {
   if (!conv_shape(N, H, W, C, kh, kw, M, ph, pw, &a->s)) return -1;
   if (!conv_plan(a->s, true, &a->p)) return -2;
   long long parts = a->p.items < kMaxParts ? a->p.items : kMaxParts;
@@ -278,77 +290,109 @@ inline int conv_bwd_prepare(int N, int H, int W, int C, int kh, int kw, int M, i
   return (int)parts;
 }
 
-}  // namespace atlasvae
-
-// Number of partial slices (rows of the scratch buffer) the backward uses
-// at this shape; -1 for a shape outside the gate, -2 when one pooled row of
-// one image does not fit a CTA's shared memory.
-extern "C" int atlasvae_conv_backward_parts(int N, int H, int W, int C, int kh, int kw, int M,
-                                            int ph, int pw) {
-  atlasvae::ConvArgs a = {};
-  return atlasvae::conv_bwd_prepare(N, H, W, C, kh, kw, M, ph, pw, &a);
-}
-
-// grads: dW (K*M floats, the (kh, kw, C, M) layout) followed by db (M);
-// partial: (n_parts, K*M + M) scratch with n_parts from
-// atlasvae_conv_backward_parts.  Returns 0, a cudaError or the negative
-// codes above.
-extern "C" int atlasvae_conv_backward(const void* x, const void* w, const void* b, const void* g,
-                                      void* partial, int n_parts, void* grads, int N, int H,
-                                      int W, int C, int kh, int kw, int M, int ph, int pw,
-                                      void* stream) {
-  using namespace atlasvae;
-  ConvArgs a = {};
+// The band route: grads = dW (K*M elements, the (kh, kw, C, M) layout)
+// followed by db (M); partial: (n_parts, K*M + M) float scratch with
+// n_parts from atlasvae_conv_backward_parts.  Returns 0, a cudaError or the
+// negative codes of that function.
+template <typename T>
+int conv_backward_bands(const void* x, const void* w, const void* b, const void* g,
+                        void* partial, int n_parts, void* grads, int N, int H, int W, int C,
+                        int kh, int kw, int M, int ph, int pw, void* stream) {
+  ConvArgs<T> a = {};
   const int parts = conv_bwd_prepare(N, H, W, C, kh, kw, M, ph, pw, &a);
   if (parts < 0) return parts;
   if (parts != n_parts) return (int)cudaErrorInvalidValue;
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.b = static_cast<const float*>(b);
-  a.g = static_cast<const float*>(g);
+  a.x = static_cast<const T*>(x);
+  a.w = static_cast<const T*>(w);
+  a.b = static_cast<const T*>(b);
+  a.g = static_cast<const T*>(g);
   a.partial = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(conv_pool_relu_bwd_kernel,
+  cudaError_t err = cudaFuncSetAttribute(conv_pool_relu_bwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)a.p.smem);
   if (err != cudaSuccess) return (int)err;
-  conv_pool_relu_bwd_kernel<<<parts, kConvThreads, a.p.smem, s>>>(a);
+  conv_pool_relu_bwd_kernel<T><<<parts, kConvThreads, a.p.smem, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return conv_reduce(a.partial, parts, a.s.K * a.s.M + a.s.M, static_cast<float*>(grads), s);
+  return conv_reduce(a.partial, parts, a.s.K * a.s.M + a.s.M, static_cast<T*>(grads), s);
 }
 
 // The register route at x (N, H, W, 1), w (3, 3, 1, M), g (N, Ho, Wo, M)
-// for a 2x2 pool: the number of partial slices it uses, or -1 for a shape
-// it does not take (M above 128, an image smaller than the taps, 2^31
-// pooled pixels).
-extern "C" int atlasvae_conv_backward_tiles_parts(int N, int H, int W, int M) {
-  int groups, slots, per_thread;
-  return atlasvae::conv_tiles_plan(N, H, W, M, &groups, &slots, &per_thread);
-}
-
-// grads: dW (9*M floats, the (3, 3, 1, M) layout) followed by db (M);
-// partial: (n_parts, 10*M) scratch with n_parts from
-// atlasvae_conv_backward_tiles_parts.  Returns 0, a cudaError or -1.
-extern "C" int atlasvae_conv_backward_tiles(const void* x, const void* w, const void* b,
-                                            const void* g, void* partial, int n_parts,
-                                            void* grads, int N, int H, int W, int M,
-                                            void* stream) {
-  using namespace atlasvae;
+// for a 2x2 pool: grads = dW (9*M elements, the (3, 3, 1, M) layout)
+// followed by db (M); partial: (n_parts, 10*M) float scratch with n_parts
+// from atlasvae_conv_backward_tiles_parts.  Returns 0, a cudaError or -1.
+template <typename T>
+int conv_backward_tiles(const void* x, const void* w, const void* b, const void* g,
+                        void* partial, int n_parts, void* grads, int N, int H, int W, int M,
+                        void* stream) {
   int groups, slots, per_thread;
   const int parts = conv_tiles_plan(N, H, W, M, &groups, &slots, &per_thread);
   if (parts < 0) return parts;
   if (parts != n_parts) return (int)cudaErrorInvalidValue;
   const int Ho = (H - 1) / 2, Wo = (W - 1) / 2;
-  const bool vec2 = W % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
-  const bool vec4 = M % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const bool vec2 = W % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
+  const bool vec4 = M % 4 == 0 && reinterpret_cast<uintptr_t>(g) % (4 * sizeof(T)) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  conv_pool_relu_bwd_tiles_kernel<<<parts, dim3(groups, slots), 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<const float*>(g), static_cast<float*>(partial), H, W, M, Ho, Wo,
+  conv_pool_relu_bwd_tiles_kernel<T><<<parts, dim3(groups, slots), 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
+      static_cast<const T*>(g), static_cast<float*>(partial), H, W, M, Ho, Wo,
       N * Ho * Wo, per_thread, vec2, vec4);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return conv_reduce(static_cast<const float*>(partial), parts, 10 * M,
-                     static_cast<float*>(grads), s);
+  return conv_reduce(static_cast<const float*>(partial), parts, 10 * M, static_cast<T*>(grads),
+                     s);
+}
+
+}  // namespace atlasvae
+
+// Number of partial slices (rows of the scratch buffer) the band route uses
+// at this shape, in float and bf16 alike; -1 for a shape outside the gate,
+// -2 when one pooled row of one image does not fit a CTA's shared memory.
+extern "C" int atlasvae_conv_backward_parts(int N, int H, int W, int C, int kh, int kw, int M,
+                                            int ph, int pw) {
+  atlasvae::ConvArgs<float> a = {};
+  return atlasvae::conv_bwd_prepare(N, H, W, C, kh, kw, M, ph, pw, &a);
+}
+
+// The register route's partial slices at x (N, H, W, 1), w (3, 3, 1, M),
+// in float and bf16 alike, or -1 for a shape it does not take (M above 128,
+// an image smaller than the taps, 2^31 pooled pixels).
+extern "C" int atlasvae_conv_backward_tiles_parts(int N, int H, int W, int M) {
+  int groups, slots, per_thread;
+  return atlasvae::conv_tiles_plan(N, H, W, M, &groups, &slots, &per_thread);
+}
+
+// The entry points: float (x, w, b, g and grads all float32) and _bf16 (all
+// bf16), the band route and the register route of each.
+extern "C" int atlasvae_conv_backward(const void* x, const void* w, const void* b, const void* g,
+                                      void* partial, int n_parts, void* grads, int N, int H,
+                                      int W, int C, int kh, int kw, int M, int ph, int pw,
+                                      void* stream) {
+  return atlasvae::conv_backward_bands<float>(x, w, b, g, partial, n_parts, grads, N, H, W, C,
+                                              kh, kw, M, ph, pw, stream);
+}
+
+extern "C" int atlasvae_conv_backward_bf16(const void* x, const void* w, const void* b,
+                                           const void* g, void* partial, int n_parts,
+                                           void* grads, int N, int H, int W, int C, int kh,
+                                           int kw, int M, int ph, int pw, void* stream) {
+  return atlasvae::conv_backward_bands<atlasvae::bf16>(x, w, b, g, partial, n_parts, grads, N,
+                                                       H, W, C, kh, kw, M, ph, pw, stream);
+}
+
+extern "C" int atlasvae_conv_backward_tiles(const void* x, const void* w, const void* b,
+                                            const void* g, void* partial, int n_parts,
+                                            void* grads, int N, int H, int W, int M,
+                                            void* stream) {
+  return atlasvae::conv_backward_tiles<float>(x, w, b, g, partial, n_parts, grads, N, H, W, M,
+                                              stream);
+}
+
+extern "C" int atlasvae_conv_backward_tiles_bf16(const void* x, const void* w, const void* b,
+                                                 const void* g, void* partial, int n_parts,
+                                                 void* grads, int N, int H, int W, int M,
+                                                 void* stream) {
+  return atlasvae::conv_backward_tiles<atlasvae::bf16>(x, w, b, g, partial, n_parts, grads, N,
+                                                       H, W, M, stream);
 }

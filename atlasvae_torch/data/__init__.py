@@ -1,5 +1,6 @@
 from .registry import get_file, register_file, DATA_FILES
-from .loader import load_data, sample_cuts, make_sample, filtering, HLV_LIST
+from .loader import (load_data, sample_cuts, make_sample, merge_samples, split_sample,
+                     filtering, HLV_LIST)
 from .jets import (sort_constituents_by_pt, pad_constituents, jets_4v, jets_3v,
                    drop_energy_component, count_constituents,
                    constituent_pt_cumulative, constituent_images)
@@ -12,7 +13,8 @@ from .generator import BatchGenerator
 
 __all__ = [
     "hdf5", "get_file", "register_file", "DATA_FILES",
-    "load_data", "sample_cuts", "make_sample", "filtering", "HLV_LIST",
+    "load_data", "sample_cuts", "make_sample", "merge_samples", "split_sample", "filtering",
+    "HLV_LIST",
     "sort_constituents_by_pt", "pad_constituents", "jets_4v", "jets_3v",
     "drop_energy_component", "count_constituents", "constituent_pt_cumulative",
     "constituent_images",

@@ -1,8 +1,12 @@
 """Sample loading: HDF5 -> dict of float32 numpy arrays with derived kinematics.
 
-Counterpart of ``load_data``, ``sample_cuts``, ``make_sample``, ``filtering``
-and ``HLV_LIST`` of ``atlasvae/data/loader.py``.  The
-per-jet constituent math runs in torch on ``device`` (data/jets.py); cuts
+Counterpart of ``load_data``, ``sample_cuts``, ``make_sample``,
+``merge_samples``, ``split_sample``, ``filtering`` and ``HLV_LIST`` of
+``atlasvae/data/loader.py``; files are read through ``data/hdf5.py``, so
+they load without h5py too (``merge_samples`` and ``split_sample``
+have no caller in either package's CLI: they are kept for library parity;
+``--generator ON`` streams through ``make_sample``).  The per-jet
+constituent math runs in torch on ``device`` (data/jets.py); cuts
 use the safe cut DSL (utils/expr.py).
 """
 
@@ -139,6 +143,41 @@ def make_sample(bkg_data, sig_data, bkg_idx=1, sig_idx=1, cuts=(), n_const=20, n
         order = np.random.default_rng(0).permutation(len(sample[keys[0]]))
         sample = {key: val[order] for key, val in sample.items()}
     return sample
+
+
+def merge_samples(data_files, idx, cuts=(), n_const=20, n_dims=3, constituents="ON",
+                  hlvs="OFF", hlv_list=None, verbose=True, device="cuda"):
+    """Load a global index range spanning several HDF5 files: global event
+    indices are mapped onto per-file slices, loaded and concatenated."""
+    sizes = []
+    for path in data_files:
+        with hdf5.File(get_file(path), "r") as f:
+            sizes.append(len(f[next(iter(f.keys()))]))
+    edges = np.concatenate([[0], np.cumsum(sizes)])
+    lo, hi = int(idx[0]), int(idx[1])
+    parts = []
+    for i, path in enumerate(data_files):
+        a = max(lo, edges[i])
+        b = min(hi, edges[i + 1])
+        if a >= b:
+            continue
+        parts.append(load_data(path, (a - edges[i], b - edges[i]), cuts, n_const, n_dims,
+                               constituents, hlvs, hlv_list, verbose=verbose, device=device))
+    if not parts:
+        raise ValueError(f"index range {(lo, hi)} selects no rows across {len(data_files)} "
+                         f"files totalling {int(edges[-1])} rows")
+    keys = set(parts[0])
+    for p in parts[1:]:
+        keys &= set(p)
+    return {key: np.concatenate([p[key] for p in parts]) for key in sorted(keys)}
+
+
+def split_sample(sample):
+    """Split into (background, signal) by the JZW label (-1: signal)."""
+    jzw = sample["JZW"]
+    bkg = {key: val[jzw != -1] for key, val in sample.items()}
+    sig = {key: val[jzw == -1] for key, val in sample.items()}
+    return bkg, sig
 
 
 def filtering(y_true, x_true, x_pred, sample):

@@ -1,9 +1,12 @@
-"""jet-ID evaluation on the host: labels, class weights, composition
-matrix, discriminant.
+"""jet-ID evaluation on the host: labels, class and sample weights,
+up/down-sampling, composition matrix, discriminant.
 
-Copies of ``make_labels``, ``get_class_weight``, ``valid_accuracy``,
-``compo_matrix`` and ``discriminant`` of ``atlasvae/eval/jetid_eval.py``
-(numpy only).  The sample-weight schemes, up/down-sampling, k-fold
+Copies of ``make_labels``, ``get_class_weight``, ``get_sample_weights``,
+``upsampling``, ``downsampling``, ``valid_accuracy``, ``compo_matrix`` and
+``discriminant`` of ``atlasvae/eval/jetid_eval.py`` (numpy only; the draws
+come from ``np.random.default_rng(seed)``, so the picks are the JAX
+package's indices).  ``upsampling`` and ``downsampling`` have no caller in
+either package's CLI: they are kept for library parity.  k-fold
 ``cross_valid``, ``multi_cuts`` and ``feature_removal`` are not ported yet.
 """
 
@@ -30,6 +33,131 @@ def get_class_weight(labels, bkg_ratio=0):
     ratios = {0: 1, **{n: bkg_ratio for n in range(1, n_classes)}}
     return {n: n_e / np.sum(labels == n) * ratios[n] / sum(ratios.values())
             for n in range(n_classes)}
+
+
+def get_sample_weights(sample, labels, weight_type=None, bkg_ratio=None,
+                       hist="2d", ref_class=0, density=False):
+    """(pt, |eta|) histogram-matching sample weights
+    (ref jet-ID/utils.py:40-91: bkg_ratio / flattening / match2class /
+    match2max schemes; same bin construction and normalization)."""
+    if weight_type not in ("bkg_ratio", "flattening", "match2class", "match2max"):
+        return None, None
+    labels = np.asarray(labels)
+    pt = np.asarray(sample["pt"])
+    eta = np.abs(np.asarray(sample["eta"] if "eta" in sample else sample["rljet_eta"]))
+    n_classes = int(max(labels)) + 1
+    n_bins = 100
+    base = (np.max(pt) / np.min(pt)) ** (1 / n_bins)
+    pt_bins = [np.min(pt) * base ** n for n in range(n_bins + 1)]
+    pt_bins[-1] = max(pt_bins[-1], np.max(pt)) + 1e-3
+    n_bins = 50
+    step = np.max(eta) / n_bins
+    eta_bins = np.arange(np.min(eta), np.max(eta) + step, step)
+    eta_bins[-1] = max(eta_bins[-1], np.max(eta)) + 1e-3
+    if hist == "pt":
+        eta_bins = [eta_bins[0], eta_bins[-1]]
+    if hist == "eta":
+        pt_bins = [pt_bins[0], pt_bins[-1]]
+    pt_ind = np.digitize(pt, pt_bins, right=False) - 1
+    eta_ind = np.digitize(eta, eta_bins, right=False) - 1
+    hist_ref = np.histogram2d(pt[labels == ref_class], eta[labels == ref_class],
+                              bins=[pt_bins, eta_bins], density=density)[0]
+    if density:
+        hist_ref *= np.sum(labels == ref_class)
+    hist_ref = np.maximum(hist_ref, np.min(hist_ref[hist_ref != 0]))
+    if np.isscalar(bkg_ratio):
+        bkg_ratio = n_classes * [bkg_ratio]
+    total_ref_array, total_bkg_array, hist_bkg_array = [], [], []
+    for n in [c for c in range(n_classes) if c != ref_class]:
+        hist_bkg = np.histogram2d(pt[labels == n], eta[labels == n],
+                                  bins=[pt_bins, eta_bins], density=density)[0]
+        if density:
+            hist_bkg *= np.sum(labels == n)
+        hist_bkg = np.maximum(hist_bkg, np.min(hist_bkg[hist_bkg != 0]))
+        ratio = np.sum(hist_bkg) / np.sum(hist_ref) if bkg_ratio is None \
+            else bkg_ratio[n]
+        if weight_type == "bkg_ratio":
+            total_ref = hist_ref * max(1, np.sum(hist_bkg) / np.sum(hist_ref) / ratio)
+            total_bkg = hist_bkg * max(1, np.sum(hist_ref) / np.sum(hist_bkg) * ratio)
+        elif weight_type == "flattening":
+            total_ref = np.ones(hist_ref.shape) * max(np.max(hist_ref),
+                                                      np.max(hist_bkg) / ratio)
+            total_bkg = np.ones(hist_bkg.shape) * max(np.max(hist_bkg),
+                                                      np.max(hist_ref) * ratio)
+        elif weight_type == "match2class":
+            total_ref = hist_ref * max(1, np.max(hist_bkg / hist_ref) / ratio)
+            total_bkg = total_ref * ratio
+        else:  # match2max
+            total_ref = np.maximum(hist_ref, hist_bkg / ratio)
+            total_bkg = np.maximum(hist_bkg, hist_ref * ratio)
+        total_ref_array.append(total_ref[None, ...])
+        total_bkg_array.append(total_bkg[None, ...])
+        hist_bkg_array.append(hist_bkg[None, ...])
+    hist_ref_array = hist_ref[None, ...]
+    hist_bkg_array = np.concatenate(hist_bkg_array, axis=0)
+    total_ref_array = np.concatenate(total_ref_array, axis=0)
+    total_bkg_array = np.concatenate(total_bkg_array, axis=0)
+    total_ref_ratio = total_ref_array / np.max(total_ref_array, axis=0)
+    total_ref_array = np.max(total_ref_array, axis=0)
+    total_bkg_array = total_bkg_array / total_ref_ratio
+    weights_array = np.concatenate([total_ref_array / hist_ref_array,
+                                    total_bkg_array / hist_bkg_array])
+    sample_weight = np.zeros(len(labels), np.float32)
+    class_list = [ref_class] + [n for n in range(n_classes) if n != ref_class]
+    for n in range(n_classes):
+        sample_weight = np.where(labels == class_list[n],
+                                 weights_array[n, ...][pt_ind, eta_ind],
+                                 sample_weight)
+    return (sample_weight * len(labels) / np.sum(sample_weight),
+            {"pt": pt_bins, "eta": eta_bins})
+
+
+def upsampling(sample, labels, bins, indices, hist_sig, hist_bkg,
+               total_sig, total_bkg, seed=0):
+    """Duplicate-sample classes up to target pt-bin populations
+    (ref jet-ID/utils.py:100-113)."""
+    rng = np.random.default_rng(seed)
+    new_sig = np.int_(np.around(total_sig)) - hist_sig
+    new_bkg = np.int_(np.around(total_bkg)) - hist_bkg
+    picks = []
+    for n in range(len(bins) - 1):
+        for mask, new in [((indices == n) & (labels == 0), new_sig[n]),
+                          ((indices == n) & (labels != 0), new_bkg[n])]:
+            idx = np.where(mask)[0]
+            if len(idx) == 0:
+                continue
+            picks.append(idx)
+            if new > 0:
+                picks.append(rng.choice(idx, new, replace=len(idx) < new))
+    indices = np.concatenate(picks)
+    rng.shuffle(indices)
+    return ({key: np.take(val, indices, axis=0) for key, val in sample.items()},
+            np.take(labels, indices))
+
+
+def downsampling(sample, labels, bkg_ratio=None, pt_key="pt", seed=0):
+    """Bin-matched signal/background downsampling split
+    (ref jet-ID/utils.py:116-130)."""
+    rng = np.random.default_rng(seed)
+    pt = np.asarray(sample[pt_key])
+    bins = [0, 10, 20, 30, 40, 60, 80, 100, 130, 180, 250, 500]
+    indices = np.digitize(pt, bins, right=True) - 1
+    hist_sig = np.histogram(pt[labels == 0], bins)[0]
+    hist_bkg = np.histogram(pt[labels != 0], bins)[0]
+    if bkg_ratio is None:
+        bkg_ratio = np.sum(hist_bkg) / np.sum(hist_sig)
+    total_sig = np.int_(np.around(np.minimum(hist_sig, hist_bkg / bkg_ratio)))
+    total_bkg = np.int_(np.around(np.minimum(hist_bkg, hist_sig * bkg_ratio)))
+    ind_sig = [np.where((indices == n) & (labels == 0))[0][:total_sig[n]]
+               for n in range(len(bins) - 1)]
+    ind_bkg = [np.where((indices == n) & (labels != 0))[0][:total_bkg[n]]
+               for n in range(len(bins) - 1)]
+    valid_ind = np.concatenate(ind_sig + ind_bkg)
+    rng.shuffle(valid_ind)
+    train_ind = np.setdiff1d(np.arange(len(pt)), valid_ind)
+    pick = lambda idx: ({k: np.take(v, idx, axis=0) for k, v in sample.items()},
+                        np.take(labels, idx))
+    return (*pick(valid_ind), *pick(train_ind))
 
 
 def valid_accuracy(labels, probs):

@@ -14,6 +14,14 @@ K6 on the card, their plain versions on the CPU; shapes its gate refuses
 (3-D towers, more than 512 taps) and every later block run
 ``conv2d_valid`` + ``maxpool_same`` + ReLU, as they do in the JAX package.
 Dropout draws from an explicit ``torch.Generator``, one mask per layer.
+
+``compute_dtype`` "bfloat16" is the JAX package's mixed precision: the
+parameters stay float32 (the master weights Adam updates) and are cast with
+the inputs to bfloat16 at entry, every branch and the output dense layer
+compute in bfloat16 (the first block through K5/K6's bf16 forms, later
+blocks through cuDNN, dense layers through cuBLAS), and the logits are
+cast to float32 before the softmax.  Gradients flow back through the casts
+to the float32 parameters.
 """
 
 import dataclasses
@@ -24,6 +32,18 @@ import torch
 from ..ops.fused_conv import conv2d_valid, fused_conv1_pool_relu, supported
 from ..ops.pooling import maxpool_same
 from .mlp import init_mlp, init_dense, dense_apply
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _cast(tree, dtype):
+    """The parameter tree with every tensor cast to ``dtype`` (a
+    differentiable cast: gradients reach the float32 leaves)."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast(v, dtype) for v in tree)
+    return tree.to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +66,7 @@ class JetIDConfig:
     dropout: float = 0.1
     activation: str = "leaky_relu"
     l2: float = 0.0                # kernel L2 strength, applied in the training loss
-    # the port computes in float32 only (K5/K6 are float32 kernels)
+    # "float32", or "bfloat16": mixed precision with float32 master weights
     compute_dtype: str = "float32"
 
 
@@ -215,9 +235,13 @@ def jetid_apply(params, config, inputs, generator=None, train=False):
     keyed by branch name ('constituents', scalar names, image names) on the
     parameters' device; same-shape images are stacked on the channel axis
     into one tower.  ``generator`` draws the dropout masks when ``train``."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype {config.compute_dtype!r}: the port computes "
-                                  "in float32 (ROADMAP Queue 1 item 9, bf16 compute)")
+    if config.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {config.compute_dtype!r}: pick one of "
+                         f"{list(COMPUTE_DTYPES)}")
+    dtype = COMPUTE_DTYPES[config.compute_dtype]
+    if dtype != torch.float32:
+        params = _cast(params, dtype)
+        inputs = {k: v.to(dtype) for k, v in inputs.items()}
     if train and config.dropout and generator is None:
         raise ValueError("jetid_apply(train=True) with dropout needs a torch.Generator")
     branches = []
@@ -242,4 +266,4 @@ def jetid_apply(params, config, inputs, generator=None, train=False):
         branches.append(_dense_stack(params["scalars"], h, config.dropout, generator, train))
     h = torch.cat(branches, dim=-1) if len(branches) > 1 else branches[0]
     h = _dense_stack(params["head"], h, config.dropout, generator, train)
-    return torch.softmax(dense_apply(params["out"], h), dim=-1)
+    return torch.softmax(dense_apply(params["out"], h).float(), dim=-1)

@@ -11,9 +11,13 @@ for x, which is data in the towers.
 
 ``conv1_pool_relu_plain`` and ``conv1_pool_relu_backward_plain`` are the plain
 versions of K5 and K6 (``F.conv2d`` and ``maxpool_same``; the backward is
-autograd through the forward).  The CPU tests use them, ``chip_smoke.py``
-holds the kernels against them on the card, and ``FusedConv1`` takes them
-only for tensors that lie on the CPU.
+autograd through the forward).  x, w and b are all float32 or all bfloat16;
+bfloat16 follows K5's rounding points, not a bfloat16 convolution's: the
+block runs in float32 on the widened inputs and rounds once, after the
+ReLU, to bfloat16, and K6's dW and db are float32 sums rounded once to the
+dtype of w and b (``atlasvae/ops/fused_conv.py:122,259,290-291``).  The CPU
+tests use them, ``chip_smoke.py`` holds the kernels against them on the
+card, and ``FusedConv1`` takes them only for tensors that lie on the CPU.
 """
 
 import torch
@@ -49,14 +53,16 @@ def conv2d_valid(x, w):
 
 
 def conv1_pool_relu_plain(x, w, b, pool):
-    """Plain PyTorch version of K5."""
-    return torch.relu(maxpool_same(conv2d_valid(x, w), pool) + b)
+    """Plain PyTorch version of K5: in float32, rounded once to x's dtype."""
+    z = maxpool_same(conv2d_valid(x.float(), w.float()), pool)
+    return torch.relu(z + b.float()).to(x.dtype)
 
 
 def conv1_pool_relu_backward_plain(x, w, b, g, pool):
     """Plain PyTorch version of K6: (dW, db) by autograd through the plain
     forward (the ReLU mask on zmax + b, the pool's first-match routing, the
-    conv's weight gradient)."""
+    conv's weight gradient), summed in float32 and cast to the dtypes of w
+    and b by the widening's backward."""
     with torch.enable_grad():
         w_, b_ = w.detach().requires_grad_(), b.detach().requires_grad_()
         out = conv1_pool_relu_plain(x.detach(), w_, b_, pool)

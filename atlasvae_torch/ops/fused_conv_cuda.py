@@ -9,11 +9,14 @@ where a CTA stages a band of input rows and a tile of weights in shared
 memory.  ``conv_pool_relu`` launches ``csrc/fused_conv.cu``;
 ``conv_pool_relu_backward`` launches ``csrc/fused_conv_bwd.cu``, whose CTAs
 write partial sums that a second launch adds in a fixed order.  Both take
-contiguous float32 CUDA tensors and compute what
+contiguous CUDA tensors, all float32 or all bfloat16 (the kernels' bf16 forms:
+loaded and widened to float, computed as in float32, the output, dW and db
+rounded once to bfloat16), and compute what
 ``ops.fused_conv.conv1_pool_relu_plain`` and
 ``conv1_pool_relu_backward_plain`` compute; ``ops.fused_conv.FusedConv1``
 chooses between kernel and plain version by the tensors' device.  Both raise
-on anything the kernels do not take and never run another path.
+on anything the kernels do not take and never run another path: a bfloat16
+tensor is never widened to run a float32 kernel.
 """
 
 import ctypes
@@ -23,26 +26,27 @@ import torch
 
 from . import cuda_build
 
-# Kernel launches made by conv_pool_relu (K5) and conv_pool_relu_backward
-# (K6), each counted by route (register, band); reset and read by
-# chip_smoke.py.
-launches = 0
-band_launches = 0
-backward_launches = 0
-band_backward_launches = 0
-
 MAX_TAPS = 512    # kh * kw * C
 MAX_MAPS = 1024
 ROUTES = ("tiles", "bands")
 TILE_MAX_MAPS = 128   # kTileMaps in csrc/fused_conv.cuh
 
 _SHAPE = [ctypes.c_int] * 9
+# the C entry points' suffix of each form
+_FORMS = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+# Kernel launches made by conv_pool_relu (K5, "forward") and
+# conv_pool_relu_backward (K6, "backward"), keyed by (dtype, route,
+# direction); reset and read by chip_smoke.py.
+launches = {(dtype, which, direction): 0 for dtype in _FORMS for which in ROUTES
+            for direction in ("forward", "backward")}
 
 
 @functools.cache
-def _forward_entries():
+def _forward_entries(form):
     lib = cuda_build.load("fused_conv")
-    bands, tiles = lib.atlasvae_conv_pool_relu, lib.atlasvae_conv_pool_relu_tiles
+    bands = getattr(lib, "atlasvae_conv_pool_relu" + form)
+    tiles = getattr(lib, "atlasvae_conv_pool_relu_tiles" + form)
     bands.argtypes = [ctypes.c_void_p] * 4 + _SHAPE + [ctypes.c_void_p]
     tiles.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     bands.restype = tiles.restype = ctypes.c_int
@@ -76,11 +80,12 @@ def pick_route(what, x_shape, w_shape, pool, force_route=None):
 
 
 @functools.cache
-def _backward_entries():
+def _backward_entries(form):
     lib = cuda_build.load("fused_conv_bwd")
     tiles_parts, bands_parts = lib.atlasvae_conv_backward_tiles_parts, \
         lib.atlasvae_conv_backward_parts
-    tiles, bands = lib.atlasvae_conv_backward_tiles, lib.atlasvae_conv_backward
+    tiles = getattr(lib, "atlasvae_conv_backward_tiles" + form)
+    bands = getattr(lib, "atlasvae_conv_backward" + form)
     tiles_parts.argtypes = [ctypes.c_int] * 4
     bands_parts.argtypes = _SHAPE
     tiles.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] \
@@ -103,8 +108,9 @@ def _check(what, x, w, b, pool, g=None):
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{what}: {name} must be a CUDA tensor on {x.device}, got {t.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous float32, got {t.dtype}, "
+        if t.dtype not in _FORMS or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous float32 or bfloat16, the dtype "
+                             f"of x ({x.dtype}), got {t.dtype}, "
                              f"contiguous={t.is_contiguous()}")
     if x.dim() != 4 or w.dim() != 4 or len(pool) != 2:
         raise ValueError(f"{what}: x (N, H, W, C), w (kh, kw, C, M) and a 2-D pool, got "
@@ -144,12 +150,10 @@ def conv_pool_relu(x, w, b, pool, force_route=None):
     """K5: relu(maxpool_SAME(conv2d_VALID(x, w)) + b) -> (N, Ho, Wo, M).
     ``force_route`` ("tiles" or "bands") runs a route other than ``route``
     picks, where it takes the shape: for tests and timings only."""
-    global launches, band_launches
     shape = _check("conv_pool_relu", x, w, b, pool)
     which = pick_route("conv_pool_relu", x.shape, w.shape, shape[7:], force_route)
-    out = torch.empty(out_shape(x.shape, w.shape, shape[7:]), device=x.device,
-                      dtype=torch.float32)
-    tiles, bands = _forward_entries()
+    out = torch.empty(out_shape(x.shape, w.shape, shape[7:]), device=x.device, dtype=x.dtype)
+    tiles, bands = _forward_entries(_FORMS[x.dtype])
     n, h, wd, _, _, _, m, _, _ = shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -159,17 +163,15 @@ def conv_pool_relu(x, w, b, pool, force_route=None):
         else:
             err = bands(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), *shape, stream)
     _raise(err, f"conv_pool_relu ({which} route)", x, w)
-    if which == "tiles":
-        launches += 1
-    else:
-        band_launches += 1
+    launches[x.dtype, which, "forward"] += 1
     return out
 
 
 @functools.cache
 def _n_parts(which, shape):
-    """Partial slices (rows of the scratch buffer) K6 uses on a route."""
-    tiles_parts, _, bands_parts, _ = _backward_entries()
+    """Partial slices (rows of the scratch buffer) K6 uses on a route, the
+    same for both forms (the slices hold float32 sums)."""
+    tiles_parts, _, bands_parts, _ = _backward_entries("")
     if which == "tiles":
         n, h, wd, _, _, _, m, _, _ = shape
         return tiles_parts(n, h, wd, m)
@@ -178,9 +180,9 @@ def _n_parts(which, shape):
 
 def conv_pool_relu_backward(x, w, b, g, pool, force_route=None):
     """K6: (dW, db) of ``conv_pool_relu(x, w, b, pool)`` for the gradient
-    ``g`` of its output, on the route ``route`` picks (``force_route`` as for
-    ``conv_pool_relu``).  The input's gradient is not computed."""
-    global backward_launches, band_backward_launches
+    ``g`` of its output, in the dtype of w and b, on the route ``route``
+    picks (``force_route`` as for ``conv_pool_relu``).  The input's gradient
+    is not computed."""
     what = "conv_pool_relu_backward"
     shape = _check(what, x, w, b, pool, g)
     if tuple(g.shape) != out_shape(x.shape, w.shape, shape[7:]):
@@ -191,8 +193,8 @@ def conv_pool_relu_backward(x, w, b, g, pool, force_route=None):
     _raise(min(n_parts, 0), f"{what} ({which} route)", x, w)
     n_params = w.numel() + b.numel()
     partial = torch.empty((n_parts, n_params), device=x.device, dtype=torch.float32)
-    grads = torch.empty(n_params, device=x.device, dtype=torch.float32)
-    _, tiles, _, bands = _backward_entries()
+    grads = torch.empty(n_params, device=x.device, dtype=x.dtype)
+    _, tiles, _, bands = _backward_entries(_FORMS[x.dtype])
     n, h, wd, _, _, _, m, _, _ = shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -203,8 +205,5 @@ def conv_pool_relu_backward(x, w, b, g, pool, force_route=None):
         else:
             err = bands(*pointers, *shape, stream)
     _raise(err, f"{what} ({which} route)", x, w)
-    if which == "tiles":
-        backward_launches += 1
-    else:
-        band_backward_launches += 1
+    launches[x.dtype, which, "backward"] += 1
     return grads[:w.numel()].view(w.shape), grads[w.numel():]

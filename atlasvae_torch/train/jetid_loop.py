@@ -13,7 +13,12 @@ Counterpart of ``atlasvae/train/jetid_loop.py``:
   ``monitor`` series ('loss' / 'accuracy' / 'val_loss' / 'val_accuracy');
 * ``state_file``: parameters, best parameters, Adam state, lr, the callback
   counters and the dropout generator's state, written every epoch and
-  resumed bit for bit.
+  resumed bit for bit;
+* ``config.compute_dtype`` "bfloat16": ``jetid_apply`` casts the float32
+  parameters at each call, so gradients, Adam's state, the checkpoints and
+  the state file stay float32.  cuDNN's TF32 and cuBLAS's bfloat16
+  reduced-precision sums are held off around every epoch and prediction
+  (``strict_precision``).
 
 A load is packed on the host into (n_batches, batch, ...) arrays with
 zero-weight tail padding and kept on the device across epochs
@@ -22,6 +27,7 @@ training device, seeded with ``seed``.  Not ported yet: the data-parallel
 ``mesh``, the masked and fold-vmapped epochs and ``train_kfold_vmapped``.
 """
 
+import contextlib
 import os
 import time
 
@@ -54,13 +60,22 @@ def _correct_sum(probs, labels, weights):
     return ((probs.argmax(dim=1) == labels) * weights).sum()
 
 
-def strict_float32():
-    """cuDNN in full float32 for the convolutions inside the block: its
-    default, TF32, keeps about three decimal digits.  The flag is restored on
+@contextlib.contextmanager
+def strict_precision():
+    """cuDNN in full float32 for the convolutions inside the block (its
+    default, TF32, keeps about three decimal digits), and cuBLAS's bfloat16
+    products summed in float32, as JAX sums a bfloat16 dot (its default lets
+    split-K partial sums round to bfloat16).  Both flags are restored on
     exit, and cuDNN's other settings are kept as the caller left them."""
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
 
 
 def batch_loss(params, config, inputs, labels, weights, generator):
@@ -77,7 +92,7 @@ def train_epoch(state, config, lr, generator, inputs, labels, weights):
     """One Adam step per batch of a packed load; returns the (n_batches, 2)
     [loss, accuracy] metrics on the device."""
     out = []
-    with strict_float32():
+    with strict_precision():
         for i in range(labels.shape[0]):
             loss, metrics = batch_loss(state.params, config, {k: v[i] for k, v in inputs.items()},
                                        labels[i], weights[i], generator)
@@ -95,7 +110,7 @@ def eval_epoch(params, config, inputs, labels, weights):
     term times the weight sum, the weight sum, the weighted count of correct
     jets."""
     out = []
-    with torch.no_grad(), strict_float32():
+    with torch.no_grad(), strict_precision():
         reg = config.l2 * l2_penalty(params) if config.l2 else 0.0
         for i in range(labels.shape[0]):
             probs = jetid_apply(params, config, {k: v[i] for k, v in inputs.items()})
@@ -262,11 +277,11 @@ def train_classifier_streaming(params, config, load_iter_fn, valid_inputs, valid
 
 def predict_classifier(params, config, inputs, batch_size=20_000):
     """Class probabilities of a host sample, in chunks on the parameters'
-    device; returns a numpy array."""
+    device; returns a float32 numpy array whatever the compute dtype."""
     device = tree_flatten(params)[0].device
     n = len(next(iter(inputs.values())))
     out = []
-    with torch.no_grad(), strict_float32():
+    with torch.no_grad(), strict_precision():
         for i in range(0, n, batch_size):
             chunk = {k: torch.from_numpy(np.ascontiguousarray(
                 np.asarray(v)[i:i + batch_size], np.float32)).to(device)

@@ -1,7 +1,22 @@
-"""Binning helpers.  Copies of ``bin_edges`` and ``merged_bins`` from
-``atlasvae/utils/chunks.py`` (the port imports nothing of the JAX package)."""
+"""Index-range and binning helpers.  Copies of ``index_ranges``,
+``bin_edges`` and ``merged_bins`` from ``atlasvae/utils/chunks.py`` (the port
+imports nothing of the JAX package)."""
 
 import numpy as np
+
+
+def index_ranges(max_val, n_bins=10, bin_size=None, min_val=0):
+    """Split [min_val, max_val) into contiguous (start, stop) tuples:
+    ``bin_size`` wins over ``n_bins``; the final range is clipped to
+    ``max_val``; an empty range gives no chunks."""
+    if max_val <= min_val:
+        return []
+    if bin_size is None:
+        n_bins = max(1, min(int(max_val - min_val), n_bins))
+        bin_size = (max_val - min_val) // n_bins
+    edges = np.append(np.arange(min_val, max_val, bin_size), max_val)
+    edges = edges.astype(np.int64)
+    return list(zip(edges[:-1], edges[1:]))
 
 
 def bin_edges(max_val, bin_size, min_val=0.0):

@@ -53,7 +53,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                channel, pool 2x2, at most 128 maps), with their band
                routes' times on the same inputs beside them (K6's band
                route held to the plain version there too), the band routes
-               at the odd shapes;
+               at the odd shapes; then the same in bfloat16 (K5's and K6's
+               bf16 forms, both routes, inputs rounded to bf16), the output
+               within one bf16 ulp of the plain version (or ATOL where a
+               ReLU input sits at 0), dW/db within one bf16 ulp plus
+               CONV_GRAD_TOL of each leaf's largest value, the same bits on
+               a second call, beside cuDNN's bf16 chain;
+               K1/K2 also at the evaluate phase's 10,000-row chunk;
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
                also against float64, with the card's bits asked again at
@@ -62,7 +68,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                atlasvae_torch.cli.score with the launch counters set to 0
                just before; check rows, finiteness, that both kernels ran
                on their fused body and never on the layer-wise route,
-               and MAE/Latent against the plain CPU path on the first jets;
+               and MAE/Latent against the plain CPU path on the first jets
+               (on a failure: the row, both values and each side's gap to
+               a float64 run of the same rows);
                then time a warm run and profile a third (device busy share);
 5. evaluate -- the number half of vae.sh's evaluation (cli/vae.py::_evaluate
                and eval/results.py::plot_results of the JAX package, in their
@@ -127,10 +135,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                and rejections (synthetic data: no physics result); CUDA
                against the plain CPU path at dropout 0 (first-step
                gradients, 2-epoch losses); a warm timed run and a profiled
-               epoch;
-10. kernels -- one JSON line with every ported kernel (K1 to K6 as two
-               entries each, one a route);
-11. last line: {"ok": true, "device": {...}}.
+               epoch (busy, idle share, block 2's cuDNN convolution);
+10. jetid_bf16 -- the same at the CLI's own precision (--mixed_precision
+               AUTO: bfloat16 compute, float32 master weights): K5 and K6
+               counted on their bf16 forms only, the bf16 bars against the
+               plain CPU path, the step, prediction and profile beside the
+               float32 phase's; then one short bf16 FCN run streaming its
+               training chunks (--generator ON) with the flattening
+               sample-weight scheme;
+11. kernels -- one JSON line with every ported kernel (K1 to K6 as two
+               entries each, one a route, and K5/K6's bf16 forms);
+12. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -149,8 +164,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
-# tensor cores and HBM3 bandwidth.  Bounds are stated against these.
+# tensor cores, bf16 products on the tensor cores (f32 accumulation) and HBM3
+# bandwidth.  Bounds are stated against these.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 ATOL = 1e-5
@@ -243,7 +260,30 @@ KERNELS = {
     "fused_conv_backward_bands": dict(source="atlasvae_torch/csrc/fused_conv_bwd.cu",
                                       replaces="atlasvae/ops/fused_conv.py:130",
                                       main_shape="two channels pool 3"),
+    # the bf16 forms of K5 and K6, each route
+    "fused_conv_bf16": dict(source="atlasvae_torch/csrc/fused_conv.cu",
+                            replaces="atlasvae/ops/fused_conv.py:112",
+                            main_shape="jetid train batch sparse bf16"),
+    "fused_conv_bf16_bands": dict(source="atlasvae_torch/csrc/fused_conv.cu",
+                                  replaces="atlasvae/ops/fused_conv.py:112",
+                                  main_shape="two channels pool 3 bf16"),
+    "fused_conv_backward_bf16": dict(source="atlasvae_torch/csrc/fused_conv_bwd.cu",
+                                     replaces="atlasvae/ops/fused_conv.py:130",
+                                     main_shape="jetid train batch sparse bf16"),
+    "fused_conv_backward_bf16_bands": dict(source="atlasvae_torch/csrc/fused_conv_bwd.cu",
+                                           replaces="atlasvae/ops/fused_conv.py:130",
+                                           main_shape="two channels pool 3 bf16"),
 }
+# the key of each K5/K6 entry above in ops/fused_conv_cuda.py's `launches`:
+# (dtype, route, direction)
+CONV_COUNTERS = {"fused_conv": ("float32", "tiles", "forward"),
+                 "fused_conv_bands": ("float32", "bands", "forward"),
+                 "fused_conv_backward": ("float32", "tiles", "backward"),
+                 "fused_conv_backward_bands": ("float32", "bands", "backward"),
+                 "fused_conv_bf16": ("bfloat16", "tiles", "forward"),
+                 "fused_conv_bf16_bands": ("bfloat16", "bands", "forward"),
+                 "fused_conv_backward_bf16": ("bfloat16", "tiles", "backward"),
+                 "fused_conv_backward_bf16_bands": ("bfloat16", "bands", "backward")}
 
 # jet-ID: the CNN the CLI builds by default, on 200,000-event synthetic
 # files, cut to 3 epochs of 1e5 jets.
@@ -253,9 +293,18 @@ JETID_BATCH = 5_000
 JETID_CHUNK = 20_000      # predict_classifier's chunk
 JETID_EPOCHS = 3
 JETID_IMAGE = 16
-JETID_ARGS = ["--NN_type", "CNN", "--mixed_precision", "OFF", "--plotting", "OFF",
-              "--synthetic", str(JETID_EVENTS), "--n_train", "1e5", "--n_valid", "5e4",
-              "--batch_size", "5e3"]
+# the CLI's own precision: AUTO, its default, is bfloat16 for the CNN
+JETID_BF16_ARGS = ["--NN_type", "CNN", "--plotting", "OFF", "--synthetic", str(JETID_EVENTS),
+                   "--n_train", "1e5", "--n_valid", "5e4", "--batch_size", "5e3"]
+JETID_ARGS = JETID_BF16_ARGS + ["--mixed_precision", "OFF"]
+# one short bf16 FCN run streaming its training chunks (the JAX package's
+# generator mode takes no CNN) with a sample-weight scheme: 20,000 jets of
+# 20 x 3 float32 constituents a chunk, five chunks an epoch
+JETID_STREAM_ARGS = ["--NN_type", "FCN", "--mixed_precision", "ON", "--generator", "ON",
+                     "--memGB", "0.0048", "--weight_type", "flattening", "--bkg_ratio", "1",
+                     "--plotting", "OFF", "--synthetic", str(JETID_EVENTS), "--n_train", "1e5",
+                     "--n_valid", "5e4", "--batch_size", "5e3"]
+JETID_STREAM_EPOCHS = 2
 JETID_REF_ROWS = 4096
 JETID_PARITY_BATCHES = 3
 CONV_SHAPES = [
@@ -285,6 +334,23 @@ JETID_CONV_GRAD_TOL = 3e-3
 # whole step: the series part by about 1e-4 after 6 steps (the VAE's dense
 # stacks have no such decisions and hold TRAIN_REL_TOL).
 JETID_LOSS_REL_TOL = 1e-3
+# The same comparisons in bfloat16.  Both sides round every activation and
+# gradient to bf16 (8 significant bits); an f32 sum that the two libraries
+# order differently rounds the other way now and then, which moves that
+# element by one bf16 ulp, 2^-8 to 2^-7 of it, and ties in a pool window are
+# far more common.  The inputs and seeds are fixed, and three runs on an
+# H100 80GB HBM3 (700 W, torch 2.11) read the same gaps each time, so each
+# bar is a small multiple of its reading: first-step gradients 2.1e-3
+# (dense) and 3.6e-3 (towers) of a leaf's largest value, bar 1e-2; the
+# 2-epoch losses 1.2e-5, bar 1e-4 (Adam turns gradients that part by an ulp
+# into whole steps: 1.6e-4 in float32, where decisions flip more often);
+# the served probabilities 6.2e-4, bar 2e-3 (the logits leave the output
+# layer in bf16; one of them rounded the other way at |logit| in [2, 4),
+# an ulp of 2^-6, moves a probability near 0.5 by up to 4e-3, and none of
+# the 4,096 rows had such a flip).
+JETID_BF16_GRAD_TOL = 1e-2
+JETID_BF16_LOSS_REL_TOL = 1e-4
+JETID_BF16_PROB_TOL = 2e-3
 
 # Training: the canonical model with the vae.sh hyper-parameters, cut to
 # 3 epochs of 1e5 jets (200,000 synthetic events per sample).
@@ -302,17 +368,17 @@ TRAIN_REL_TOL = 1e-4    # per-epoch losses, CUDA path vs plain CPU path
 
 
 def counters():
+    import torch
     from atlasvae_torch.ops import emd_cuda, fused_conv_cuda, fused_mlp, fused_vae
+    conv = {name: fused_conv_cuda.launches[getattr(torch, dtype), which, direction]
+            for name, (dtype, which, direction) in CONV_COUNTERS.items()}
     return {"fused_mlp": fused_mlp.launches, "fused_mlp_layers": fused_mlp.layered_launches,
             "stack_forward": fused_vae.launches,
             "stack_forward_layers": fused_vae.layered_launches,
             "stack_backward": fused_vae.backward_launches,
             "stack_backward_layers": fused_vae.layered_backward_launches,
             "emd_sinkhorn": emd_cuda.launches, "emd_sinkhorn_wide": emd_cuda.wide_launches,
-            "fused_conv": fused_conv_cuda.launches,
-            "fused_conv_bands": fused_conv_cuda.band_launches,
-            "fused_conv_backward": fused_conv_cuda.backward_launches,
-            "fused_conv_backward_bands": fused_conv_cuda.band_backward_launches}
+            **conv}
 
 
 def reset_counters():
@@ -321,8 +387,7 @@ def reset_counters():
     fused_mlp.layered_launches = fused_vae.layered_launches = 0
     fused_vae.layered_backward_launches = 0
     emd_cuda.launches = emd_cuda.wide_launches = 0
-    fused_conv_cuda.launches = fused_conv_cuda.band_launches = 0
-    fused_conv_cuda.backward_launches = fused_conv_cuda.band_backward_launches = 0
+    fused_conv_cuda.launches.update(dict.fromkeys(fused_conv_cuda.launches, 0))
 
 
 def log(phase, **facts):
@@ -623,46 +688,71 @@ def parity_emd(gen, batch, n, device, kind="near", n_iters=EMD_ITERS):
     return res
 
 
-def bound_conv(n, h, w, c, kh, kw, m, pool, backward):
+def bound_conv(n, h, w, c, kh, kw, m, pool, backward, elem=4):
     """Least time (ms) for one call of the fused conv block or its backward
     and what bounds it.  Forward: x, w, b read once, the pooled block written
-    once; 2*K FLOP per conv pixel and map (K = kh*kw*C taps), a compare per
-    conv pixel, a bias add and a clamp per pooled pixel.  Backward: x, w, b
-    and g read, dW and db written; the same recompute and compares, the ReLU
-    mask, and one FMA per pooled pixel, tap and map for dW plus an add for
-    db (only the window's first maximum gets gradient)."""
+    once, ``elem`` bytes an element (4 float32, 2 bfloat16); 2*K FLOP of
+    products per conv pixel and map (K = kh*kw*C taps), a compare per conv
+    pixel, a bias add and a clamp per pooled pixel.  Backward: x, w, b and g
+    read, dW and db written; the same recompute and compares, and 2*K FLOP
+    of products per pooled pixel and map for dW plus an add for db (only the
+    window's first maximum gets gradient).  The products run at the f32
+    CUDA-core peak in float32 (TF32 would round them) and at the bf16
+    tensor-core peak in bfloat16 (a product of two bf16 values summed in
+    f32 is what bf16 MMA computes); the compares, bias, clamp and db adds at
+    the f32 peak in either form."""
     hc, wc = h - kh + 1, w - kw + 1
     ho, wo = -(-hc // pool[0]), -(-wc // pool[1])
     k = kh * kw * c
     conv_px, pooled_px = n * hc * wc * m, n * ho * wo * m
-    flops = conv_px * (2 * k + 1) + 2 * pooled_px
-    nbytes = 4 * (n * h * w * c + k * m + m + pooled_px)
+    products, other = conv_px * 2 * k, conv_px + 2 * pooled_px
+    nbytes = elem * (n * h * w * c + k * m + m + pooled_px)
     if backward:
-        flops += pooled_px * (2 * k + 1)
-        nbytes += 4 * (k * m + m)
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops, nbytes
+        products += pooled_px * 2 * k
+        other += pooled_px
+        nbytes += elem * (k * m + m)
+    peak_products = PEAK_BF16_FLOPS if elem == 2 else PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = (products / peak_products + other / PEAK_F32_FLOPS) * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"),
+            products + other, nbytes)
 
 
-def parity_conv(gen, shape, sparse, device):
+def parity_conv(gen, shape, sparse, device, dtype=None):
     """K5 and K6 against their plain versions on the same inputs; the same
     bits on a second call; times of kernel, plain version and the library
     yardstick (cuDNN's conv2d, a -inf pad where XLA's SAME pool has one,
     max_pool2d and relu in NCHW views; autograd through it for K6); bounds.
     At a shape the register routes take, the band routes' times beside
-    theirs, and K6's band route held to the plain version as well."""
+    theirs, and K6's band route held to the plain version as well.
+
+    ``dtype`` bfloat16 runs the kernels' bf16 forms on inputs drawn as in
+    float32 and rounded to bf16.  Bars there: each output equal to the
+    plain version's or one bf16 ulp from it (K5 and the plain version both
+    round one float32 value once; cuDNN sums the taps in another order, so
+    that value may sit on the other side of a rounding boundary), or within
+    ATOL where the ReLU's input is 0 to float32 rounding; dW and db, rounded
+    once from float32 sums by both, within one bf16 ulp of the plain value
+    plus CONV_GRAD_TOL (CONV_GRAD_TOL_BIG) of the leaf's largest value; the
+    library yardstick (cuDNN's own bf16 chain, which rounds after the conv
+    and after the bias) within 1e-2, the JAX package's bar for the bf16 block
+    against its XLA chain (tests/test_fused_conv.py)."""
     import torch
     import torch.nn.functional as F
     from atlasvae_torch.ops import fused_conv, fused_conv_cuda
     from atlasvae_torch.ops.pooling import same_pad_lo
+    from atlasvae_torch.utils.bf16 import ulp as bf16_ulp, ulps_apart as bf16_ulps_apart
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     name, n, h, wd, c, kh, kw, m, pool = shape
     x = torch.randn((n, h, wd, c), generator=gen, device=device)
     if sparse:   # jet images: a few lit pixels, so whole pool windows tie
         x = x.abs() * (torch.rand(x.shape, generator=gen, device=device) < 0.08)
     w = torch.randn((kh, kw, c, m), generator=gen, device=device) * 0.3
     b = torch.randn((m,), generator=gen, device=device) * 0.1
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
     want = fused_conv.conv1_pool_relu_plain(x, w, b, pool)
-    g = torch.randn(want.shape, generator=gen, device=device) / n
+    g = (torch.randn(want.shape, generator=gen, device=device) / n).to(dtype)
 
     pads = []
     for size, p in ((wd - kw + 1, pool[1]), (h - kh + 1, pool[0])):   # F.pad: last axis first
@@ -694,10 +784,19 @@ def parity_conv(gen, shape, sparse, device):
     grads_bands = bands_bwd() if which == "tiles" else grads
     lib = library().permute(0, 2, 3, 1)
     torch.cuda.synchronize()
-    diff = (got - want).abs()
+    diff = (got.float() - want.float()).abs()
     err_fwd = float(diff.max())
-    ok = bool((diff <= ATOL + RTOL * want.abs()).all()) and bool(torch.isfinite(got).all())
-    lib_ok = bool(((lib - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    if bf16:
+        ulps = bf16_ulps_apart(got, want)
+        ok = bool(((ulps <= 1) | (diff <= ATOL)).all())
+        lib_gap = (lib.float() - want.float()).abs()
+        lib_ok = bool((lib_gap <= 1e-2 + 1e-2 * want.float().abs()).all())
+        bf16_facts = dict(not_bit_equal=float((ulps > 0).float().mean()),
+                          max_ulps=int(ulps.max()), over_one_ulp=int((ulps > 1).sum()))
+    else:
+        ok = bool((diff <= ATOL + RTOL * want.abs()).all())
+        lib_ok = bool(((lib - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    ok &= bool(torch.isfinite(got).all()) and got.dtype == dtype
     same_bits = bool(torch.equal(got, again)) and all(
         bool(torch.equal(a, b_)) for a, b_ in zip(grads, grads_again))
     tol = CONV_GRAD_TOL_BIG if n >= 1000 else CONV_GRAD_TOL
@@ -705,9 +804,12 @@ def parity_conv(gen, shape, sparse, device):
     def leaf_errors(leaves):   # (max abs error, over the leaf's largest value, within tol)
         err, rel, fine = 0.0, 0.0, True
         for a, ref in zip(leaves, grads_want):
-            d, scale = float((a - ref).abs().max()), float(ref.abs().max())
+            gap = (a.float() - ref.float()).abs()
+            d, scale = float(gap.max()), float(ref.float().abs().max())
             err, rel = max(err, d), max(rel, d / scale if scale > 0 else d)
-            fine &= a.shape == ref.shape and d <= tol * scale + 1e-12 and bool(torch.isfinite(a).all())
+            bar = tol * scale + 1e-12 + (bf16_ulp(ref) if bf16 else 0.0)
+            fine &= a.shape == ref.shape and a.dtype == dtype and bool((gap <= bar).all()) \
+                and bool(torch.isfinite(a).all())
         return err, rel, fine
 
     err_bwd, rel_bwd, ok_bwd = leaf_errors(grads)
@@ -716,20 +818,25 @@ def parity_conv(gen, shape, sparse, device):
     del got, again, want, lib, diff
     iters = 30 if n * h * wd <= 2_000_000 else 10
     out = {}
-    fwd_name = "fused_conv" if which == "tiles" else "fused_conv_bands"
-    bwd_name = "fused_conv_backward" if which == "tiles" else "fused_conv_backward_bands"
+    form = "_bf16" if bf16 else ""
+    route_sfx = "" if which == "tiles" else "_bands"
+    fwd_name, bwd_name = "fused_conv" + form + route_sfx, "fused_conv_backward" + form + route_sfx
     for kname, backward, fn, fn_plain, fn_lib in (
             (fwd_name, False, kernel, plain, library),
             (bwd_name, True, kernel_bwd, plain_bwd, library_backward)):
-        b_ms, b_by, flops, nbytes = bound_conv(n, h, wd, c, kh, kw, m, pool, backward)
-        res = dict(shape=name + (" sparse" if sparse else ""), batch=n, image=[h, wd, c],
-                   kernel=[kh, kw], maps=m, pool=list(pool), sparse=sparse, same_bits=same_bits,
+        b_ms, b_by, flops, nbytes = bound_conv(n, h, wd, c, kh, kw, m, pool, backward,
+                                               elem=2 if bf16 else 4)
+        res = dict(shape=name + (" sparse" if sparse else "") + (" bf16" if bf16 else ""),
+                   batch=n, image=[h, wd, c], kernel=[kh, kw], maps=m, pool=list(pool),
+                   sparse=sparse, dtype=str(dtype).split(".")[-1], same_bits=same_bits,
                    ms=time_ms(fn, iters), plain_ms=time_ms(fn_plain, iters),
                    library_ms=time_ms(fn_lib, iters), bound_ms=b_ms, bound_by=b_by,
                    flops=flops, bytes=nbytes)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
         out[kname] = res
     out[fwd_name]["max_abs_err"] = err_fwd
+    if bf16:
+        out[fwd_name].update(bf16_facts)
     out[fwd_name]["route"] = which
     out[bwd_name]["route"] = which
     if which == "tiles":   # the band routes on the same inputs, for comparison
@@ -739,11 +846,12 @@ def parity_conv(gen, shape, sparse, device):
                              bands_route_err_over_leaf_scale=rel_bands)
     out[bwd_name].update(max_abs_err=err_bwd, max_err_over_leaf_scale=rel_bwd)
     if not (ok and ok_bwd and same_bits and lib_ok):
-        raise AssertionError(f"fused conv block vs its plain version at {out}: forward over atol "
-                             f"{ATOL} + rtol {RTOL}*|ref| ({not ok}), a dW/db leaf over {tol} * "
-                             f"its largest value ({not ok_bwd}), other bits on a second call "
-                             f"({not same_bits}), or the library yardstick computes another "
-                             f"function ({not lib_ok})")
+        fwd_bar = (f"one bf16 ulp or atol {ATOL}" if bf16 else f"atol {ATOL} + rtol {RTOL}*|ref|")
+        raise AssertionError(f"fused conv block vs its plain version at {out}: forward over "
+                             f"{fwd_bar} ({not ok}), a dW/db leaf over {tol} * its largest value"
+                             f"{' + one bf16 ulp' if bf16 else ''} ({not ok_bwd}), other bits on "
+                             f"a second call ({not same_bits}), or the library yardstick computes "
+                             f"another function ({not lib_ok})")
     return out
 
 
@@ -791,13 +899,14 @@ def phase_parity(device):
         "constituents": (VAEConfig(fc_layers=(256, 128, 64, 32), input_dim=312), BIG_B),
         "emd_slice": (VAEConfig(fc_layers=EMD_LAYERS, input_dim=3 * EMD_CONST), SLICE_CHUNK),
         "const_train": (VAEConfig(fc_layers=CONST_LAYERS, input_dim=3 * EMD_CONST), TRAIN_BATCH),
+        "evaluate": (VAEConfig(), EVAL_CHUNK),
     }
     # K1 runs the decoder (scoring); K2 runs the encoder on both paths and
     # the decoder (one head) in training, so at the scoring chunk and the
     # training batches it is held in both roles, beside K1 on the same
     # decoder.  Stacks wider than 128 take the layer-wise route of both.
     fwd = {"canonical": (("fused_mlp", "decoder"), ("stack_forward", "encoder"))}
-    fwd["constituents"] = fwd["emd_slice"] = fwd["canonical"]
+    fwd["constituents"] = fwd["emd_slice"] = fwd["evaluate"] = fwd["canonical"]
     fwd["slice"] = fwd["train"] = fwd["const_train"] = \
         fwd["canonical"] + (("stack_forward", "decoder"),)
     results = {name: [] for name in KERNELS}
@@ -878,31 +987,39 @@ def phase_parity(device):
             tflops=f"{res['tflops']:.2f}", jets_per_s=f"{res['jets_per_s']:.0f}")
         torch.cuda.empty_cache()
     # K5 and K6: the jet-ID shapes on sparse images (what a jet image is),
-    # the CPU tests' odd shapes on dense and on sparse ones
-    for shape in CONV_SHAPES:
-        for sparse in ((True,) if shape[1] >= 500 else (False, True)):
-            for name, res in parity_conv(gen, shape, sparse, device).items():
-                results[name].append(res)
-                log("parity", kernel=name, shape=json.dumps(res["shape"]), batch=res["batch"],
-                    image=res["image"], maps=res["maps"], pool=res["pool"],
-                    max_abs_err=f"{res['max_abs_err']:.3g}",
-                    **({"max_err_over_leaf_scale": f"{res['max_err_over_leaf_scale']:.3g}"}
-                       if "max_err_over_leaf_scale" in res else {}),
-                    same_bits=res["same_bits"], ms=f"{res['ms']:.4f}",
-                    **({"bands_route_ms": f"{res['bands_route_ms']:.4f}"}
-                       if "bands_route_ms" in res else {}),
-                    plain_ms=f"{res['plain_ms']:.4f}", library_ms=f"{res['library_ms']:.4f}",
-                    bound_ms=f"{res['bound_ms']:.4f}", bound_by=res["bound_by"],
-                    tflops=f"{res['tflops']:.2f}")
-            torch.cuda.empty_cache()
+    # the CPU tests' odd shapes on dense and on sparse ones; float32, then
+    # the bf16 forms
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in CONV_SHAPES:
+            for sparse in ((True,) if shape[1] >= 500 else (False, True)):
+                for name, res in parity_conv(gen, shape, sparse, device, dtype).items():
+                    results[name].append(res)
+                    log_conv_parity(name, res)
+                torch.cuda.empty_cache()
     return results
+
+
+def log_conv_parity(name, res):
+    log("parity", kernel=name, shape=json.dumps(res["shape"]), batch=res["batch"],
+        image=res["image"], maps=res["maps"], pool=res["pool"],
+        max_abs_err=f"{res['max_abs_err']:.3g}",
+        **({"max_err_over_leaf_scale": f"{res['max_err_over_leaf_scale']:.3g}"}
+           if "max_err_over_leaf_scale" in res else {}),
+        **{k: res[k] for k in ("not_bit_equal", "max_ulps", "over_one_ulp") if k in res},
+        same_bits=res["same_bits"], ms=f"{res['ms']:.4f}",
+        **({"bands_route_ms": f"{res['bands_route_ms']:.4f}"} if "bands_route_ms" in res else {}),
+        plain_ms=f"{res['plain_ms']:.4f}", library_ms=f"{res['library_ms']:.4f}",
+        bound_ms=f"{res['bound_ms']:.4f}", bound_by=res["bound_by"],
+        tflops=f"{res['tflops']:.2f}")
 
 
 def profile_slice(run, phase="profile"):
     """A profiled run of a path: device busy share of the wall time, and
     the device time of the busiest kernels and of the port's own kernels.
-    Returns the idle share and the device-side rows (microseconds, name,
-    count).
+    Returns the idle share, the device-side rows (microseconds, name,
+    count) and the device ms of the kernels launched under PyTorch's
+    convolutions, forward and backward (on the jet-ID path: block 2, since
+    block 1 is K5/K6).
 
     Busy time sums the device-side events only (kernels, copies, memsets):
     a host operator's own device time repeats the time of the kernels it
@@ -921,11 +1038,14 @@ def profile_slice(run, phase="profile"):
             rows.append((dev, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
+    conv_ms = sum(e.device_time_total for e in prof.key_averages()
+                  if e.key in ("aten::convolution", "aten::convolution_backward")) / 1e3
     log(phase, wall_ms=f"{wall_us / 1e3:.2f}", device_busy_ms=f"{busy_us / 1e3:.3f}",
         idle_share=f"{1 - busy_us / wall_us:.4f}", device_events=sum(r[2] for r in rows),
+        cudnn_conv_ms=f"{conv_ms:.3f}",
         top=json.dumps([(k[:60], n, round(d / 1e3, 4)) for d, k, n in rows[:10]]),
         ours=json.dumps([(k[:60], n, round(d / 1e3, 4)) for d, k, n in rows if "atlasvae::" in k]))
-    return 1 - busy_us / wall_us, rows
+    return 1 - busy_us / wall_us, rows, conv_ms
 
 
 def phase_slice(device, workdir):
@@ -995,8 +1115,8 @@ def phase_slice(device, workdir):
         a, b = got[f"score_{m}"][:REF_ROWS], ref[m]
         ref_err[m] = float(np.max(np.abs(a - b) / (np.abs(b) + 1e-3)))
         if not np.allclose(a, b, rtol=1e-4, atol=1e-4):
-            raise AssertionError(f"score_{m} differs from the plain CPU path: "
-                                 f"max rel err {ref_err[m]}")
+            raise AssertionError(f"score_{m} differs from the plain CPU path: max rel err "
+                                 f"{ref_err[m]}; " + _slice_gaps(m, a, b, x, params, noise))
     for name in ("fused_mlp", "stack_forward"):
         if launches[name] <= 0 or launches[name + "_layers"] != 0:
             raise AssertionError(f"kernel {name} on the scoring path: fused body "
@@ -1016,6 +1136,33 @@ def phase_slice(device, workdir):
         warm_jets_per_s=f"{rate:.0f}", launches=json.dumps(launches),
         ref_rel_err=json.dumps(ref_err))
     return launches, rate
+
+
+def _slice_gaps(metric, card, cpu, x, params, noise):
+    """Where the card's and the CPU's scores part: the worst row over the
+    bar (rtol/atol 1e-4), both values, and each side's gap to a float64 run
+    of the same rows (the plain path in float64 on the CPU), there and at
+    most, with the rows each side has over the bar against float64."""
+    import numpy as np
+    import torch
+    from atlasvae_torch.eval.metrics import _latent_kernel, _metric_kernel
+    from atlasvae_torch.models import vae_apply
+    from atlasvae_torch.train.checkpoint import tree_map
+    p64, x64 = tree_map(lambda t: t.double(), params), x.double()
+    with torch.inference_mode():
+        if metric == "MAE":
+            f64 = _metric_kernel(x64, vae_apply(p64, x64, noise=noise.double())[0], "MAE")
+        else:
+            f64 = _latent_kernel(p64, x64)
+    f64 = f64.numpy()
+    bar = lambda ref: 1e-4 + 1e-4 * np.abs(ref)
+    row = int(np.argmax(np.abs(card - cpu) - bar(cpu)))
+    card_gap, cpu_gap = np.abs(card - f64), np.abs(cpu - f64)
+    return (f"row {row}: card {card[row]!r} cpu {cpu[row]!r} float64 {f64[row]!r}, gap to "
+            f"float64 card {card_gap[row]:.3e} cpu {cpu_gap[row]:.3e}; largest gap to float64 "
+            f"card {card_gap.max():.3e} (row {int(card_gap.argmax())}) cpu {cpu_gap.max():.3e} "
+            f"(row {int(cpu_gap.argmax())}); rows over the bar against float64: card "
+            f"{int((card_gap > bar(f64)).sum())} cpu {int((cpu_gap > bar(f64)).sum())}")
 
 
 def gammainc_ops():
@@ -1418,9 +1565,10 @@ def phase_train(device, workdir):
     warm_rate = jets * (TRAIN_EPOCHS - 1) / warm_s
     epoch_s = (t_end - stamps[2][1]) / (TRAIN_EPOCHS - 1)
     per_step = {name: (spans[-1][3][name] - spans[-1][2][name]) / steps for name in launches}
-    idle, _ = profile_slice(lambda: (train_model(params, [load], [vload], "MAE", 1, TRAIN_BATCH,
-                                                 2.0, 5.0, 1.0, 1e-3), torch.cuda.synchronize()),
-                            phase="train profile")
+    idle, _, _ = profile_slice(
+        lambda: (train_model(params, [load], [vload], "MAE", 1, TRAIN_BATCH, 2.0, 5.0, 1.0, 1e-3),
+                 torch.cuda.synchronize()),
+        phase="train profile")
     grad_rel, loss_rel = _train_parity(load, device)
 
     # the two paths meet: score the trained weights through cli.score
@@ -1528,9 +1676,10 @@ def phase_const_train(device, workdir):
         raise AssertionError(f"K2/K3 launches a step in the timed run: {per_step} (want each "
                              "layer-wise route 4 times, each fused body never)")
     before = counters()
-    idle, rows = profile_slice(lambda: (train_model(params, [load], [vload], "MAE", 1, TRAIN_BATCH,
-                                                    2.0, 5.0, 1.0, 1e-3), torch.cuda.synchronize()),
-                               phase="const_train profile")
+    idle, rows, _ = profile_slice(
+        lambda: (train_model(params, [load], [vload], "MAE", 1, TRAIN_BATCH, 2.0, 5.0, 1.0, 1e-3),
+                 torch.cuda.synchronize()),
+        phase="const_train profile")
     calls = {k: v - before[k] for k, v in counters().items()}
     k3_rows = [r for r in rows if any(k in r[1] for k in K3_LAYER_KERNELS)]
     fwd_rows = [r for r in rows if any(k in r[1] for k in FORWARD_KERNELS)]
@@ -1672,8 +1821,8 @@ def phase_emd_slice(device, workdir):
     t0 = time.perf_counter()
     run(names[0], os.path.join(workdir, "scores_warm.h5"))
     warm_s = time.perf_counter() - t0
-    idle, _ = profile_slice(lambda: run(names[0], os.path.join(workdir, "scores_profiled.h5")),
-                            phase="emd_slice profile")
+    idle, _, _ = profile_slice(lambda: run(names[0], os.path.join(workdir, "scores_profiled.h5")),
+                               phase="emd_slice profile")
     total = {k: sum(launches[name][k] for name in names) for k in launches[names[0]]}
     facts = dict(jets=EMD_EVENTS, cold_s=cold_s[names[0]], warm_s=warm_s,
                  warm_jets_per_s=EMD_EVENTS / warm_s, idle_share=idle,
@@ -1691,17 +1840,17 @@ class _Echo(io.StringIO):
         return super().write(text)
 
 
-def _jetid_history(printed):
+def _jetid_history(printed, epochs=JETID_EPOCHS):
     """The per-epoch series of a training run's ticker lines (the jet-ID CLI
-    writes no history file): JETID_EPOCHS finite epochs, the loss falling."""
+    writes no history file): ``epochs`` finite epochs, the loss falling."""
     import numpy as np
     rows = re.findall(r"Epoch (\d+)/(\d+): loss=(\S+) acc=(\S+)% val_loss=(\S+) ", printed)
     history = {"loss": [float(r[2]) for r in rows], "accuracy": [float(r[3]) for r in rows],
                "val_loss": [float(r[4]) for r in rows]}
-    if [r[:2] for r in rows] != [(str(e + 1), str(JETID_EPOCHS)) for e in range(JETID_EPOCHS)] \
+    if [r[:2] for r in rows] != [(str(e + 1), str(epochs)) for e in range(epochs)] \
             or not all(np.isfinite(v).all() for v in history.values()) \
             or not history["loss"][-1] < history["loss"][0]:
-        raise AssertionError(f"jet-ID training history {history}: want {JETID_EPOCHS} finite "
+        raise AssertionError(f"jet-ID training history {history}: want {epochs} finite "
                              "epochs with a falling loss")
     return history
 
@@ -1730,13 +1879,13 @@ def _jetid_report(results_path, device):
 def _jetid_parity(config, inputs, labels, device):
     """The CUDA path against the plain CPU path at dropout 0, on the first
     batches of a sample: first-step gradients per leaf, and a 2-epoch loss
-    series of train_classifier."""
+    series of train_classifier, at the bars of the config's precision."""
     import dataclasses
     import numpy as np
     import torch
     from atlasvae_torch.models import init_jetid
     from atlasvae_torch.train.checkpoint import tree_flatten, tree_map
-    from atlasvae_torch.train.jetid_loop import batch_loss, train_classifier
+    from atlasvae_torch.train.jetid_loop import batch_loss, strict_precision, train_classifier
 
     config = dataclasses.replace(config, dropout=0.0)
     n = JETID_PARITY_BATCHES * JETID_BATCH
@@ -1749,20 +1898,24 @@ def _jetid_parity(config, inputs, labels, device):
         params = tree_map(lambda t, d=d: t.detach().to(d).requires_grad_(), init)
         batch = {k: torch.from_numpy(np.ascontiguousarray(v[:JETID_BATCH])).to(d)
                  for k, v in train.items()}
-        loss, _ = batch_loss(params, config, batch,
-                             torch.from_numpy(labels[:JETID_BATCH]).to(d),
-                             torch.ones(JETID_BATCH, device=d), None)
-        grads[d] = [g.cpu() for g in torch.autograd.grad(loss, tree_flatten(params))]
+        with strict_precision():   # as train_epoch holds it
+            loss, _ = batch_loss(params, config, batch,
+                                 torch.from_numpy(labels[:JETID_BATCH]).to(d),
+                                 torch.ones(JETID_BATCH, device=d), None)
+            grads[d] = [g.cpu() for g in torch.autograd.grad(loss, tree_flatten(params))]
     # leaves in tree_flatten's order (sorted keys), towers flagged
     in_tower = [key == "towers" for key in sorted(init) for _ in tree_flatten(init[key])]
+    bf16 = config.compute_dtype == "bfloat16"
     grad_rel = {"dense": 0.0, "conv": 0.0}
-    for g_dev, g_cpu, conv in zip(grads[device], grads[cpu], in_tower):
+    for leaf, (g_dev, g_cpu, conv) in enumerate(zip(grads[device], grads[cpu], in_tower)):
         scale, diff = float(g_cpu.abs().max()), float((g_dev - g_cpu).abs().max())
         kind, tol = ("conv", JETID_CONV_GRAD_TOL) if conv else ("dense", GRAD_SCALE_TOL)
+        if bf16:
+            tol = JETID_BF16_GRAD_TOL
         grad_rel[kind] = max(grad_rel[kind], diff / scale if scale > 0 else diff)
         if diff > tol * scale:
-            raise AssertionError(f"jet-ID first-step gradient of a {kind} leaf differs: {diff} > "
-                                 f"{tol} * {scale}")
+            raise AssertionError(f"jet-ID first-step gradient of {kind} leaf {leaf} "
+                                 f"{tuple(g_cpu.shape)} differs: {diff} > {tol} * {scale}")
     hists = {}
     for d in (cpu, device):
         _, hists[d] = train_classifier(tree_map(lambda t, d=d: t.detach().to(d), init), config,
@@ -1773,15 +1926,16 @@ def _jetid_parity(config, inputs, labels, device):
         got, want = np.asarray(hists[device][key]), np.asarray(hists[cpu][key])
         rel = float(np.max(np.abs(got - want) / np.abs(want)))
         loss_rel = max(loss_rel, rel)
-        if not rel <= JETID_LOSS_REL_TOL:
-            raise AssertionError(f"jet-ID {key}: CUDA {got} vs CPU {want}, rel {rel} > "
-                                 f"{JETID_LOSS_REL_TOL}")
+        tol = JETID_BF16_LOSS_REL_TOL if bf16 else JETID_LOSS_REL_TOL
+        if not rel <= tol:
+            raise AssertionError(f"jet-ID {key}: CUDA {got} vs CPU {want}, rel {rel} > {tol}")
     return grad_rel, loss_rel
 
 
-def phase_jetid(device, workdir):
+def phase_jetid(device, workdir, data_dir, bf16=False):
     """Train and serve the jet-ID CNN through the CLI, hold the CUDA path
-    against the plain CPU path, then time and profile it."""
+    against the plain CPU path, then time and profile it: in float32
+    (--mixed_precision OFF), or at the CLI's default, bfloat16 compute."""
     import numpy as np
     import torch
     from atlasvae_torch.cli import jetid as cli_jetid
@@ -1790,12 +1944,15 @@ def phase_jetid(device, workdir):
     from atlasvae_torch.train.jetid_loop import (predict_classifier, train_classifier,
                                                  train_classifier_streaming)
 
+    phase = "jetid_bf16" if bf16 else "jetid"
+    form = "_bf16" if bf16 else ""
     os.makedirs(workdir)
     out_dir = os.path.join(workdir, "out")
-    # --synthetic writes its files under the data directory; this is the last
-    # phase, so the setting stays
-    os.environ["ATLASVAE_DATA_DIR"] = os.path.join(workdir, "data")
-    args = JETID_ARGS + ["--output_dir", out_dir, "--device", str(device)]
+    # --synthetic writes its files under the data directory, shared by the
+    # jet-ID phases, which come last: the setting stays
+    os.environ["ATLASVAE_DATA_DIR"] = data_dir
+    args = (JETID_BF16_ARGS if bf16 else JETID_ARGS) + ["--output_dir", out_dir,
+                                                        "--device", str(device)]
 
     # 1. train
     reset_counters()
@@ -1817,15 +1974,17 @@ def phase_jetid(device, workdir):
     steps = -(-JETID_TRAIN // JETID_BATCH)
     valid_batches = -(-n_valid // JETID_BATCH)
     chunks = -(-n_valid // JETID_CHUNK)
-    want = {"fused_conv": JETID_EPOCHS * (steps + valid_batches) + chunks,
-            "fused_conv_bands": 0, "fused_conv_backward": JETID_EPOCHS * steps,
-            "fused_conv_backward_bands": 0}
+    # K5/K6 of this precision on their register routes; every other form
+    # and route of them not at all
+    want = dict.fromkeys(CONV_COUNTERS, 0)
+    want["fused_conv" + form] = JETID_EPOCHS * (steps + valid_batches) + chunks
+    want["fused_conv_backward" + form] = JETID_EPOCHS * steps
     for name, count in want.items():
         if train_launches[name] != count:
             raise AssertionError(f"{name} launched {train_launches[name]} times in the training "
                                  f"run, want {count} ({JETID_EPOCHS} epochs of {steps} steps and "
                                  f"{valid_batches} validation batches, {chunks} predict chunks)")
-    log("jetid", train_cli_s=f"{train_s:.3f}", valid_jets=n_valid, steps_per_epoch=steps,
+    log(phase, train_cli_s=f"{train_s:.3f}", valid_jets=n_valid, steps_per_epoch=steps,
         valid_batches=valid_batches, predict_chunks=chunks, launches=json.dumps(train_launches),
         history=json.dumps(history))
 
@@ -1838,27 +1997,32 @@ def phase_jetid(device, workdir):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     serve_launches = counters()
-    if (serve_launches["fused_conv"] != chunks or serve_launches["fused_conv_bands"] != 0
-            or serve_launches["fused_conv_backward"] != 0
-            or serve_launches["fused_conv_backward_bands"] != 0):
-        raise AssertionError(f"serving launched {serve_launches}: want fused_conv {chunks} times "
-                             "on its register route, none on the band route and no backward")
+    want = dict.fromkeys(CONV_COUNTERS, 0)
+    want["fused_conv" + form] = chunks
+    if any(serve_launches[name] != count for name, count in want.items()):
+        raise AssertionError(f"serving launched {serve_launches}: want fused_conv{form} {chunks} "
+                             "times on its register route, no other form or route and no "
+                             "backward")
     _, served_labels, served, report = _jetid_report(os.path.join(out_dir, "served.pkl"), device)
     gap = float(np.abs(served - probs).max())
     if not np.array_equal(served_labels, v_labels) or gap > 1e-6:
         raise AssertionError(f"served probabilities differ from the training run's by {gap}")
     config = JetIDConfig(n_classes=2, scalars=("HLVs",), scalar_dims=(v_view["HLVs"].shape[1],),
                          nn_type="CNN", images=("images",),
-                         image_shapes=((JETID_IMAGE, JETID_IMAGE),), dropout=0.1, l2=1e-7)
+                         image_shapes=((JETID_IMAGE, JETID_IMAGE),), dropout=0.1, l2=1e-7,
+                         compute_dtype="bfloat16" if bf16 else "float32")
     inputs = {"HLVs": v_view["HLVs"], "images": v_view["images"]}
     cpu = torch.device("cpu")
     cpu_params = load_pytree(os.path.join(out_dir, "model.npz"),
                              init_jetid(torch.Generator().manual_seed(0), config, device=cpu))
     ref = predict_classifier(cpu_params, config, {k: v[:JETID_REF_ROWS] for k, v in inputs.items()})
     ref_gap = float(np.abs(served[:JETID_REF_ROWS] - ref).max())
-    if not np.allclose(served[:JETID_REF_ROWS], ref, rtol=1e-4, atol=1e-5):
-        raise AssertionError(f"served probabilities differ from the plain CPU path: {ref_gap}")
-    log("jetid", serve_cli_s=f"{serve_s:.3f}", launches=json.dumps(serve_launches),
+    rtol, atol = (0.0, JETID_BF16_PROB_TOL) if bf16 else (1e-4, 1e-5)
+    if served.dtype != np.float32 or not np.allclose(served[:JETID_REF_ROWS], ref, rtol=rtol,
+                                                     atol=atol):
+        raise AssertionError(f"served probabilities ({served.dtype}) differ from the plain CPU "
+                             f"path: {ref_gap} over rtol {rtol} / atol {atol}")
+    log(phase, serve_cli_s=f"{serve_s:.3f}", launches=json.dumps(serve_launches),
         same_bits_as_training_run=bool(np.array_equal(served, probs)), max_gap=gap,
         cpu_ref_rows=JETID_REF_ROWS, cpu_ref_max_gap=ref_gap,
         accuracy=f"{report['accuracy']:.2f}", auc=f"{report['auc']:.4f}",
@@ -1867,7 +2031,7 @@ def phase_jetid(device, workdir):
     # 3. CUDA against the plain CPU path at dropout 0
     t0 = time.perf_counter()
     grad_rel, loss_rel = _jetid_parity(config, inputs, v_labels, device)
-    log("jetid", parity_s=f"{time.perf_counter() - t0:.2f}", grad_rel=json.dumps(grad_rel),
+    log(phase, parity_s=f"{time.perf_counter() - t0:.2f}", grad_rel=json.dumps(grad_rel),
         loss_rel=loss_rel)
 
     # 4. a warm timed run on JETID_TRAIN of these jets, then a profiled epoch
@@ -1890,26 +2054,56 @@ def phase_jetid(device, workdir):
     spans = [(stamps[2 * e], stamps[2 * e + 1]) for e in range(JETID_EPOCHS)]
     warm_s = sum(end[0] - start[0] for start, end in spans[1:])
     per_step = {name: (spans[-1][1][1][name] - spans[-1][0][1][name]) / steps
-                for name in ("fused_conv", "fused_conv_backward")}
+                for name in ("fused_conv" + form, "fused_conv_backward" + form)}
     predict_classifier(params, config, inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     predict_classifier(params, config, inputs)
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
-    idle, _ = profile_slice(lambda: (train_classifier(params, config, train_in, train_y, valid_in,
-                                                      valid_y, epochs=1, batch_size=JETID_BATCH,
-                                                      verbose=False), torch.cuda.synchronize()),
-                            phase="jetid profile")
+    idle, rows, conv_ms = profile_slice(
+        lambda: (train_classifier(params, config, train_in, train_y, valid_in, valid_y, epochs=1,
+                                  batch_size=JETID_BATCH, verbose=False), torch.cuda.synchronize()),
+        phase=phase + " profile")
+    busy_ms = sum(r[0] for r in rows) / 1e3
     facts = dict(train_jets=JETID_TRAIN, steps_per_epoch=steps,
                  warm_jets_per_s=JETID_TRAIN * (JETID_EPOCHS - 1) / warm_s,
                  ms_per_step=warm_s / (steps * (JETID_EPOCHS - 1)) * 1e3,
                  launches_per_step=per_step, predict_jets=n_valid,
-                 predict_jets_per_s=n_valid / predict_s, idle_share=idle, grad_rel=grad_rel,
-                 loss_rel=loss_rel, **report)
-    log("jetid", **{k: (json.dumps(v) if isinstance(v, dict) else v) for k, v in facts.items()})
+                 predict_jets_per_s=n_valid / predict_s, idle_share=idle,
+                 profiled_busy_ms=busy_ms, block2_conv_ms=conv_ms,
+                 block2_conv_share=conv_ms / busy_ms, grad_rel=grad_rel, loss_rel=loss_rel,
+                 **report)
+    log(phase, **{k: (json.dumps(v) if isinstance(v, dict) else v) for k, v in facts.items()})
     total = {k: train_launches[k] + serve_launches[k] for k in train_launches}
     return total, facts
+
+
+def jetid_stream(device, workdir, data_dir):
+    """One short bf16 FCN run through the CLI that streams its training
+    slice in chunks (--generator ON) and weights each chunk with the
+    flattening scheme: its epochs, its files and its probabilities.  The
+    FCN runs no kernel of ours (dense layers are cuBLAS), so every counter
+    stays 0."""
+    from atlasvae_torch.cli import jetid as cli_jetid
+    os.environ["ATLASVAE_DATA_DIR"] = data_dir
+    out_dir = os.path.join(workdir, "out")
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Echo()) as printed:
+        cli_jetid.main(JETID_STREAM_ARGS + ["--n_epochs", str(JETID_STREAM_EPOCHS),
+                                            "--output_dir", out_dir, "--device", str(device)])
+    wall_s = time.perf_counter() - t0
+    launches = counters()
+    history = _jetid_history(printed.getvalue(), JETID_STREAM_EPOCHS)
+    _, v_labels, _, report = _jetid_report(os.path.join(out_dir, "valid_results.pkl"), device)
+    degenerate = printed.getvalue().count("degenerate")
+    if any(launches.values()) or degenerate:
+        raise AssertionError(f"streamed FCN run: launches {launches}, {degenerate} chunks whose "
+                             "weight scheme degenerated")
+    log("jetid_bf16", stream_cli_s=f"{wall_s:.3f}", epochs=JETID_STREAM_EPOCHS,
+        valid_jets=len(v_labels), history=json.dumps(history), accuracy=f"{report['accuracy']:.2f}",
+        auc=f"{report['auc']:.4f}", note="synthetic data: no physics result")
 
 
 def wrapper_host_ms(blocks=20, calls=1000):
@@ -2045,7 +2239,18 @@ def main():
         train_launches, train = phase_train(device, workdir)
         const_launches, const_facts = phase_const_train(device, os.path.join(workdir, "const_train"))
         emd_launches, emd_facts = phase_emd_slice(device, os.path.join(workdir, "emd_slice"))
-        jetid_launches, jetid_facts = phase_jetid(device, os.path.join(workdir, "jetid"))
+        jetid_data = os.path.join(workdir, "jetid_data")
+        jetid_launches, jetid_facts = phase_jetid(device, os.path.join(workdir, "jetid"),
+                                                  jetid_data)
+        bf16_launches, bf16_facts = phase_jetid(device, os.path.join(workdir, "jetid_bf16"),
+                                                jetid_data, bf16=True)
+        log("jetid_bf16", **{f"{key}_{form}": f"{facts[key]:.4f}"
+                             for key in ("ms_per_step", "warm_jets_per_s", "predict_jets_per_s",
+                                         "profiled_busy_ms", "idle_share", "block2_conv_ms",
+                                         "block2_conv_share")
+                             for form, facts in (("float32", jetid_facts),
+                                                 ("bfloat16", bf16_facts))})
+        jetid_stream(device, os.path.join(workdir, "jetid_stream"), jetid_data)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2053,7 +2258,7 @@ def main():
         by_phase = {"slice": slice_launches[name], "evaluate": eval_launches[name],
                     "train": train_launches[name],
                     "const_train": const_launches[name], "emd_slice": emd_launches[name],
-                    "jetid": jetid_launches[name]}
+                    "jetid": jetid_launches[name], "jetid_bf16": bf16_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -2069,6 +2274,8 @@ def main():
         emd_slice_jets_per_s=f"{emd_facts['warm_jets_per_s']:.0f}",
         jetid_train_jets_per_s=f"{jetid_facts['warm_jets_per_s']:.0f}",
         jetid_predict_jets_per_s=f"{jetid_facts['predict_jets_per_s']:.0f}",
+        jetid_bf16_train_jets_per_s=f"{bf16_facts['warm_jets_per_s']:.0f}",
+        jetid_bf16_predict_jets_per_s=f"{bf16_facts['predict_jets_per_s']:.0f}",
         evaluate_bump_hunter_scan_ms=f"{eval_facts['scan_ms']:.4f}",
         evaluate_cut_scan_ms=f"{eval_facts['local_ms']:.4f}")
     print(json.dumps({"kernels": kernels}), flush=True)

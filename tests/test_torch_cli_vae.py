@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from atlasvae.cli import vae as jax_vae
+from atlasvae.data import registry as jax_registry
 from atlasvae.models import VAEConfig as JaxVAEConfig, init_vae as jax_init_vae
 from atlasvae.train.checkpoint import load_pytree as jax_load_pytree
 from atlasvae_torch.cli import vae
@@ -42,8 +43,11 @@ MODES = {
 
 @pytest.fixture(scope="module", params=sorted(MODES))
 def runs(request, synth_dir, tmp_path_factory):
+    # both packages' registries: a JAX CLI run with --synthetic earlier in
+    # the same worker re-registers the JAX names to its own files
     for name in ("QCD-Geneva", "OoD-H"):
         registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
+        jax_registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
     extra_args, widths, scaler = MODES[request.param]
     out = {"widths": widths, "scaler": scaler}
     for side, main, extra in (("port", vae.main, ["--device", "cpu"]),

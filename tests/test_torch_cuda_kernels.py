@@ -18,7 +18,11 @@ the atol is 1e-5 of the total pt, which is what float32 gives either form.
 The fused conv block (K5): atol 1e-5 + rtol 1e-5 against the plain version,
 whose convolution runs in full float32 (cuDNN's TF32 is turned off here);
 its backward (K6): dW and db within 2e-4 of each leaf's largest value, the
-bar of tests/test_fused_conv.py, and the same bits on a second call.
+bar of tests/test_fused_conv.py, and the same bits on a second call.  Their
+bf16 forms: each output equal to the plain version's or one bf16 ulp from it
+(both round one float32 value once, summed in other orders), or within 1e-5
+where the ReLU's input is 0 to float32 rounding; dW and db within one bf16
+ulp of the plain value plus 2e-4 of the leaf's largest value.
 """
 
 import numpy as np
@@ -31,6 +35,7 @@ from atlasvae_torch.models import VAEConfig, init_vae, vae_apply
 from atlasvae_torch.ops import emd, emd_cuda, fused_conv, fused_conv_cuda, fused_mlp, fused_vae
 from atlasvae_torch.train import train_model
 from atlasvae_torch.train.checkpoint import tree_flatten, tree_map
+from atlasvae_torch.utils.bf16 import ulp as bf16_ulp, ulps_apart as bf16_ulps_apart
 
 pytestmark = pytest.mark.cuda
 
@@ -564,12 +569,13 @@ CONV_ROUTE_CASES = [(shape, which) for shape in CONV_SHAPES for which in fused_c
                     if which == "bands" or _conv_route(shape) == "tiles"]
 
 
-def _conv_counts():
-    return fused_conv_cuda.launches, fused_conv_cuda.band_launches
+def _conv_counts(dtype=torch.float32, direction="forward"):
+    return tuple(fused_conv_cuda.launches[dtype, which, direction]
+                 for which in fused_conv_cuda.ROUTES)
 
 
 def _conv_backward_counts():
-    return fused_conv_cuda.backward_launches, fused_conv_cuda.band_backward_launches
+    return _conv_counts(direction="backward")
 
 
 def _grads_close(got, want):
@@ -722,6 +728,84 @@ def test_conv_kernels_refuse_bad_input(cuda):
                  fused_conv.conv1_pool_relu_backward_plain(wide, w, b, g_wide, pool))
 
 
+def _bf16_counts():
+    return _conv_counts(torch.bfloat16) + _conv_counts(torch.bfloat16, "backward")
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("shape,which", CONV_ROUTE_CASES)
+def test_conv_pool_relu_bf16_matches_plain(cuda, shape, which, sparse):
+    """Each route of K5's and K6's bf16 forms at each shape it takes: bf16
+    out, dW and db, within one bf16 ulp of the plain version, the same bits
+    on a second call, one launch counted on that route's bf16 counter and
+    none on the float32 ones."""
+    x, w, b, gen = _conv_case(shape, cuda, sparse)
+    x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    pool = shape[-1]
+    before, before_f32 = _bf16_counts(), _conv_counts() + _conv_backward_counts()
+    got = fused_conv_cuda.conv_pool_relu(x, w, b, pool, force_route=which)
+    want = fused_conv.conv1_pool_relu_plain(x, w, b, pool)
+    assert got.dtype == want.dtype == torch.bfloat16
+    gap = (got.float() - want.float()).abs()
+    assert bool(((bf16_ulps_apart(got, want) <= 1) | (gap <= ATOL)).all()), float(gap.max())
+    assert torch.equal(got, fused_conv_cuda.conv_pool_relu(x, w, b, pool, force_route=which))
+    g = (torch.randn(want.shape, generator=gen) / shape[0]).to(cuda).bfloat16()
+    dw, db = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool, force_route=which)
+    for got_leaf, want_leaf in zip((dw, db), fused_conv.conv1_pool_relu_backward_plain(
+            x, w, b, g, pool)):
+        assert got_leaf.dtype == want_leaf.dtype == torch.bfloat16
+        bar = GRAD_TOL * float(want_leaf.float().abs().max()) + bf16_ulp(want_leaf) + 1e-12
+        assert bool(((got_leaf.float() - want_leaf.float()).abs() <= bar).all())
+    again = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool, force_route=which)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+    tiles = which == "tiles"
+    assert _bf16_counts() == (before[0] + 2 * tiles, before[1] + 2 * (not tiles),
+                              before[2] + 2 * tiles, before[3] + 2 * (not tiles))
+    assert _conv_counts() + _conv_backward_counts() == before_f32
+
+
+def test_conv_kernels_refuse_mixed_and_other_dtypes(cuda):
+    """x, w, b and g in one dtype, float32 or bfloat16; nothing is widened
+    or narrowed to run another form, and nothing is launched."""
+    x, w, b, _ = _conv_case((4, 16, 16, 1, 3, 3, 8, (2, 2)), cuda, sparse=False)
+    g = torch.zeros((4, 7, 7, 8), device=cuda)
+    before = _bf16_counts() + _conv_counts() + _conv_backward_counts()
+    with pytest.raises(ValueError, match="the dtype of x"):
+        fused_conv_cuda.conv_pool_relu(x.bfloat16(), w, b, (2, 2))
+    with pytest.raises(ValueError, match="the dtype of x"):
+        fused_conv_cuda.conv_pool_relu(x, w, b.bfloat16(), (2, 2))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_conv_cuda.conv_pool_relu(x.half(), w.half(), b.half(), (2, 2))
+    with pytest.raises(ValueError, match="the dtype of x"):
+        fused_conv_cuda.conv_pool_relu_backward(x.bfloat16(), w.bfloat16(), b.bfloat16(), g,
+                                                (2, 2))
+    assert _bf16_counts() + _conv_counts() + _conv_backward_counts() == before
+
+
+def test_fused_conv1_function_bf16_on_cuda_matches_cpu(cuda):
+    """The autograd Function in bf16: K5/K6's bf16 forms on the card, the
+    plain versions on the CPU, w and b cast from float32 leaves whose
+    gradients come back float32."""
+    shape = (64, 16, 16, 1, 3, 3, 12, (2, 2))
+    x, w, b, _ = _conv_case(shape, "cpu", sparse=True)
+    results = {}
+    for device in ("cpu", cuda):
+        leaves = [t.to(device).requires_grad_() for t in (w, b)]
+        out = fused_conv.fused_conv1_pool_relu(x.to(device).bfloat16(),
+                                               *(t.bfloat16() for t in leaves), shape[-1])
+        assert out.dtype == torch.bfloat16
+        grads = torch.autograd.grad((out.float() ** 2).sum(), leaves)
+        assert all(g.dtype == torch.float32 for g in grads)
+        results[str(device)] = [out.detach().cpu()] + [g.cpu() for g in grads]
+    out_cpu, dw_cpu, db_cpu = results["cpu"]
+    out_dev, dw_dev, db_dev = results[str(cuda)]
+    gap = (out_dev.float() - out_cpu.float()).abs()
+    assert bool(((bf16_ulps_apart(out_dev, out_cpu) <= 1) | (gap <= ATOL)).all())
+    for got_leaf, want_leaf in ((dw_dev, dw_cpu), (db_dev, db_cpu)):
+        assert float((got_leaf - want_leaf).abs().max()) <= \
+            2 ** -7 * float(want_leaf.abs().max()) + GRAD_TOL * float(want_leaf.abs().max())
+
+
 def test_train_classifier_holds_cudnn_float32_with_the_flag_on(cuda, monkeypatch):
     """A library caller that leaves cuDNN's process-wide TF32 flag at its
     default (True): train_classifier still runs every convolution in float32,
@@ -774,3 +858,52 @@ def test_train_classifier_holds_cudnn_float32_with_the_flag_on(cuda, monkeypatch
         assert float(gap[at]) <= tol * float(want.abs().max()), \
             f"leaf {i} ({'tower' if tower else 'dense'}): gap {float(gap[at])} at {at} over " \
             f"{tol} * {float(want.abs().max())}"
+
+
+def test_bf16_training_sums_in_float32_with_the_flag_on(cuda, monkeypatch):
+    """bfloat16 compute on the card: cuBLAS's reduced-precision bf16 sums
+    stay off inside train_classifier and predict_classifier though the
+    process-wide flag is on (and on again afterwards), K5/K6 run their bf16
+    forms, the master weights stay float32, and the probabilities come back
+    float32 and within 1e-2 of the plain CPU path (chip_smoke.py's bf16 bar)."""
+    from atlasvae_torch.models import JetIDConfig, init_jetid
+    from atlasvae_torch.train import jetid_loop
+    config = JetIDConfig(n_classes=2, scalars=("HLVs",), scalar_dims=(6,), nn_type="CNN",
+                         images=("images",), image_shapes=((16, 16),), cnn_maps=(24, 16),
+                         fcn_neurons=(32, 16), branch_neurons=(32,), dropout=0.0, l2=1e-7,
+                         compute_dtype="bfloat16")
+    rng = np.random.default_rng(12)
+    n = 512
+    labels = rng.integers(0, 2, n)
+    images = np.abs(rng.normal(size=(n, 16, 16))) * (rng.random((n, 16, 16)) < 0.12)
+    inputs = {"HLVs": rng.normal(size=(n, 6)).astype(np.float32),
+              "images": images.astype(np.float32)}
+    seen, real_apply = [], jetid_loop.jetid_apply
+
+    def apply(*args, **kwargs):
+        seen.append(torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+        return real_apply(*args, **kwargs)
+
+    monkeypatch.setattr(jetid_loop, "jetid_apply", apply)
+    matmul = torch.backends.cuda.matmul
+    flag = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = True
+    before = _bf16_counts()
+    try:
+        init = init_jetid(torch.Generator().manual_seed(3), config, device="cpu")
+        probs = {}
+        for device in ("cpu", cuda):
+            best, _ = jetid_loop.train_classifier(tree_map(lambda t: t.to(device), init), config,
+                                                  inputs, labels, inputs, labels, epochs=1,
+                                                  batch_size=256, verbose=False)
+            assert all(t.dtype == torch.float32 for t in tree_flatten(best))
+            probs[device] = jetid_loop.predict_classifier(tree_map(lambda t: t.to(device), init),
+                                                          config, inputs)
+        assert matmul.allow_bf16_reduced_precision_reduction is True
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = flag
+    assert seen and not any(seen)
+    after = _bf16_counts()
+    assert after[0] > before[0] and after[2] > before[2]
+    assert probs[cuda].dtype == np.float32
+    np.testing.assert_allclose(probs[cuda], probs["cpu"], atol=1e-2, rtol=0)

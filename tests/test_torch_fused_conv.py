@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from atlasvae.ops import fused_conv as jax_fused
 from atlasvae_torch.ops import fused_conv, fused_conv_cuda
+from atlasvae_torch.utils.bf16 import ulp as bf16_ulp, ulps_apart as bf16_ulps_apart
 
 FWD_TOL = 2e-6
 GRAD_TOL = 2e-4
@@ -183,13 +184,62 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_launching(force_route):
     """Whatever route is asked for, K5's and K6's wrappers refuse a CPU
     tensor before anything is built or launched."""
     x, w, b = torch.zeros((2, 16, 16, 1)), torch.zeros((3, 3, 1, 8)), torch.zeros(8)
-    counts = lambda: (fused_conv_cuda.launches, fused_conv_cuda.band_launches,
-                      fused_conv_cuda.backward_launches, fused_conv_cuda.band_backward_launches)
+    counts = lambda: dict(fused_conv_cuda.launches)
     before = counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_conv_cuda.conv_pool_relu(x, w, b, (2, 2), force_route=force_route)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused_conv_cuda.conv_pool_relu_backward(x, w, b, torch.zeros((2, 7, 7, 8)), (2, 2),
                                                 force_route=force_route)
-    assert counts() == before == (0, 0, 0, 0)
+    assert counts() == before == dict.fromkeys(before, 0)
     assert not fused_conv_cuda._backward_entries.cache_info().currsize
+
+
+# bfloat16: the plain versions follow K5/K6's rounding points, as the Pallas
+# kernel does (f32 accumulation, one rounding of the output; f32 sums of dW
+# and db cast back to the parameters' dtype).  Each output is the Pallas
+# kernel's or one bf16 ulp from it (both round one float32 value, summed in
+# other orders), or within FWD_TOL where the ReLU's input is 0 to float32
+# rounding; dW and db within one bf16 ulp of the kernel's plus GRAD_TOL of the
+# leaf's largest value.  Against the XLA chain, which rounds after the conv
+# and after the bias: rtol/atol 1e-2, tests/test_fused_conv.py's bf16 bar.
+BF16_SHAPES = SHAPES[:2]
+BF16_CHAIN_TOL = 1e-2
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_plain_versions_match_the_pallas_kernel(rng, shape, sparse):
+    pool = shape[-1]
+    x, w, b = (np.asarray(a, jnp.bfloat16) for a in _inputs(rng, shape, sparse))
+    tx, tw, tb = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16() for a in (x, w, b))
+    tw.requires_grad_()
+    tb.requires_grad_()
+    out = fused_conv.fused_conv1_pool_relu(tx, tw, tb, pool)
+    (out.float() ** 2).sum().backward()
+    assert out.dtype == tw.grad.dtype == tb.grad.dtype == torch.bfloat16
+
+    ref = jax_fused.fused_conv1_pool_relu(x, w, b, pool)
+    assert ref.dtype == jnp.bfloat16
+    ref_t = torch.from_numpy(np.asarray(ref, np.float32)).bfloat16()
+    gap = (out.float() - ref_t.float()).abs()
+    assert bool(((bf16_ulps_apart(out, ref_t) <= 1) | (gap <= FWD_TOL)).all()), float(gap.max())
+    chain = np.asarray(_xla_chain(x, w, b, pool), np.float32)
+    np.testing.assert_allclose(out.float().detach().numpy(), chain, rtol=BF16_CHAIN_TOL,
+                               atol=BF16_CHAIN_TOL)
+
+    loss = lambda w, b: jnp.sum(jax_fused.fused_conv1_pool_relu(x, w, b, pool)
+                                .astype(jnp.float32) ** 2)
+    for got, want in zip((tw.grad, tb.grad), jax.grad(loss, argnums=(0, 1))(w, b)):
+        assert want.dtype == jnp.bfloat16
+        want = torch.from_numpy(np.asarray(want, np.float32))
+        bar = GRAD_TOL * float(want.abs().max()) + bf16_ulp(want)
+        assert bool(((got.float() - want).abs() <= bar).all())
+
+
+def test_bf16_float32_path_is_unchanged(rng):
+    """float32 inputs take no cast: the plain forward is relu(pool(conv) + b)
+    as it was, bit for bit."""
+    x, w, b = (torch.from_numpy(a) for a in _inputs(rng, SHAPES[0], True))
+    want = torch.relu(fused_conv.maxpool_same(fused_conv.conv2d_valid(x, w), (2, 2)) + b)
+    assert torch.equal(fused_conv.conv1_pool_relu_plain(x, w, b, (2, 2)), want)

@@ -205,10 +205,57 @@ def test_dropout_properties(rng):
         jetid.jetid_apply(params, cfg, inputs, train=True)
 
 
-def test_bfloat16_compute_is_refused(rng):
-    _, cfg = _pair("fcn", compute_dtype="bfloat16")
+# bfloat16 compute at the JAX package's test_mixed_precision_bf16 sizes (8x8
+# images, 4 maps, 800 jets): float32 parameters and inputs cast at entry,
+# float32 softmax.  With ATLASVAE_CONV1=fused the JAX package computes block 1
+# with the Pallas kernel (interpret mode), which rounds once as K5 and its
+# plain version do: rtol/atol 2e-5, the float32 whole-model bar (measured
+# 6e-8).  Its default XLA chain adds the bias before the pool and rounds after
+# the conv and after the bias, so block 1's outputs part by a bf16 ulp here and
+# there: atol 1e-2, the JAX package's bar for its bf16 block against that chain
+# (tests/test_fused_conv.py; measured 1.8e-3).
+BF16_CONFIGS = {
+    "cnn_scalars": dict(n_classes=2, scalars=("HLVs",), scalar_dims=(6,), images=("img",),
+                        image_shapes=((8, 8),), nn_type="CNN", cnn_maps=(4, 4),
+                        fcn_neurons=(16,), branch_neurons=(16,), dropout=0.0,
+                        compute_dtype="bfloat16"),
+    "fcn": dict(n_classes=2, scalars=("HLVs",), scalar_dims=(6,), constituent_dim=15,
+                nn_type="FCN", fcn_neurons=(20, 12), branch_neurons=(16,), dropout=0.0,
+                compute_dtype="bfloat16"),
+}
+BF16_TOL = {"fused": TOL, "xla": 1e-2}
+
+
+@pytest.mark.parametrize("name,conv1", [("cnn_scalars", "fused"), ("cnn_scalars", "xla"),
+                                        ("fcn", "xla")])
+def test_bf16_jetid_apply_matches_jax(rng, monkeypatch, name, conv1):
+    if conv1 == "fused":
+        monkeypatch.setenv("ATLASVAE_CONV1", "fused")
+    else:
+        monkeypatch.delenv("ATLASVAE_CONV1", raising=False)
+    jcfg = jax_jetid.JetIDConfig(**BF16_CONFIGS[name])
+    cfg = jetid.JetIDConfig(**BF16_CONFIGS[name])
+    jparams = _random_biases(rng, jax_jetid.init_jetid(jax.random.PRNGKey(3), jcfg))
+    params = _carry(jparams)
+    inputs = _inputs(rng, cfg, n=800)
+    want = np.asarray(jax_jetid.jetid_apply(jparams, jcfg, inputs))
+    got = jetid.jetid_apply(params, cfg, {k: torch.from_numpy(v) for k, v in inputs.items()})
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    assert all(leaf.dtype == torch.float32 for leaf in checkpoint.tree_flatten(params))
+    tol = BF16_TOL[conv1]
+    assert_close(got, want, f"{name} bf16 probabilities ({conv1} block 1)", rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.sum(dim=1).numpy(), 1.0, atol=1e-6)
+    # bf16 is not float32: the same model parts from its float32 run
+    f32 = jetid.jetid_apply(params, jetid.JetIDConfig(**dict(BF16_CONFIGS[name],
+                                                            compute_dtype="float32")),
+                            {k: torch.from_numpy(v) for k, v in inputs.items()})
+    assert 0 < float((got - f32).abs().max()) < 0.04
+
+
+def test_an_unknown_compute_dtype_is_refused(rng):
+    _, cfg = _pair("fcn", compute_dtype="float16")
     params = jetid.init_jetid(torch.Generator().manual_seed(1), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(ValueError, match="float16"):
         jetid.jetid_apply(params, cfg, {k: torch.from_numpy(v)
                                         for k, v in _inputs(rng, cfg).items()})
 

@@ -301,3 +301,106 @@ def test_host_evaluation_functions_match_their_originals(rng, capsys):
     assert set(got) == {90, 80, 70}
     for eff in want:
         np.testing.assert_allclose(got[eff], want[eff], rtol=1e-6)
+
+
+# bfloat16 training at the JAX package's test_mixed_precision_bf16 set-up (8x8
+# images, 4 maps, 800 jets, 6 epochs of batches of 200; FCN beside it).  The
+# first step's gradients are held against JAX with ATLASVAE_CONV1=fused (its
+# block 1 then rounds as K5 does; with its default XLA chain, block 1's bias
+# gradient parts by 2% where bf16 ties in a pool window resolve otherwise),
+# within 1e-2 of each leaf's largest value: each leaf leaves its backward
+# rounded to bf16, and the two frameworks sum a dense bias gradient over the
+# batch in their own order, which moves it by up to a bf16 ulp, 2^-8 to 2^-7
+# of its largest value (measured 6.2e-3; the tower leaves equal).  Training
+# runs both packages at their defaults (JAX's block 1 its XLA chain): the
+# per-epoch losses
+# within 2e-3 relative, about bf16's unit roundoff 2^-9 (measured 3e-4); the
+# accuracies within 0.01 (8 of 800 jets); the master weights, the Adam state
+# and the predictions float32.
+BF16_GRAD_TOL = 1e-2
+BF16_LOSS_RTOL = 2e-3
+BF16_CONFIGS = {
+    "cnn": dict(n_classes=2, scalars=("HLVs",), scalar_dims=(6,), images=("img",),
+                image_shapes=((8, 8),), nn_type="CNN", cnn_maps=(4, 4), fcn_neurons=(16,),
+                branch_neurons=(16,), dropout=0.0, compute_dtype="bfloat16"),
+    "fcn": dict(n_classes=2, scalars=("HLVs",), scalar_dims=(6,), constituent_dim=12,
+                nn_type="FCN", fcn_neurons=(16,), branch_neurons=(16,), dropout=0.0,
+                compute_dtype="bfloat16"),
+}
+
+
+def _bf16_sample(n=800, seed=5):
+    rng = np.random.default_rng(seed)
+    inputs = {"img": rng.random((n, 8, 8)).astype(np.float32),
+              "HLVs": rng.normal(size=(n, 6)).astype(np.float32),
+              "constituents": rng.normal(size=(n, 12)).astype(np.float32)}
+    labels = (inputs["HLVs"][:, 0] + inputs["img"].sum((1, 2)) * 0.2 > 0.6).astype(int)
+    return inputs, labels
+
+
+@pytest.mark.parametrize("name", ["cnn", "fcn"])
+def test_bf16_training_matches_jax(monkeypatch, name):
+    kwargs = BF16_CONFIGS[name]
+    jcfg, cfg = jax_jetid.JetIDConfig(**kwargs), jetid.JetIDConfig(**kwargs)
+    jparams, params = _init(jcfg)
+    inputs, labels = _bf16_sample()
+    inputs = {k: v for k, v in inputs.items()
+              if k in ("HLVs", "img" if name == "cnn" else "constituents")}
+
+    def jax_loss(p):
+        probs = jax_jetid.jetid_apply(p, jcfg, {k: v[:200] for k, v in inputs.items()})
+        return jax_loop._ce_loss(probs, jnp.asarray(labels[:200]), jnp.ones(200))
+
+    monkeypatch.setenv("ATLASVAE_CONV1", "fused")
+    want = jax.grad(jax_loss)(jparams)
+    monkeypatch.delenv("ATLASVAE_CONV1")
+    leaves = [leaf.requires_grad_() for leaf in tree_flatten(params)]
+    loss, _ = jetid_loop.batch_loss(params, cfg, {k: torch.from_numpy(v[:200])
+                                                  for k, v in inputs.items()},
+                                    torch.from_numpy(labels[:200]), torch.ones(200), None)
+    for i, (got, ref) in enumerate(zip(torch.autograd.grad(loss, leaves),
+                                       jax.tree_util.tree_leaves(want))):
+        ref = np.asarray(ref)
+        assert got.dtype == torch.float32 and ref.dtype == np.float32
+        assert_close(got, ref, f"{name} bf16 gradient leaf {i}",
+                     atol=BF16_GRAD_TOL * np.abs(ref).max())
+
+    kwargs = dict(epochs=6, batch_size=200, lr=1e-3, verbose=False)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    jbest, jhist = jax_loop.train_classifier(jparams, jcfg, inputs, labels, inputs, labels,
+                                             **kwargs)
+    best, hist = jetid_loop.train_classifier(params, cfg, inputs, labels, inputs, labels,
+                                             **kwargs)
+    for key in ("loss", "val_loss"):
+        assert_close(hist[key], jhist[key], f"bf16 history {key}", rtol=BF16_LOSS_RTOL)
+    for key in ("accuracy", "val_accuracy"):
+        assert_close(hist[key], jhist[key], f"bf16 history {key}", atol=0.01)
+    assert hist["loss"][-1] < hist["loss"][0]
+    assert all(leaf.dtype == torch.float32 for leaf in tree_flatten(best))
+    got = jetid_loop.predict_classifier(best, cfg, inputs, batch_size=300)
+    want = jax_loop.predict_classifier(jbest, jcfg, inputs)
+    assert got.dtype == np.float32 and got.shape == want.shape == (800, 2)
+    assert_close(got, want, "bf16 predicted probabilities", atol=0.04)
+
+
+def test_bf16_state_file_resume_equals_an_uninterrupted_run(tmp_path):
+    """bfloat16 compute with dropout on: the state file holds float32
+    parameters, Adam moments and the generator, and resumes bit for bit."""
+    cfg = jetid.JetIDConfig(**dict(BF16_CONFIGS["cnn"], dropout=0.2))
+    inputs, labels = _bf16_sample(n=300, seed=8)
+    inputs = {k: inputs[k] for k in ("HLVs", "img")}
+    fresh = lambda: jetid.init_jetid(torch.Generator().manual_seed(3), cfg, device="cpu")
+    run = lambda params, epochs, state: jetid_loop.train_classifier(
+        params, cfg, inputs, labels, inputs, labels, epochs=epochs, batch_size=100, lr=1e-3,
+        verbose=False, state_file=state, seed=11)
+    whole, whole_hist = run(fresh(), 4, None)
+    state = str(tmp_path / "state.npz")
+    _, first_hist = run(fresh(), 2, state)
+    saved = np.load(state)
+    assert all(saved[k].dtype in (np.float32, np.float64, np.int64, np.int32, np.uint8)
+               for k in saved.files)
+    resumed, second_hist = run(fresh(), 2, state)
+    assert first_hist["loss"] + second_hist["loss"] == whole_hist["loss"]
+    assert first_hist["val_loss"] + second_hist["val_loss"] == whole_hist["val_loss"]
+    assert all(torch.equal(a, b) for a, b in zip(tree_flatten(resumed), tree_flatten(whole)))
+    assert all(leaf.dtype == torch.float32 for leaf in tree_flatten(resumed))

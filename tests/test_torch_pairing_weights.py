@@ -16,15 +16,18 @@ import torch
 
 from atlasvae.data import BatchGenerator as JaxBatchGenerator, load_data as jax_load_data, \
     fit_scaler as jax_fit_scaler
-from atlasvae.data import pairing as jax_pairing, weights as jax_weights
+from atlasvae.data import pairing as jax_pairing, registry as jax_registry, weights as jax_weights
 from atlasvae_torch.data import (BatchGenerator, load_data, fit_scaler, registry, pairing,
                                  weights)
 
 
 @pytest.fixture(scope="module")
 def port_registry(synth_dir):
+    # both packages' registries: a JAX CLI run with --synthetic earlier in
+    # the same worker re-registers the JAX names to its own files
     for name in ("QCD-Geneva", "OoD-H"):
         registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
+        jax_registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
     return synth_dir
 
 

@@ -91,3 +91,22 @@ def test_same_pad_lo_is_xlas():
 def test_maxpool_rejects_a_rank_mismatch():
     with pytest.raises(ValueError, match="rank"):
         maxpool_same(torch.zeros((2, 4, 4, 3)), (2, 2, 2))
+
+
+@pytest.mark.parametrize("shape,pool", CASES[:4])
+def test_maxpool_bf16_ties_route_to_the_first_match(rng, shape, pool):
+    """bfloat16 values in quarter steps: most windows tie, also beside the
+    -inf low-side padding; values and the routed gradient (a bf16 buffer)
+    equal the JAX pool's in bf16, bit for bit."""
+    z = (np.round(rng.normal(size=shape) * 3) / 4).astype(jnp.bfloat16)
+    ref, vjp = jax.vjp(lambda z: jax_pool(z, pool), jnp.asarray(z))
+    cot = rng.normal(size=ref.shape).astype(jnp.bfloat16)
+    g_ref = np.asarray(vjp(jnp.asarray(cot))[0], np.float32)
+    tz = torch.from_numpy(z.astype(np.float32)).bfloat16().requires_grad_()
+    out = maxpool_same(tz, pool)
+    out.backward(torch.from_numpy(cot.astype(np.float32)).bfloat16())
+    assert out.dtype == tz.grad.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.detach().float().numpy(), np.asarray(ref, np.float32))
+    np.testing.assert_array_equal(tz.grad.float().numpy(), g_ref)
+    # each window's cotangent lands on one element only
+    assert int((tz.grad != 0).sum()) <= int((out != 0).numel())
