@@ -25,8 +25,11 @@ computed per chunk.
 Not ported yet, and refused with ``NotImplementedError`` while the
 arguments are checked, before any data is loaded (ROADMAP Queue 1):
 ``--n_folds`` above 1 and ``--vmap_folds ON`` (item 10),
-``--feature_removal ON`` (item 9), ``--n_devices`` above 1 (item 11),
-``--plotting ON`` (item 6) and Keras ``.h5`` weights in or out (item 10).
+``--feature_removal ON`` (item 9), ``--n_devices`` above 1 (item 11)
+and Keras ``.h5`` weights in or out (item 10).  ``--plotting ON``, the
+default, draws the ROC curves and class distributions with matplotlib;
+where matplotlib cannot be imported it is refused before any data is
+loaded (pass ``--plotting OFF``).
 """
 
 import os
@@ -173,9 +176,6 @@ def _check_supported(args):
     if (args.n_devices or 1) > 1:
         raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
                                   "ROADMAP Queue 1 item 11")
-    if _on(args.plotting):
-        raise NotImplementedError("--plotting ON draws ROC curves and class distributions, "
-                                  "ported with ROADMAP Queue 1 item 6; pass --plotting OFF")
     if (args.model_in and _is_keras(os.path.join(args.output_dir, args.model_in))) or \
             _is_keras(args.model_out):
         raise NotImplementedError("Keras .h5 weights are read and written with "
@@ -195,9 +195,11 @@ def _eta_cuts(args, sample):
     return cuts if not args.valid_cuts else f"{cuts} & ({args.valid_cuts})"
 
 
-def _report_results(v_view, v_labels, probs, train_labels, args, device):
-    """Accuracy / AUC / background rejection, for the merged background and
-    (``--sep_bkg ON``) each background class separately.  Returns
+def _report_results(v_view, v_labels, probs, train_labels, args, out_root, device):
+    """Accuracy / AUC / background rejection and (``--plotting ON``) the
+    ROC curves, for the merged background and (``--sep_bkg ON``) each
+    background class separately, in ``class_0_vs_<k>`` folders, and the
+    class distributions of the merged background.  Returns
     {background: (auc, rejections)}."""
     from ..eval.jetid_eval import compo_matrix, discriminant
     from ..eval.roc import auc_score
@@ -217,6 +219,14 @@ def _report_results(v_view, v_labels, probs, train_labels, args, device):
         print(f"VALIDATION AUC ({tag}): {auc:.4f}")
         results[bkg] = (auc, background_rejection(disc_labels, disc, view["weights"],
                                                   device=device))
+        if _on(args.plotting):
+            from ..plotting.performance import roc_curves, class_distributions
+            folder = out_root if bkg == "bkg" else out_root + f"/class_0_vs_{bkg}"
+            Path(folder).mkdir(parents=True, exist_ok=True)
+            roc_curves(disc_labels, {"jet-ID": disc}, view["weights"], ["jet-ID"], folder,
+                       device=device)
+            if bkg == "bkg":
+                class_distributions(v_labels, probs, v_view["weights"], folder)
     return results
 
 
@@ -233,7 +243,7 @@ def _reevaluate(args, out_root):
         v_view = {k: np.asarray(v)[keep] for k, v in v_view.items()}
         v_labels, probs = v_labels[keep], probs[keep]
         print(f"valid_cuts kept {len(v_labels)} jets")
-    _report_results(v_view, v_labels, probs, (), args, _HOST)
+    _report_results(v_view, v_labels, probs, (), args, out_root, _HOST)
 
 
 def _resolve_in(path, out_root):
@@ -258,11 +268,14 @@ def main(argv=None):
     from ..train.jetid_loop import train_classifier, predict_classifier
     from ..train.checkpoint import load_pytree
     from ..eval.jetid_eval import make_labels, get_class_weight, get_sample_weights
+    from ..plotting.backend import require_matplotlib
 
     args = build_parser().parse_args(argv)
     for key in ["n_train", "n_valid", "n_eval", "batch_size"]:
         setattr(args, key, int(getattr(args, key)))
     out_root = args.output_dir
+    if _on(args.plotting):          # before any load, --results_in's too
+        require_matplotlib("--plotting ON")
     if args.results_in:
         Path(out_root).mkdir(parents=True, exist_ok=True)
         print("\nPROGRAM ARGUMENTS:\n" + args_banner(args))
@@ -481,7 +494,7 @@ def main(argv=None):
     probs = predict_classifier(params, config, inputs_for(valid_idx))
     v_labels = labels[valid_idx]
     v_view = {k: np.asarray(v)[valid_idx] for k, v in sample.items() if np.ndim(v) >= 1}
-    _report_results(v_view, v_labels, probs, labels[train_idx], args, device)
+    _report_results(v_view, v_labels, probs, labels[train_idx], args, out_root, device)
     with open(out_root + "/" + args.results_out, "wb") as f:
         pickle.dump((v_view, v_labels, probs), f)
     return 0

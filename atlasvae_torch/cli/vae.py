@@ -1,21 +1,27 @@
-"""OE-VAE training entry point on PyTorch/CUDA.
+"""OE-VAE entry point on PyTorch/CUDA: train, evaluate, bump-hunt.
 
-Counterpart of the training half of ``atlasvae/cli/vae.py``: the same flag
-names and 'ON'/'OFF' string booleans, the same path wiring, sample
-selection, scaler fit, OoD load and train/valid ``BatchGenerator``s, then
-``train_model``, plus ``--device`` (default ``cuda``).  After training,
-``model_out`` is reloaded as a native npz.
+Counterpart of ``atlasvae/cli/vae.py``: the same flag names and 'ON'/'OFF'
+string booleans, the same path wiring, sample selection, scaler fit, OoD
+load and train/valid ``BatchGenerator``s, ``train_model``, then the
+evaluation (``_evaluate``: predictions on the validation sample, then
+``eval/results.py::plot_results``), plus ``--device`` (default ``cuda``).
+After training, ``model_out`` is reloaded as a native npz.
 
     python -m atlasvae_torch.cli.vae --n_train 1e5 --n_valid 5e4 --n_OoD 2e5 \\
         --batch_size 1e4 --n_epochs 3 --lr 1e-3 --beta 2 --lamb 5 --OE_type MAE \\
-        --weight_type X-S --HLV_scaler_type RobustScaler --plotting OFF --output_dir out
+        --weight_type X-S --HLV_scaler_type RobustScaler --output_dir out
+
+``--plotting ON``, the default, draws with matplotlib: where matplotlib
+cannot be imported it is refused before any data is loaded (pass
+``--plotting OFF``).  Under ``--plotting ON`` the training generator also
+draws the first load's ``train`` distributions; the JAX package draws them
+whatever ``--plotting`` says.  ``--apply_cuts ON`` with ``--plotting OFF``
+predicts and filters the validation sample and draws nothing, as in the
+JAX package.
 
 Not ported yet, and refused with ``NotImplementedError`` while the
-arguments are checked, before any data is loaded: the evaluation half
-(``--plotting ON`` or ``--apply_cuts ON``: ``_evaluate`` and the plots,
-ROADMAP Queue 1 item 6; the numbers it draws, decorrelation and BumpHunter,
-are in ``eval/deco.py``, ``eval/bump.py`` and ``stats/``), ``--n_devices``
-above 1 (item 11), and Keras ``.h5`` weights in or out (item 10).
+arguments are checked, before any data is loaded: ``--n_devices`` above 1
+(ROADMAP Queue 1 item 11) and Keras ``.h5`` weights in or out (item 10).
 ``run_ensemble`` waits for item 10 too.
 """
 
@@ -24,7 +30,13 @@ import sys
 from argparse import ArgumentParser
 from pathlib import Path
 
+import numpy as np
+import torch
+
 _HOST = "cpu"  # data preparation runs on the host; the device gets packed batches
+_EVAL_CHUNK = 10_000               # rows per prediction call in _evaluate
+EVAL_METRICS = ["Latent", "MAE", "KLD", "JSD"]
+EVAL_LOSS = "MAE"                  # the discriminant that is decorrelated and scanned
 
 
 def build_parser():
@@ -96,11 +108,11 @@ def _is_keras(path):
 
 
 def _check_supported(args, out_root):
-    """Refuse, before any data is loaded, what the port does not run yet."""
-    if _on(args.plotting) or _on(args.apply_cuts):
-        raise NotImplementedError("--plotting ON / --apply_cuts ON run the evaluation "
-                                  "half (_evaluate and its plots), ported with ROADMAP "
-                                  "Queue 1 item 6; pass --plotting OFF --apply_cuts OFF")
+    """Refuse, before any data is loaded, what the port does not run yet,
+    and drawing where matplotlib cannot be imported."""
+    if _on(args.plotting):
+        from ..plotting.backend import require_matplotlib
+        require_matplotlib("--plotting ON")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
                                   "ROADMAP Queue 1 item 11")
@@ -149,7 +161,9 @@ def _select_samples(args):
 
 
 def _make_generators(args, hlv_list, train_cuts, const_scaler, hlv_scaler):
-    """Scaler fit + OoD load + train/valid BatchGenerators, on the host."""
+    """Scaler fit + OoD load + train/valid BatchGenerators, on the host.
+    Under ``--plotting ON`` the training generator draws the first load's
+    distributions."""
     from ..data import load_data, BatchGenerator, fit_scaler, apply_scaler
 
     if (args.const_scaler_type and const_scaler is None) or \
@@ -181,14 +195,88 @@ def _make_generators(args, hlv_list, train_cuts, const_scaler, hlv_scaler):
                   bin_sizes=bin_sizes, hlv_scaler=hlv_scaler, const_scaler=const_scaler,
                   mem_gb=args.memGB)
     train_gen = BatchGenerator(args.bkg_data, args.OoD_data, args.n_const, args.n_dims,
-                               args.n_train, ood_sample, is_train=True, **common)
+                               args.n_train, ood_sample, is_train=True,
+                               output_dir=args.output_dir if _on(args.plotting) else None,
+                               **common)
     valid_gen = BatchGenerator(args.bkg_data, args.OoD_data, args.n_const, args.n_dims,
                                args.n_valid, ood_sample, **common)
     return train_gen, valid_gen, const_scaler, hlv_scaler
 
 
+def _eval_noise(n, start, shape, device, generator):
+    """The latent noise of evaluation pass ``n`` for the prediction chunk
+    that starts at row ``start``: the next draw of ``generator``, pass
+    ``n``'s own stream.  The JAX package draws it with threefry from
+    ``fold_in(PRNGKey(n), start)``; tests put that draw here."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def _valid_predictions(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device):
+    """The validation sample and the model's predictions of it, averaged
+    over ``--n_iter`` passes of 10,000-row chunks, rows with a non-finite
+    prediction dropped.  Returns (y_true, x_true, x_pred, sample, wall_ms),
+    numpy on the host, and each step's host-clock ms."""
+    from ..data import make_sample, apply_scaler, filtering
+    from ..models import vae_apply
+    from ..train.loop import features
+    from ..utils.logging import StepTimes
+
+    step = StepTimes()
+    sample = step("sample", make_sample, args.bkg_data, args.sig_data, args.n_valid,
+                  args.n_sig, valid_cuts, args.n_const, args.n_dims, args.constituents,
+                  args.HLVs, hlv_list, device=device)
+    y_true = np.where(sample["JZW"] == -1, 0, 1)
+    if "Geneva" in args.sig_data:      # Delphes weight adjustment (ref vae.py:151)
+        sample["weights"][y_true == 0] /= 1e3
+
+    def scale():
+        for key, scaler in (("constituents", const_scaler), ("HLVs", hlv_scaler)):
+            if key in sample:
+                sample[key] = apply_scaler(sample[key], args.n_dims, scaler, device=device)
+    step("scale", scale)
+    x_true = features(sample)
+    latent = params["encoder"]["mean"]["b"].shape[0]
+    if args.n_iter > 1:
+        print("\nEvaluating with", args.n_iter, "iterations:")
+
+    def predict():
+        x = torch.as_tensor(x_true, device=device)
+        preds = []
+        with torch.inference_mode():
+            for n in range(args.n_iter):
+                generator = torch.Generator(device).manual_seed(n)
+                chunks = []
+                for i in range(0, len(x), _EVAL_CHUNK):
+                    rows = x[i:i + _EVAL_CHUNK]
+                    noise = _eval_noise(n, i, (len(rows), latent), device, generator)
+                    chunks.append(vae_apply(params, rows, noise=noise)[0])
+                preds.append(torch.cat(chunks).cpu().numpy())
+        return np.mean(np.stack(preds, axis=-1), axis=-1)
+    x_pred = step("predict", predict)
+    y_true, x_true, x_pred, sample = step("filtering", filtering, y_true, x_true, x_pred,
+                                          sample)
+    return y_true, x_true, x_pred, sample, step
+
+
+def _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device):
+    """Validation predictions, then, under ``--plotting ON``, the training
+    history and ``plot_results`` (ref OE-VAE/vae.py:145-176)."""
+    from ..eval import plot_results
+    from ..plotting.history import plot_history
+
+    print("\n+" + 36 * "-" + "+\n+--- VALIDATION SAMPLE EVALUATION ---+\n+"
+          + 36 * "-" + "+\n")
+    y_true, x_true, x_pred, sample, _ = _valid_predictions(
+        args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device)
+    if _on(args.plotting):
+        if os.path.isfile(args.hist_file):
+            plot_history(args.hist_file, args.output_dir)
+        plot_results(y_true, x_true, x_pred, sample, args.n_dims, params, EVAL_METRICS,
+                     EVAL_LOSS, args.sig_data, args.output_dir, args.apply_cuts,
+                     args.normal_losses, args.decorrelation, npe=args.npe, device=device)
+
+
 def main(argv=None):
-    import torch
     from .. import resolve_device
     from ..utils.logging import args_banner
     from ..data.scalers import Scaler
@@ -199,7 +287,7 @@ def main(argv=None):
     _check_supported(args, args.output_dir)
     device = resolve_device(args.device)
     out_root = _wire_paths(args)
-    hlv_list, input_dim, train_cuts, _ = _select_samples(args)
+    hlv_list, input_dim, train_cuts, valid_cuts = _select_samples(args)
     print("\nPROGRAM ARGUMENTS:\n" + args_banner(args))
 
     config = VAEConfig(fc_layers=tuple(args.FC_layers), input_dim=input_dim)
@@ -224,6 +312,9 @@ def main(argv=None):
                                 seed=args.seed, state_file=state_file)
         if os.path.isfile(args.model_out):
             params = load_pytree(args.model_out, params)
+    if not _on(args.plotting) and not _on(args.apply_cuts):
+        return 0
+    _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device)
     return 0
 
 

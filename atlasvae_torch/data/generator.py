@@ -9,7 +9,9 @@ batches (train/step.py).  A single-load epoch is prepared once and handed
 out as the same objects every epoch, so ``LoadCache`` finds it on the
 device by identity.  A multi-load epoch prepares load k+1 on a worker
 thread while the trainer consumes load k (one load of double buffering);
-a load that fails on the worker is raised in the consumer.
+a load that fails on the worker is raised in the consumer.  With an
+``output_dir`` the first load's m and pt distributions (background and OoD
+after reweighting, before scaling) are drawn there as ``train_*.png``.
 """
 
 import queue
@@ -30,10 +32,6 @@ class BatchGenerator:
                  weight_type="X-S", cuts=(), constituents="ON", hlvs="ON", hlv_list=None,
                  bin_sizes=None, hlv_scaler=None, const_scaler=None, is_train=False,
                  mem_gb=30, pairing_seed=0, output_dir=None):
-        if output_dir is not None:
-            raise NotImplementedError("the first load's training-distribution plots need "
-                                      "plotting/distributions.py (ROADMAP Queue 1 item 6); "
-                                      "pass output_dir=None")
         self.bkg_data = bkg_data
         self.ood_data = ood_data
         self.n_const = n_const
@@ -50,6 +48,7 @@ class BatchGenerator:
         self.const_scaler = const_scaler
         self.is_train = is_train
         self.pairing_seed = pairing_seed
+        self.output_dir = output_dir
         span = self.n_bkg[1] - self.n_bkg[0]
         self.load_size = min(span, int(1e9 * mem_gb / max(n_const * n_dims * 4, 1)))
         # a single-load epoch is the same prepared load every epoch (fixed
@@ -88,6 +87,12 @@ class BatchGenerator:
         if self.bin_sizes is not None:
             bkg_sample, ood_sample = reweight_sample(bkg_sample, ood_sample, self.bin_sizes,
                                                      self.weight_type)
+        if self.output_dir is not None and gen_idx == 0:
+            from ..plotting.distributions import sample_distributions
+            merged = {key: np.concatenate([bkg_sample[key], ood_sample[key]])
+                      for key in ("m", "pt", "weights", "JZW")}
+            sample_distributions(merged, self.ood_data, self.output_dir, "train",
+                                 self.weight_type, self.bin_sizes)
         self._scale(bkg_sample, "QCD")
         if self.ood_sample is None:
             # a caller's OoD sample arrives scaled; the self-paired fallback

@@ -22,8 +22,9 @@ draws.  Every draw goes through ``_poisson_pseudo``.
 
 Histogramming stays on the host (numpy, float64, then float32); the draws,
 the scans, ``_bin_significance`` and ``sigma_from_log_pval`` run on
-``device`` (default ``cuda``).  What draws a plot is refused until ROADMAP
-Queue 1 item 6.
+``device`` (default ``cuda``).  The drawing methods (``plot_bump`` with a
+``filename`` or ``make_histo``, ``plot_stat``, ``plot_tomography``,
+``plot_inject``) draw from host copies with ``plotting/bump.py``.
 """
 
 import abc
@@ -35,11 +36,6 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..ops.gammainc import log_gammainc_lower, log_gammainc_upper, sigma_from_log_pval
 from .deprecation import deprecated, warn_legacy_arg
-
-
-def _refuse_drawing(what):
-    raise NotImplementedError(f"{what} draws a plot: the drawing is ported with ROADMAP "
-                              "Queue 1 item 6")
 
 
 # --------------------------------------------------------------- core scan
@@ -520,11 +516,8 @@ class BumpHunter1D:
 
     def plot_bump(self, data, bkg, is_hist=False, use_sideband=None, label="",
                   filename=None, make_histo=False, useSideBand=None):
-        """Per-bin signed significances; returns (bin_sigma, (Bmin, Bmax))
-        (ref :1646-1860).  Drawing the histogram (``filename`` or
-        ``make_histo``) is refused."""
-        if make_histo or filename is not None:
-            _refuse_drawing("BumpHunter1D.plot_bump with a filename or make_histo")
+        """Per-bin signed significances + optional bump plot; returns
+        (bin_sigma, (Bmin, Bmax)) (ref :1646-1860)."""
         if useSideBand is not None:  # ref :1645 + :1696-1697
             warn_legacy_arg("plot_bump", "useSideBand", "use_sideband")
             use_sideband = useSideBand
@@ -536,16 +529,23 @@ class BumpHunter1D:
             use_sideband = self.use_sideband
         if use_sideband and self.norm_scale is not None:
             bkg_hist = bkg_hist * self.norm_scale
-        sig = _bin_significance(self._tensor(data_hist), self._tensor(bkg_hist))
-        return sig.cpu().numpy(), (bmin, bmax)
+        sig = _bin_significance(self._tensor(data_hist), self._tensor(bkg_hist)).cpu().numpy()
+        if make_histo or filename is not None:
+            from ..plotting.bump import plot_bump_histogram
+            plot_bump_histogram(data_hist, bkg_hist, bins, sig, (bmin, bmax), self.rang, label,
+                                filename)
+        return sig, (bmin, bmax)
 
     def plot_stat(self, show_Pval=False, filename=None):
         """BumpHunter test-statistic distribution plot (ref :1867-1918)."""
-        _refuse_drawing("BumpHunter1D.plot_stat")
+        from ..plotting.bump import plot_stat_distribution
+        plot_stat_distribution(self.t_ar, self.global_Pval, show_Pval, filename)
 
     def plot_tomography(self, data, is_hist=False, filename=None):
         """p-value vs window position per width (ref :1513-1644)."""
-        _refuse_drawing("BumpHunter1D.plot_tomography")
+        from ..plotting.bump import plot_tomography as _plot
+        widths, _ = self._widths(len(self.res_ar[0]) if self.res_ar else 1)
+        _plot(self.bins, self.res_ar, widths, filename)
 
     def signal_inject(self, sig, bkg, is_hist=False, verbose=True):
         """Signal-injection sensitivity scan: raise the injected strength
@@ -650,8 +650,40 @@ class BumpHunter1D:
         self.str_ar = np.array(self.str_ar)
 
     def plot_inject(self, filename=None):
-        """Significance vs injected signal strength (ref :1921-2014)."""
-        _refuse_drawing("BumpHunter1D.plot_inject")
+        """Significance vs injected signal strength after signal_inject,
+        with the 16/84-quantile band as asymmetric error bars and upper
+        limits where the band saturates (ref :1921-2014).  For
+        str_scale='log' a second log-x panel is saved alongside
+        (filename may be a (linear, log) pair as in the reference)."""
+        from ..plotting.backend import pyplot
+        plt = pyplot()
+        sigma = np.asarray(self.sigma_ar)
+        strengths = np.asarray(self.str_ar)[:len(sigma)]
+        is_sat = sigma[:, 2] == 0
+
+        def draw(log_x, fname):
+            fig = plt.figure(figsize=(12, 8))
+            plt.title("Significance vs signal strength", size="xx-large")
+            plt.errorbar(strengths, sigma[:, 0], yerr=[sigma[:, 1], sigma[:, 2]], marker="o",
+                         linewidth=2, uplims=is_sat)
+            if log_x:
+                plt.xscale("log")
+            plt.xlabel("Signal strength", size="xx-large")
+            plt.ylabel("Significance", size="xx-large")
+            if fname is None:
+                plt.show()
+            else:
+                plt.savefig(fname, bbox_inches="tight")
+                plt.close(fig)
+
+        if self.str_scale == "log":
+            lin_name, log_name = (filename if isinstance(filename, (tuple, list))
+                                  else (filename, None))
+            draw(False, lin_name)
+            if log_name is not None or filename is None:
+                draw(True, log_name)
+        else:
+            draw(False, filename)
 
     # -------------------------------------------- legacy API (deprecated)
     # The reference keeps its pre-rename pyBumpHunter surface alive via

@@ -1,6 +1,6 @@
 """Index-range and binning helpers.  Copies of ``index_ranges``,
-``bin_edges`` and ``merged_bins`` from ``atlasvae/utils/chunks.py`` (the port
-imports nothing of the JAX package)."""
+``bin_edges``, ``density_weights`` and ``merged_bins`` from
+``atlasvae/utils/chunks.py`` (the port imports nothing of the JAX package)."""
 
 import numpy as np
 
@@ -22,6 +22,16 @@ def index_ranges(max_val, n_bins=10, bin_size=None, min_val=0):
 def bin_edges(max_val, bin_size, min_val=0.0):
     """Float bin edges [min_val, min_val+bin_size, ..., max_val]."""
     return np.append(np.arange(min_val, max_val, bin_size), max_val)
+
+
+def density_weights(values, weights, bins):
+    """Divide histogram weights by their bin's width (the per-GeV density
+    of the distribution plots).  Out-of-range values clip to the nearest
+    edge bin, never wrap to the other end."""
+    idx = np.searchsorted(bins, values, side="right")
+    widths = np.diff(bins)
+    return np.asarray(weights, np.float64) / np.take(
+        widths, np.clip(idx - 1, 0, len(widths) - 1))
 
 
 def merged_bins(values, edges=None, max_bins=100, min_bin_count=2, logspace=True):

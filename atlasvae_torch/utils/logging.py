@@ -1,6 +1,8 @@
-"""Console banner of the program arguments.  Copy of ``args_banner`` from
-``atlasvae/utils/logging.py`` (the port imports nothing of the JAX
-package)."""
+"""Console banner of the program arguments (a copy of ``args_banner`` from
+``atlasvae/utils/logging.py``: the port imports nothing of the JAX
+package), and the host-clock times of a pipeline's steps."""
+
+import time
 
 
 def args_banner(args):
@@ -15,3 +17,15 @@ def args_banner(args):
         lines.append(f"| {k:<{key_w}} | {v:<{val_w}} |")
     lines.append(sep)
     return "\n".join(lines)
+
+
+class StepTimes(dict):
+    """{step name: host-clock ms}: ``steps("name", fn, *args)`` returns
+    ``fn(*args)`` and records how long it took.  A step whose result is a
+    host array has waited for the device."""
+
+    def __call__(self, name, fn, *args, **kwargs):
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        self[name] = (time.perf_counter() - start) * 1e3
+        return out

@@ -72,24 +72,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                (on a failure: the row, both values and each side's gap to
                a float64 run of the same rows);
                then time a warm run and profile a third (device busy share);
-5. evaluate -- the number half of vae.sh's evaluation (cli/vae.py::_evaluate
-               and eval/results.py::plot_results of the JAX package, in their
-               order): 200,000 synthetic QCD-Geneva and 200,000 2HDM-Geneva
-               events through make_sample (the valid cuts), the signal
-               weights divided by 1e3, the slice phase's RobustScaler and
-               seed-7 canonical VAE in chunks of 10,000 (K2 and K1, the
-               counters set to 0 just before), filtering, the metric bank
-               MAE/Latent/KLD/JSD with loss_mapping, mass_deco in its 2d form,
-               bump_scan over 100 cuts and bump_hunter at the best cut with
-               npe 1000; wall ms of each step, host ms of the per-cut
-               histograms, CUDA-event ms, launches and bound of the 101-cut
-               batched scan and of bump_hunter's scan of 1,001 histograms;
-               fails unless that scan on the card matches the CPU on the data
-               and 50 injected pseudo-histograms (log p rtol 1e-5 / atol 1e-6,
-               the same windows, bin significances rtol 1e-5), every window's
-               log p is within 2e-5 of float64 scipy, the card's Poisson draws
+5. evaluate -- the evaluation of vae.sh through the port's own code:
+               cli/vae.py::_valid_predictions (make_sample on 200,000
+               synthetic QCD-Geneva and 200,000 2HDM-Geneva events with the
+               valid cuts, the signal weights divided by 1e3, the slice
+               phase's RobustScaler, its seed-7 canonical VAE in chunks of
+               10,000: K2 and K1, the counters set to 0 just before;
+               filtering), then eval/results.py::_evaluation_numbers, the
+               number half of plot_results (the metric bank
+               MAE/Latent/KLD/JSD with loss_mapping, mass_deco in its 2d
+               form, bump_scan over 100 cuts, bump_hunter at the best cut
+               with npe 1000, each metric's ROC rates, the mass-sculpting
+               JSD curves, the seven background-suppression cuts); wall ms
+               of each step, host ms of the per-cut histograms, CUDA-event
+               ms, launches and bound of the 101-cut batched scan and of
+               bump_hunter's scan of 1,001 histograms; fails unless that
+               scan on the card matches the CPU on the data and 50 injected
+               pseudo-histograms (log p rtol 1e-5 / atol 1e-6, the same
+               windows, bin significances rtol 1e-5), every window's log p
+               is within 2e-5 of float64 scipy, the card's Poisson draws
                repeat with the seed, a constructed tie reports the first
-               window, and the best cut's local sigma is finite and positive;
+               window, and the best cut's local sigma is finite and
+               positive; then cli/vae.py's main on the same weights
+               (--n_epochs 0 --apply_cuts ON): where matplotlib cannot be
+               imported, its default --plotting ON must be refused before
+               any load, and --plotting OFF runs to its end; where it can,
+               --plotting ON runs and lists the files it drew;
 6. train    -- train the canonical OE-VAE (vae.sh hyper-parameters, 3
                epochs of 1e5 jets in batches of 1e4) through
                atlasvae_torch.cli.vae with the counters set to 0 just
@@ -1223,28 +1231,17 @@ def check_against_f64(log_pvals, hists, ref, widths, hinf, hsup):
 
 
 def phase_evaluate(device, workdir):
+    import shutil
     import numpy as np
     import torch
-    from atlasvae_torch.data import (ensure_synthetic_registry, make_sample, apply_scaler,
-                                     filtering, Scaler, HLV_LIST)
-    from atlasvae_torch.eval import compute_metric_bank, loss_mapping, mass_deco
-    from atlasvae_torch.eval import bump
-    from atlasvae_torch.models import VAEConfig, init_vae, vae_apply
+    from atlasvae_torch.cli import vae as vae_cli
+    from atlasvae_torch.data import ensure_synthetic_registry, Scaler, HLV_LIST
+    from atlasvae_torch.eval import bump, results
+    from atlasvae_torch.eval.roc import _trapezoid
+    from atlasvae_torch.models import VAEConfig, init_vae
     from atlasvae_torch.stats import BumpHunter1D, batched_local_sigma, scan_histograms
     from atlasvae_torch.stats.bumphunter import _bin_significance, _poisson_pseudo
     from atlasvae_torch.train.checkpoint import load_pytree
-    from atlasvae_torch.train.loop import features
-
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    wall = {}
-
-    def step(name, fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        wall[name] = (time.perf_counter() - t0) * 1e3
-        return out
 
     ensure_synthetic_registry(workdir, n_events=EVAL_EVENTS, n_const_max=20,
                               names=["QCD-Geneva", "2HDM-Geneva"], seed=0)
@@ -1253,42 +1250,27 @@ def phase_evaluate(device, workdir):
                          init_vae(torch.Generator(device).manual_seed(0), VAEConfig(),
                                   device=device))
     scaler = Scaler.load(os.path.join(workdir, "HLV_RobustScaler.pkl"))
+    # cli/vae.py's own _evaluate steps: the whole of both files as the
+    # validation sample, the 2d decorrelation, the cuts
+    args = vae_cli.build_parser().parse_args(["--decorrelation", "2d", "--apply_cuts", "ON",
+                                              "--npe", str(EVAL_NPE)])
+    args.n_valid, args.n_sig = [0, EVAL_EVENTS], EVAL_EVENTS
 
     reset_counters()
     t_phase = time.perf_counter()
-    sample = step("sample", lambda: make_sample(
-        "QCD-Geneva", "2HDM-Geneva", EVAL_EVENTS, EVAL_EVENTS, cuts, 20, 3, "OFF", "ON",
-        list(HLV_LIST), verbose=False, device=device))
-    y_true = np.where(sample["JZW"] == -1, 0, 1)
-    sample["weights"][y_true == 0] /= 1e3          # cli/vae.py:208-209 (Geneva signal)
-    x_true = step("scale", lambda: apply_scaler(torch.as_tensor(sample["HLVs"], device=device),
-                                                3, scaler, verbose=False))
-    sample["HLVs"] = x_true
-    x_true = features(sample).contiguous()
-    gen = torch.Generator(device).manual_seed(0)
-
-    def predict():
-        with torch.inference_mode():
-            return torch.cat([vae_apply(params, x_true[i:i + EVAL_CHUNK], gen)[0]
-                              for i in range(0, len(x_true), EVAL_CHUNK)])
-    x_pred = step("predict", predict)
-    sample["HLVs"] = x_true = x_true.cpu().numpy()
-    y_true, x_true, x_pred, sample = step("filtering", lambda: filtering(
-        y_true, x_true, x_pred.cpu().numpy(), sample))
-    x_losses = step("metrics", lambda: {k: loss_mapping(v) for k, v in compute_metric_bank(
-        x_true, x_pred, params, EVAL_METRICS, 3, sample, normal_losses=False,
-        device=device).items()})
-    mae = step("deco", lambda: mass_deco(y_true, sample, x_losses["MAE"], deco="2d"))
-    best = step("bump_scan", lambda: bump.bump_scan(
-        y_true, mae, "MAE", sample, "2HDM-Geneva", None, n_cuts=EVAL_CUTS, npe=EVAL_NPE,
-        make_plots=False, device=device))
-    if best is None:
-        raise AssertionError("bump_scan found no cut with 100 background jets")
-    cut_sample = {k: v[mae > best["loss"]] for k, v in sample.items() if k != "HLVs"}
-    loc_sigma, max_sigma = step("bump_hunter", lambda: bump.bump_hunter(
-        cut_sample, m_range=(0, 800), bin_size=5, npe=EVAL_NPE, device=device))
+    y_true, x_true, x_pred, sample, wall = vae_cli._valid_predictions(
+        args, params, None, scaler, list(HLV_LIST), cuts, device)
+    numbers = results._evaluation_numbers(
+        y_true, x_true, x_pred, sample, args.n_dims, params, vae_cli.EVAL_METRICS,
+        vae_cli.EVAL_LOSS, args.apply_cuts, args.normal_losses, args.decorrelation, args.npe,
+        device)
     phase_ms = (time.perf_counter() - t_phase) * 1e3
     launches = counters()
+    wall.update(numbers["wall_ms"])
+    best, mae, cut_sample = numbers["best_loss"], numbers["x_losses"]["MAE"], numbers["cut_sample"]
+    if best is None:
+        raise AssertionError("bump_scan found no cut with 100 background jets")
+    loc_sigma, max_sigma = numbers["hunter"]["loc_sigma"], numbers["hunter"]["max_sigma"]
     for name in ("fused_mlp", "stack_forward"):
         if launches[name] <= 0 or launches[name + "_layers"] != 0:
             raise AssertionError(f"kernel {name} in evaluate: fused body {launches[name]} "
@@ -1296,17 +1278,64 @@ def phase_evaluate(device, workdir):
                                  f"{launches[name + '_layers']} (want 0)")
     if not (np.isfinite(loc_sigma) and loc_sigma > 0):
         raise AssertionError(f"loc_sigma at the best cut is {loc_sigma}")
+    curves = numbers["curves"]
+    points = {f"{m}_{t}": len(curves[m][t][0]) for m in EVAL_METRICS for t in (0, 1)}
+    if sorted(numbers["rates"]) != sorted(EVAL_METRICS) or min(points.values()) == 0 \
+            or len(numbers["cuts"]) != 7:
+        raise AssertionError(f"evaluate: ROC rates of {sorted(numbers['rates'])}, "
+                             f"mass-sculpting points {points}, {len(numbers['cuts'])} cuts")
     log("evaluate", jets=len(y_true), signal=int((y_true == 0).sum()),
         phase_ms=f"{phase_ms:.1f}", wall_ms=json.dumps({k: round(v, 3) for k, v in wall.items()}),
         deco_host_ms=f"{wall['deco']:.3f}", best_cut=json.dumps(
             {"metric": best["metric"], "eff": float(best["eff"]), "loss": float(best["loss"])}),
         loc_sigma=f"{loc_sigma:.6g}", max_sigma=f"{max_sigma}",
+        auc=json.dumps({m: round(float(_trapezoid(r[1], r[0]) / 1e4), 6)
+                        for m, r in numbers["rates"].items()}),
+        mass_sculpting_points=json.dumps(points),
         launches=json.dumps({k: launches[k] for k in ("fused_mlp", "stack_forward")}))
+
+    # the CLI itself: --plotting ON (its default) is refused before any load
+    # where matplotlib cannot be imported; then the run without drawing, or
+    # with it where matplotlib imports
+    root = os.path.join(workdir, "evaluate_cli")
+    os.makedirs(root)
+    for name in ("model.npz", "HLV_RobustScaler.pkl"):
+        shutil.copy(os.path.join(workdir, name), root)
+    argv = ["--n_epochs", "0", "--model_in", "model.npz", "--HLV_scaler_type", "RobustScaler",
+            "--HLV_scaler_in", "HLV_RobustScaler.pkl", "--apply_cuts", "ON",
+            "--npe", str(EVAL_NPE), "--output_dir", root, "--device", str(device)]
+    try:
+        import matplotlib  # noqa: F401
+        drawing = True
+    except ImportError:
+        drawing = False
+    if not drawing:
+        try:
+            vae_cli.main(argv + ["--bkg_data", "no-such-sample"])
+        except ImportError as exc:
+            if "matplotlib" not in str(exc):
+                raise
+            refusal = str(exc)
+        else:
+            raise AssertionError("cli/vae.py --plotting ON ran where matplotlib is missing")
+        if os.path.exists(os.path.join(root, "plots")):
+            raise AssertionError("cli/vae.py wrote its output folder before refusing")
+        log("evaluate", cli="--plotting ON", refused=json.dumps(refusal))
+    t0 = time.perf_counter()
+    if vae_cli.main(argv + ["--plotting", "ON" if drawing else "OFF"]) != 0:
+        raise AssertionError("cli/vae.py --n_epochs 0 did not return 0")
+    written = sorted(os.path.relpath(os.path.join(d, f), root)
+                     for d, _, files in os.walk(os.path.join(root, "plots")) for f in files)
+    if drawing and len(written) < 25:
+        raise AssertionError(f"cli/vae.py --plotting ON wrote {written}")
+    log("evaluate", cli=f"--plotting {'ON' if drawing else 'OFF'} --apply_cuts ON",
+        wall_ms=f"{(time.perf_counter() - t0) * 1e3:.1f}", files=json.dumps(written))
 
     # the cut scan's parts, on the same inputs: host histograms, then the
     # 101-cut batched scan on the card
     t0 = time.perf_counter()
-    thresholds, _, idx = bump._cut_grid(y_true, mae, sample["weights"], EVAL_CUTS, "bkg", device)
+    thresholds, _, idx, _ = bump._cut_grid(y_true, mae, sample["weights"], EVAL_CUTS, "bkg",
+                                           device)
     grid_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     hist_sample = {k: sample[k] for k in ("JZW", "m", "pt", "weights")}

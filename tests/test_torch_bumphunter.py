@@ -390,21 +390,6 @@ def test_batched_bump_sigma_and_sharded_match_jax_on_injected_draws(monkeypatch)
         bh.bump_sigma_sharded(data[0], bkg[0], WIDTHS, _steps(1), mesh=object(), device=CPU)
 
 
-@pytest.mark.parametrize("call", ["plot_stat", "plot_tomography", "plot_inject",
-                                  "plot_bump_file", "plot_bump_histo"])
-def test_drawing_methods_refuse_before_any_work(call):
-    hunter = bh.BumpHunter1D(device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        if call == "plot_bump_file":
-            hunter.plot_bump(None, None, filename="bump.png")
-        elif call == "plot_bump_histo":
-            hunter.plot_bump(None, None, make_histo=True)
-        elif call == "plot_tomography":
-            hunter.plot_tomography(None)
-        else:
-            getattr(hunter, call)()
-
-
 def test_scan_launches_do_not_grow_with_the_cuts():
     """The p-values are one call over the stacked tensor: scanning 3 cuts'
     references, or 40 histograms instead of 21, runs as many torch

@@ -8,8 +8,10 @@ the same accuracy and AUC lines (2 and 4 decimals) and background
 rejections within 1 % (one jet more or less below a threshold), and their
 probabilities agree to rtol 2e-5 / atol 2e-5, the whole-model bar of
 tests/test_tf_parity.py.  A predict-only run of the port reproduces the
-training run's probabilities bit for bit.  What the port does not run yet is
-refused before any data is loaded.
+training run's probabilities bit for bit.  ``--plotting ON --sep_bkg ON``
+writes the same files as the JAX CLI.  What the port does not run yet, and
+``--plotting ON`` where matplotlib cannot be imported, is refused before
+any data is loaded.
 
 ``CNN-AUTO`` is the CLI at its default precision, bfloat16 compute for the
 CNN: the JAX CLI then predicts with ATLASVAE_CONV1=fused, whose block 1
@@ -27,6 +29,7 @@ chunks (inputs through the two packages' scalers: rtol 1e-5 / atol 1e-6).
 
 import pickle
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -36,6 +39,7 @@ from atlasvae.cli import jetid as jax_jetid_cli
 from atlasvae.data import registry as jax_registry
 from atlasvae_torch.cli import jetid as cli
 from atlasvae_torch.data import registry
+from plot_record import assert_same_structure, recording
 
 COMMON = ["--n_train", "1500", "--n_valid", "1000", "--batch_size", "500", "--mixed_precision",
           "OFF", "--plotting", "OFF", "--image_size", "12", "--FCN_neurons", "24", "16",
@@ -209,7 +213,6 @@ def test_resume_from_the_state_file_trains_on(trained, capsys):
     (["--feature_removal", "ON"], "item 9"),
     (["--n_devices", "2"], "item 11"),
     (["--n_gpus", "4"], "item 11"),
-    (["--plotting", "ON"], "item 6"),
     (["--model_in", "weights.h5"], "item 10"),
     (["--model_out", "model.h5"], "item 10"),
 ])
@@ -219,6 +222,42 @@ def test_unported_options_refused_before_any_load(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
     assert not (tmp_path / "out").exists()
+
+
+def test_plotting_without_matplotlib_refused_before_any_load(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    argv = COMMON + ["--plotting", "ON", "--output_dir", str(tmp_path / "out"), "--bkg_data",
+                     "no-such-sample", "--device", "cpu"]
+    for extra in ([], ["--results_in", "valid_results.pkl"]):
+        with pytest.raises(ImportError, match="matplotlib"):
+            cli.main(argv + extra)
+        assert not (tmp_path / "out").exists()
+
+
+def test_plotting_run_draws_the_same_files_as_jax(tmp_path, monkeypatch):
+    """--plotting ON --sep_bkg ON on --synthetic data, both CLIs predicting
+    with the port's weights: the same files, with the same axes, artists
+    and texts (the same arrays on the same probabilities are held in
+    test_torch_results.py)."""
+    monkeypatch.setenv("ATLASVAE_DATA_DIR", str(tmp_path / "data"))
+    for reg in (registry, jax_registry):
+        monkeypatch.setattr(reg, "_OVERRIDES", dict(reg._OVERRIDES))
+    argv = _argv("FCN") + ["--synthetic", "3000"]
+    assert cli.main(argv + ["--output_dir", str(tmp_path / "port"), "--n_epochs", "1",
+                            "--device", "cpu"]) == 0
+    (tmp_path / "jax").mkdir()
+    shutil.copy(tmp_path / "port" / "model.npz", tmp_path / "jax" / "model.npz")
+    argv[argv.index("--plotting") + 1] = "ON"
+    argv += ["--sep_bkg", "ON", "--n_epochs", "0", "--model_in", "model.npz"]
+    records = {}
+    for side, main, extra in (("jax", jax_jetid_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        with recording(tmp_path / side, write=side == "port") as records[side]:
+            assert main(argv + ["--output_dir", str(tmp_path / side)] + extra) == 0
+    assert sorted(p.name for p in (tmp_path / "port").glob("*.png")) == \
+        sorted(p.name for p in (tmp_path / "jax").glob("*.png")) == \
+        ["bkg_rejection.png", "distributions.png", "signal_gain.png"]
+    assert_same_structure(records["port"], records["jax"])
 
 
 def test_mixed_precision_auto_is_float32_for_the_fcn():

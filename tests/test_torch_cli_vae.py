@@ -10,6 +10,7 @@ is loaded.
 
 import os
 import pickle
+import sys
 
 import jax
 import numpy as np
@@ -19,11 +20,13 @@ import torch
 from atlasvae.cli import vae as jax_vae
 from atlasvae.data import registry as jax_registry
 from atlasvae.models import VAEConfig as JaxVAEConfig, init_vae as jax_init_vae
-from atlasvae.train.checkpoint import load_pytree as jax_load_pytree
+from atlasvae.train.checkpoint import load_pytree as jax_load_pytree, save_pytree as \
+    jax_save_pytree
 from atlasvae_torch.cli import vae
 from atlasvae_torch.data import registry
 from atlasvae_torch.models import VAEConfig, init_vae
 from atlasvae_torch.train.checkpoint import load_pytree, tree_flatten
+from plot_record import assert_same_structure, jax_eval_noise, recording
 
 ARGS = ["--n_train", "2000", "--n_valid", "1000", "--n_OoD", "3000", "--batch_size", "500",
         "--n_epochs", "2", "--beta", "2", "--lamb", "5", "--OE_type", "MAE",
@@ -89,8 +92,6 @@ def test_weights_load_in_either_package(runs):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--plotting", "ON"], "Queue 1 item 6"),
-    (["--apply_cuts", "ON"], "Queue 1 item 6"),
     (["--n_devices", "2"], "item 11"),
     (["--model_in", "weights.h5"], "item 10"),
     (["--model_out", "model.h5"], "item 10"),
@@ -101,6 +102,62 @@ def test_unported_options_refused_before_any_load(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         vae.main(argv)
     assert not os.path.exists(tmp_path / "plots")
+
+
+def test_plotting_without_matplotlib_refused_before_any_load(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    argv = ARGS[:-2] + ["--output_dir", str(tmp_path), "--bkg_data", "no-such-sample",
+                        "--device", "cpu"]
+    with pytest.raises(ImportError, match="matplotlib"):
+        vae.main(argv)
+    assert not os.path.exists(tmp_path / "plots")
+
+
+def _fresh_registries(monkeypatch, data_dir):
+    """--synthetic files in data_dir, registered for this test only."""
+    monkeypatch.setenv("ATLASVAE_DATA_DIR", str(data_dir))
+    for reg in (registry, jax_registry):
+        monkeypatch.setattr(reg, "_OVERRIDES", dict(reg._OVERRIDES))
+
+
+def test_default_run_draws_the_same_files_as_jax(tmp_path, monkeypatch):
+    _fresh_registries(monkeypatch, tmp_path / "data")
+    monkeypatch.setattr(vae, "_eval_noise", jax_eval_noise)
+    weights = jax_init_vae(jax.random.PRNGKey(5), JaxVAEConfig())
+    argv = ["--synthetic", "3000", "--n_train", "1000", "--n_valid", "1000", "--n_sig", "1000",
+            "--n_epochs", "0", "--model_in", "model.npz", "--apply_cuts", "ON", "--npe", "20"]
+    records, files = {}, {}
+    for side, main, extra in (("jax", jax_vae.main, []), ("port", vae.main, ["--device", "cpu"])):
+        root = tmp_path / side
+        root.mkdir()
+        jax_save_pytree(str(root / "model.npz"), weights)
+        with recording(root / "plots", write=side == "port") as records[side]:
+            assert main(argv + ["--output_dir", str(root)] + extra) == 0
+        files[side] = sorted(str(p.relative_to(root)) for p in (root / "plots").rglob("*.png"))
+    assert files["port"] == files["jax"]
+    assert len(files["port"]) == 25 and "plots/bkg_suppression/best_gain_m.png" in files["port"]
+    assert_same_structure(records["port"], records["jax"])
+
+
+def test_plotting_run_draws_the_training_distributions(synth_dir, tmp_path):
+    """Under --plotting ON both CLIs draw the first training load's m and
+    pt distributions, the background beside the reweighted OoD sample.  The
+    two packages pair each background jet with an OoD jet of its (m, pt)
+    cell drawn from their own generators, so the plots share their
+    structure, not their arrays."""
+    for name in ("QCD-Geneva", "OoD-H", "2HDM-Geneva"):
+        registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
+        jax_registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
+    argv = ARGS[:-2] + ["--n_epochs", "1", "--plotting", "ON", "--npe", "10"]
+    records = {}
+    for side, main, extra in (("jax", jax_vae.main, []), ("port", vae.main, ["--device", "cpu"])):
+        with recording(tmp_path / side / "plots") as records[side]:
+            assert main(argv + ["--output_dir", str(tmp_path / side)] + extra) == 0
+        assert {"train_m.png", "train_pt.png", "BH_sigma.png"} <= set(records[side])
+    train = {side: {k: v for k, v in rec.items() if k.startswith("train_")}
+             for side, rec in records.items()}
+    assert_same_structure(train["port"], train["jax"])
+    assert [t for t, _ in train["port"]["train_m.png"][0]["texts"]][-2:] == ["OoD", "QCD"]
 
 
 def test_defaults_to_the_card():

@@ -8,8 +8,8 @@ both sides and must be bit-equal.  The cut scan on unit weights: the
 best-cut record equal (its threshold, efficiency and metric), its local
 sigma within rtol 1e-4; ``bump_hunter``'s loc_sigma and max_sigma within
 rtol 1e-4 (the Gaussian fit's optimizer amplifies float32 ulps of the bin
-significances).  Every drawing path raises, naming ROADMAP Queue 1 item 6,
-before it reads its inputs.
+significances).  The drawing paths are held to the JAX package's in
+``test_torch_plotting.py``.
 """
 
 import numpy as np
@@ -99,16 +99,3 @@ def test_bump_scan_matches_jax():
     loc_j, max_j = jax_bump.bump_hunter(cut, npe=10)
     assert loc == pytest.approx(loc_j, rel=1e-4) and loc > 3
     assert max_sigma == pytest.approx(max_j, rel=1e-4)
-
-
-@pytest.mark.parametrize("call", ["bump_hunter", "bump_scan", "generate_cuts"])
-def test_drawing_paths_refuse_before_any_work(call, tmp_path):
-    """None where the data would be: the refusal comes before any read."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        if call == "bump_hunter":
-            bump.bump_hunter(None, filename=str(tmp_path / "bump.png"), device=CPU)
-        elif call == "bump_scan":
-            bump.bump_scan(None, None, "MAE", None, "2HDM-Geneva", str(tmp_path), device=CPU)
-        else:
-            bump.generate_cuts(None, None, None, "MAE", "2HDM-Geneva", str(tmp_path))
-    assert not any(tmp_path.iterdir())

@@ -19,6 +19,7 @@ from atlasvae.data import BatchGenerator as JaxBatchGenerator, load_data as jax_
 from atlasvae.data import pairing as jax_pairing, registry as jax_registry, weights as jax_weights
 from atlasvae_torch.data import (BatchGenerator, load_data, fit_scaler, registry, pairing,
                                  weights)
+from plot_record import recording
 
 
 @pytest.fixture(scope="module")
@@ -178,13 +179,15 @@ def test_one_generator_load_matches_jax(port_registry):
     np.testing.assert_allclose(got_ood["weights"].sum(), got_bkg["weights"].sum(), rtol=1e-5)
 
 
-def test_single_load_epoch_hands_out_the_same_objects(port_registry):
+def test_single_load_epoch_hands_out_the_same_objects(port_registry, tmp_path):
     gen = BatchGenerator("QCD-Geneva", "OoD-H", 20, 3, [0, 1000], constituents="OFF",
-                         weight_type="None", bin_sizes={"m": 10, "pt": 20})
-    first, second = next(iter(gen)), next(iter(gen))
+                         weight_type="None", bin_sizes={"m": 10, "pt": 20},
+                         output_dir=str(tmp_path))
+    with recording(tmp_path) as records:
+        first, second = next(iter(gen)), next(iter(gen))
     assert first[0] is second[0] and first[1] is second[1]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        BatchGenerator("QCD-Geneva", "OoD-H", 20, 3, [0, 1000], output_dir="plots")
+    # an output_dir draws the first load's distributions, once
+    assert sorted(records) == ["train_m.png", "train_pt.png"]
 
 
 def test_multi_load_iteration_matches_indexing_and_raises(port_registry, monkeypatch):
