@@ -20,16 +20,18 @@ in float32 (``ON``: bfloat16).  ``--weight_type`` picks a (pt, |eta|)
 histogram-matching sample-weight scheme; ``--generator ON`` streams the
 training slice in chunks of ``--memGB`` per epoch (FCN only, as in the JAX
 package), with scalers fitted on the first chunk and the weight scheme
-computed per chunk.
+computed per chunk.  ``--feature_removal ON`` (scalar branches only)
+retrains the model once without each HLV, for max(2, n_epochs // 4)
+epochs, and prints the ranking of the accuracy drops; with
+``--generator ON`` it exits, as in the JAX package.
 
 Not ported yet, and refused with ``NotImplementedError`` while the
 arguments are checked, before any data is loaded (ROADMAP Queue 1):
-``--n_folds`` above 1 and ``--vmap_folds ON`` (item 10),
-``--feature_removal ON`` (item 9), ``--n_devices`` above 1 (item 11)
-and Keras ``.h5`` weights in or out (item 10).  ``--plotting ON``, the
-default, draws the ROC curves and class distributions with matplotlib;
-where matplotlib cannot be imported it is refused before any data is
-loaded (pass ``--plotting OFF``).
+``--n_folds`` above 1 and ``--vmap_folds ON`` (item 10), ``--n_devices``
+above 1 (item 11) and Keras ``.h5`` weights in or out (item 10).
+``--plotting ON``, the default, draws the ROC curves and class
+distributions with matplotlib; where matplotlib cannot be imported it is
+refused before any data is loaded (pass ``--plotting OFF``).
 """
 
 import os
@@ -156,28 +158,17 @@ def _on(v):
     return v.upper() == "ON" if isinstance(v, str) else bool(v)
 
 
-def _is_keras(path):
-    if str(path).endswith((".h5", ".hdf5")):
-        return True
-    if os.path.isfile(path):
-        with open(path, "rb") as f:
-            return f.read(8) == b"\x89HDF\r\n\x1a\n"
-    return False
-
-
 def _check_supported(args):
     """Refuse, before any data is loaded, what the port does not run yet."""
+    from ..train.checkpoint import is_keras_file
     if args.n_folds > 1 or _on(args.vmap_folds):
         raise NotImplementedError("--n_folds > 1 / --vmap_folds ON: k-fold cross-validation "
                                   "is ported with ROADMAP Queue 1 item 10")
-    if _on(args.feature_removal):
-        raise NotImplementedError("--feature_removal ON is ported with ROADMAP Queue 1 "
-                                  "item 9")
     if (args.n_devices or 1) > 1:
         raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
                                   "ROADMAP Queue 1 item 11")
-    if (args.model_in and _is_keras(os.path.join(args.output_dir, args.model_in))) or \
-            _is_keras(args.model_out):
+    if (args.model_in and is_keras_file(os.path.join(args.output_dir, args.model_in))) or \
+            is_keras_file(args.model_out):
         raise NotImplementedError("Keras .h5 weights are read and written with "
                                   "train/keras_import.py and keras_export.py, ported with "
                                   "ROADMAP Queue 1 item 10; use a native .npz")
@@ -296,7 +287,7 @@ def main(argv=None):
     first_chunk = None
     if streaming:
         # only the validation slice is held; training chunks stream per epoch
-        if args.NN_type == "CNN":
+        if _on(args.feature_removal) or args.NN_type == "CNN":
             raise SystemExit("--generator ON supports the plain training path "
                              "(no k-fold CV / feature removal / CNN images)")
         chunk = int(1e9 * args.memGB / max(args.n_const * args.n_dims * 4, 1))
@@ -490,6 +481,20 @@ def main(argv=None):
             verbose=bool(args.verbose), monitor=args.metrics)
     elif args.model_in and os.path.isfile(out_root + "/" + args.model_in):
         params = load_pytree(out_root + "/" + args.model_in, params)
+
+    if _on(args.feature_removal) and scalars:
+        # the ranking of the HLV columns by the accuracy lost without each
+        from ..eval.jetid_eval import feature_removal
+        names = hlv_list[:sample["HLVs"].shape[1]]
+        drops = feature_removal(
+            config, inputs_for(train_idx), labels[train_idx], inputs_for(valid_idx),
+            labels[valid_idx], names,
+            init_fn=lambda i: init_jetid(torch.Generator().manual_seed(i), config,
+                                         device=device),
+            epochs=max(2, args.n_epochs // 4), batch_size=args.batch_size, lr=args.lr)
+        print("\nFEATURE-ABLATION RANKING (accuracy drop when removed):")
+        for name, drop in sorted(drops.items(), key=lambda kv: -kv[1]):
+            print(f"  {name:20s} {100 * drop:+.2f} %")
 
     probs = predict_classifier(params, config, inputs_for(valid_idx))
     v_labels = labels[valid_idx]

@@ -1,12 +1,14 @@
 """Batch anomaly-scoring entry point (serving path) on PyTorch/CUDA.
 
-Counterpart of the VAE branch of ``atlasvae/cli/score.py``: stream an
-HDF5 sample through a trained OE-VAE in chunks, apply the HLV (and
-constituent) scalers, run the VAE forward (encoder through the
-stack-forward kernel, decoder through the fused dense-stack kernel on
-CUDA), compute the requested per-jet metrics (EMD through the Sinkhorn
-kernel on CUDA, in constituents mode), and write
-``score_<metric>``, ``m``, ``pt`` and ``weights`` to an output HDF5.
+Counterpart of ``atlasvae/cli/score.py``: stream an HDF5 sample through a
+trained OE-VAE (or, with ``--model_type aae``, an OE-AAE) in chunks, apply
+the HLV (and constituent) scalers, and write ``score_<metric>``, ``m``,
+``pt`` and ``weights`` to an output HDF5.  The VAE runs its forward
+(encoder through the stack-forward kernel, decoder through the fused
+dense-stack kernel on CUDA) and the requested per-jet metrics (EMD through
+the Sinkhorn kernel on CUDA, in constituents mode); the AAE writes its three
+discriminants, ``score_Autoencoder``, ``score_Discriminator`` and
+``score_Auto+Disc`` (``eval/aae_eval.py::get_data``, unmapped).
 Runs on ``--device cuda`` unless asked for the CPU.
 
     python -m atlasvae_torch.cli.score --data QCD-Geneva --model_in model.npz \\
@@ -15,6 +17,8 @@ Runs on ``--device cuda`` unless asked for the CPU.
         --constituents ON --HLVs OFF --n_const 100 --FC_layers 256 128 64 32 \\
         --const_scaler_in const_QuantileTransformer.pkl \\
         --metrics MAE Latent KLD JSD EMD KSD --output scores.h5
+    python -m atlasvae_torch.cli.score --data QCD-Geneva --model_in AAE.npz \\
+        --model_type aae --HLV_scaler_in HLV_RobustScaler.pkl --output scores.h5
 """
 
 import sys
@@ -57,24 +61,26 @@ def main(argv=None):
     from .. import resolve_device
     from ..data import load_data, apply_scaler, hdf5, HLV_LIST
     from ..data.scalers import Scaler
-    from ..models import VAEConfig, init_vae, vae_apply
+    from ..models import VAEConfig, init_vae, vae_apply, AAEConfig, init_aae
     from ..train.checkpoint import load_pytree
     from ..train.loop import features
     from ..eval import compute_metric_bank
 
     args = build_parser().parse_args(argv)
-    if args.model_type != "vae":
-        raise NotImplementedError("--model_type aae is ported with the OE-AAE "
-                                  "(ROADMAP Queue 1 item 8)")
     device = resolve_device(args.device)
     on = lambda v: v.upper() == "ON" if isinstance(v, str) else bool(v)
     hlv_list = list(HLV_LIST)
     input_dim = (args.n_dims * args.n_const) * on(args.constituents) + \
         len(hlv_list) * on(args.HLVs)
 
-    template = init_vae(torch.Generator().manual_seed(0),
-                        VAEConfig(fc_layers=tuple(args.FC_layers), input_dim=input_dim),
-                        device=device)
+    if args.model_type == "vae":
+        template = init_vae(torch.Generator().manual_seed(0),
+                            VAEConfig(fc_layers=tuple(args.FC_layers), input_dim=input_dim),
+                            device=device)
+    else:
+        template = init_aae(torch.Generator().manual_seed(0),
+                            AAEConfig(input_dim=input_dim, ae_layers=tuple(args.layers_sizes)),
+                            device=device)
     params = load_pytree(args.model_in, template)
     hlv_scaler = Scaler.load(args.HLV_scaler_in) if args.HLV_scaler_in else None
     const_scaler = Scaler.load(args.const_scaler_in) if args.const_scaler_in else None
@@ -99,14 +105,19 @@ def main(argv=None):
                     sample[key] = apply_scaler(torch.as_tensor(sample[key], device=device),
                                                args.n_dims, scaler, verbose=False)
             x_true = features(sample).contiguous()
-            # one generator per iteration, seeded with its index, as the
-            # JAX entry point draws with PRNGKey(i) for every chunk
-            preds = torch.stack(
-                [vae_apply(params, x_true, torch.Generator(device).manual_seed(i))[0]
-                 for i in range(args.n_iter)], dim=-1)
-            x_pred = preds.mean(dim=-1)
-            scores = compute_metric_bank(x_true, x_pred, params, tuple(args.metrics),
-                                         normal_losses=False, device=device)
+            if args.model_type == "vae":
+                # one generator per iteration, seeded with its index, as the
+                # JAX entry point draws with PRNGKey(i) for every chunk
+                preds = torch.stack(
+                    [vae_apply(params, x_true, torch.Generator(device).manual_seed(i))[0]
+                     for i in range(args.n_iter)], dim=-1)
+                x_pred = preds.mean(dim=-1)
+                scores = compute_metric_bank(x_true, x_pred, params, tuple(args.metrics),
+                                             normal_losses=False, device=device)
+            else:
+                from ..eval.aae_eval import get_data
+                scores = get_data(params, sample, np.ones(n, int), x_true.cpu().numpy(),
+                                  normal_loss="OFF", deco="OFF")
             record = {**{f"score_{k}": v for k, v in scores.items()},
                       "m": sample["m"], "pt": sample["pt"],
                       "weights": sample["weights"]}

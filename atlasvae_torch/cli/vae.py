@@ -98,26 +98,18 @@ def _on(v):
     return v.upper() == "ON" if isinstance(v, str) else bool(v)
 
 
-def _is_keras(path):
-    if str(path).endswith((".h5", ".hdf5")):
-        return True
-    if os.path.isfile(path):
-        with open(path, "rb") as f:
-            return f.read(8) == b"\x89HDF\r\n\x1a\n"
-    return False
-
-
 def _check_supported(args, out_root):
     """Refuse, before any data is loaded, what the port does not run yet,
     and drawing where matplotlib cannot be imported."""
+    from ..train.checkpoint import is_keras_file
     if _on(args.plotting):
         from ..plotting.backend import require_matplotlib
         require_matplotlib("--plotting ON")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
                                   "ROADMAP Queue 1 item 11")
-    if (args.model_in and _is_keras(os.path.join(out_root, args.model_in))) or \
-            _is_keras(args.model_out):
+    if (args.model_in and is_keras_file(os.path.join(out_root, args.model_in))) or \
+            is_keras_file(args.model_out):
         raise NotImplementedError("Keras .h5 weights are read and written with "
                                   "train/keras_import.py and keras_export.py, ported with "
                                   "ROADMAP Queue 1 item 10; use a native .npz")

@@ -1,14 +1,20 @@
 """jet-ID evaluation on the host: labels, class and sample weights,
-up/down-sampling, composition matrix, discriminant.
+up/down-sampling, composition matrix, discriminant, multi-threshold
+scans and the feature-ablation ranking.
 
 Copies of ``make_labels``, ``get_class_weight``, ``get_sample_weights``,
-``upsampling``, ``downsampling``, ``valid_accuracy``, ``compo_matrix`` and
-``discriminant`` of ``atlasvae/eval/jetid_eval.py`` (numpy only; the draws
-come from ``np.random.default_rng(seed)``, so the picks are the JAX
-package's indices).  ``upsampling`` and ``downsampling`` have no caller in
-either package's CLI: they are kept for library parity.  k-fold
-``cross_valid``, ``multi_cuts`` and ``feature_removal`` are not ported yet.
+``upsampling``, ``downsampling``, ``valid_accuracy``, ``compo_matrix``,
+``discriminant``, ``multi_cuts`` and ``feature_removal`` of
+``atlasvae/eval/jetid_eval.py`` (numpy on the host; the draws come from
+``np.random.default_rng(seed)``, so the picks are the JAX package's
+indices; ``feature_removal`` retrains through ``train/jetid_loop.py`` on
+the device its initial weights lie on).  ``upsampling``, ``downsampling``
+and ``multi_cuts`` have no caller in either package's CLI: they are kept
+for library parity.  k-fold ``cross_valid`` and ``feature_removal``'s
+``vmapped=True`` wait for ROADMAP Queue 1 item 10.
 """
+
+import itertools
 
 import numpy as np
 
@@ -200,3 +206,61 @@ def discriminant(sample, labels, probs, sig_list=(0,), bkg="bkg"):
         bkg_probs = np.where(tie, 0.5, bkg_probs)
         return sample, new_labels, sig_probs / (sig_probs + bkg_probs)
     return sample, labels, probs[:, 0]
+
+
+def multi_cuts(labels, probs, step=0.2, multi=True):
+    """Efficiencies over a grid of per-class probability-ratio thresholds,
+    rows sorted by descending signal efficiency."""
+    labels = np.asarray(labels)
+    probs = np.asarray(probs)
+    n_classes = probs.shape[1]
+    repeat = n_classes - 1 if multi else n_classes
+    cut_list = np.arange(0, 1, step)
+    cut_tuples = np.array(list(itertools.product(cut_list, repeat=repeat)))
+    results = []
+    for fracs in cut_tuples:
+        if multi:
+            cuts = probs[:, 0] >= np.max(probs[:, 1:] * (fracs / (1 - fracs)), axis=1)
+        else:
+            cuts = probs[:, 0] >= (probs[:, 1:] @ fracs[1:]) * (fracs[0] / (1 - fracs[0]))
+        row = [np.sum((labels == c) & cuts) / max(np.sum(labels == c), 1)
+               for c in range(n_classes)]
+        row.append(np.sum((labels != 0) & cuts) / max(np.sum(labels != 0), 1))
+        results.append(row)
+    results = np.array(results)
+    return results[results[:, 0].argsort()[::-1]]
+
+
+def _blank_column(d, i):
+    """Copy of an inputs dict with 2-D scalar column ``i`` zeroed."""
+    arrs = {k: np.array(v, np.float32, copy=True) for k, v in dict(d).items()}
+    for k in arrs:
+        if arrs[k].ndim == 2 and arrs[k].shape[1] > i:
+            arrs[k][:, i] = 0.0
+    return arrs
+
+
+def feature_removal(config, inputs, labels, valid_inputs, valid_labels, features, init_fn,
+                    epochs=10, batch_size=500, lr=1e-3, vmapped=False):
+    """Feature-ablation ranking: retrain with each feature's column zeroed
+    and compare the validation accuracy with the baseline's.  Scalars
+    only; ``init_fn(i)`` gives lane i's initial weights (lane 0 the
+    baseline, lane 1 + i the run without feature i).  Returns {feature:
+    accuracy drop}."""
+    from ..train.jetid_loop import predict_classifier, train_classifier
+    if vmapped:
+        raise NotImplementedError("feature_removal(vmapped=True) trains the lanes with "
+                                  "train_kfold_vmapped, ported with ROADMAP Queue 1 item 10")
+    base_params, _ = train_classifier(init_fn(0), config, inputs, labels, valid_inputs,
+                                      valid_labels, epochs, batch_size, lr, verbose=False)
+    base_acc = valid_accuracy(valid_labels, predict_classifier(base_params, config,
+                                                               valid_inputs))
+    drops = {}
+    for i, feature in enumerate(features):
+        blank = lambda d: _blank_column(d, i)
+        params, _ = train_classifier(init_fn(i + 1), config, blank(inputs), labels,
+                                     blank(valid_inputs), valid_labels, epochs, batch_size, lr,
+                                     verbose=False)
+        probs = predict_classifier(params, config, blank(valid_inputs))
+        drops[feature] = base_acc - valid_accuracy(valid_labels, probs)
+    return drops

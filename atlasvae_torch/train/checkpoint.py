@@ -80,6 +80,17 @@ def load_pytree(path, template):
     return tree_unflatten(template, leaves)
 
 
+def is_keras_file(path):
+    """A Keras HDF5 weights file, by its name (.h5, .hdf5) or, where the file
+    exists, by its signature; the port reads and writes native npz only."""
+    if str(path).endswith((".h5", ".hdf5")):
+        return True
+    if os.path.isfile(path):
+        with open(path, "rb") as f:
+            return f.read(8) == b"\x89HDF\r\n\x1a\n"
+    return False
+
+
 def save_weights(params, path):
     save_pytree(path, params)
 

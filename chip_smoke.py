@@ -151,9 +151,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                float32 phase's; then one short bf16 FCN run streaming its
                training chunks (--generator ON) with the flattening
                sample-weight scheme;
-11. kernels -- one JSON line with every ported kernel (K1 to K6 as two
+11. feature_removal -- cli/jetid.py --NN_type FCN --feature_removal ON (2
+               epochs of 1e5 jets, then the model retrained once without
+               each HLV): a ranking of every HLV, no kernel of ours;
+12. aae      -- the OE-AAE at the reference's widths (AE 100/100/100,
+               discriminator 100/100/3) through atlasvae_torch.cli.aae: one
+               GAN cycle (100 AE, 5 Disc, 5 AAE epochs of 1e5 jets in
+               batches of 5,000; 2,200 steps) with the counters set to 0
+               just before, every K1-K6 count still 0 after it (the AAE's
+               products are torch.matmul); a warm timed train_aae, each
+               phase's ms a step, a profiled AE epoch (idle share); the
+               card against the CPU on a 10,000-jet slice (loss series
+               rtol 1e-4, Disc Accuracy within one jet's weight share);
+               the evaluation's numbers (cli/aae.py::_signal_numbers on
+               200,000 + 200,000 events, the 1-D and the 2-D scan), each
+               scan again on the CPU with the card's ROC rates (the same
+               best cut, loc sigma rtol 1e-5 / atol 1e-6), the batched
+               scan's CUDA-event ms, launches and bound; cli/score.py
+               --model_type aae on the card and the CPU (rtol/atol 1e-4);
+13. kernels -- one JSON line with every ported kernel (K1 to K6 as two
                entries each, one a route, and K5/K6's bf16 forms);
-12. last line: {"ok": true, "device": {...}}.
+14. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -359,6 +377,27 @@ JETID_LOSS_REL_TOL = 1e-3
 JETID_BF16_GRAD_TOL = 1e-2
 JETID_BF16_LOSS_REL_TOL = 1e-4
 JETID_BF16_PROB_TOL = 2e-3
+
+# The OE-AAE (ROADMAP Queue 1 item 8): cli/aae.py at the reference's widths
+# (AE 100/100/100, discriminator 100/100/3), one GAN cycle of 1e5 jets in
+# batches of 5,000 (20 batches an epoch, 2,200 shared-counter steps), on
+# 200,000-event synthetic files; no kernel of ours (the JAX AAE runs plain
+# XLA products, the port torch.matmul).
+AAE_EVENTS = 200_000
+AAE_BATCH = 5_000
+AAE_ARGS = ["--synthetic", str(AAE_EVENTS), "--n_train", "1e5", "--n_OoD", "1e5", "--n_epochs", "1",
+            "--batch_size", str(AAE_BATCH), "--layers_sizes", "100", "100", "100", "--lamb", "1",
+            "--beta", "1", "--plotting", "OFF", "--apply_cuts", "OFF"]
+AAE_EPOCHS = 110                # phase-epochs of the first cycle: 100 AE, 5 Disc, 5 AAE
+AAE_PARITY_JETS = 10_000        # card against CPU: the whole schedule, 2 batches an epoch
+AAE_REL_TOL = 1e-4              # its loss series, TRAIN_REL_TOL's bar
+AAE_SCORE_TOL = 1e-4            # cli/score.py --model_type aae, the slice phase's bar
+AAE_SIGMA_TOL = (1e-5, 1e-6)    # loc sigma card against CPU (rtol, atol), evaluate's bar
+# --feature_removal ON on the jet-ID FCN (Queue 1 item 9.4): the model
+# retrained once without each HLV, 2 epochs each, beside a 2-epoch run
+FEATURE_REMOVAL_ARGS = ["--NN_type", "FCN", "--mixed_precision", "OFF", "--feature_removal", "ON",
+                        "--plotting", "OFF", "--synthetic", str(JETID_EVENTS), "--n_train", "1e5",
+                        "--n_valid", "5e4", "--batch_size", "5e3", "--n_epochs", "2"]
 
 # Training: the canonical model with the vae.sh hyper-parameters, cut to
 # 3 epochs of 1e5 jets (200,000 synthetic events per sample).
@@ -2247,6 +2286,281 @@ def phase_seeds(device, trials=SEED_TRIALS):
         seconds=f"{time.perf_counter() - start:.1f}", first_hits=json.dumps(hits[:12]))
 
 
+@contextlib.contextmanager
+def _rates_of(module, replay=None):
+    """``module.get_rates`` recorded (the card's, in call order), or, with
+    ``replay``, handing back a recorded run's rates for the same inputs."""
+    import numpy as np
+    real, seen = module.get_rates, []
+
+    def get_rates(y_true, x_loss, weights, *args, **kwargs):
+        if replay is None:
+            rates = real(y_true, x_loss, weights, *args, **kwargs)
+        else:
+            loss, rates = replay[len(seen)]
+            if not np.array_equal(loss, x_loss):
+                raise AssertionError("the CPU scan asked for the rates of other scores")
+        seen.append((np.array(x_loss), rates))
+        return rates
+
+    module.get_rates = get_rates
+    try:
+        yield seen
+    finally:
+        module.get_rates = real
+
+
+def _aae_scan_check(numbers, scan_2d, device):
+    """The card's scan against the CPU's on the same scores and sample, the
+    CPU handed the rates of a second card run (held to the CPU's own
+    beside): the same best cut, every local sigma within AAE_SIGMA_TOL.  The
+    card's ROC sums are a parallel scan whose float32 rounding can part by an
+    ulp from run to run, so the CLI's own run is compared with the second
+    one by its best cut's thresholds, and its efficiencies within the ROC
+    bar.  Then the batched scan alone on the card: CUDA-event ms, launches,
+    device busy ms and bound."""
+    import numpy as np
+    import torch
+    from atlasvae_torch.eval import aae_eval, bump
+    from atlasvae_torch.eval.roc import get_rates
+    from atlasvae_torch.stats import batched_local_sigma
+    cpu = torch.device("cpu")
+    y_true, x_loss, sample = numbers["y_true"], numbers["x_loss"], numbers["sample"]
+    scan = numbers["scan"]
+    with _rates_of(aae_eval) as card_rates:
+        if scan_2d:
+            again = aae_eval._scan_2d_numbers(y_true, x_loss, sample, device=device)
+        else:
+            again = aae_eval._scan_numbers(y_true, x_loss["Autoencoder"], "Autoencoder",
+                                           sample, device=device)
+    with _rates_of(aae_eval, replay=card_rates):
+        if scan_2d:
+            on_cpu = aae_eval._scan_2d_numbers(y_true, x_loss, sample, device=cpu)
+        else:
+            on_cpu = aae_eval._scan_numbers(y_true, x_loss["Autoencoder"], "Autoencoder",
+                                            sample, device=cpu)
+    roc_gap = 0.0
+    for loss, (fpr, tpr, thr) in card_rates:
+        c_fpr, c_tpr, c_thr = get_rates(y_true, loss, sample["weights"], device=cpu)
+        if not np.array_equal(thr, c_thr):
+            raise AssertionError("ROC thresholds on the card and the CPU differ")
+        roc_gap = max(roc_gap, float(np.abs(fpr - c_fpr).max()), float(np.abs(tpr - c_tpr).max()))
+    rtol, atol = AAE_SIGMA_TOL
+    sigma_gap = float(np.max(np.abs(again["loc_sigma"] - on_cpu["loc_sigma"])
+                             - (atol + rtol * np.abs(on_cpu["loc_sigma"]))))
+    repeat_gap = max(abs(float(scan["best"][k]) - float(again["best"][k]))
+                     for k in ("sig_eff", "bkg_eff"))
+    same_best = again["best"] == on_cpu["best"] and scan["best"]["cuts"] == again["best"]["cuts"]
+    if not (same_best and sigma_gap <= 0 and roc_gap <= 1e-4 and repeat_gap <= 1e-4):
+        raise AssertionError(f"aae scan (2-D {scan_2d}) card against CPU: best cut "
+                             f"{scan['best']} / {again['best']} / {on_cpu['best']} (CLI run, "
+                             f"card, CPU), loc sigma over rtol {rtol} / atol {atol} by "
+                             f"{sigma_gap:.3g}, ROC rates (percent) {roc_gap:.3g}, the CLI's "
+                             f"run's efficiencies {repeat_gap:.3g} from the card's again")
+    data_mat, bkg_mat = scan["hists"]
+    widths, steps = bump._WIDTHS, bump._STEPS
+    dm, bm = (torch.as_tensor(m, dtype=torch.float32, device=device) for m in (data_mat, bkg_mat))
+    local = lambda: batched_local_sigma(dm, bm, widths, steps, device=device)
+    local_ms = time_ms(local, iters=5, warmup=1)
+    n_launch, busy = launches_and_busy(local)
+    rows, cols = data_mat.shape
+    n_win = sum(valid_windows(b, widths, steps) for b in bkg_mat)
+    n_bins = int((bkg_mat > 0).sum())
+    local_bytes = 2 * rows * cols * 4 + rows * (4 + 8 + 8) + rows * cols * 4
+    (local_bound, local_by), flop = bound_scan(n_win, n_bins, local_bytes)
+    return dict(matrix=[rows, cols], ms=local_ms, launches=n_launch, busy_ms=busy,
+                windows=n_win, bins=n_bins, flop=flop, bound_ms=local_bound, bound_by=local_by,
+                sigma_excess_over_bar=sigma_gap, roc_gap_percent=roc_gap,
+                repeat_eff_gap_percent=repeat_gap)
+
+
+def phase_aae(device, workdir, data_dir):
+    """The OE-AAE through its CLI: one GAN cycle at the reference's width,
+    timed and profiled; the card against the CPU on a 10,000-jet slice;
+    the evaluation's numbers (cli/aae.py::_signal_numbers, 1-D and 2-D
+    scans) against the CPU; cli/score.py --model_type aae against the CPU."""
+    import pickle
+    import numpy as np
+    import torch
+    from atlasvae_torch.cli import aae as cli_aae, score
+    from atlasvae_torch.data import HLV_LIST, hdf5
+    from atlasvae_torch.eval.roc import get_rates, _trapezoid
+    from atlasvae_torch.models import AAEConfig, init_aae
+    from atlasvae_torch.train import aae_loop
+    from atlasvae_torch.train.checkpoint import load_pytree
+
+    os.environ["ATLASVAE_DATA_DIR"] = data_dir
+    out_dir = os.path.join(workdir, "out")
+    argv = AAE_ARGS + ["--output_dir", out_dir, "--device", str(device)]
+    cpu = torch.device("cpu")
+    quiet = lambda: contextlib.redirect_stdout(io.StringIO())
+
+    # 1. training through the CLI, then the same load timed and profiled
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_aae.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = counters()
+    with open(os.path.join(out_dir, "history.pkl"), "rb") as f:
+        history = pickle.load(f)
+    sizes = {k: len(v) for k, v in history.items()}
+    finite = all(np.isfinite([e[2] for e in v]).all() for v in history.values())
+    if any(launches.values()) or sizes["QCD-AE Loss"] != 105 or sizes["Disc Loss"] != 10 \
+            or not finite:
+        raise AssertionError(f"aae: launches {launches} (the AAE runs no kernel of ours), "
+                             f"history sizes {sizes}, finite {finite}")
+    config = AAEConfig(input_dim=len(HLV_LIST), ae_layers=(100, 100, 100))
+    model_path = os.path.join(out_dir, "AAE.npz")
+    trained = load_pytree(model_path, init_aae(torch.Generator().manual_seed(0), config,
+                                               device=device))
+    log("aae", cli_s=f"{cli_s:.3f}", launches=json.dumps(launches), history_sizes=json.dumps(sizes),
+        last=json.dumps({k: v[-1][2] for k, v in history.items() if v}))
+
+    parsed = cli_aae.build_parser().parse_args(argv)
+    cli_aae._wire_paths(parsed)
+    with quiet():
+        train_gen, _, _ = cli_aae._make_generator(parsed, list(HLV_LIST), cli_aae.CUTS, None, None)
+        load = train_gen[0]
+    jets = len(load[0]["weights"])
+    fresh = lambda dev: init_aae(torch.Generator().manual_seed(0), config, device=dev)
+    timed_dir = os.path.join(workdir, "timed")
+    os.makedirs(timed_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with quiet():
+        aae_loop.train_aae(fresh(device), [load], 1, AAE_BATCH, timed_dir, hist_file="",
+                           model_out="", lamb=1.0, beta=1.0, lr=parsed.lr)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    batches = aae_loop.pack_load(load, AAE_BATCH, device)
+    n_batches = batches[0].shape[0]
+    ae, disc = aae_loop.gan_states(fresh(device), device)
+    fns = aae_loop.make_aae_step_fns(1.0, 1.0, lr=parsed.lr)
+    perm = np.arange(n_batches)
+    step_ms = {}
+    for name, fn in zip(("AE", "Disc", "AAE"), fns):
+        fn(ae, disc, perm, batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn(ae, disc, perm, batches)
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - t0) * 1e3 / (2 * n_batches)
+    idle, _, _ = profile_slice(lambda: (fns[0](ae, disc, perm, batches), torch.cuda.synchronize()),
+                               phase="aae profile")
+
+    # 2. card against CPU: the whole schedule on a 10,000-jet slice
+    part = tuple({k: v[:AAE_PARITY_JETS] for k, v in s.items()} for s in load)
+    hists = {}
+    for side, dev in (("card", device), ("cpu", cpu)):
+        with quiet():
+            _, hists[side] = aae_loop.train_aae(fresh(dev), [part], 1, AAE_BATCH, timed_dir,
+                                                    hist_file="", model_out="", lamb=1.0,
+                                                    beta=1.0, lr=parsed.lr)
+    w = aae_loop.pack_load(part, AAE_BATCH, cpu)
+    share = float(max(w[2].max(), w[3].max()) / (2 * w[2].sum(1) + w[3].sum(1)).min())
+    loss_rel = max(float(np.max(np.abs(np.subtract([e[2] for e in hists["card"][k]],
+                                                   [e[2] for e in hists["cpu"][k]]))
+                                / np.abs([e[2] for e in hists["cpu"][k]])))
+                   for k in hists["cpu"] if hists["cpu"][k] and k != "Disc Accuracy")
+    acc_gap = max(abs(a[2] - b[2]) for a, b in zip(hists["card"]["Disc Accuracy"],
+                                                   hists["cpu"]["Disc Accuracy"]))
+    if loss_rel > AAE_REL_TOL or acc_gap > share * (1 + 1e-6):
+        raise AssertionError(f"aae training, card against CPU: loss series {loss_rel:.3g} "
+                             f"(bar {AAE_REL_TOL}), Disc Accuracy {acc_gap:.3g} (bar one jet's "
+                             f"weight share, {share:.3g})")
+    log("aae", jets_per_epoch=jets, steps_per_epoch=n_batches, steps=AAE_EPOCHS * n_batches,
+        warm_train_s=f"{warm_s:.3f}", train_jets_per_s=f"{AAE_EPOCHS * jets / warm_s:.0f}",
+        ms_per_step=json.dumps({k: round(v, 4) for k, v in step_ms.items()}),
+        ae_epoch_idle_share=f"{idle:.4f}", card_vs_cpu_loss_rel=f"{loss_rel:.3g}",
+        card_vs_cpu_disc_accuracy=f"{acc_gap:.3g}", one_jet_share=f"{share:.3g}")
+
+    # 3. the evaluation's numbers, both scans, through the CLI's own function
+    eval_args = cli_aae.build_parser().parse_args([])
+    eval_args.n_valid = eval_args.n_sig = AAE_EVENTS
+    facts = {}
+    for scan_2d in (False, True):
+        eval_args.scan_2d = "ON" if scan_2d else "OFF"
+        reset_counters()
+        t0 = time.perf_counter()
+        with quiet():
+            numbers = cli_aae._signal_numbers(eval_args, trained, "top-Geneva", list(HLV_LIST),
+                                              cli_aae.CUTS, None, None, device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if any(counters().values()) or numbers["scan"] is None:
+            raise AssertionError(f"aae evaluation: launches {counters()}, scan {numbers['scan']}")
+        check = _aae_scan_check(numbers, scan_2d, device)
+        scan, y_true = numbers["scan"], numbers["y_true"]
+        auc = {k: round(float(_trapezoid(r[1], r[0]) / 1e4), 6) for k, r in
+               ((k, get_rates(y_true, v, numbers["sample"]["weights"], device=device))
+                for k, v in numbers["x_loss"].items())}
+        name = "scan_2d" if scan_2d else "scan"
+        facts[name] = check
+        log("aae", evaluate=name, events=len(y_true), signal=int((y_true == 0).sum()),
+            wall_ms=f"{wall_ms:.1f}",
+            steps_ms=json.dumps({k: round(v, 3) for k, v in numbers["wall_ms"].items()}),
+            best=json.dumps({"cuts": {k: float(v) for k, v in scan["best"]["cuts"].items()},
+                             "sig_eff": float(scan["best"]["sig_eff"]),
+                             "bkg_eff": float(scan["best"]["bkg_eff"])}),
+            loc_sigma_max=f"{float(np.nanmax(scan['loc_sigma'])):.6g}",
+            hunter_loc_sigma=json.dumps([float(h["loc_sigma"]) for h in scan["hunters"]]),
+            auc=json.dumps(auc),
+            **{k: (json.dumps(v) if isinstance(v, list) else
+                   f"{v:.6g}" if isinstance(v, float) else v) for k, v in check.items()})
+
+    # 4. cli/score.py --model_type aae on the trained checkpoint
+    scores, rate = {}, None
+    for side, dev in (("card", device), ("cpu", cpu)):
+        path = os.path.join(workdir, f"scores_{side}.h5")
+        reset_counters()
+        t0 = time.perf_counter()
+        with quiet():
+            score.main(["--data", "QCD-Geneva", "--model_in", model_path, "--model_type", "aae",
+                        "--chunk", str(SLICE_CHUNK), "--output", path, "--device", str(dev)])
+        if side == "card":
+            torch.cuda.synchronize()
+            rate = AAE_EVENTS / (time.perf_counter() - t0)
+            if any(counters().values()):
+                raise AssertionError(f"cli/score.py --model_type aae launched {counters()}")
+        with hdf5.File(path, "r") as f:
+            scores[side] = {k: f[k][:] for k in f}
+    gaps = {k: float(np.max(np.abs(v - scores["cpu"][k])
+                            - (AAE_SCORE_TOL + AAE_SCORE_TOL * np.abs(scores["cpu"][k]))))
+            for k, v in scores["card"].items()}
+    rows = {k: len(v) for k, v in scores["card"].items()}
+    if max(gaps.values()) > 0 or set(rows.values()) != {AAE_EVENTS} or \
+            not all(np.isfinite(v).all() for v in scores["card"].values()):
+        raise AssertionError(f"aae scores, card against CPU: excess over rtol/atol "
+                             f"{AAE_SCORE_TOL} {gaps}, rows {rows}")
+    log("aae", score="--model_type aae", jets_per_s=f"{rate:.0f}",
+        excess_over_bar=json.dumps({k: round(v, 8) for k, v in gaps.items()}))
+    return launches, dict(train_jets_per_s=AAE_EPOCHS * jets / warm_s, ms_per_step=step_ms,
+                          idle_share=idle, score_jets_per_s=rate, **facts)
+
+
+def feature_removal_run(device, workdir, data_dir):
+    """cli/jetid.py --NN_type FCN --feature_removal ON on the card: the
+    ranking of every HLV.  The FCN runs no kernel of ours (cuBLAS dense
+    layers), so every counter stays 0."""
+    from atlasvae_torch.cli import jetid as cli_jetid
+    from atlasvae_torch.data import HLV_LIST
+    os.environ["ATLASVAE_DATA_DIR"] = data_dir
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        cli_jetid.main(FEATURE_REMOVAL_ARGS + ["--output_dir", workdir, "--device", str(device)])
+    wall_s = time.perf_counter() - t0
+    ranking = printed.getvalue().split("FEATURE-ABLATION RANKING (accuracy drop when "
+                                       "removed):\n")[-1].splitlines()[:len(HLV_LIST)]
+    rows = [line.split() for line in ranking]
+    if any(counters().values()) or sorted(r[0] for r in rows if r) != sorted(HLV_LIST):
+        raise AssertionError(f"--feature_removal ON: launches {counters()}, ranking {ranking}")
+    log("feature_removal", cli_s=f"{wall_s:.3f}",
+        ranking=json.dumps({r[0]: float(r[1]) for r in rows}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2280,6 +2594,8 @@ def main():
                              for form, facts in (("float32", jetid_facts),
                                                  ("bfloat16", bf16_facts))})
         jetid_stream(device, os.path.join(workdir, "jetid_stream"), jetid_data)
+        feature_removal_run(device, os.path.join(workdir, "feature_removal"), jetid_data)
+        aae_launches, aae_facts = phase_aae(device, os.path.join(workdir, "aae"), workdir)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2287,7 +2603,8 @@ def main():
         by_phase = {"slice": slice_launches[name], "evaluate": eval_launches[name],
                     "train": train_launches[name],
                     "const_train": const_launches[name], "emd_slice": emd_launches[name],
-                    "jetid": jetid_launches[name], "jetid_bf16": bf16_launches[name]}
+                    "jetid": jetid_launches[name], "jetid_bf16": bf16_launches[name],
+                    "aae": aae_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -2306,7 +2623,10 @@ def main():
         jetid_bf16_train_jets_per_s=f"{bf16_facts['warm_jets_per_s']:.0f}",
         jetid_bf16_predict_jets_per_s=f"{bf16_facts['predict_jets_per_s']:.0f}",
         evaluate_bump_hunter_scan_ms=f"{eval_facts['scan_ms']:.4f}",
-        evaluate_cut_scan_ms=f"{eval_facts['local_ms']:.4f}")
+        evaluate_cut_scan_ms=f"{eval_facts['local_ms']:.4f}",
+        aae_train_jets_per_s=f"{aae_facts['train_jets_per_s']:.0f}",
+        aae_score_jets_per_s=f"{aae_facts['score_jets_per_s']:.0f}",
+        aae_scan_2d_ms=f"{aae_facts['scan_2d']['ms']:.4f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -210,7 +210,6 @@ def test_resume_from_the_state_file_trains_on(trained, capsys):
 @pytest.mark.parametrize("extra,item", [
     (["--n_folds", "3"], "item 10"),
     (["--vmap_folds", "ON"], "item 10"),
-    (["--feature_removal", "ON"], "item 9"),
     (["--n_devices", "2"], "item 11"),
     (["--n_gpus", "4"], "item 11"),
     (["--model_in", "weights.h5"], "item 10"),
@@ -441,3 +440,31 @@ def test_generator_takes_no_cnn(synth_dir, tmp_path):
     with pytest.raises(SystemExit, match="no k-fold CV / feature removal / CNN images"):
         cli.main(_argv("CNN-AUTO") + ["--generator", "ON", "--output_dir", str(tmp_path),
                                       "--device", "cpu"])
+
+
+def test_generator_takes_no_feature_removal(synth_dir, tmp_path):
+    """Both CLIs exit on --generator ON --feature_removal ON before any load."""
+    _register(synth_dir)
+    argv = _argv("FCN") + ["--generator", "ON", "--feature_removal", "ON", "--bkg_data",
+                           "no-such-sample"]
+    for side, main, extra in (("port", cli.main, ["--device", "cpu"]),
+                              ("jax", jax_jetid_cli.main, [])):
+        with pytest.raises(SystemExit, match="no k-fold CV / feature removal / CNN images"):
+            main(argv + ["--output_dir", str(tmp_path / side)] + extra)
+
+
+def test_feature_removal_prints_the_ranking_of_every_hlv(synth_dir, tmp_path, capsys):
+    """--feature_removal ON retrains without each HLV column (2 epochs here,
+    max(2, n_epochs // 4)) and prints every HLV once, largest drop first;
+    the run then ends with its report."""
+    from atlasvae_torch.data import HLV_LIST
+    _register(synth_dir)
+    assert cli.main(_argv("FCN") + ["--feature_removal", "ON", "--n_epochs", "2",
+                                    "--output_dir", str(tmp_path), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    ranking = out.split("FEATURE-ABLATION RANKING (accuracy drop when removed):\n")[1]
+    rows = [line.split() for line in ranking.splitlines()[:len(HLV_LIST)]]
+    assert sorted(name for name, _, _ in rows) == sorted(HLV_LIST)
+    drops = [float(drop) for _, drop, _ in rows]
+    assert drops == sorted(drops, reverse=True) and all(unit == "%" for _, _, unit in rows)
+    _report(out)

@@ -20,7 +20,10 @@ for name in ("atlasvae_torch.plotting.performance", "atlasvae_torch.cli.jetid",
              "atlasvae_torch.ops.fused_conv_cuda", "atlasvae_torch.ops.pooling",
              "atlasvae_torch.ops.gammainc", "atlasvae_torch.stats.bumphunter",
              "atlasvae_torch.stats.deprecation", "atlasvae_torch.stats.fit",
-             "atlasvae_torch.eval.deco", "atlasvae_torch.eval.bump"):
+             "atlasvae_torch.eval.deco", "atlasvae_torch.eval.bump",
+             "atlasvae_torch.models.aae", "atlasvae_torch.train.aae_loop",
+             "atlasvae_torch.eval.aae_eval", "atlasvae_torch.plotting.aae_plots",
+             "atlasvae_torch.cli.aae"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "atlasvae", "matplotlib"))

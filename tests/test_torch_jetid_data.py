@@ -5,7 +5,8 @@ atlasvae_torch against the JAX package's.
 ``upsampling`` and ``downsampling`` are host numpy in both packages: the same
 sample gives the same weights and bins, and the same seed the same picked
 indices, bit for bit.  ``index_ranges`` cuts ``cli/jetid.py --generator
-ON``'s chunks; ``merge_samples`` and ``split_sample`` are library parity (no
+ON``'s chunks; ``multi_cuts`` and ``_blank_column`` (``feature_removal``'s
+column blanking) are exact; ``merge_samples`` and ``split_sample`` are library parity (no
 CLI of either package calls them): ranges and splits are exact; a merged sample, read through ``data/hdf5.py`` and prepared by the
 port's ``load_data``, is held to ``load_data``'s bar of rtol 1e-6 (constituent
 sums in torch; tests/test_torch_data.py).
@@ -146,3 +147,24 @@ def test_split_sample_matches_jax(rng):
     bkg, sig = loader.split_sample(sample)
     assert (sig["JZW"] == -1).all() and (bkg["JZW"] != -1).all()
     assert len(sig["pt"]) + len(bkg["pt"]) == n
+
+
+@pytest.mark.parametrize("multi", [True, False])
+@pytest.mark.parametrize("n_classes", [2, 3])
+def test_multi_cuts_match_jax(rng, n_classes, multi):
+    labels = rng.integers(0, n_classes, 2000)
+    probs = rng.dirichlet(np.ones(n_classes), 2000).astype(np.float32)
+    got = jetid_eval.multi_cuts(labels, probs, step=0.2, multi=multi)
+    want = jax_eval.multi_cuts(labels, probs, step=0.2, multi=multi)
+    assert got.shape == want.shape == (5 ** (n_classes - multi), n_classes + 1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_blank_column_matches_jax(rng):
+    inputs = {"HLVs": rng.normal(size=(50, 3)).astype(np.float32),
+              "constituents": rng.normal(size=(50, 6)).astype(np.float64)}
+    for i in range(4):
+        got, want = jetid_eval._blank_column(inputs, i), jax_eval._blank_column(inputs, i)
+        _equal_samples(got, want)
+        assert all(v.dtype == np.float32 for v in got.values())
+    assert inputs["HLVs"][:, 0].any()     # the caller's arrays are left as they were

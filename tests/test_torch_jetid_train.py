@@ -404,3 +404,45 @@ def test_bf16_state_file_resume_equals_an_uninterrupted_run(tmp_path):
     assert first_hist["val_loss"] + second_hist["val_loss"] == whole_hist["val_loss"]
     assert all(torch.equal(a, b) for a, b in zip(tree_flatten(resumed), tree_flatten(whole)))
     assert all(leaf.dtype == torch.float32 for leaf in tree_flatten(resumed))
+
+
+def test_feature_removal_matches_jax(monkeypatch):
+    """The ablation on a 3-HLV FCN (2 epochs, dropout 0), each lane from the
+    JAX package's weights for its index: every lane's validation accuracy
+    within one validation jet of JAX's (measured: equal), so each drop within
+    two.  ``vmapped=True`` waits for item 10."""
+    kwargs = dict(n_classes=2, scalars=("HLVs",), scalar_dims=(3,), nn_type="FCN",
+                  fcn_neurons=(12, 8), branch_neurons=(8,), dropout=0.0, l2=1e-4)
+    jcfg, cfg = jax_jetid.JetIDConfig(**kwargs), jetid.JetIDConfig(**kwargs)
+    rng = np.random.default_rng(11)
+
+    def sample(n):
+        labels = rng.integers(0, 2, n)
+        hlvs = rng.normal(size=(n, 3)) + np.array([0.9, 0.3, 0.0]) * (1.0 - 2.0 * labels)[:, None]
+        return {"HLVs": hlvs.astype(np.float32)}, labels
+
+    (inputs, labels), (v_inputs, v_labels) = sample(300), sample(200)
+    names = ["m", "pt", "tau21"]
+    accs = {}
+    for side, module in (("port", jetid_eval), ("jax", jax_eval)):
+        seen = accs.setdefault(side, [])
+        real = module.valid_accuracy
+        monkeypatch.setattr(module, "valid_accuracy",
+                            lambda l, p, real=real, seen=seen: seen.append(real(l, p)) or seen[-1])
+    jinit = lambda i: jax_jetid.init_jetid(jax.random.PRNGKey(i), jcfg)
+    common = dict(epochs=2, batch_size=64, lr=2e-3)
+    want = jax_eval.feature_removal(jcfg, inputs, labels, v_inputs, v_labels, names, jinit,
+                                    **common)
+    got = jetid_eval.feature_removal(
+        cfg, inputs, labels, v_inputs, v_labels, names,
+        lambda i: params_from_jax(jax.tree.map(np.asarray, jinit(i)), device="cpu"), **common)
+    assert list(got) == list(want) == names
+    assert len(accs["port"]) == len(accs["jax"]) == 4
+    one_jet = 1 / len(v_labels)
+    assert_close(accs["port"], accs["jax"], "lane accuracies", atol=one_jet + 1e-12)
+    assert_close([got[n] for n in names], [want[n] for n in names], "drops",
+                 atol=2 * one_jet + 1e-12)
+    assert want["m"] > 0 and got["m"] > 0      # the informative column matters
+    with pytest.raises(NotImplementedError, match="item 10"):
+        jetid_eval.feature_removal(cfg, inputs, labels, v_inputs, v_labels, names,
+                                   lambda i: None, vmapped=True)

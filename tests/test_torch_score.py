@@ -255,8 +255,8 @@ def test_cli_without_h5py_writes_the_same_file(tmp_path, monkeypatch, model):
 
 
 def test_cli_refuses_aae_and_missing_cuda(tmp_path):
-    with pytest.raises(NotImplementedError, match="AAE"):
-        score.main(["--data", "x", "--model_in", "y", "--model_type", "aae", "--device", "cpu"])
+    """The default device is the card, with no fall-back to the CPU (the
+    AAE's scoring is held to the JAX CLI's in tests/test_torch_cli_aae.py)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             score.main(["--data", "x", "--model_in", "y"])
