@@ -23,12 +23,17 @@ package), with scalers fitted on the first chunk and the weight scheme
 computed per chunk.  ``--feature_removal ON`` (scalar branches only)
 retrains the model once without each HLV, for max(2, n_epochs // 4)
 epochs, and prints the ranking of the accuracy drops; with
-``--generator ON`` it exits, as in the JAX package.
+``--generator ON`` it exits, as in the JAX package.  ``--n_folds k`` (k > 1)
+trains k models, fold f on the events whose index is not f - 1 modulo k,
+writes ``model_<f>.npz``, and reports the merged cross-validated
+predictions of every event (``cross_valid``) as the validation result;
+``--vmap_folds ON`` trains the k folds (and the feature-removal runs)
+through ``train_kfold_vmapped``, on the JAX package's common batch grid.
 
 Not ported yet, and refused with ``NotImplementedError`` while the
 arguments are checked, before any data is loaded (ROADMAP Queue 1):
-``--n_folds`` above 1 and ``--vmap_folds ON`` (item 10), ``--n_devices``
-above 1 (item 11) and Keras ``.h5`` weights in or out (item 10).
+``--n_devices`` above 1 (item 11) and Keras ``.h5`` weights in or out
+(item 10).
 ``--plotting ON``, the default, draws the ROC curves and class
 distributions with matplotlib; where matplotlib cannot be imported it is
 refused before any data is loaded (pass ``--plotting OFF``).
@@ -54,7 +59,8 @@ def build_parser():
     parser.add_argument("--n_classes", default=2, type=int)
     parser.add_argument("--n_folds", default=1, type=int)
     parser.add_argument("--vmap_folds", default="OFF",
-                        help="ON: train all k folds as one batched program (not ported)")
+                        help="ON: train the k folds (and the feature-removal runs) "
+                             "through train_kfold_vmapped")
     parser.add_argument("--n_devices", default=0, type=int)
     parser.add_argument("--n_gpus", dest="n_devices", type=int,
                         help="reference alias of --n_devices")
@@ -161,9 +167,6 @@ def _on(v):
 def _check_supported(args):
     """Refuse, before any data is loaded, what the port does not run yet."""
     from ..train.checkpoint import is_keras_file
-    if args.n_folds > 1 or _on(args.vmap_folds):
-        raise NotImplementedError("--n_folds > 1 / --vmap_folds ON: k-fold cross-validation "
-                                  "is ported with ROADMAP Queue 1 item 10")
     if (args.n_devices or 1) > 1:
         raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
                                   "ROADMAP Queue 1 item 11")
@@ -287,7 +290,7 @@ def main(argv=None):
     first_chunk = None
     if streaming:
         # only the validation slice is held; training chunks stream per epoch
-        if _on(args.feature_removal) or args.NN_type == "CNN":
+        if args.n_folds > 1 or _on(args.feature_removal) or args.NN_type == "CNN":
             raise SystemExit("--generator ON supports the plain training path "
                              "(no k-fold CV / feature removal / CNN images)")
         chunk = int(1e9 * args.memGB / max(args.n_const * args.n_dims * 4, 1))
@@ -416,7 +419,58 @@ def main(argv=None):
 
     model_out = out_root + "/" + args.model_out
     state_file = out_root + "/" + args.state_file if args.state_file else None
-    if args.n_epochs > 0 and streaming:
+    if args.n_folds > 1:
+        # k-fold CV keyed on the event index: fold f trains on the events
+        # whose index is not f - 1 modulo k, saves model_<f>.npz, and
+        # cross_valid merges the folds' predictions
+        from ..eval.jetid_eval import compo_matrix, cross_valid
+        from ..train.checkpoint import save_pytree
+        event_number = np.arange(n)
+        fold_splits = [(np.where(event_number % args.n_folds != fold - 1)[0],
+                        np.where(event_number % args.n_folds == fold - 1)[0])
+                       for fold in range(1, args.n_folds + 1)]
+        fold_outs = [out_root + f"/model_{fold}.npz" for fold in range(1, args.n_folds + 1)]
+
+        def fold_init(fold):
+            return init_jetid(torch.Generator().manual_seed(fold), config, device=device)
+
+        def fold_weights(idx):
+            if class_weight is None:
+                return np.ones(len(idx), np.float32)
+            return np.asarray([class_weight[int(l)] for l in labels[idx]], np.float32)
+
+        if _on(args.vmap_folds):
+            from ..train.jetid_loop import train_kfold_vmapped
+            best, _ = train_kfold_vmapped(
+                [fold_init(fold) for fold in range(1, args.n_folds + 1)], config,
+                [(inputs_for(t), labels[t], fold_weights(t)) for t, _ in fold_splits],
+                [(inputs_for(v), labels[v], np.ones(len(v), np.float32)) for _, v in fold_splits],
+                args.n_epochs, args.batch_size, args.lr, args.patience, fold_outs,
+                monitor=args.metrics, verbose=bool(args.verbose))
+            print(f"{args.n_folds} folds trained through train_kfold_vmapped")
+        else:
+            best = []
+            for fold, (t_idx, v_idx) in enumerate(fold_splits, start=1):
+                fold_params, _ = train_classifier(
+                    fold_init(fold), config, inputs_for(t_idx), labels[t_idx],
+                    inputs_for(v_idx), labels[v_idx], args.n_epochs, args.batch_size, args.lr,
+                    args.patience, class_weight, None, fold_outs[fold - 1], verbose=False,
+                    monitor=args.metrics)
+                best.append(fold_params)
+                print(f"fold {fold}/{args.n_folds} trained")
+        # cross_valid loads every fold's file, written even where no epoch
+        # improved (or --n_epochs 0)
+        for path, fold_params in zip(fold_outs, best):
+            if not os.path.isfile(path):
+                save_pytree(path, fold_params)
+        cv_sample = {"eventNumber": event_number, **inputs_for(slice(None))}
+        cv_probs = cross_valid(cv_sample, labels, config, out_root, args.n_folds, params)
+        _, cv_acc = compo_matrix(labels, (), cv_probs)
+        print(f"\n{args.n_folds}-FOLD CV ACCURACY: {cv_acc:.2f} %")
+        # the cross-validated predictions are the validation result: every
+        # event scored by the fold that held it out; no single model is trained
+        valid_idx = np.arange(n)
+    elif args.n_epochs > 0 and streaming:
         from ..train.jetid_loop import train_classifier_streaming
         from ..utils.chunks import index_ranges
         # the JAX package also tunes glibc's heap for the chunk buffers here
@@ -491,12 +545,14 @@ def main(argv=None):
             labels[valid_idx], names,
             init_fn=lambda i: init_jetid(torch.Generator().manual_seed(i), config,
                                          device=device),
-            epochs=max(2, args.n_epochs // 4), batch_size=args.batch_size, lr=args.lr)
+            epochs=max(2, args.n_epochs // 4), batch_size=args.batch_size, lr=args.lr,
+            vmapped=_on(args.vmap_folds))
         print("\nFEATURE-ABLATION RANKING (accuracy drop when removed):")
         for name, drop in sorted(drops.items(), key=lambda kv: -kv[1]):
             print(f"  {name:20s} {100 * drop:+.2f} %")
 
-    probs = predict_classifier(params, config, inputs_for(valid_idx))
+    probs = cv_probs if args.n_folds > 1 else \
+        predict_classifier(params, config, inputs_for(valid_idx))
     v_labels = labels[valid_idx]
     v_view = {k: np.asarray(v)[valid_idx] for k, v in sample.items() if np.ndim(v) >= 1}
     _report_results(v_view, v_labels, probs, labels[train_idx], args, out_root, device)

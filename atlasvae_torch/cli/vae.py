@@ -19,10 +19,13 @@ whatever ``--plotting`` says.  ``--apply_cuts ON`` with ``--plotting OFF``
 predicts and filters the validation sample and draws nothing, as in the
 JAX package.
 
+``run_ensemble`` trains a same-shape hyper-parameter grid (beta, lamb,
+margin, lr, seed) as lanes of one ensemble over one data preparation
+(``train/ensemble.py``); ``cli/sweep.py --vmap ON`` drives it.
+
 Not ported yet, and refused with ``NotImplementedError`` while the
 arguments are checked, before any data is loaded: ``--n_devices`` above 1
 (ROADMAP Queue 1 item 11) and Keras ``.h5`` weights in or out (item 10).
-``run_ensemble`` waits for item 10 too.
 """
 
 import os
@@ -307,6 +310,101 @@ def main(argv=None):
     if not _on(args.plotting) and not _on(args.apply_cuts):
         return 0
     _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device)
+    return 0
+
+
+# grid axes that lanes of one ensemble can differ in (scalars and seeds);
+# anything that changes a shape or the graph stays a sequential group
+VMAPPABLE = ("beta", "lamb", "margin", "lr", "seed")
+_VM_COERCE = {"beta": float, "lamb": float, "margin": float, "lr": float, "seed": int}
+
+
+def _grid_configs(passthrough, names, value_rows, output_dirs):
+    """Parse the shared argv into per-config args with wired paths.
+
+    Every config is checked before anything is loaded.  Sample selection
+    runs once, on the lead config; its resolved ``[start, stop]`` train and
+    valid windows are then copied to the other configs (copying the raw
+    scalars would make them resolve ``n_valid`` as ``(0, n)`` in the
+    evaluation, the training region: a bug the JAX package once had).
+    Returns (configs, out_roots, selection) with ``selection = (hlv_list,
+    input_dim, train_cuts, valid_cuts)``.
+    """
+    assert set(names) <= set(VMAPPABLE), names
+    parser = build_parser()
+    configs = []
+    for row, out_dir in zip(value_rows, output_dirs):
+        args = parser.parse_args(list(passthrough))
+        for name, value in zip(names, row):
+            setattr(args, name, _VM_COERCE[name](value))
+        args.output_dir = out_dir
+        _check_supported(args, out_dir)
+        configs.append(args)
+    lead = configs[0]
+    out_roots = [_wire_paths(a) for a in configs]
+    selection = _select_samples(lead)
+    for args in configs[1:]:
+        args.n_train, args.n_valid = lead.n_train, lead.n_valid
+    return configs, out_roots, selection
+
+
+def run_ensemble(passthrough, names, value_rows, output_dirs):
+    """Train a same-shape hyper-parameter grid as the lanes of one ensemble.
+
+    ``passthrough``: the shared CLI argv; ``names``: the grid axes (a subset
+    of VMAPPABLE); ``value_rows``: one tuple of values a config;
+    ``output_dirs``: each config's output root, where its weights, history
+    and plots land as a sequential sweep's would.  The data preparation
+    (scaler fit, OoD load, pairing, reweighting) runs once, on the lead
+    config's arguments, which every config shares outside the grid axes.
+    """
+    from .. import resolve_device
+    from ..utils.logging import args_banner
+    from ..data.scalers import Scaler
+    from ..models import VAEConfig, init_vae
+    from ..train import load_pytree
+    from ..train.ensemble import train_ensemble, stack_trees, tree_slice
+
+    configs, out_roots, (hlv_list, input_dim, train_cuts, valid_cuts) = \
+        _grid_configs(passthrough, names, value_rows, output_dirs)
+    lead, out_root = configs[0], out_roots[0]
+    device = resolve_device(lead.device)
+    print("\nPROGRAM ARGUMENTS (ensemble lead):\n" + args_banner(lead))
+    const_scaler = hlv_scaler = None
+    if lead.const_scaler_type and os.path.isfile(lead.const_scaler_in):
+        const_scaler = Scaler.load(lead.const_scaler_in)
+    if lead.HLV_scaler_type and os.path.isfile(lead.HLV_scaler_in):
+        hlv_scaler = Scaler.load(lead.HLV_scaler_in)
+
+    config = VAEConfig(fc_layers=tuple(lead.FC_layers), input_dim=input_dim)
+    lanes = []
+    for args, root in zip(configs, out_roots):
+        params = init_vae(torch.Generator(device).manual_seed(args.seed), config, device=device)
+        if args.model_in != root + "/" and os.path.isfile(args.model_in):
+            print("\nLoading pre-trained weights from: " + args.model_in)
+            params = load_pytree(args.model_in, params)
+        lanes.append(params)
+    stacked = stack_trees(lanes)
+
+    if lead.n_epochs > 0:
+        train_gen, valid_gen, const_scaler, hlv_scaler = _make_generators(
+            lead, hlv_list, train_cuts, const_scaler, hlv_scaler)
+        hyper = tuple(np.array([getattr(a, k) for a in configs], np.float32)
+                      for k in ("beta", "lamb", "margin"))
+        stacked, _ = train_ensemble(
+            stacked, hyper, train_gen, valid_gen, lead.OE_type, lead.n_epochs,
+            lead.batch_size, lr=[a.lr for a in configs],
+            hist_files=[a.hist_file for a in configs],
+            model_outs=[a.model_out for a in configs], seeds=[a.seed for a in configs],
+            state_file=out_root + "/" + lead.state_file if lead.state_file else None)
+
+    for g, args in enumerate(configs):
+        params = tree_slice(stacked, g)
+        if os.path.isfile(args.model_out):
+            params = load_pytree(args.model_out, params)
+        if _on(args.plotting) or _on(args.apply_cuts):
+            print(f"\n===== ENSEMBLE EVAL {g}: {args.output_dir} =====")
+            _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device)
     return 0
 
 

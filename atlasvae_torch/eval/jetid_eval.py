@@ -1,17 +1,16 @@
 """jet-ID evaluation on the host: labels, class and sample weights,
-up/down-sampling, composition matrix, discriminant, multi-threshold
-scans and the feature-ablation ranking.
+up/down-sampling, composition matrix, k-fold prediction merge,
+discriminant, multi-threshold scans and the feature-ablation ranking.
 
 Copies of ``make_labels``, ``get_class_weight``, ``get_sample_weights``,
 ``upsampling``, ``downsampling``, ``valid_accuracy``, ``compo_matrix``,
-``discriminant``, ``multi_cuts`` and ``feature_removal`` of
+``cross_valid``, ``discriminant``, ``multi_cuts`` and ``feature_removal`` of
 ``atlasvae/eval/jetid_eval.py`` (numpy on the host; the draws come from
 ``np.random.default_rng(seed)``, so the picks are the JAX package's
-indices; ``feature_removal`` retrains through ``train/jetid_loop.py`` on
-the device its initial weights lie on).  ``upsampling``, ``downsampling``
-and ``multi_cuts`` have no caller in either package's CLI: they are kept
-for library parity.  k-fold ``cross_valid`` and ``feature_removal``'s
-``vmapped=True`` wait for ROADMAP Queue 1 item 10.
+indices; ``cross_valid`` predicts and ``feature_removal`` retrains through
+``train/jetid_loop.py`` on the device the weights lie on).  ``upsampling``,
+``downsampling`` and ``multi_cuts`` have no caller in either package's
+CLI: they are kept for library parity.
 """
 
 import itertools
@@ -186,6 +185,40 @@ def compo_matrix(valid_labels, train_labels=(), valid_probs=None):
     return matrix, accuracy
 
 
+def cross_valid(valid_sample, valid_labels, config, output_dir, n_folds, params_template,
+                scalers=None):
+    """k-fold prediction merge keyed on ``eventNumber % n_folds``: each event
+    is scored by ``model_<fold>.npz``, the fold that held it out (the
+    reference returns an undefined name here; the merged probabilities are
+    returned).  The probabilities are as wide as ``config.n_classes``, not
+    as the labels present, and -1.0 where no fold scored an event;
+    ``scalers``: optional {fold: HLV scaler} applied to the scalar branches.
+    Predicts on the device of ``params_template``."""
+    from ..data.scalers import apply_scaler
+    from ..train.checkpoint import load_pytree, tree_flatten
+    from ..train.jetid_loop import predict_classifier
+
+    device = tree_flatten(params_template)[0].device
+    valid_probs = np.full(valid_labels.shape + (config.n_classes,), -1.0)
+    event_number = np.asarray(valid_sample["eventNumber"])
+    for fold in range(1, n_folds + 1):
+        mask = event_number % n_folds == fold - 1
+        sample = {k: v[mask] for k, v in valid_sample.items()}
+        params = load_pytree(f"{output_dir}/model_{fold}.npz", params_template)
+        if scalers and scalers.get(fold) is not None:
+            for key in sample:
+                if key in config.scalars:
+                    sample[key] = apply_scaler(sample[key], scaler=scalers[fold],
+                                               verbose=False, device=device)
+        inputs = {k: sample[k] for k in list(config.scalars) + list(config.images)
+                  + (["constituents"] if config.constituent_dim else [])}
+        probs = predict_classifier(params, config, inputs)
+        valid_probs[mask] = probs
+        print(f"FOLD {fold}/{n_folds} ACCURACY: "
+              f"{100 * valid_accuracy(valid_labels[mask], probs):.2f} %")
+    return valid_probs
+
+
 def discriminant(sample, labels, probs, sig_list=(0,), bkg="bkg"):
     """Multi-class -> binary discriminant combination."""
     labels = np.asarray(labels)
@@ -246,11 +279,27 @@ def feature_removal(config, inputs, labels, valid_inputs, valid_labels, features
     and compare the validation accuracy with the baseline's.  Scalars
     only; ``init_fn(i)`` gives lane i's initial weights (lane 0 the
     baseline, lane 1 + i the run without feature i).  Returns {feature:
-    accuracy drop}."""
-    from ..train.jetid_loop import predict_classifier, train_classifier
+    accuracy drop}.
+
+    ``vmapped=True`` trains the F + 1 runs through one
+    ``train_kfold_vmapped`` call (the same model, each lane its own blanked
+    data), which equals the sequential runs wherever they pack their
+    batches alike (``batch_size`` at most the sample's size)."""
+    from ..train.jetid_loop import predict_classifier, train_classifier, train_kfold_vmapped
     if vmapped:
-        raise NotImplementedError("feature_removal(vmapped=True) trains the lanes with "
-                                  "train_kfold_vmapped, ported with ROADMAP Queue 1 item 10")
+        ones_t = np.ones(len(labels), np.float32)
+        ones_v = np.ones(len(valid_labels), np.float32)
+        lanes = [dict(inputs)] + [_blank_column(inputs, i) for i in range(len(features))]
+        v_lanes = [dict(valid_inputs)] + [_blank_column(valid_inputs, i)
+                                          for i in range(len(features))]
+        best, _ = train_kfold_vmapped(
+            [init_fn(i) for i in range(len(lanes))], config,
+            [(lane, labels, ones_t) for lane in lanes],
+            [(lane, valid_labels, ones_v) for lane in v_lanes], epochs, batch_size, lr,
+            verbose=False)
+        accs = [valid_accuracy(valid_labels, predict_classifier(p, config, v))
+                for p, v in zip(best, v_lanes)]
+        return {f: accs[0] - accs[1 + i] for i, f in enumerate(features)}
     base_params, _ = train_classifier(init_fn(0), config, inputs, labels, valid_inputs,
                                       valid_labels, epochs, batch_size, lr, verbose=False)
     base_acc = valid_accuracy(valid_labels, predict_classifier(base_params, config,

@@ -23,8 +23,13 @@ Counterpart of ``atlasvae/train/jetid_loop.py``:
 A load is packed on the host into (n_batches, batch, ...) arrays with
 zero-weight tail padding and kept on the device across epochs
 (``LoadCache``).  Dropout masks come from one ``torch.Generator`` on the
-training device, seeded with ``seed``.  Not ported yet: the data-parallel
-``mesh``, the masked and fold-vmapped epochs and ``train_kfold_vmapped``.
+training device, seeded with ``seed``.
+
+``train_kfold_vmapped`` keeps the JAX package's signature for its
+fold-vmapped program and runs the folds (or feature-removal lanes) one
+after another through ``train_classifier_streaming`` on that program's
+batch grid.  Not ported yet: the data-parallel ``mesh`` (ROADMAP Queue 1
+item 11).
 """
 
 import contextlib
@@ -273,6 +278,45 @@ def train_classifier_streaming(params, config, load_iter_fn, valid_inputs, valid
                 print("Early stopping — restoring best weights")
             break
     return best_params, history
+
+
+def train_kfold_vmapped(params_list, config, fold_loads, fold_valids, epochs=100,
+                        batch_size=5000, lr=1e-3, patience=10, model_outs=None, seed=0,
+                        verbose=True, min_delta=1e-6, monitor="val_loss"):
+    """Train k folds, each on its own (inputs, labels, weights) sample in
+    ``fold_loads`` and validated on its own in ``fold_valids``; returns
+    (best params a fold, histories).
+
+    The JAX package trains the folds as one vmapped program on a common
+    batch grid.  Here each fold is one ``train_classifier_streaming`` run,
+    fold after fold, with that grid's batch size ``bs = min(batch_size,
+    n_max)`` over the largest fold, every fold's dropout seeded with
+    ``seed``, and the Keras-callback semantics a fold (best checkpoint in
+    ``model_outs``, lr x 0.5 after 5 waits, early stop).  The folds share no
+    data, so batching them buys nothing here.  A fold's batches are its own
+    ``ceil(n / bs)``: the all-padding tail batches that the JAX package masks
+    into bit-exact no-ops are not built, and a stopped fold takes no further
+    step (the JAX package's freeze at lr=0).  Unlike the JAX package, a
+    non-finite training metric ends only the fold that met it, and the
+    validation is unweighted, as ``train_classifier``'s: the weights of
+    ``fold_valids`` must be ones (every caller's are).
+    """
+    if any(not np.all(np.asarray(w) == 1) for _, _, w in fold_valids):
+        raise ValueError("train_kfold_vmapped validates unweighted: fold_valids' weights "
+                         "must be ones")
+    bs = min(int(batch_size), max(len(labels) for _, labels, _ in fold_loads))
+    best, histories = [], []
+    for f, (params, (inputs, labels, weights), (v_inputs, v_labels, _)) in enumerate(
+            zip(params_list, fold_loads, fold_valids)):
+        if verbose:
+            print(f"Fold {f + 1}/{len(fold_loads)}:")
+        fold_best, history = train_classifier_streaming(
+            params, config, lambda load=(inputs, labels, weights): [load], v_inputs, v_labels,
+            epochs, bs, lr, patience, model_outs[f] if model_outs else None, seed, verbose,
+            min_delta, monitor=monitor)
+        best.append(fold_best)
+        histories.append(history)
+    return best, histories
 
 
 def predict_classifier(params, config, inputs, batch_size=20_000):

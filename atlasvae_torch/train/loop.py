@@ -11,6 +11,9 @@ Counterpart of ``atlasvae/train/loop.py``, same control flow:
 * ``state_file``: params, Adam moments and count, lr, plateau count and the
   noise generator's state, written every epoch and resumed bit for bit.
 
+``train_lanes`` is the epoch loop; ``train_model`` runs it on one lane and
+``train/ensemble.py`` on G lanes that share every load's device batches.
+
 The reparameterization noise comes from one ``torch.Generator`` on the
 training device, seeded with ``seed``.
 """
@@ -21,8 +24,7 @@ import time
 import numpy as np
 import torch
 
-from .checkpoint import (save_weights, save_history, load_history, save_pytree, load_pytree,
-                         tree_flatten)
+from .checkpoint import save_weights, save_history, load_history, save_pytree, load_pytree
 from .step import make_vae_step_fns, batch_load, LoadCache, TrainState, Adam, to_device
 
 
@@ -39,11 +41,65 @@ def features(sample):
     return sample["HLVs"]
 
 
-def _state_tree(state, lr, count, generator):
-    return {"params": state.params, "adam_count": torch.tensor(state.adam.count),
-            "adam_mu": state.adam.mu, "adam_nu": state.adam.nu,
-            "lr": torch.tensor(lr, dtype=torch.float64), "count": torch.tensor(count),
-            "generator": generator.get_state()}
+def new_history(beta, lamb):
+    """An empty history with ``train_model``'s keys for these weights."""
+    history = {"MSE": []}
+    if beta != 0:
+        history["KLD"] = []
+    if lamb != 0:
+        history["OE"] = []
+    history.update({"Train loss": [], "Valid loss": []})
+    return history
+
+
+class Lane:
+    """One configuration under training: its step functions, parameters and
+    Adam (``TrainState``), lr, plateau count, noise generator, history and
+    files.  ``count`` -1 in a state tree records that the plateau schedule
+    stopped the lane."""
+
+    def __init__(self, params, oe_type, beta, lamb, margin, activation, lr, seed,
+                 hist_file=None, model_out=None, noise_source=None, tag=""):
+        self.state = TrainState(params)
+        self.device = self.state.flat.device
+        self.train_on_load, self.valid_losses = make_vae_step_fns(oe_type, beta, lamb, margin,
+                                                                  activation)
+        self.beta, self.lamb, self.lr, self.count, self.stopped = beta, lamb, float(lr), 0, False
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.history = new_history(beta, lamb)
+        self.hist_file, self.model_out, self.noise_source, self.tag = \
+            hist_file, model_out, noise_source, tag
+
+    def state_tree(self):
+        return {"params": self.state.params, "adam_count": torch.tensor(self.state.adam.count),
+                "adam_mu": self.state.adam.mu, "adam_nu": self.state.adam.nu,
+                "lr": torch.tensor(self.lr, dtype=torch.float64),
+                "count": torch.tensor(-1 if self.stopped else self.count),
+                "generator": self.generator.get_state()}
+
+    def load_state(self, saved):
+        adam = Adam(self.state.flat.numel(), self.device, int(saved["adam_count"]),
+                    saved["adam_mu"], saved["adam_nu"])
+        self.state = TrainState(saved["params"], adam)
+        self.lr, self.count = float(saved["lr"]), int(saved["count"])
+        self.stopped = self.count < 0
+        self.generator.set_state(saved["generator"])
+
+    def noise(self, phase, epoch, load_idx, batches):
+        if self.noise_source is None:
+            return None
+        return to_device(self.noise_source(phase, epoch, load_idx, *batches[0].shape[:2]),
+                         self.device)
+
+    def losses(self, sums, n_seen):
+        d = n_seen if n_seen > 0 else 1.0  # all-padding load guard
+        losses = {"MSE": sums[0] / d}
+        if self.beta != 0:
+            losses["KLD"] = sums[1] / d
+        if self.lamb != 0:
+            losses["OE"] = sums[2] / d
+        losses["Train loss"] = sums[3] / d
+        return losses
 
 
 def train_model(params, train_sample, valid_sample, oe_type="KLD", n_epochs=1,
@@ -62,103 +118,98 @@ def train_model(params, train_sample, valid_sample, oe_type="KLD", n_epochs=1,
     "train" or "valid"; it replaces the generator's draws so a run can
     share its latent draws with another framework.
     """
-    device = tree_flatten(params)[0].device
-    state = TrainState(params)
-    lr = float(lr)
-    train_on_load, valid_losses = make_vae_step_fns(oe_type, beta, lamb, margin, activation)
-
-    history = {"MSE": []}
-    if beta != 0:
-        history["KLD"] = []
-    if lamb != 0:
-        history["OE"] = []
-    history.update({"Train loss": [], "Valid loss": []})
+    lane = Lane(params, oe_type, beta, lamb, margin, activation, lr, seed, hist_file, model_out,
+                noise_source)
     resuming_state = state_file and os.path.isfile(state_file)
     if hist_file and os.path.isfile(hist_file) and \
             (resuming_state or (model_in and os.path.isfile(model_in))):
-        history = load_history(hist_file)
-
-    generator = torch.Generator(device).manual_seed(seed)
-    count = 0
+        lane.history = load_history(hist_file)
     if resuming_state:
-        saved = load_pytree(state_file, _state_tree(state, lr, count, generator))
-        adam = Adam(state.flat.numel(), device, int(saved["adam_count"]), saved["adam_mu"],
-                    saved["adam_nu"])
-        state = TrainState(saved["params"], adam)
-        lr, count = float(saved["lr"]), int(saved["count"])
-        generator.set_state(saved["generator"])
-        if count < 0:  # terminal marker written when the schedule stopped
+        lane.load_state(load_pytree(state_file, lane.state_tree()))
+        if lane.stopped:  # terminal marker written when the schedule stopped
             print(f"Training already terminated by the plateau schedule "
                   f"(state file {state_file}) — not resuming past it")
-            return state.detached(), history
+            return lane.state.detached(), lane.history
         print(f"Resuming full train state from {state_file} "
-              f"(lr={lr:g}, plateau count={count})")
-    load_cache = LoadCache(device)
+              f"(lr={lane.lr:g}, plateau count={lane.count})")
     print("STARTING TRAINING (loads/epoch: %d)" % len(train_sample))
+    train_lanes([lane], train_sample, valid_sample, n_epochs, batch_size, valid_batch_size,
+                (lambda: save_pytree(state_file, lane.state_tree())) if state_file else None)
+    return lane.state.detached(), lane.history
+
+
+def train_lanes(lanes, train_sample, valid_sample, n_epochs, batch_size,
+                valid_batch_size=int(1e6), save_state=None):
+    """The single implementation of the VAE epoch loop, over one lane
+    (``train_model``) or several (``train/ensemble.py``).  The lanes share
+    each load's device batches (one ``LoadCache``); every load is stepped
+    lane after lane, and each lane accumulates its metrics as a run of its
+    own would.  A lane the plateau schedule has stopped takes no further
+    step or validation.  ``save_state()`` runs after every epoch."""
+    load_cache = LoadCache(lanes[0].device)
     for epoch in range(n_epochs):
         start_time = time.time()
         print("\nEpoch %d/%d:" % (epoch + 1, n_epochs))
-        sums = np.zeros(4)
-        n_seen = 0.0
-        # defined before the load loop: an epoch with zero loads still
-        # finishes with zeroed metrics
-        losses = {k: 0.0 for k in history if k != "Valid loss"}
+        live = [lane for lane in lanes if not lane.stopped]
+        sums = [np.zeros(4) for _ in live]
+        n_seen = [0.0] * len(live)
         for load_idx, (bkg_sample, ood_sample) in enumerate(train_sample):
             batches = load_cache.get(
                 (bkg_sample, ood_sample), (batch_size, 1),
                 lambda: batch_load(features(bkg_sample), features(ood_sample),
                                    bkg_sample["weights"], ood_sample["weights"], batch_size))
-            noise = None
-            if noise_source is not None:
-                noise = to_device(noise_source("train", epoch, load_idx,
-                                               *batches[0].shape[:2]), device)
-            metrics = train_on_load(state, lr, generator, batches, noise).cpu().numpy()
-            sums += metrics[:, :4].sum(axis=0)
-            n_seen += metrics[:, 4].sum()
-            d = n_seen if n_seen > 0 else 1.0  # all-padding load guard
-            losses = {"MSE": sums[0] / d}
-            if beta != 0:
-                losses["KLD"] = sums[1] / d
-            if lamb != 0:
-                losses["OE"] = sums[2] / d
-            losses["Train loss"] = sums[3] / d
-            ticker = "  ".join(f"{k} = {v:4.3e}" for k, v in losses.items())
-            print(f"Batches {int(metrics[:, 4].sum() // max(batch_size, 1))}: "
-                  f"mean losses  -->  {ticker}", flush=True)
-        valid_sum, valid_n = 0.0, 0.0
+            for i, lane in enumerate(live):
+                metrics = lane.train_on_load(lane.state, lane.lr, lane.generator, batches,
+                                             lane.noise("train", epoch, load_idx, batches))
+                metrics = metrics.cpu().numpy()
+                sums[i] += metrics[:, :4].sum(axis=0)
+                n_seen[i] += metrics[:, 4].sum()
+                ticker = "  ".join(f"{k} = {v:4.3e}"
+                                   for k, v in lane.losses(sums[i], n_seen[i]).items())
+                print(f"{lane.tag}Batches {int(metrics[:, 4].sum() // max(batch_size, 1))}: "
+                      f"mean losses  -->  {ticker}", flush=True)
+        valid_sum, valid_n = [0.0] * len(live), [0.0] * len(live)
         for load_idx, (bkg_sample, ood_sample) in enumerate(valid_sample):
             vbs = min(valid_batch_size, len(bkg_sample["weights"]))
             batches = load_cache.get(
                 (bkg_sample, ood_sample), (vbs, 1),
                 lambda: batch_load(features(bkg_sample), features(ood_sample),
                                    bkg_sample["weights"], ood_sample["weights"], vbs))
-            noise = None
-            if noise_source is not None:
-                noise = to_device(noise_source("valid", epoch, load_idx,
-                                               *batches[0].shape[:2]), device)
-            metrics = valid_losses(state.params, generator, batches, noise).cpu().numpy()
-            valid_sum += metrics[:, 0].sum()
-            valid_n += metrics[:, 1].sum()
-        losses["Valid loss"] = valid_sum / max(valid_n, 1)
-        print(f"Valid loss = {losses['Valid loss']:4.3e}  "
-              f"({time.time() - start_time:.1f}s)")
-        for k in history:
-            history[k] = list(history[k]) + [float(losses[k]) if k in losses else 0.0]
-        if hist_file:
-            save_history(history, hist_file)
-        # a resumed run has prior history to compare against, so its first
-        # epoch checkpoints too (a fresh run skips epoch 0: history[:-1] is
-        # empty)
-        if epoch > 0 or len(history["Train loss"]) > 1:
-            lr, count = model_checkpoint(state.params, lr, history, model_out, count)
-        if state_file:
-            # count = -1 records termination, so a rerun does not resume
-            # training past the schedule's stop decision
-            save_pytree(state_file, _state_tree(state, lr, -1 if count is None else count,
-                                                generator))
-        if count is None:
+            for i, lane in enumerate(live):
+                metrics = lane.valid_losses(lane.state.params, lane.generator, batches,
+                                            lane.noise("valid", epoch, load_idx, batches))
+                metrics = metrics.cpu().numpy()
+                valid_sum[i] += metrics[:, 0].sum()
+                valid_n[i] += metrics[:, 1].sum()
+        for lane in lanes:
+            if lane not in live:
+                print(f"{lane.tag}[stopped]")
+        for i, lane in enumerate(live):
+            losses = lane.losses(sums[i], n_seen[i])
+            losses["Valid loss"] = valid_sum[i] / max(valid_n[i], 1)
+            print(f"{lane.tag}Valid loss = {losses['Valid loss']:4.3e}  "
+                  f"({time.time() - start_time:.1f}s)")
+            # a resumed history may carry keys this run does not produce
+            # (KLD saved with beta != 0, resumed with beta == 0): pad with 0.0
+            for k in lane.history:
+                lane.history[k] = list(lane.history[k]) + [float(losses[k]) if k in losses
+                                                           else 0.0]
+            if lane.hist_file:
+                save_history(lane.history, lane.hist_file)
+            # a resumed run has prior history to compare against, so its
+            # first epoch checkpoints too (a fresh run skips epoch 0:
+            # history[:-1] is empty)
+            if epoch > 0 or len(lane.history["Train loss"]) > 1:
+                lane.lr, count = model_checkpoint(lane.state.params, lane.lr, lane.history,
+                                                  lane.model_out, lane.count)
+                lane.stopped = count is None
+                lane.count = lane.count if count is None else count
+        if save_state:
+            # a stopped lane's count is saved as -1, so that a rerun does not
+            # resume training past the schedule's stop decision
+            save_state()
+        if all(lane.stopped for lane in lanes):
             break
-    return state.detached(), history
 
 
 def model_checkpoint(params, lr, history, model_out, count, metric="Train loss",

@@ -154,7 +154,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. feature_removal -- cli/jetid.py --NN_type FCN --feature_removal ON (2
                epochs of 1e5 jets, then the model retrained once without
                each HLV): a ranking of every HLV, no kernel of ours;
-12. aae      -- the OE-AAE at the reference's widths (AE 100/100/100,
+12. sweep    -- cli/sweep.py --entry vae --vmap ON --grid beta=0.5,2
+               lamb=1,5 with vae.sh's other flags at the canonical width on
+               the train phase's files (2 epochs of 1e5 jets in batches of
+               1e4): 4 lanes over one data preparation, the counters set to
+               0 just before; K2 and K3 on their fused bodies at the exact
+               counts (4 each a step a lane; K2 and K1 twice each in a
+               lane's validation), every lane's history and weights; then
+               the same grid with --vmap OFF, each lane's history and
+               weights equal to it bit for bit (the same kernels in the
+               same order); each run's wall seconds, jets/s a lane and data
+               preparation seconds;
+13. kfold    -- cli/jetid.py --NN_type CNN --n_folds 3 --vmap_folds ON at
+               the CLI's defaults (bf16, batch 5,000) on the jetid phase's
+               files, 2 epochs, the counters set to 0 just before: K5 and
+               K6 on their bf16 register routes at the exact counts (K5 a
+               fold-step, validation batch and cross_valid predict chunk,
+               K6 a fold-step), the fold files, the CV accuracy line and
+               valid_results.pkl; then --vmap_folds OFF, the fold weights
+               (rtol 5e-4 / atol 1e-4) and CV probabilities (rtol 2e-3 /
+               atol 2e-4) held to it; wall seconds and ms a fold-step;
+14. aae      -- the OE-AAE at the reference's widths (AE 100/100/100,
                discriminator 100/100/3) through atlasvae_torch.cli.aae: one
                GAN cycle (100 AE, 5 Disc, 5 AAE epochs of 1e5 jets in
                batches of 5,000; 2,200 steps) with the counters set to 0
@@ -169,9 +189,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                best cut, loc sigma rtol 1e-5 / atol 1e-6), the batched
                scan's CUDA-event ms, launches and bound; cli/score.py
                --model_type aae on the card and the CPU (rtol/atol 1e-4);
-13. kernels -- one JSON line with every ported kernel (K1 to K6 as two
+15. kernels -- one JSON line with every ported kernel (K1 to K6 as two
                entries each, one a route, and K5/K6's bf16 forms);
-14. last line: {"ok": true, "device": {...}}.
+16. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -398,6 +418,28 @@ AAE_SIGMA_TOL = (1e-5, 1e-6)    # loc sigma card against CPU (rtol, atol), evalu
 FEATURE_REMOVAL_ARGS = ["--NN_type", "FCN", "--mixed_precision", "OFF", "--feature_removal", "ON",
                         "--plotting", "OFF", "--synthetic", str(JETID_EVENTS), "--n_train", "1e5",
                         "--n_valid", "5e4", "--batch_size", "5e3", "--n_epochs", "2"]
+
+# The sweep (ROADMAP Queue 1 item 10): cli/sweep.py --vmap ON over a 2 x 2
+# grid of beta and lamb, the other flags vae.sh's at the canonical width, on
+# the train phase's files, 2 epochs of 1e5 jets in batches of 1e4: 4 lanes
+SWEEP_GRID = ["--grid", "beta=0.5,2", "lamb=1,5"]
+SWEEP_TAGS = ["beta0.5_lamb1", "beta0.5_lamb5", "beta2_lamb1", "beta2_lamb5"]
+SWEEP_EPOCHS = 2
+SWEEP_ARGS = ["--n_train", "1e5", "--n_valid", "5e4", "--n_OoD", "2e5", "--batch_size", "1e4",
+              "--n_epochs", str(SWEEP_EPOCHS), "--lr", "1e-3", "--OE_type", "MAE",
+              "--weight_type", "X-S", "--HLV_scaler_type", "RobustScaler", "--plotting", "OFF",
+              "--apply_cuts", "OFF"]
+# k-fold CV of the jet-ID CNN at the CLI's defaults (bf16 AUTO, 5,000-jet
+# batches) on the jetid phase's files: 3 folds, 2 epochs
+KFOLD = 3
+KFOLD_EPOCHS = 2
+KFOLD_ARGS = ["--NN_type", "CNN", "--plotting", "OFF", "--synthetic", str(JETID_EVENTS),
+              "--n_train", "6e4", "--n_valid", "3e4", "--n_epochs", str(KFOLD_EPOCHS),
+              "--n_folds", str(KFOLD)]
+# --vmap_folds ON against OFF: tests/test_ensemble.py's bars (cuDNN may pick
+# other algorithms for block 2 from run to run)
+KFOLD_WEIGHT_TOL = (5e-4, 1e-4)
+KFOLD_PROB_TOL = (2e-3, 2e-4)
 
 # Training: the canonical model with the vae.sh hyper-parameters, cut to
 # 3 epochs of 1e5 jets (200,000 synthetic events per sample).
@@ -2561,6 +2603,209 @@ def feature_removal_run(device, workdir, data_dir):
         ranking=json.dumps({r[0]: float(r[1]) for r in rows}))
 
 
+def _largest_gap(got, want, rtol, atol, what):
+    """max |got - want|; raises where it passes atol + rtol * |want|."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: shapes {got.shape} {want.shape}, largest gap "
+                             f"{np.abs(got - want).max() if got.shape == want.shape else None} "
+                             f"over rtol {rtol} / atol {atol}")
+    return float(np.abs(got - want).max()) if got.size else 0.0
+
+
+def phase_sweep(device, workdir, data_dir, train_facts):
+    """cli/sweep.py --entry vae --vmap ON over SWEEP_GRID (4 lanes of the
+    canonical model) on the train phase's files, with the counters set to 0
+    just before: K2 and K3 on their fused bodies only, 4 calls each a step
+    a lane, and K2 and K1 twice each in a lane's validation; every lane's
+    history and weights; then the same grid with --vmap OFF (one cli.vae
+    run a grid point), each lane equal to it bit for bit; wall seconds,
+    jets/s a lane and the data preparation's seconds of each run."""
+    import pickle
+    import numpy as np
+    import torch
+    from atlasvae_torch.cli import sweep, vae as cli_vae
+    from atlasvae_torch.data import ensure_synthetic_registry
+
+    ensure_synthetic_registry(data_dir, n_events=TRAIN_EVENTS, n_const_max=20,
+                              names=["QCD-Geneva", "OoD-H"], seed=0)
+    lanes = len(SWEEP_TAGS)
+    prep = []
+    make_generators = cli_vae._make_generators
+
+    def timed_prep(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = make_generators(*args, **kwargs)
+        prep.append((time.perf_counter() - t0, len(out[0]), len(out[1])))
+        return out
+
+    runs = {}
+    cli_vae._make_generators = timed_prep
+    try:
+        for mode in ("ON", "OFF"):
+            del prep[:]
+            out_dir = os.path.join(workdir, mode)
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                sweep.main(["--entry", "vae", "--vmap", mode, "--output_dir", out_dir]
+                           + SWEEP_GRID + ["--"] + SWEEP_ARGS + ["--device", str(device)])
+            torch.cuda.synchronize()
+            runs[mode] = dict(wall_s=time.perf_counter() - t0, launches=counters(),
+                              prep=list(prep), out_dir=out_dir)
+    finally:
+        cli_vae._make_generators = make_generators
+
+    jets, steps = train_facts["jets_per_epoch"], train_facts["steps_per_epoch"]
+    for mode, run in runs.items():
+        if any(n_train != 1 or n_valid != 1 for _, n_train, n_valid in run["prep"]) or \
+                len(run["prep"]) != (1 if mode == "ON" else lanes):
+            raise AssertionError(f"--vmap {mode}: data preparations (seconds, train loads, "
+                                 f"valid loads) {run['prep']}: want one load each, "
+                                 f"{'once' if mode == 'ON' else 'once a lane'}")
+        want = dict.fromkeys(KERNELS, 0)
+        want["stack_backward"] = lanes * SWEEP_EPOCHS * 4 * steps
+        want["stack_forward"] = lanes * SWEEP_EPOCHS * (4 * steps + 2)
+        want["fused_mlp"] = lanes * SWEEP_EPOCHS * 2
+        if run["launches"] != want:
+            raise AssertionError(f"--vmap {mode} launched {run['launches']}, want {want} "
+                                 f"({lanes} lanes, {SWEEP_EPOCHS} epochs of {steps} steps and one "
+                                 "validation batch)")
+    for tag in SWEEP_TAGS:
+        loaded = {}
+        for mode in ("ON", "OFF"):
+            with open(os.path.join(runs[mode]["out_dir"], tag, "history.pkl"), "rb") as f:
+                history = pickle.load(f)
+            with np.load(os.path.join(runs[mode]["out_dir"], tag, "model.npz")) as npz:
+                loaded[mode] = history, {k: npz[k] for k in npz.files}
+        (history, weights), (seq_history, seq_weights) = loaded["ON"], loaded["OFF"]
+        if list(history) != list(seq_history) or any(
+                len(v) != SWEEP_EPOCHS or not np.isfinite(v).all() for v in history.values()):
+            raise AssertionError(f"{tag}: history {history}, sequential {seq_history}")
+        # the lanes run the same kernels in the same order as the
+        # sequential runs: any difference is one lane leaking into another
+        pairs = [(f"history {k}", history[k], seq_history[k]) for k in history] + \
+            [(k, weights.get(k), seq_weights[k]) for k in seq_weights]
+        for what, got, want in pairs:
+            if got is None or not np.array_equal(np.asarray(got), np.asarray(want)):
+                raise AssertionError(f"{tag} {what}: --vmap ON differs from OFF: {got} {want}")
+        if set(weights) != set(seq_weights):
+            raise AssertionError(f"{tag}: weights {sorted(weights)} against {sorted(seq_weights)}")
+    for mode, run in runs.items():
+        log("sweep", vmap=mode, lanes=lanes, epochs=SWEEP_EPOCHS, steps_per_epoch=steps,
+            wall_s=f"{run['wall_s']:.3f}",
+            lane_jets_per_s=f"{SWEEP_EPOCHS * jets / run['wall_s']:.0f}",
+            data_prep_s=json.dumps([round(p[0], 3) for p in run["prep"]]),
+            launches=json.dumps(run["launches"]))
+    log("sweep", lanes_vs_sequential="same_bits",
+        wall_ratio_on_over_off=f"{runs['ON']['wall_s'] / runs['OFF']['wall_s']:.4f}")
+    return runs["ON"]["launches"], dict(wall_s=runs["ON"]["wall_s"],
+                                        seq_wall_s=runs["OFF"]["wall_s"],
+                                        lane_jets_per_s=SWEEP_EPOCHS * jets / runs["ON"]["wall_s"])
+
+
+def phase_kfold(device, workdir, data_dir):
+    """cli/jetid.py --NN_type CNN --n_folds 3 --vmap_folds ON at the CLI's
+    default widths and precision, with the counters set to 0 just before:
+    K5 and K6 on their bf16 register routes only, K5 once a fold-step,
+    validation batch and cross_valid predict chunk, K6 once a fold-step;
+    the three fold files, the CV accuracy line and valid_results.pkl; then
+    --vmap_folds OFF (the folds one after another), the fold weights and CV
+    probabilities held to it; wall seconds and ms a fold-step of each run."""
+    import pickle
+    import numpy as np
+    import torch
+    from atlasvae_torch.cli import jetid as cli_jetid
+    from atlasvae_torch.train import jetid_loop
+
+    os.environ["ATLASVAE_DATA_DIR"] = data_dir
+    epochs = []
+    train_epoch = jetid_loop.train_epoch
+
+    def timed_epoch(state, config, lr, generator, inputs, labels, weights):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_epoch(state, config, lr, generator, inputs, labels, weights)
+        torch.cuda.synchronize()
+        epochs.append((time.perf_counter() - t0, labels.shape[0]))
+        return out
+
+    runs = {}
+    jetid_loop.train_epoch = timed_epoch
+    try:
+        for mode in ("ON", "OFF"):
+            del epochs[:]
+            out_dir = os.path.join(workdir, mode)
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                cli_jetid.main(KFOLD_ARGS + ["--vmap_folds", mode, "--output_dir", out_dir,
+                                             "--device", str(device)])
+            torch.cuda.synchronize()
+            runs[mode] = dict(wall_s=time.perf_counter() - t0, launches=counters(),
+                              epochs=list(epochs), out_dir=out_dir, printed=printed.getvalue())
+    finally:
+        jetid_loop.train_epoch = train_epoch
+
+    results = {}
+    for mode, run in runs.items():
+        with open(os.path.join(run["out_dir"], "valid_results.pkl"), "rb") as f:
+            _, labels, probs = pickle.load(f)
+        n = len(labels)
+        if probs.shape != (n, 2) or not np.isfinite(probs).all() or \
+                not np.allclose(probs.sum(axis=1), 1.0, atol=1e-5):
+            raise AssertionError(f"--vmap_folds {mode}: CV probabilities {probs.shape}")
+        cv = re.search(r"3-FOLD CV ACCURACY: (\S+) %", run["printed"])
+        accuracy = 100 * float(np.mean(probs.argmax(axis=1) == labels))
+        if cv is None or abs(float(cv.group(1)) - accuracy) > 0.01:
+            raise AssertionError(f"--vmap_folds {mode}: CV accuracy line {cv and cv.group(0)}, "
+                                 f"the probabilities give {accuracy:.2f} %")
+        weights = {}
+        for fold in range(1, KFOLD + 1):
+            with np.load(os.path.join(run["out_dir"], f"model_{fold}.npz")) as npz:
+                weights[fold] = {k: npz[k] for k in npz.files}
+        results[mode] = labels, probs, weights, accuracy
+
+    n = len(results["ON"][0])
+    n_valid = [len(range(fold, n, KFOLD)) for fold in range(KFOLD)]
+    n_train = [n - v for v in n_valid]
+    bs = min(JETID_BATCH, max(n_train))
+    steps = [-(-t // bs) for t in n_train]
+    valid_batches = [-(-v // min(bs, v)) for v in n_valid]
+    chunks = [-(-v // JETID_CHUNK) for v in n_valid]
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_conv_bf16"] = KFOLD_EPOCHS * (sum(steps) + sum(valid_batches)) + sum(chunks)
+    want["fused_conv_backward_bf16"] = KFOLD_EPOCHS * sum(steps)
+    for mode, run in runs.items():
+        if run["launches"] != want:
+            raise AssertionError(f"--vmap_folds {mode} launched {run['launches']}, want {want} "
+                                 f"({KFOLD_EPOCHS} epochs of {steps} fold-steps and "
+                                 f"{valid_batches} validation batches, {chunks} predict chunks)")
+    (labels, probs, weights, _), (seq_labels, seq_probs, seq_weights, _) = \
+        results["ON"], results["OFF"]
+    if not np.array_equal(labels, seq_labels):
+        raise AssertionError("--vmap_folds ON and OFF scored different events")
+    weight_gap = max(_largest_gap(weights[f][k], seq_weights[f][k], *KFOLD_WEIGHT_TOL,
+                                  f"fold {f} {k}") for f in weights for k in seq_weights[f])
+    prob_gap = _largest_gap(probs, seq_probs, *KFOLD_PROB_TOL, "CV probabilities")
+    facts = {}
+    for mode, run in runs.items():
+        warm = run["epochs"][1:]
+        facts[mode] = 1e3 * sum(t for t, _ in warm) / sum(b for _, b in warm)
+        log("kfold", vmap_folds=mode, folds=KFOLD, epochs=KFOLD_EPOCHS, jets=n,
+            fold_train_jets=json.dumps(n_train), steps_per_fold_epoch=json.dumps(steps),
+            wall_s=f"{run['wall_s']:.3f}", ms_per_fold_step=f"{facts[mode]:.4f}",
+            cv_accuracy=f"{results[mode][3]:.2f}", launches=json.dumps(run["launches"]))
+    log("kfold", on_vs_off_weight_gap=weight_gap, prob_gap=prob_gap,
+        same_bits=bool(np.array_equal(probs, seq_probs)))
+    return runs["ON"]["launches"], dict(wall_s=runs["ON"]["wall_s"],
+                                        ms_per_fold_step=facts["ON"],
+                                        seq_ms_per_fold_step=facts["OFF"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2595,6 +2840,10 @@ def main():
                                                  ("bfloat16", bf16_facts))})
         jetid_stream(device, os.path.join(workdir, "jetid_stream"), jetid_data)
         feature_removal_run(device, os.path.join(workdir, "feature_removal"), jetid_data)
+        sweep_launches, sweep_facts = phase_sweep(device, os.path.join(workdir, "sweep"),
+                                                  workdir, train)
+        kfold_launches, kfold_facts = phase_kfold(device, os.path.join(workdir, "kfold"),
+                                                  jetid_data)
         aae_launches, aae_facts = phase_aae(device, os.path.join(workdir, "aae"), workdir)
 
     kernels = []
@@ -2604,6 +2853,7 @@ def main():
                     "train": train_launches[name],
                     "const_train": const_launches[name], "emd_slice": emd_launches[name],
                     "jetid": jetid_launches[name], "jetid_bf16": bf16_launches[name],
+                    "sweep": sweep_launches[name], "kfold": kfold_launches[name],
                     "aae": aae_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
@@ -2624,6 +2874,8 @@ def main():
         jetid_bf16_predict_jets_per_s=f"{bf16_facts['predict_jets_per_s']:.0f}",
         evaluate_bump_hunter_scan_ms=f"{eval_facts['scan_ms']:.4f}",
         evaluate_cut_scan_ms=f"{eval_facts['local_ms']:.4f}",
+        sweep_lane_jets_per_s=f"{sweep_facts['lane_jets_per_s']:.0f}",
+        kfold_ms_per_fold_step=f"{kfold_facts['ms_per_fold_step']:.4f}",
         aae_train_jets_per_s=f"{aae_facts['train_jets_per_s']:.0f}",
         aae_score_jets_per_s=f"{aae_facts['score_jets_per_s']:.0f}",
         aae_scan_2d_ms=f"{aae_facts['scan_2d']['ms']:.4f}")

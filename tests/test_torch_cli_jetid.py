@@ -208,8 +208,6 @@ def test_resume_from_the_state_file_trains_on(trained, capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--n_folds", "3"], "item 10"),
-    (["--vmap_folds", "ON"], "item 10"),
     (["--n_devices", "2"], "item 11"),
     (["--n_gpus", "4"], "item 11"),
     (["--model_in", "weights.h5"], "item 10"),
@@ -221,6 +219,52 @@ def test_unported_options_refused_before_any_load(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(argv)
     assert not (tmp_path / "out").exists()
+
+
+@pytest.fixture(scope="module")
+def kfold_runs(synth_dir, tmp_path_factory):
+    """--n_folds 3 on the FCN, the folds trained one after another and as
+    lanes of one program (--vmap_folds ON): each run's printed text and
+    folder."""
+    import contextlib
+    import io
+    _register(synth_dir)
+    runs = {}
+    for mode in ("OFF", "ON"):
+        root = tmp_path_factory.mktemp("kfold_" + mode)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            assert cli.main(_argv("FCN") + ["--n_folds", "3", "--vmap_folds", mode,
+                                            "--n_epochs", "2", "--output_dir", str(root),
+                                            "--device", "cpu"]) == 0
+        runs[mode] = text.getvalue(), root
+    return runs
+
+
+@pytest.mark.parametrize("mode", ["OFF", "ON"])
+def test_kfold_run_scores_every_event_with_the_fold_that_held_it_out(kfold_runs, mode):
+    text, root = kfold_runs[mode]
+    assert {f"model_{f}.npz" for f in (1, 2, 3)} <= {p.name for p in root.iterdir()}
+    assert "model.npz" not in {p.name for p in root.iterdir()}
+    assert all(f"FOLD {f}/3 ACCURACY" in text for f in (1, 2, 3))
+    cv_line = next(l for l in text.splitlines() if l.startswith("3-FOLD CV ACCURACY"))
+    v_view, v_labels, probs = _results(root)
+    n = len(v_labels)
+    assert 2 * 2500 >= n > 2500 and probs.shape == (n, 2) and all(
+        len(v) == n for v in v_view.values())
+    np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-6)
+    accuracy = float(cv_line.split(":")[1].strip(" %"))
+    assert accuracy == pytest.approx(100 * np.mean(probs.argmax(axis=1) == v_labels), abs=0.01)
+    assert accuracy > 60
+    _report(text)
+
+
+def test_kfold_lanes_equal_the_sequential_folds(kfold_runs):
+    (_, seq), (_, lanes) = kfold_runs["OFF"], kfold_runs["ON"]
+    for f in (1, 2, 3):
+        with np.load(seq / f"model_{f}.npz") as a, np.load(lanes / f"model_{f}.npz") as b:
+            assert a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+    assert np.array_equal(_results(seq)[2], _results(lanes)[2])
 
 
 def test_plotting_without_matplotlib_refused_before_any_load(tmp_path, monkeypatch):

@@ -23,7 +23,8 @@ for name in ("atlasvae_torch.plotting.performance", "atlasvae_torch.cli.jetid",
              "atlasvae_torch.eval.deco", "atlasvae_torch.eval.bump",
              "atlasvae_torch.models.aae", "atlasvae_torch.train.aae_loop",
              "atlasvae_torch.eval.aae_eval", "atlasvae_torch.plotting.aae_plots",
-             "atlasvae_torch.cli.aae"):
+             "atlasvae_torch.cli.aae", "atlasvae_torch.cli.sweep",
+             "atlasvae_torch.train.ensemble"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "atlasvae", "matplotlib"))

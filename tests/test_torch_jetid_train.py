@@ -410,7 +410,9 @@ def test_feature_removal_matches_jax(monkeypatch):
     """The ablation on a 3-HLV FCN (2 epochs, dropout 0), each lane from the
     JAX package's weights for its index: every lane's validation accuracy
     within one validation jet of JAX's (measured: equal), so each drop within
-    two.  ``vmapped=True`` waits for item 10."""
+    two; the same with ``vmapped=True`` on both sides (the lanes of one
+    ``train_kfold_vmapped`` call), where the port's drops equal its own
+    ``vmapped=False`` drops exactly."""
     kwargs = dict(n_classes=2, scalars=("HLVs",), scalar_dims=(3,), nn_type="FCN",
                   fcn_neurons=(12, 8), branch_neurons=(8,), dropout=0.0, l2=1e-4)
     jcfg, cfg = jax_jetid.JetIDConfig(**kwargs), jetid.JetIDConfig(**kwargs)
@@ -443,6 +445,16 @@ def test_feature_removal_matches_jax(monkeypatch):
     assert_close([got[n] for n in names], [want[n] for n in names], "drops",
                  atol=2 * one_jet + 1e-12)
     assert want["m"] > 0 and got["m"] > 0      # the informative column matters
-    with pytest.raises(NotImplementedError, match="item 10"):
-        jetid_eval.feature_removal(cfg, inputs, labels, v_inputs, v_labels, names,
-                                   lambda i: None, vmapped=True)
+    want_lanes = jax_eval.feature_removal(jcfg, inputs, labels, v_inputs, v_labels, names,
+                                          jinit, vmapped=True, **common)
+    got_lanes = jetid_eval.feature_removal(
+        cfg, inputs, labels, v_inputs, v_labels, names,
+        lambda i: params_from_jax(jax.tree.map(np.asarray, jinit(i)), device="cpu"),
+        vmapped=True, **common)
+    assert got_lanes == got
+    assert len(accs["port"]) == len(accs["jax"]) == 8
+    assert accs["port"][4:] == accs["port"][:4]
+    assert_close(accs["port"][4:], accs["jax"][4:], "vmapped lane accuracies",
+                 atol=one_jet + 1e-12)
+    assert_close([got_lanes[n] for n in names], [want_lanes[n] for n in names],
+                 "vmapped drops", atol=2 * one_jet + 1e-12)

@@ -1,0 +1,118 @@
+"""``atlasvae_torch.cli.sweep`` and ``cli/vae.py::run_ensemble``.
+
+* ``--vmap ON`` (the grid as lanes of one ensemble) against ``--vmap OFF``
+  (one ``cli.vae`` run a grid point) on the shared synthetic files: the
+  same output directories, and in each the same history and weights, bit
+  for bit (on the CPU both run the same steps in the same order).
+* The grid, the ``--task_id`` pick, the runs' arguments and the vmapped
+  groups against ``atlasvae.cli.sweep``'s, with both packages' entry points
+  replaced by recorders: equal.
+* What the ensemble does not run is refused before any data is loaded.
+"""
+
+import pickle
+
+import numpy as np
+import pytest
+
+from atlasvae.cli import sweep as jax_sweep, vae as jax_vae
+from atlasvae_torch.cli import sweep, vae
+from atlasvae_torch.data import registry
+
+ARGS = ["--n_train", "800", "--n_valid", "400", "--n_OoD", "800", "--batch_size", "200",
+        "--n_epochs", "3", "--FC_layers", "16", "8", "4", "--OE_type", "MAE",
+        "--plotting", "OFF", "--weight_type", "None", "--HLV_scaler_type", "RobustScaler",
+        "--device", "cpu"]
+GRID = ["--grid", "beta=0.5,2", "lamb=1,5"]
+TAGS = ["beta0.5_lamb1", "beta0.5_lamb5", "beta2_lamb1", "beta2_lamb5"]
+
+
+def _register(synth_dir):
+    for name in ("QCD-Geneva", "OoD-H"):
+        registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
+
+
+def test_vmap_on_equals_vmap_off(synth_dir, tmp_path, capsys):
+    _register(synth_dir)
+    for mode in ("OFF", "ON"):
+        assert sweep.main(["--entry", "vae", "--vmap", mode, "--output_dir",
+                           str(tmp_path / mode)] + GRID + ["--"] + ARGS) == 0
+    assert "4 configs in one ensemble" in capsys.readouterr().out
+    for mode in ("OFF", "ON"):
+        assert sorted(p.name for p in (tmp_path / mode).iterdir()) == TAGS
+    for tag in TAGS:
+        with open(tmp_path / "OFF" / tag / "history.pkl", "rb") as f:
+            want = pickle.load(f)
+        with open(tmp_path / "ON" / tag / "history.pkl", "rb") as f:
+            got = pickle.load(f)
+        assert got == want and list(got) == ["MSE", "KLD", "OE", "Train loss", "Valid loss"]
+        assert len(got["Train loss"]) == 3
+        with np.load(tmp_path / "OFF" / tag / "model.npz") as a, \
+                np.load(tmp_path / "ON" / tag / "model.npz") as b:
+            assert a.files == b.files
+            assert all(np.array_equal(a[k], b[k]) for k in a.files), tag
+
+
+@pytest.mark.parametrize("grid", [{"beta": ["0", "1", "10"]},
+                                  {"beta": ["0", "1"], "lamb": ["1", "10"]},
+                                  {"beta": ["0.5"], "lamb": ["1", "5"], "seed": ["0", "1", "2"]}])
+def test_grid_search_equals_jax(grid):
+    assert sweep.grid_search(**grid) == jax_sweep.grid_search(**grid)
+    tokens = [f"{k}={','.join(v)}" for k, v in grid.items()]
+    assert sweep._parse_grid(tokens) == jax_sweep._parse_grid(tokens) == grid
+
+
+def _recorded(monkeypatch, argv):
+    """The entry calls each package's sweep makes for ``argv``."""
+    calls = {}
+    for side, module, cli_vae in (("port", sweep, vae), ("jax", jax_sweep, jax_vae)):
+        seen = calls.setdefault(side, [])
+        monkeypatch.setattr(cli_vae, "main", lambda a, seen=seen: seen.append(("main", a)))
+        monkeypatch.setattr(cli_vae, "run_ensemble",
+                            lambda *a, seen=seen: seen.append(("run_ensemble",) + a))
+        assert module.main(list(argv)) == 0
+    return calls["port"], calls["jax"]
+
+
+@pytest.mark.parametrize("extra", [["--task_id", "0"], ["--task_id", "3"],
+                                   ["--task_id", "2", "--vmap", "ON"], []])
+def test_runs_and_task_id_equal_jax(monkeypatch, extra):
+    """Every grid point, or (--task_id) the one it names, with the same
+    arguments and output directory; --vmap ON with --task_id runs that point
+    alone, as in the JAX package."""
+    port, want = _recorded(monkeypatch, ["--entry", "vae", "--output_dir", "out"] + extra + GRID
+                           + ["--", "--n_epochs", "2"])
+    assert port == want
+    assert len(port) == (1 if extra else 4)
+    if extra:
+        tag = TAGS[int(extra[1])]
+        assert port == [("main", ["--n_epochs", "2", "--beta", tag[4:tag.index("_")], "--lamb",
+                                  tag.split("lamb")[1], "--output_dir", f"out/{tag}"])]
+
+
+def test_vmapped_groups_equal_jax(monkeypatch):
+    """Axes outside VMAPPABLE form sequential groups, each one ensemble,
+    with the sequential sweep's directory names."""
+    port, want = _recorded(monkeypatch, ["--entry", "vae", "--vmap", "ON", "--output_dir", "o",
+                                         "--grid", "OE_type=MAE,KLD", "beta=0.5,2", "seed=0,1",
+                                         "--", "--n_epochs", "2"])
+    assert port == want
+    assert [call[1] for call in port] == [["--n_epochs", "2", "--OE_type", "MAE"],
+                                          ["--n_epochs", "2", "--OE_type", "KLD"]]
+    assert port[0][2:] == (["beta", "seed"], [("0.5", "0"), ("0.5", "1"), ("2", "0"), ("2", "1")],
+                           ["o/OE_typeMAE_beta0.5_seed0", "o/OE_typeMAE_beta0.5_seed1",
+                            "o/OE_typeMAE_beta2_seed0", "o/OE_typeMAE_beta2_seed1"])
+
+
+def test_no_vmappable_axis_exits():
+    with pytest.raises(SystemExit, match="no grid axis is vmappable"):
+        sweep.main(["--vmap", "ON", "--grid", "OE_type=MAE,KLD"])
+
+
+@pytest.mark.parametrize("extra,item", [(["--n_devices", "2"], "item 11"),
+                                        (["--model_in", "weights.h5"], "item 10")])
+def test_ensemble_refuses_before_any_load(tmp_path, extra, item):
+    with pytest.raises(NotImplementedError, match=item):
+        sweep.main(["--vmap", "ON", "--output_dir", str(tmp_path / "out")] + GRID
+                   + ["--", "--bkg_data", "no-such-sample"] + ARGS + extra)
+    assert not (tmp_path / "out").exists()
