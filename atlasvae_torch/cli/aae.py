@@ -18,9 +18,15 @@ required, and where it cannot be imported that is refused before any data
 is loaded; ``--plotting OFF --apply_cuts OFF`` trains and ends.
 ``_signal_numbers`` computes one signal's numbers without drawing.
 
+``--model_in`` and ``--AE_weights`` take a native npz or a Keras ``.h5``
+(the reference's ``AAE.h5``/``AE.h5``, or one exported here), told apart by
+the file's signature; a training run with ``--model_out AAE.h5`` ends with
+the Keras export in place of its npz checkpoint.  Keras files go through
+h5py where it is installed and through ``data/hdf5.py``'s ``LiteFile``
+where it is not (the machine with the card).
+
 Refused with ``NotImplementedError`` before any data is loaded:
-``--n_devices`` above 1 (ROADMAP Queue 1 item 11) and Keras ``.h5``
-weights in ``--model_in``, ``--model_out`` or ``--AE_weights`` (item 10).
+``--n_devices`` above 1 (ROADMAP Queue 1 item 11).
 """
 
 import os
@@ -90,20 +96,12 @@ def _on(v):
 def _check_supported(args):
     """Refuse, before any data is loaded, what the port does not run yet,
     and an evaluation (which draws) where matplotlib cannot be imported."""
-    from ..train.checkpoint import is_keras_file
     if _on(args.plotting) or _on(args.apply_cuts):
         from ..plotting.backend import require_matplotlib
         require_matplotlib("--plotting ON" if _on(args.plotting) else "--apply_cuts ON")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices > 1: the data-parallel GAN cycle is ported "
                                   "with ROADMAP Queue 1 item 11")
-    in_out = lambda name: os.path.join(args.output_dir, os.path.basename(name))
-    if (args.model_in and is_keras_file(in_out(args.model_in))) or \
-            is_keras_file(in_out(args.model_out)) or \
-            (args.AE_weights and is_keras_file(in_out(args.AE_weights))):
-        raise NotImplementedError("Keras .h5 weights are read and written with "
-                                  "train/keras_import.py and keras_export.py, ported with "
-                                  "ROADMAP Queue 1 item 10; use a native .npz")
 
 
 def _wire_paths(args):
@@ -236,7 +234,8 @@ def main(argv=None):
     from ..data.scalers import Scaler
     from ..models import AAEConfig, init_aae
     from ..train.aae_loop import train_aae
-    from ..train.checkpoint import load_pytree
+    from ..train.keras_export import maybe_export_keras
+    from ..train.keras_import import load_params_auto
 
     args = build_parser().parse_args(argv)
     _check_supported(args)
@@ -257,7 +256,7 @@ def main(argv=None):
     hlv_scaler = const_scaler = None
     if args.model_in != out_root + "/" and os.path.isfile(args.model_in):
         print("\nLoading pre-trained weights from: " + args.model_in)
-        params = load_pytree(args.model_in, params)
+        params = load_params_auto(args.model_in, params, "aae")
     if args.HLV_scaler_type and os.path.isfile(args.HLV_scaler_in):
         hlv_scaler = Scaler.load(args.HLV_scaler_in)
     if args.const_scaler_type and os.path.isfile(args.const_scaler_in):
@@ -270,6 +269,8 @@ def main(argv=None):
                               os.path.basename(args.model_out), args.hist_file,
                               os.path.basename(args.AE_weights) if args.AE_weights else "",
                               args.lamb, args.beta, args.lr)
+        if maybe_export_keras(params, args.model_out, "aae"):
+            print("Keras-compatible weights exported to " + args.model_out)
     if not _on(args.plotting) and not _on(args.apply_cuts):
         return 0
 
@@ -280,7 +281,7 @@ def main(argv=None):
         from ..plotting.history import plot_history
         plot_history(hist_path, out_root)
     if os.path.isfile(args.model_out):
-        params = load_pytree(args.model_out, params)
+        params = load_params_auto(args.model_out, params, "aae")
     for sig_data in args.sig_list:
         output_dir = out_root + "/" + sig_data
         Path(output_dir).mkdir(parents=True, exist_ok=True)

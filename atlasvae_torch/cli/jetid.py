@@ -30,10 +30,18 @@ predictions of every event (``cross_valid``) as the validation result;
 ``--vmap_folds ON`` trains the k folds (and the feature-removal runs)
 through ``train_kfold_vmapped``, on the JAX package's common batch grid.
 
+``--model_in`` takes a native npz or a Keras ``.h5`` (trained by the
+reference or exported here), told apart by the file's signature, with the
+model's config for the multi-image concat layout; a training run with
+``--model_out model.h5`` ends with the Keras export of its weights (the
+float32 master weights) in place of its npz checkpoint, except in k-fold
+mode, whose files stay ``model_<f>.npz``.  Keras files go through h5py
+where it is installed and through ``data/hdf5.py``'s ``LiteFile`` where it
+is not (the machine with the card).
+
 Not ported yet, and refused with ``NotImplementedError`` while the
-arguments are checked, before any data is loaded (ROADMAP Queue 1):
-``--n_devices`` above 1 (item 11) and Keras ``.h5`` weights in or out
-(item 10).
+arguments are checked, before any data is loaded: ``--n_devices`` above 1
+(ROADMAP Queue 1 item 11).
 ``--plotting ON``, the default, draws the ROC curves and class
 distributions with matplotlib; where matplotlib cannot be imported it is
 refused before any data is loaded (pass ``--plotting OFF``).
@@ -166,15 +174,9 @@ def _on(v):
 
 def _check_supported(args):
     """Refuse, before any data is loaded, what the port does not run yet."""
-    from ..train.checkpoint import is_keras_file
     if (args.n_devices or 1) > 1:
         raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
                                   "ROADMAP Queue 1 item 11")
-    if (args.model_in and is_keras_file(os.path.join(args.output_dir, args.model_in))) or \
-            is_keras_file(args.model_out):
-        raise NotImplementedError("Keras .h5 weights are read and written with "
-                                  "train/keras_import.py and keras_export.py, ported with "
-                                  "ROADMAP Queue 1 item 10; use a native .npz")
 
 
 def _eta_cuts(args, sample):
@@ -260,7 +262,8 @@ def main(argv=None):
                         ensure_synthetic_registry, HLV_LIST, Scaler)
     from ..models import JetIDConfig, init_jetid
     from ..train.jetid_loop import train_classifier, predict_classifier
-    from ..train.checkpoint import load_pytree
+    from ..train.keras_export import maybe_export_keras
+    from ..train.keras_import import load_params_auto
     from ..eval.jetid_eval import make_labels, get_class_weight, get_sample_weights
     from ..plotting.backend import require_matplotlib
 
@@ -534,7 +537,10 @@ def main(argv=None):
             class_weight, sample_weight, model_out, state_file=state_file,
             verbose=bool(args.verbose), monitor=args.metrics)
     elif args.model_in and os.path.isfile(out_root + "/" + args.model_in):
-        params = load_pytree(out_root + "/" + args.model_in, params)
+        params = load_params_auto(out_root + "/" + args.model_in, params, "jetid", config)
+    if args.n_epochs > 0 and args.n_folds <= 1 and \
+            maybe_export_keras(params, model_out, "jetid", config):
+        print("Keras-compatible weights exported to " + model_out)
 
     if _on(args.feature_removal) and scalars:
         # the ranking of the HLV columns by the accuracy lost without each

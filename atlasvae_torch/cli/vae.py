@@ -5,7 +5,13 @@ string booleans, the same path wiring, sample selection, scaler fit, OoD
 load and train/valid ``BatchGenerator``s, ``train_model``, then the
 evaluation (``_evaluate``: predictions on the validation sample, then
 ``eval/results.py::plot_results``), plus ``--device`` (default ``cuda``).
-After training, ``model_out`` is reloaded as a native npz.
+``--model_in`` takes a native npz or a Keras ``.h5`` (trained by the
+reference or exported here), told apart by the file's signature; after
+training, ``model_out`` is reloaded, and a ``--model_out model.h5`` run
+replaces its npz checkpoint with the Keras export
+(``train/keras_export.py``).  Keras files go through h5py where it is
+installed and through ``data/hdf5.py``'s ``LiteFile`` where it is not (the
+machine with the card).
 
     python -m atlasvae_torch.cli.vae --n_train 1e5 --n_valid 5e4 --n_OoD 2e5 \\
         --batch_size 1e4 --n_epochs 3 --lr 1e-3 --beta 2 --lamb 5 --OE_type MAE \\
@@ -25,7 +31,7 @@ margin, lr, seed) as lanes of one ensemble over one data preparation
 
 Not ported yet, and refused with ``NotImplementedError`` while the
 arguments are checked, before any data is loaded: ``--n_devices`` above 1
-(ROADMAP Queue 1 item 11) and Keras ``.h5`` weights in or out (item 10).
+(ROADMAP Queue 1 item 11).
 """
 
 import os
@@ -101,21 +107,15 @@ def _on(v):
     return v.upper() == "ON" if isinstance(v, str) else bool(v)
 
 
-def _check_supported(args, out_root):
+def _check_supported(args):
     """Refuse, before any data is loaded, what the port does not run yet,
     and drawing where matplotlib cannot be imported."""
-    from ..train.checkpoint import is_keras_file
     if _on(args.plotting):
         from ..plotting.backend import require_matplotlib
         require_matplotlib("--plotting ON")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
                                   "ROADMAP Queue 1 item 11")
-    if (args.model_in and is_keras_file(os.path.join(out_root, args.model_in))) or \
-            is_keras_file(args.model_out):
-        raise NotImplementedError("Keras .h5 weights are read and written with "
-                                  "train/keras_import.py and keras_export.py, ported with "
-                                  "ROADMAP Queue 1 item 10; use a native .npz")
 
 
 def _wire_paths(args):
@@ -133,6 +133,31 @@ def _wire_paths(args):
     args.output_dir = out_root + "/plots"
     Path(args.output_dir).mkdir(parents=True, exist_ok=True)
     return out_root
+
+
+def _load_model_in(args, params, out_root):
+    """The pre-trained weights ``--model_in`` names, loaded into ``params``
+    (an npz, or a Keras .h5 trained by the reference or exported here, told
+    apart by the file's signature); ``params`` unchanged when the flag was
+    empty."""
+    from ..train.keras_import import load_params_auto
+    if args.model_in != out_root + "/" and os.path.isfile(args.model_in):
+        print("\nLoading pre-trained weights from: " + args.model_in)
+        return load_params_auto(args.model_in, params, "vae")
+    return params
+
+
+def _reload_model_out(args, params):
+    """After training: the weights ``model_out`` holds (the best epoch's),
+    then, for a ``model.h5`` run, the Keras export in place of the npz
+    checkpoint."""
+    from ..train.keras_export import maybe_export_keras
+    from ..train.keras_import import load_params_auto
+    if os.path.isfile(args.model_out):
+        params = load_params_auto(args.model_out, params, "vae")
+        if maybe_export_keras(params, args.model_out, "vae"):
+            print("Keras-compatible weights exported to " + args.model_out)
+    return params
 
 
 def _select_samples(args):
@@ -276,10 +301,10 @@ def main(argv=None):
     from ..utils.logging import args_banner
     from ..data.scalers import Scaler
     from ..models import VAEConfig, init_vae
-    from ..train import train_model, load_pytree
+    from ..train import train_model
 
     args = build_parser().parse_args(argv)
-    _check_supported(args, args.output_dir)
+    _check_supported(args)
     device = resolve_device(args.device)
     out_root = _wire_paths(args)
     hlv_list, input_dim, train_cuts, valid_cuts = _select_samples(args)
@@ -287,10 +312,9 @@ def main(argv=None):
 
     config = VAEConfig(fc_layers=tuple(args.FC_layers), input_dim=input_dim)
     # --seed drives both the weight init and the reparameterization noise
-    params = init_vae(torch.Generator(device).manual_seed(args.seed), config, device=device)
-    if args.model_in != out_root + "/" and os.path.isfile(args.model_in):
-        print("\nLoading pre-trained weights from: " + args.model_in)
-        params = load_pytree(args.model_in, params)
+    params = _load_model_in(
+        args, init_vae(torch.Generator(device).manual_seed(args.seed), config, device=device),
+        out_root)
     const_scaler = hlv_scaler = None
     if args.const_scaler_type and os.path.isfile(args.const_scaler_in):
         const_scaler = Scaler.load(args.const_scaler_in)
@@ -305,8 +329,7 @@ def main(argv=None):
                                 args.batch_size, args.beta, args.lamb, args.margin, args.lr,
                                 args.hist_file, args.model_in, args.model_out,
                                 seed=args.seed, state_file=state_file)
-        if os.path.isfile(args.model_out):
-            params = load_pytree(args.model_out, params)
+        params = _reload_model_out(args, params)
     if not _on(args.plotting) and not _on(args.apply_cuts):
         return 0
     _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device)
@@ -338,7 +361,7 @@ def _grid_configs(passthrough, names, value_rows, output_dirs):
         for name, value in zip(names, row):
             setattr(args, name, _VM_COERCE[name](value))
         args.output_dir = out_dir
-        _check_supported(args, out_dir)
+        _check_supported(args)
         configs.append(args)
     lead = configs[0]
     out_roots = [_wire_paths(a) for a in configs]
@@ -362,7 +385,6 @@ def run_ensemble(passthrough, names, value_rows, output_dirs):
     from ..utils.logging import args_banner
     from ..data.scalers import Scaler
     from ..models import VAEConfig, init_vae
-    from ..train import load_pytree
     from ..train.ensemble import train_ensemble, stack_trees, tree_slice
 
     configs, out_roots, (hlv_list, input_dim, train_cuts, valid_cuts) = \
@@ -377,14 +399,10 @@ def run_ensemble(passthrough, names, value_rows, output_dirs):
         hlv_scaler = Scaler.load(lead.HLV_scaler_in)
 
     config = VAEConfig(fc_layers=tuple(lead.FC_layers), input_dim=input_dim)
-    lanes = []
-    for args, root in zip(configs, out_roots):
-        params = init_vae(torch.Generator(device).manual_seed(args.seed), config, device=device)
-        if args.model_in != root + "/" and os.path.isfile(args.model_in):
-            print("\nLoading pre-trained weights from: " + args.model_in)
-            params = load_pytree(args.model_in, params)
-        lanes.append(params)
-    stacked = stack_trees(lanes)
+    stacked = stack_trees([
+        _load_model_in(a, init_vae(torch.Generator(device).manual_seed(a.seed), config,
+                                   device=device), root)
+        for a, root in zip(configs, out_roots)])
 
     if lead.n_epochs > 0:
         train_gen, valid_gen, const_scaler, hlv_scaler = _make_generators(
@@ -399,9 +417,7 @@ def run_ensemble(passthrough, names, value_rows, output_dirs):
             state_file=out_root + "/" + lead.state_file if lead.state_file else None)
 
     for g, args in enumerate(configs):
-        params = tree_slice(stacked, g)
-        if os.path.isfile(args.model_out):
-            params = load_pytree(args.model_out, params)
+        params = _reload_model_out(args, tree_slice(stacked, g))
         if _on(args.plotting) or _on(args.apply_cuts):
             print(f"\n===== ENSEMBLE EVAL {g}: {args.output_dir} =====")
             _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device)

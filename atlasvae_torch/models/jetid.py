@@ -27,6 +27,7 @@ to the float32 parameters.
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..ops.fused_conv import conv2d_valid, fused_conv1_pool_relu, supported
@@ -180,6 +181,55 @@ def concat_segments(config):
     if config.scalar_dims:
         segs.append(("scalars", config.branch_neurons[-1]))
     return segs
+
+
+def reference_concat_permutation(config):
+    """Row permutation between this trunk-concat layout and the reference
+    ``multi_CNN`` graph's, for Keras weight files.
+
+    Two layouts differ for multi-image models: the reference orders its
+    towers by iterating ``set(shapes)``, this model by first appearance
+    (``_shape_groups``); and in FCN mode the reference stacks same-shape
+    images channel-last and flattens the (h, w, n) block (pixels
+    interleaved), where this model concatenates each image's own flatten.
+
+    Returns ``perm`` (int64 numpy array, length of the concat) such that
+    reference position ``r`` holds the feature this model puts at
+    ``perm[r]``: a trunk kernel exports as ``w_ref = w[perm]`` and imports
+    as ``w[perm] = w_ref``.  None when the layouts agree.  ``list(set(...))``
+    over tuples of ints is the reference's own order, and a tuple of ints
+    hashes the same whatever ``PYTHONHASHSEED`` says, so every process sees
+    the same order.  FCN mode with several 3-D images has no well-defined
+    reference layout and raises.
+    """
+    segs = concat_segments(config)
+    starts, pos = {}, 0
+    for label, width in segs:
+        starts[label] = pos
+        pos += width
+    perm = []
+    if config.images:
+        shapes = [tuple(s) for s in config.image_shapes]
+        set_order = list(set(shapes))            # the reference's tower order
+        groups = dict((tuple(s), n) for s, n in _shape_groups(config))
+        for shape in set_order:
+            names = groups[shape]
+            if config.nn_type == "CNN":
+                lo = starts["tower:" + _tower_key(shape)]
+                perm.extend(range(lo, lo + tower_flat_width(config, shape, len(names))))
+            else:
+                if len(shape) != 2 and len(names) > 1:
+                    raise ValueError("FCN mode with multiple 3-D images has no "
+                                     "well-defined reference concat layout")
+                lows = [starts["image:" + n] for n in names]
+                for pixel in range(math.prod(shape)):
+                    perm.extend(lo + pixel for lo in lows)
+    for label in ("constituents", "scalars"):
+        if label in starts:
+            width = dict(segs)[label]
+            perm.extend(range(starts[label], starts[label] + width))
+    perm = np.asarray(perm, np.int64)
+    return None if np.array_equal(perm, np.arange(pos)) else perm
 
 
 def _dropout(x, rate, generator, train):

@@ -28,7 +28,9 @@ import numpy as np
 import torch
 
 from ..models.aae import ae_apply, discriminator_apply
-from .checkpoint import save_pytree, load_pytree, tree_flatten, tree_unflatten, is_keras_file
+from .checkpoint import (save_pytree, load_pytree, tree_flatten, tree_unflatten,
+                         sniff_weights_format)
+from .keras_import import load_keras_aae
 from .step import TrainState, clip_gradients
 
 AE_KEYS = ("encoder", "decoder")
@@ -244,22 +246,20 @@ def train_aae(params, train_generator, n_cycles, batch_size, output_dir,
     Uses one load, ``train_generator[0]``, padded with zero-weight rows to
     whole batches; the batch order of each phase-epoch is the next
     permutation of ``np.random.default_rng(seed)``, so it is the JAX
-    package's.  ``ae_weights`` names an npz cache of the AE subtree under
-    ``output_dir``: loaded when present (the first cycle's 100 AE epochs are
-    then skipped), written after the first cycle's AE epochs when their
-    last 'AE Loss' is below 100 (else RuntimeError, as the reference
-    aborts).  Writes ``hist_file`` (the reference's {series: [(cycle,
-    epoch, value)]} pickle) and ``model_out`` (npz) under ``output_dir``.
+    package's.  ``ae_weights`` names the AE subtree's file under
+    ``output_dir``, an npz cache or a Keras AE file (the reference's
+    ``AE.save_weights``), told apart by its signature: loaded when present
+    (the first cycle's 100 AE epochs are then skipped), written as an npz
+    after the first cycle's AE epochs when their last 'AE Loss' is below
+    100 (else RuntimeError, as the reference aborts).  Writes ``hist_file``
+    (the reference's {series: [(cycle, epoch, value)]} pickle) and
+    ``model_out`` (npz) under ``output_dir``.
     Returns (params, loss_history).
     """
     if mesh is not None:
         raise NotImplementedError("train_aae over a device mesh (data-parallel GAN cycle) is "
                                   "ported with ROADMAP Queue 1 item 11")
     ae_path = os.path.join(output_dir, ae_weights) if ae_weights else None
-    if ae_path and os.path.isfile(ae_path) and is_keras_file(ae_path):
-        raise NotImplementedError("a Keras AE weights file is read with "
-                                  "train/keras_import.py, ported with ROADMAP Queue 1 item 10; "
-                                  "use a native .npz")
     device = tree_flatten(params)[0].device
     epoch_dict = {"AE": np.full(n_cycles, 0), "Disc": np.full(n_cycles, 5),
                   "AAE": np.full(n_cycles, 5)}
@@ -271,7 +271,11 @@ def train_aae(params, train_generator, n_cycles, batch_size, output_dir,
 
     if ae_path and os.path.isfile(ae_path):
         print("\nLoading pre-trained AE file from:", ae_path)
-        params = {**params, **load_pytree(ae_path, _subtree(params, AE_KEYS))}
+        if sniff_weights_format(ae_path) == "keras":
+            ae = _subtree(load_keras_aae(ae_path, params), AE_KEYS)
+        else:
+            ae = load_pytree(ae_path, _subtree(params, AE_KEYS))
+        params = {**params, **ae}
         epoch_dict["AE"][0] = epoch_dict["AE"][1] if n_cycles > 1 else 0
     ae, disc = gan_states(params, device)
     ae_epoch, disc_epoch, aae_epoch = make_aae_step_fns(lamb, beta, lr=float(lr))

@@ -80,15 +80,20 @@ def load_pytree(path, template):
     return tree_unflatten(template, leaves)
 
 
-def is_keras_file(path):
-    """A Keras HDF5 weights file, by its name (.h5, .hdf5) or, where the file
-    exists, by its signature; the port reads and writes native npz only."""
-    if str(path).endswith((".h5", ".hdf5")):
-        return True
-    if os.path.isfile(path):
-        with open(path, "rb") as f:
-            return f.read(8) == b"\x89HDF\r\n\x1a\n"
-    return False
+def sniff_weights_format(path):
+    """'keras' (the HDF5 signature) or 'npz' (a zip's), read from the file's
+    first bytes whatever its name: a ``--model_out model.h5`` run keeps npz
+    checkpoints under the .h5 name until the Keras export at its end
+    replaces them, so a resume from a half-finished run meets npz bytes
+    there."""
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    if magic.startswith(b"\x89HDF"):
+        return "keras"
+    if magic.startswith(b"PK"):
+        return "npz"
+    raise ValueError(f"{path}: neither a Keras HDF5 weight file nor an npz pytree "
+                     "checkpoint (unrecognized file signature)")
 
 
 def save_weights(params, path):

@@ -189,9 +189,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                best cut, loc sigma rtol 1e-5 / atol 1e-6), the batched
                scan's CUDA-event ms, launches and bound; cli/score.py
                --model_type aae on the card and the CPU (rtol/atol 1e-4);
-15. kernels -- one JSON line with every ported kernel (K1 to K6 as two
+15. keras    -- Keras weight files through data/hdf5.py (LiteFile where h5py
+               is missing, as on the card's machine): the train phase's VAE
+               exported to model.h5 and read back (the same bits as its
+               model.npz), cli/vae.py's _load_model_in and
+               _valid_predictions on the evaluate phase's events from the
+               .h5 and the .npz (the same bits; K2 and K1 once a 10,000-row
+               chunk); cli/vae.py --model_out model.h5 against model.npz,
+               same seed, 2 epochs (the same weights, K3 on its fused body);
+               the jetid_bf16 phase's model exported with the CLI's config
+               and served by cli/jetid.py --n_epochs 0 from the .h5 and the
+               .npz (the same probabilities, K5 bf16 once a predict chunk,
+               nothing else); the aae phase's AE as the reference's AE-only
+               AE.h5 against its npz cache in train_aae on 10,000 jets (the
+               same loss history, the AE epochs skipped, every K1-K6 count
+               0); prints each file's size and write and read ms;
+16. kernels -- one JSON line with every ported kernel (K1 to K6 as two
                entries each, one a route, and K5/K6's bf16 forms);
-16. last line: {"ok": true, "device": {...}}.
+17. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -440,6 +455,13 @@ KFOLD_ARGS = ["--NN_type", "CNN", "--plotting", "OFF", "--synthetic", str(JETID_
 # other algorithms for block 2 from run to run)
 KFOLD_WEIGHT_TOL = (5e-4, 1e-4)
 KFOLD_PROB_TOL = (2e-3, 2e-4)
+
+# Keras weight files (ROADMAP Queue 1 item 10, second half): the VAE CLI's
+# --model_out model.h5 against model.npz, 2 epochs (a fresh run checkpoints
+# from its second epoch on, and the export replaces that checkpoint); the
+# LiteFile write and read timed as the median of KERAS_REPEATS calls
+KERAS_VAE_EPOCHS = 2
+KERAS_REPEATS = 5
 
 # Training: the canonical model with the vae.sh hyper-parameters, cut to
 # 3 epochs of 1e5 jets (200,000 synthetic events per sample).
@@ -2579,7 +2601,8 @@ def phase_aae(device, workdir, data_dir):
     log("aae", score="--model_type aae", jets_per_s=f"{rate:.0f}",
         excess_over_bar=json.dumps({k: round(v, 8) for k, v in gaps.items()}))
     return launches, dict(train_jets_per_s=AAE_EPOCHS * jets / warm_s, ms_per_step=step_ms,
-                          idle_share=idle, score_jets_per_s=rate, **facts)
+                          idle_share=idle, score_jets_per_s=rate, trained=trained,
+                          parity_load=part, fresh=fresh, lr=parsed.lr, **facts)
 
 
 def feature_removal_run(device, workdir, data_dir):
@@ -2806,6 +2829,194 @@ def phase_kfold(device, workdir, data_dir):
                                         seq_ms_per_fold_step=facts["OFF"])
 
 
+def _median_ms(fn):
+    """Host-clock ms of ``fn``, the median of KERAS_REPEATS calls."""
+    import torch
+    times = []
+    for _ in range(KERAS_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _same_bits(a, b, what):
+    import torch
+    from atlasvae_torch.train.checkpoint import tree_flatten
+    a, b = tree_flatten(a), tree_flatten(b)
+    if len(a) != len(b) or not all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b)):
+        raise AssertionError(f"keras: {what} are not the same bits")
+
+
+def phase_keras(device, root, jetid_data, aae_facts):
+    """Keras weight files on the card, written and read by data/hdf5.py
+    (LiteFile where h5py is missing): the train phase's VAE exported and
+    read back, then predicted from by cli/vae.py's own _load_model_in and
+    _valid_predictions on the evaluate phase's events, from the .h5 and from
+    the .npz (the same bits; K2 and K1 once a chunk); cli/vae.py with
+    --model_out model.h5 against model.npz, same seed (the same weights, K3
+    on the training path); the jetid_bf16 phase's model exported with its
+    config and served by cli/jetid.py from the .h5 and from the .npz (the
+    same probabilities, K5 bf16 once a predict chunk); the aae phase's AE as
+    the reference's AE-only AE.h5 against its npz cache in train_aae on
+    10,000 jets (the same loss history, no kernel of ours).  Prints each
+    file's size and the write and read ms; returns the phase's launches."""
+    import numpy as np
+    import torch
+    from atlasvae_torch.cli import jetid as cli_jetid, vae as cli_vae
+    from atlasvae_torch.data import ensure_synthetic_registry, hdf5, Scaler, HLV_LIST
+    from atlasvae_torch.models import VAEConfig, init_vae
+    from atlasvae_torch.train import aae_loop, keras_export, keras_import
+    from atlasvae_torch.train.checkpoint import load_pytree, save_pytree
+
+    workdir = os.path.join(root, "keras")
+    os.makedirs(workdir)
+    facts = {"library": "h5py" if hdf5._h5py is not None else "LiteFile"}
+    total = dict.fromkeys(counters(), 0)
+
+    def add(launches):
+        for name, count in launches.items():
+            total[name] += count
+
+    def timed_file(name, write, read):
+        path, key = os.path.join(workdir, name), name.replace(".", "_")
+        facts[f"{key}_write_ms"] = f"{_median_ms(lambda: write(path)):.3f}"
+        facts[f"{key}_read_ms"] = f"{_median_ms(lambda: read(path)):.3f}"
+        facts[f"{key}_bytes"] = os.path.getsize(path)
+        with open(path, "rb") as f:
+            if f.read(8) != b"\x89HDF\r\n\x1a\n":
+                raise AssertionError(f"keras: {path} does not start with the HDF5 signature")
+        return path
+
+    # 1. the train phase's VAE: export, read back, predict from both files
+    # the train and evaluate phases' files, registered again (the jet-ID and
+    # AAE phases registered their own under the same names since)
+    ensure_synthetic_registry(root, n_events=TRAIN_EVENTS, n_const_max=20,
+                              names=["QCD-Geneva", "OoD-H"], seed=0)
+    ensure_synthetic_registry(root, n_events=EVAL_EVENTS, n_const_max=20,
+                              names=["QCD-Geneva", "2HDM-Geneva"], seed=0)
+    train_dir = os.path.join(root, "train")
+    npz = os.path.join(train_dir, "model.npz")
+    template = lambda: init_vae(torch.Generator(device).manual_seed(1), VAEConfig(),
+                                device=device)
+    trained = load_pytree(npz, template())
+    h5 = timed_file("vae.h5", lambda path: keras_export.export_keras_vae(trained, path),
+                    keras_import.read_keras_weights)
+    _same_bits(keras_import.load_params_auto(h5, template(), "vae"), trained,
+               "the VAE's model.h5 read back and its model.npz")
+    scaler = Scaler.load(os.path.join(train_dir, "HLV_RobustScaler.pkl"))
+    args = cli_vae.build_parser().parse_args([])
+    args.n_valid, args.n_sig = [0, EVAL_EVENTS], EVAL_EVENTS
+    cuts = ['(sample["m"] >= 30)', '(sample["pt"] <= 5000)']     # cli/vae.py's valid cuts
+    predictions = {}
+    for path in (h5, npz):
+        args.model_in = path
+        params = cli_vae._load_model_in(args, template(), os.path.dirname(path))
+        reset_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, x_true, x_pred, _, _ = cli_vae._valid_predictions(
+                args, params, None, scaler, list(HLV_LIST), cuts, device)
+        torch.cuda.synchronize()
+        launches = counters()
+        chunks = -(-len(x_true) // EVAL_CHUNK)
+        if launches["stack_forward"] != chunks or launches["fused_mlp"] != chunks or \
+                sum(launches.values()) != 2 * chunks:
+            raise AssertionError(f"keras: predicting from {path} launched {launches}, want "
+                                 f"stack_forward and fused_mlp {chunks} times each")
+        add(launches)
+        predictions[path] = x_pred
+    if not np.array_equal(predictions[h5], predictions[npz]):
+        raise AssertionError("keras: the VAE's predictions from model.h5 and model.npz differ")
+
+    # 2. cli/vae.py --model_out model.h5 against model.npz, the same seed
+    argv = TRAIN_ARGS + ["--n_epochs", str(KERAS_VAE_EPOCHS), "--device", str(device)]
+    outs = {}
+    for name in ("model.npz", "model.h5"):
+        run_dir = os.path.join(workdir, "vae_" + name.split(".")[1])
+        reset_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_vae.main(argv + ["--model_out", name, "--output_dir", run_dir])
+        torch.cuda.synchronize()
+        launches = counters()
+        if launches["stack_backward"] <= 0 or launches["stack_backward_layers"] != 0:
+            raise AssertionError(f"keras: cli/vae.py --model_out {name} launched {launches}: "
+                                 "want K3 on its fused body")
+        add(launches)
+        outs[name] = os.path.join(run_dir, name)
+    with open(outs["model.h5"], "rb") as f:
+        if f.read(4) != b"\x89HDF":
+            raise AssertionError("keras: cli/vae.py --model_out model.h5 left no Keras file")
+    _same_bits(keras_import.load_params_auto(outs["model.h5"], template(), "vae"),
+               load_pytree(outs["model.npz"], template()),
+               "the weights of the --model_out model.h5 and model.npz runs")
+
+    # 3. jet-ID: the jetid_bf16 phase's model served from model.h5 and model.npz
+    os.environ["ATLASVAE_DATA_DIR"] = jetid_data
+    out_dir = os.path.join(root, "jetid_bf16", "out")
+    seen = []
+    load = keras_import.load_params_auto
+
+    def recorded(*a, **k):
+        seen.append(a)
+        return load(*a, **k)
+
+    served = {}
+    argv = JETID_BF16_ARGS + ["--output_dir", out_dir, "--device", str(device), "--n_epochs", "0"]
+    keras_import.load_params_auto = recorded
+    try:
+        for name in ("model.npz", "model.h5"):
+            if name == "model.h5":       # the model the CLI built, with its config
+                (_, jetid_template, _, config), = seen
+                jetid_params = load_pytree(os.path.join(out_dir, "model.npz"), jetid_template)
+                timed_file("jetid.h5", lambda path: keras_export.export_keras_jetid(
+                    jetid_params, path, config), keras_import.read_keras_weights)
+                os.replace(os.path.join(workdir, "jetid.h5"), os.path.join(out_dir, name))
+            reset_counters()
+            results = f"keras_{name.split('.')[1]}.pkl"
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli_jetid.main(argv + ["--model_in", name, "--results_out", results])
+            torch.cuda.synchronize()
+            launches = counters()
+            _, labels, probs, _ = _jetid_report(os.path.join(out_dir, results), device)
+            chunks = -(-len(labels) // JETID_CHUNK)
+            want = dict.fromkeys(CONV_COUNTERS, 0)
+            want["fused_conv_bf16"] = chunks
+            if any(launches[k] != v for k, v in want.items()):
+                raise AssertionError(f"keras: serving {name} launched {launches}: want "
+                                     f"fused_conv_bf16 {chunks} times, no other form or route")
+            add(launches)
+            served[name] = (labels, probs)
+    finally:
+        keras_import.load_params_auto = load
+    if not (np.array_equal(served["model.h5"][0], served["model.npz"][0])
+            and np.array_equal(served["model.h5"][1], served["model.npz"][1])):
+        raise AssertionError("keras: jet-ID probabilities from model.h5 and model.npz differ")
+
+    # 4. the OE-AAE: --AE_weights AE.h5 (the reference's AE-only file) against AE.npz
+    trained_aae, part, lr = aae_facts["trained"], aae_facts["parity_load"], aae_facts["lr"]
+    ae = timed_file("AE.h5", lambda path: keras_export.export_keras_aae(
+        trained_aae, path, include_discriminator=False), keras_import.read_keras_weights)
+    save_pytree(os.path.join(workdir, "AE.npz"), aae_loop._subtree(trained_aae, aae_loop.AE_KEYS))
+    histories = {}
+    for name in (os.path.basename(ae), "AE.npz"):
+        reset_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, histories[name] = aae_loop.train_aae(
+                aae_facts["fresh"](device), [part], 1, AAE_BATCH, workdir, hist_file="",
+                model_out="", ae_weights=name, lamb=1.0, beta=1.0, lr=lr)
+        torch.cuda.synchronize()
+        if any(counters().values()):
+            raise AssertionError(f"keras: train_aae launched {counters()} (the AAE runs no "
+                                 "kernel of ours)")
+    # the AE epochs skipped: the AAE phase's 5 epochs only (105 with the AE's)
+    if histories["AE.h5"] != histories["AE.npz"] or len(histories["AE.h5"]["QCD-AE Loss"]) != 5:
+        raise AssertionError("keras: train_aae from AE.h5 and from AE.npz: the loss histories "
+                             "differ, or the AE epochs were not skipped")
+    log("keras", **facts)
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2845,6 +3056,7 @@ def main():
         kfold_launches, kfold_facts = phase_kfold(device, os.path.join(workdir, "kfold"),
                                                   jetid_data)
         aae_launches, aae_facts = phase_aae(device, os.path.join(workdir, "aae"), workdir)
+        keras_launches = phase_keras(device, workdir, jetid_data, aae_facts)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2854,7 +3066,7 @@ def main():
                     "const_train": const_launches[name], "emd_slice": emd_launches[name],
                     "jetid": jetid_launches[name], "jetid_bf16": bf16_launches[name],
                     "sweep": sweep_launches[name], "kfold": kfold_launches[name],
-                    "aae": aae_launches[name]}
+                    "aae": aae_launches[name], "keras": keras_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_phase.values()), launches_by_phase=by_phase,

@@ -39,7 +39,8 @@ from atlasvae.train.checkpoint import load_pytree as jax_load_pytree
 from atlasvae_torch.interop import params_from_jax, params_to_numpy
 from atlasvae_torch.models import AAEConfig, init_aae, ae_apply, discriminator_apply
 from atlasvae_torch.train import aae_loop
-from atlasvae_torch.train.checkpoint import save_pytree, tree_flatten
+from atlasvae_torch.train.checkpoint import load_pytree, save_pytree, tree_flatten
+from atlasvae_torch.train.keras_export import export_keras_aae
 
 CPU = torch.device("cpu")
 SERIES_RTOL = 1e-6
@@ -241,6 +242,12 @@ def test_ae_weights_cache_round_trip(tmp_path, capsys):
     assert len(again["QCD-AE Loss"]) == 10            # AAE epochs only
     assert jax.tree.structure(cached) == jax.tree.structure(
         jax_loop._subtree(jparams, jax_loop.AE_KEYS))
+    # the same AE as the reference's AE-only Keras file: the same history
+    ae = load_pytree(str(tmp_path / "AE.npz"), aae_loop._subtree(params, aae_loop.AE_KEYS))
+    export_keras_aae({**params, **ae}, str(tmp_path / "AE.h5"), include_discriminator=False)
+    _, keras_again = aae_loop.train_aae(params, [sample], 2, output_dir=str(tmp_path),
+                                        **dict(kwargs, ae_weights="AE.h5"))
+    assert keras_again == again
 
 
 def test_first_cycle_gate_and_refusals(tmp_path):
@@ -254,7 +261,8 @@ def test_first_cycle_gate_and_refusals(tmp_path):
     assert not (tmp_path / "AE.npz").exists()
     with open(tmp_path / "AE.h5", "wb") as f:
         f.write(b"\x89HDF\r\n\x1a\n" + bytes(64))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        aae_loop.train_aae(params, None, 1, 64, str(tmp_path), ae_weights="AE.h5")
+    with pytest.raises(OSError):                  # a broken Keras file: no fallback
+        aae_loop.train_aae(params, [sample], 1, 64, str(tmp_path), ae_weights="AE.h5",
+                           feature_key="HLVs")
     with pytest.raises(NotImplementedError, match="item 11"):
         aae_loop.train_aae(params, None, 1, 64, str(tmp_path), mesh=object())

@@ -11,13 +11,16 @@ package's ROC handed the port's rates and BumpHunter's pseudo-experiments
 the same numpy draws on both sides (20 of them, where the CLIs draw 1,000): the same files drawn, with the same
 axes, artists and texts (numbers within one unit of the last digit
 printed).  Scoring: the three discriminants within rtol 1e-5 / atol 1e-6
-of the JAX CLI's, the kinematics and weights exact.  What the port does
-not run yet, and an evaluation where matplotlib cannot be imported, is
-refused before any data is loaded.
+of the JAX CLI's, the kinematics and weights exact.  Keras ``.h5`` files:
+the port starts from the JAX CLI's ``AAE.h5`` and a reference-style AE-only
+``AE.h5``, and its ``--model_out AAE.h5`` is read by the JAX package as the
+port's weights.  What the port does not run yet, and an evaluation where
+matplotlib cannot be imported, is refused before any data is loaded.
 """
 
 import os
 import pickle
+import shutil
 import sys
 
 import jax
@@ -33,15 +36,21 @@ from atlasvae.cli import aae as jax_aae, score as jax_score
 from atlasvae.data import registry as jax_registry, synthetic as jax_synthetic, load_data as jax_load_data, \
     fit_scaler as jax_fit_scaler
 from atlasvae.models import AAEConfig as JaxAAEConfig, init_aae as jax_init_aae
+from atlasvae.models.aae import ae_apply as jax_ae_apply, \
+    discriminator_apply as jax_discriminator_apply
+from atlasvae.train.keras_export import export_keras_aae as jax_export_keras_aae
+from atlasvae.train.keras_import import load_keras_aae as jax_load_keras_aae
 from atlasvae.train.checkpoint import load_pytree as jax_load_pytree, save_pytree as \
     jax_save_pytree
 from atlasvae_torch.cli import aae, score
 from atlasvae_torch.data import hdf5, registry
 from atlasvae_torch.eval import aae_eval, roc
 from atlasvae_torch.models import AAEConfig, init_aae
+from atlasvae_torch.models.aae import ae_apply, discriminator_apply
 from atlasvae_torch.stats import bumphunter as bh
 from atlasvae_torch.train.checkpoint import load_pytree
 from plot_record import assert_same_structure, recording, roc_from
+from test_torch_keras import record_keras_calls, same_leaves
 
 WIDTHS = ["--layers_sizes", "24", "8"]
 ARGS = ["--synthetic", "3000", "--n_train", "1000", "--n_valid", "1000", "--n_sig", "1000",
@@ -140,11 +149,46 @@ def test_evaluation_draws_the_same_files_as_jax(tmp_path, monkeypatch, injected,
     assert_same_structure(records["port"], records["jax"])
 
 
+def test_keras_files_in_and_out(tmp_path, monkeypatch, capsys):
+    """The JAX CLI trains with --model_out AAE.h5; the port starts from that
+    file (--model_in: the same weights bit for bit, the JAX run's outputs on
+    the same inputs) and from the reference's AE-only AE.h5 (--AE_weights:
+    its 100 AE epochs skipped), and its --model_out AAE.h5 is read by JAX's
+    load_keras_aae as the weights the port exported."""
+    _fresh_registries(monkeypatch, tmp_path / "data")
+    argv = ARGS + ["--n_epochs", "1", "--plotting", "OFF", "--model_out", "AAE.h5"]
+    jax_root, port_root = tmp_path / "jax", tmp_path / "port"
+    assert jax_aae.main(argv + ["--output_dir", str(jax_root)]) == 0
+    jax_weights = jax_load_keras_aae(str(jax_root / "AAE.h5"), _jax_weights())
+    port_root.mkdir()
+    shutil.copy(jax_root / "AAE.h5", port_root / "jax.h5")
+    jax_export_keras_aae(jax_weights, str(port_root / "AE.h5"), include_discriminator=False)
+    loads, exports = record_keras_calls(monkeypatch)
+    capsys.readouterr()
+    assert aae.main(argv + ["--model_in", "jax.h5", "--AE_weights", "AE.h5", "--output_dir",
+                            str(port_root), "--device", "cpu"]) == 0
+    assert "Loading pre-trained AE file" in capsys.readouterr().out
+    with open(port_root / "history.pkl", "rb") as f:
+        assert len(pickle.load(f)["QCD-AE Loss"]) == 5        # the AAE phase's (105 with AE's)
+    ((_, loaded),) = loads
+    same_leaves(loaded, jax_weights)
+    x = np.random.default_rng(4).normal(size=(64, 12)).astype(np.float32)
+    with torch.no_grad():
+        recon = ae_apply(loaded, torch.from_numpy(x))
+        probs = discriminator_apply(loaded, recon)
+    want = np.asarray(jax_ae_apply(jax_weights, x))
+    for got, ref in ((recon, want), (probs, np.asarray(jax_discriminator_apply(jax_weights,
+                                                                               want)))):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+    ((model_out, params),) = exports
+    assert model_out == str(port_root / "AAE.h5")
+    with open(model_out, "rb") as f:
+        assert f.read(4) == b"\x89HDF"
+    same_leaves(params, jax_load_keras_aae(model_out, _jax_weights()))
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--n_devices", "2"], "item 11"),
-    (["--model_in", "weights.h5"], "item 10"),
-    (["--model_out", "AAE.h5"], "item 10"),
-    (["--AE_weights", "AE.h5"], "item 10"),
 ])
 def test_unported_options_refused_before_any_load(tmp_path, extra, item):
     argv = ["--plotting", "OFF", "--bkg_data", "no-such-sample", "--output_dir",

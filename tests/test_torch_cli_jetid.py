@@ -25,8 +25,13 @@ schemes (``--weight_type``)
 and the streamed training chunks (``--generator ON``) are held against the
 JAX CLI by what each CLI hands its trainer: the same weights, labels and
 chunks (inputs through the two packages' scalers: rtol 1e-5 / atol 1e-6).
+Keras ``.h5`` files go both ways: the port predicts from the JAX CLI's
+``model.h5`` what the JAX run predicted (PROB_TOL), and a port run with
+``--model_out model.h5`` leaves a file that the JAX package reads as the
+port's weights.
 """
 
+import dataclasses
 import pickle
 import shutil
 import sys
@@ -37,9 +42,13 @@ import torch
 
 from atlasvae.cli import jetid as jax_jetid_cli
 from atlasvae.data import registry as jax_registry
+from atlasvae.models.jetid import JetIDConfig as JaxJetIDConfig
+from atlasvae.train.keras_import import load_keras_jetid as jax_load_keras_jetid
 from atlasvae_torch.cli import jetid as cli
 from atlasvae_torch.data import registry
+from atlasvae_torch.interop import params_to_numpy
 from plot_record import assert_same_structure, recording
+from test_torch_keras import record_keras_calls, same_leaves
 
 COMMON = ["--n_train", "1500", "--n_valid", "1000", "--batch_size", "500", "--mixed_precision",
           "OFF", "--plotting", "OFF", "--image_size", "12", "--FCN_neurons", "24", "16",
@@ -207,11 +216,40 @@ def test_resume_from_the_state_file_trains_on(trained, capsys):
         cli.main(argv + ["--n_epochs", "1", "--state_file", "state.npz", "--metrics", "val_loss"])
 
 
+def test_keras_files_in_and_out(synth_dir, tmp_path, monkeypatch):
+    """The FCN: the JAX CLI trains with --model_out model.h5; the port,
+    --n_epochs 0 --model_in that file, predicts what the JAX run predicted,
+    from the same weights bit for bit; a port run with --model_out model.h5
+    leaves a Keras file that JAX's load_keras_jetid reads as the weights the
+    port exported."""
+    _register(synth_dir)
+    argv = _argv("FCN") + ["--n_epochs", "2", "--model_out", "model.h5"]
+    jax_root, port_root = tmp_path / "jax", tmp_path / "port"
+    assert jax_jetid_cli.main(argv + ["--output_dir", str(jax_root)]) == 0
+    port_root.mkdir()
+    shutil.copy(jax_root / "model.h5", port_root / "jax.h5")
+    loads, exports = record_keras_calls(monkeypatch)
+    assert cli.main(_argv("FCN") + ["--n_epochs", "0", "--model_in", "jax.h5", "--output_dir",
+                                    str(port_root), "--device", "cpu"]) == 0
+    ((path, template, kind, config), loaded), = loads
+    assert kind == "jetid" and not exports
+    jax_config = JaxJetIDConfig(**dataclasses.asdict(config))
+    same_leaves(loaded, jax_load_keras_jetid(path, params_to_numpy(template), jax_config))
+    want, got = _results(jax_root), _results(port_root)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[2], want[2], rtol=PROB_TOL, atol=PROB_TOL)
+
+    assert cli.main(argv + ["--output_dir", str(port_root), "--device", "cpu"]) == 0
+    ((model_out, params),) = exports
+    assert model_out == str(port_root / "model.h5")
+    with open(model_out, "rb") as f:
+        assert f.read(4) == b"\x89HDF"
+    same_leaves(params, jax_load_keras_jetid(model_out, params_to_numpy(template), jax_config))
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--n_devices", "2"], "item 11"),
     (["--n_gpus", "4"], "item 11"),
-    (["--model_in", "weights.h5"], "item 10"),
-    (["--model_out", "model.h5"], "item 10"),
 ])
 def test_unported_options_refused_before_any_load(tmp_path, extra, item):
     argv = COMMON + ["--output_dir", str(tmp_path / "out"), "--bkg_data", "no-such-sample",

@@ -3,13 +3,16 @@ against ``atlasvae.cli.vae`` on the same arguments.
 
 The two CLIs draw their initial weights and latent noise from different
 generators, so they are compared on what they write: the same files, the
-same history keys and epochs, weights that load in either package.  The
+same history keys and epochs, weights that load in either package.  Keras
+``.h5`` files go both ways: the port starts from the JAX CLI's ``model.h5``
+and ends with one that the JAX package reads as the port's weights.  The
 parts of the JAX CLI the port does not run yet are refused before any data
 is loaded.
 """
 
 import os
 import pickle
+import shutil
 import sys
 
 import jax
@@ -19,14 +22,17 @@ import torch
 
 from atlasvae.cli import vae as jax_vae
 from atlasvae.data import registry as jax_registry
-from atlasvae.models import VAEConfig as JaxVAEConfig, init_vae as jax_init_vae
+from atlasvae.models import VAEConfig as JaxVAEConfig, init_vae as jax_init_vae, \
+    vae_apply as jax_vae_apply
+from atlasvae.train.keras_import import load_keras_vae as jax_load_keras_vae
 from atlasvae.train.checkpoint import load_pytree as jax_load_pytree, save_pytree as \
     jax_save_pytree
 from atlasvae_torch.cli import vae
 from atlasvae_torch.data import registry
-from atlasvae_torch.models import VAEConfig, init_vae
+from atlasvae_torch.models import VAEConfig, init_vae, vae_apply
 from atlasvae_torch.train.checkpoint import load_pytree, tree_flatten
 from plot_record import assert_same_structure, jax_eval_noise, recording
+from test_torch_keras import record_keras_calls, same_leaves
 
 ARGS = ["--n_train", "2000", "--n_valid", "1000", "--n_OoD", "3000", "--batch_size", "500",
         "--n_epochs", "2", "--beta", "2", "--lamb", "5", "--OE_type", "MAE",
@@ -91,10 +97,38 @@ def test_weights_load_in_either_package(runs):
                 np.testing.assert_array_equal(np.asarray(leaf), saved[f"leaf_{i}"])
 
 
+def test_keras_files_in_and_out(synth_dir, tmp_path, monkeypatch):
+    """--model_in the JAX CLI's model.h5 starts the port from the JAX run's
+    weights (bit for bit; its forward gives the JAX run's predictions), and
+    --model_out model.h5 ends the port's run with a Keras file that JAX's
+    load_keras_vae reads as the port's final weights."""
+    for name in ("QCD-Geneva", "OoD-H"):
+        registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
+        jax_registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
+    argv = ARGS + ["--model_out", "model.h5"]     # epoch 2 improves: a checkpoint, then the export
+    assert jax_vae.main(argv + ["--output_dir", str(tmp_path / "jax")]) == 0
+    (tmp_path / "port").mkdir()
+    shutil.copy(tmp_path / "jax" / "model.h5", tmp_path / "port" / "jax.h5")
+    loads, exports = record_keras_calls(monkeypatch)
+    assert vae.main(argv + ["--model_in", "jax.h5", "--output_dir", str(tmp_path / "port"),
+                            "--device", "cpu"]) == 0
+    template = jax_init_vae(jax.random.PRNGKey(0), JaxVAEConfig())
+    jax_weights = jax_load_keras_vae(str(tmp_path / "jax" / "model.h5"), template)
+    same_leaves(loads[0][1], jax_weights)
+    x = np.random.default_rng(3).normal(size=(200, 12)).astype(np.float32)
+    want = np.asarray(jax_vae_apply(jax_weights, x, jax.random.PRNGKey(0), sample=False)[0])
+    with torch.no_grad():
+        got = vae_apply(loads[0][1], torch.from_numpy(x), sample=False)[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    ((model_out, params),) = exports
+    assert model_out == str(tmp_path / "port" / "model.h5")
+    with open(model_out, "rb") as f:
+        assert f.read(4) == b"\x89HDF"
+    same_leaves(params, jax_load_keras_vae(model_out, template))
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--n_devices", "2"], "item 11"),
-    (["--model_in", "weights.h5"], "item 10"),
-    (["--model_out", "model.h5"], "item 10"),
 ])
 def test_unported_options_refused_before_any_load(tmp_path, extra, item):
     argv = ARGS + extra + ["--output_dir", str(tmp_path), "--bkg_data", "no-such-sample",

@@ -24,7 +24,8 @@ for name in ("atlasvae_torch.plotting.performance", "atlasvae_torch.cli.jetid",
              "atlasvae_torch.models.aae", "atlasvae_torch.train.aae_loop",
              "atlasvae_torch.eval.aae_eval", "atlasvae_torch.plotting.aae_plots",
              "atlasvae_torch.cli.aae", "atlasvae_torch.cli.sweep",
-             "atlasvae_torch.train.ensemble"):
+             "atlasvae_torch.train.ensemble", "atlasvae_torch.train.keras_import",
+             "atlasvae_torch.train.keras_export"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "atlasvae", "matplotlib"))
@@ -42,6 +43,35 @@ def test_every_module_imports_without_jax_or_atlasvae():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=ROOT, env=env, check=True,
                          capture_output=True, text=True)
     assert int(out.stdout.strip()) >= 20
+
+
+_WITHOUT_H5PY = """
+import sys, tempfile, os
+sys.modules["h5py"] = None                  # as on the machine with the card
+import torch
+from atlasvae_torch.data import hdf5
+from atlasvae_torch.models import VAEConfig, init_vae
+from atlasvae_torch.train.checkpoint import tree_flatten
+from atlasvae_torch.train.keras_export import export_keras_vae
+from atlasvae_torch.train.keras_import import load_params_auto
+assert hdf5._h5py is None
+params = init_vae(torch.Generator().manual_seed(0), VAEConfig(), device="cpu")
+template = init_vae(torch.Generator().manual_seed(1), VAEConfig(), device="cpu")
+path = os.path.join(tempfile.mkdtemp(), "model.h5")
+export_keras_vae(params, path)
+back = load_params_auto(path, template, "vae")
+assert all(torch.equal(a, b) for a, b in zip(tree_flatten(back), tree_flatten(params)))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "atlasvae", "h5py")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+"""
+
+
+def test_keras_files_without_h5py():
+    """keras_import/keras_export import, write and read where h5py is
+    missing, through LiteFile."""
+    subprocess.run([sys.executable, "-c", _WITHOUT_H5PY], cwd=ROOT, check=True,
+                   env=dict(os.environ, PYTHONPATH=ROOT))
 
 
 def test_chip_smoke_imports_nothing_of_jax():

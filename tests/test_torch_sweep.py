@@ -7,17 +7,24 @@
 * The grid, the ``--task_id`` pick, the runs' arguments and the vmapped
   groups against ``atlasvae.cli.sweep``'s, with both packages' entry points
   replaced by recorders: equal.
+* Keras files: every lane starts from a JAX-exported ``.h5`` and ends with
+  a ``model.h5`` that the JAX package reads as that lane's weights.
 * What the ensemble does not run is refused before any data is loaded.
 """
 
 import pickle
 
+import jax
 import numpy as np
 import pytest
 
 from atlasvae.cli import sweep as jax_sweep, vae as jax_vae
+from atlasvae.models import VAEConfig as JaxVAEConfig, init_vae as jax_init_vae
+from atlasvae.train.keras_export import export_keras_vae as jax_export_keras_vae
+from atlasvae.train.keras_import import load_keras_vae as jax_load_keras_vae
 from atlasvae_torch.cli import sweep, vae
 from atlasvae_torch.data import registry
+from test_torch_keras import record_keras_calls, same_leaves
 
 ARGS = ["--n_train", "800", "--n_valid", "400", "--n_OoD", "800", "--batch_size", "200",
         "--n_epochs", "3", "--FC_layers", "16", "8", "4", "--OE_type", "MAE",
@@ -109,8 +116,31 @@ def test_no_vmappable_axis_exits():
         sweep.main(["--vmap", "ON", "--grid", "OE_type=MAE,KLD"])
 
 
-@pytest.mark.parametrize("extra,item", [(["--n_devices", "2"], "item 11"),
-                                        (["--model_in", "weights.h5"], "item 10")])
+def test_ensemble_keras_files_in_and_out(synth_dir, tmp_path, monkeypatch):
+    """--vmap ON with --model_in a JAX-exported .h5 (each lane's path
+    relative to its own folder) and --model_out model.h5: every lane starts
+    from those weights bit for bit and ends with a Keras file that JAX's
+    load_keras_vae reads as the weights the lane exported."""
+    _register(synth_dir)
+    template = jax_init_vae(jax.random.PRNGKey(4), JaxVAEConfig(fc_layers=(16, 8, 4),
+                                                                input_dim=12))
+    jax_export_keras_vae(template, str(tmp_path / "start.h5"))
+    loads, exports = record_keras_calls(monkeypatch)
+    assert sweep.main(["--entry", "vae", "--vmap", "ON", "--output_dir", str(tmp_path / "out")]
+                      + GRID + ["--"] + ARGS + ["--model_in", "../../start.h5", "--model_out",
+                                                "model.h5"]) == 0
+    assert len(loads) == 8 and len(exports) == 4       # model_in a lane, then model_out
+    for (_, loaded) in loads[:4]:
+        same_leaves(loaded, template)
+    assert [path for path, _ in exports] == [str(tmp_path / "out" / tag / "model.h5")
+                                             for tag in TAGS]
+    for path, params in exports:
+        with open(path, "rb") as f:
+            assert f.read(4) == b"\x89HDF"
+        same_leaves(params, jax_load_keras_vae(path, template))
+
+
+@pytest.mark.parametrize("extra,item", [(["--n_devices", "2"], "item 11")])
 def test_ensemble_refuses_before_any_load(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         sweep.main(["--vmap", "ON", "--output_dir", str(tmp_path / "out")] + GRID
