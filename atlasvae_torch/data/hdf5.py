@@ -3,17 +3,25 @@
 ``File(path, mode)`` returns ``h5py.File`` where h5py is installed.  Where
 it is not, it returns a ``LiteFile``: a reader and writer of the subset of
 HDF5 that the port's data files and Keras weight files use -- nested groups
-of numeric datasets (little-endian float32/float64/int32/int64, any rank,
-scalars too) stored contiguously, and attributes on the file, its groups and
-its datasets (numeric arrays and scalars, fixed-length byte strings, scalar
-or 1-D; variable-length strings are read, not written).  Files it writes are
-standard HDF5 that h5py reads; it reads those files and h5py-written ones of
-the same subset (superblock version 0, version 1 object headers,
-symbol-table groups, contiguous layout), which is what h5py writes by
-default and so what Keras 2 ``save_weights`` and Keras 3 ``.weights.h5``
-files hold.  Chunked or compressed datasets need h5py.  A ``LiteFile``
-opened for writing keeps its tree in memory (``resize`` and slice
-assignment work as in h5py) and writes the file when it is closed.
+of numeric datasets (little-endian float16/float32/float64, int8/16/32/64,
+uint8/16/32/64, any rank, scalars too) and attributes on the file, its
+groups and its datasets (numeric arrays and scalars of the same types,
+fixed-length byte strings, scalar or 1-D; variable-length strings are read,
+not written).  Files it writes are standard HDF5 that h5py reads; it reads
+those files and h5py-written ones of the same subset (superblock version 0,
+version 1 object headers, symbol-table groups), which is what h5py writes by
+default and so what Keras 2 ``save_weights``, Keras 3 ``.weights.h5`` and
+the ETL's data files hold.  It reads datasets stored contiguously and
+chunked ones (a version 1 B-tree chunk index) through the filters h5py
+writes for data: lzf (``data/lzf.py``, a C decoder built at first use),
+deflate and shuffle, each chunk as its filter mask says (h5py's lzf is
+optional: a chunk it cannot shrink is stored raw), edge chunks cropped,
+unwritten chunks read as the fill value.  A leading-axis slice of a chunked
+dataset decodes only the chunks it overlaps.  Other filters (fletcher32,
+szip, nbit, scaleoffset) are refused by name when the file is opened.  A
+``LiteFile`` opened for writing keeps its tree in memory (``resize`` and
+slice assignment work as in h5py) and writes the file, contiguous and
+uncompressed, when it is closed.
 
 Paths work as in h5py: ``f["a/b/c"]`` looks a dataset up through its
 groups, and ``create_dataset("encoder/dense/kernel:0", ...)`` creates the
@@ -26,17 +34,19 @@ variable-length one as ``str``, a numeric scalar as a numpy scalar.
 Layout written (format specification, superblock version 0): superblock
 with the root symbol-table entry; then each group, depth first, as its
 object header (a symbol table message, then its attribute messages), the
-local heap of its link names, one group B-tree node and one symbol-table
-node holding every link (group leaf K = 32, so at most 64 links a group),
-followed by each link in name order: a dataset's object header (dataspace,
-datatype, fill value, contiguous layout, attribute messages) and its raw
-data, or a subgroup laid out the same way.  A file with only root-level
-datasets and no attributes comes out byte for byte as the earlier
-flat-file writer wrote it.
+local heap of its link names, its group B-tree nodes (the root first) and
+its symbol-table nodes of up to 64 links each (group leaf K = 32; a B-tree
+node takes up to 32 children, internal K = 16, and a group of more than
+2,048 links gets B-tree levels above them), followed by each link in name
+order: a dataset's object header (dataspace, datatype, fill value,
+contiguous layout, attribute messages) and its raw data, or a subgroup laid
+out the same way.  A file with only root-level datasets and no attributes
+comes out byte for byte as the earlier flat-file writer wrote it.
 """
 
 import mmap
 import struct
+import zlib
 
 import numpy as np
 
@@ -55,12 +65,17 @@ _SNOD = 8 + 2 * _LEAF_K * _ENTRY
 _VLEN_ELEMENT = 16  # sequence length, global heap collection address, object index
 
 # numpy dtype -> (class, bit-field bytes, properties) of the datatype message
-_TYPES = {
-    np.dtype("<f4"): (1, bytes([0x20, 31, 0]), struct.pack("<HHBBBBI", 0, 32, 23, 8, 0, 23, 127)),
-    np.dtype("<f8"): (1, bytes([0x20, 63, 0]), struct.pack("<HHBBBBI", 0, 64, 52, 11, 0, 52, 1023)),
-    np.dtype("<i4"): (0, bytes([0x08, 0, 0]), struct.pack("<HH", 0, 32)),
-    np.dtype("<i8"): (0, bytes([0x08, 0, 0]), struct.pack("<HH", 0, 64)),
-}
+_FLOATS = {2: (15, (0, 16, 10, 5, 0, 10, 15)), 4: (31, (0, 32, 23, 8, 0, 23, 127)),
+           8: (63, (0, 64, 52, 11, 0, 52, 1023))}   # sign bit; offset, precision, exponent, mantissa, bias
+_TYPES = {np.dtype(f"<f{size}"): (1, bytes([0x20, sign, 0]), struct.pack("<HHBBBBI", *props))
+          for size, (sign, props) in _FLOATS.items()}
+_TYPES.update({np.dtype(f"<{kind}{size}"): (0, bytes([0x08 if kind == "i" else 0, 0, 0]),
+                                            struct.pack("<HH", 0, 8 * size))
+               for kind in "iu" for size in (1, 2, 4, 8)})
+# filters of the filter pipeline message: those read, and the names of others
+_LZF, _DEFLATE, _SHUFFLE = 32000, 1, 2
+_FILTER_NAMES = {_DEFLATE: "deflate", _SHUFFLE: "shuffle", 3: "fletcher32", 4: "szip",
+                 5: "nbit", 6: "scaleoffset", _LZF: "lzf"}
 
 
 def File(path, mode="r"):
@@ -201,12 +216,36 @@ class LiteAttrs:
         return [_attribute_message(name, self._values[name]) for name in self.keys()]
 
 
-class LiteDataset:
-    """A dataset of a ``LiteFile``: array-like reads, h5py-like writes."""
+def _leading_rows(index, n):
+    """``index`` on an array of ``n`` rows as (lo, hi, index into rows lo:hi),
+    where its first part is an integer or a forward slice; else None."""
+    parts = index if isinstance(index, tuple) else (index,)
+    if not parts:
+        return None
+    first, rest = parts[0], parts[1:]
+    if isinstance(first, (int, np.integer)) and not isinstance(first, (bool, np.bool_)):
+        i = int(first) + (n if first < 0 else 0)
+        if not 0 <= i < n:
+            raise IndexError(f"index {int(first)} is out of range for {n} rows")
+        return i, i + 1, (0,) + rest
+    if isinstance(first, slice):
+        start, stop, step = first.indices(n)
+        if step > 0:
+            stop = max(start, stop)
+            return start, stop, (slice(0, stop - start, step),) + rest
+    return None
 
-    def __init__(self, array=None, reader=None, shape=None, dtype=None, name="", attrs=None):
+
+class LiteDataset:
+    """A dataset of a ``LiteFile``: array-like reads, h5py-like writes.  A
+    chunked dataset read from a file (``chunks``, its ``_Chunks``) reads a
+    leading-axis slice without the rest."""
+
+    def __init__(self, array=None, reader=None, shape=None, dtype=None, name="", attrs=None,
+                 chunks=None):
         self._array = array
         self._reader = reader
+        self._chunks = chunks
         self.shape = tuple(array.shape) if array is not None else tuple(shape)
         self.dtype = array.dtype if array is not None else np.dtype(dtype)
         self.name = name
@@ -216,7 +255,17 @@ class LiteDataset:
         return self.shape[0]
 
     def __getitem__(self, index):
-        value = (self._array if self._array is not None else self._reader())[index]
+        if self._array is not None:
+            value = self._array[index]
+        elif self._chunks is not None:
+            rows = _leading_rows(index, self.shape[0])
+            if rows is None:
+                value = self._chunks.read(0, self.shape[0])[index]
+            else:
+                lo, hi, within = rows
+                value = self._chunks.read(lo, hi)[within]
+        else:
+            value = self._reader()[index]
         return value if isinstance(value, np.generic) else np.array(value)   # as h5py
 
     def __array__(self, dtype=None, copy=None):
@@ -317,6 +366,164 @@ class LiteGroup:
         return dataset
 
 
+def _filter_pipeline(body):
+    """[(id, name, client data)] of a filter pipeline message, versions 1
+    and 2, in the order the filters were applied when writing."""
+    version, count = body[0], body[1]
+    if version not in (1, 2):
+        raise OSError(f"filter pipeline message version {version}")
+    pos = 8 if version == 1 else 2
+    filters = []
+    for _ in range(count):
+        fid = struct.unpack_from("<H", body, pos)[0]
+        if version == 1 or fid >= 256:
+            name_size, _, n_values = struct.unpack_from("<HHH", body, pos + 2)
+            pos += 8
+        else:
+            name_size = 0
+            _, n_values = struct.unpack_from("<HH", body, pos + 2)
+            pos += 6
+        fname = bytes(body[pos:pos + name_size]).split(b"\0")[0].decode(errors="replace")
+        pos += name_size + (-name_size % 8 if version == 1 else 0)
+        values = struct.unpack_from(f"<{n_values}I", body, pos)
+        pos += 4 * n_values + (4 if version == 1 and n_values % 2 else 0)
+        filters.append((fid, fname, values))
+    return filters
+
+
+def _fill_value(message, dtype):
+    """The fill value of a fill value message (0x5, versions 1-3, or the old
+    0x4) where it holds one of ``dtype``'s size, else 0."""
+    if message is None:
+        return 0
+    mtype, body = message
+    value = None
+    if mtype == 0x4:
+        value = body[4:4 + struct.unpack_from("<I", body)[0]]
+    elif body[0] in (1, 2) and (body[0] == 1 or body[3]):
+        value = body[8:8 + struct.unpack_from("<I", body, 4)[0]]
+    elif body[0] == 3 and body[1] & 0x20:
+        value = body[6:6 + struct.unpack_from("<I", body, 2)[0]]
+    if value is None or len(value) != dtype.itemsize:
+        return 0
+    return np.frombuffer(bytes(value), dtype)[0]
+
+
+def _unshuffle(data, size):
+    """Undo the shuffle filter: byte k of every element was stored together,
+    k = 0 .. size - 1; bytes past the last whole element stay as they are."""
+    n = len(data) // size
+    if size <= 1 or n <= 1:
+        return data
+    head = np.frombuffer(data, np.uint8, count=n * size).reshape(size, n).T
+    return head.tobytes() + bytes(data[n * size:])
+
+
+class _Chunks:
+    """The chunks of one chunked dataset: its chunk index (a version 1
+    B-tree of type 1, walked when the file is opened), its filters, and the
+    decoding of the chunks a row range overlaps.  ``decoded`` counts the
+    chunks decoded so far."""
+
+    def __init__(self, owner, name, shape, dtype, layout, filters, fill):
+        rank = layout[2] - 1
+        self.path, self.name = owner.path, name
+        self.shape, self.dtype, self.filters, self.fill = shape, dtype, filters, fill
+        self.chunk = struct.unpack_from(f"<{rank}I", layout, 11)
+        element = struct.unpack_from("<I", layout, 11 + 4 * rank)[0]
+        if rank != len(shape) or element != dtype.itemsize:
+            raise OSError(f"{owner.path}: dataset {name!r}: its chunk layout does not "
+                          "match its dataspace and datatype")
+        self.nbytes = int(np.prod(self.chunk)) * dtype.itemsize
+        self.decoded = 0
+        self.index = []         # (offsets, stored size, filter mask, address)
+        btree = struct.unpack_from("<Q", layout, 3)[0]
+        raw, stack = owner._raw, ([btree] if btree != _UNDEF else [])
+        key = 8 + 8 * (rank + 1)
+        while stack:
+            node = stack.pop()
+            if raw[node:node + 4] != b"TREE" or raw[node + 4] != 1:
+                raise OSError(f"{owner.path}: dataset {name!r}: bad chunk B-tree node")
+            level, used = raw[node + 5], struct.unpack_from("<H", raw, node + 6)[0]
+            pos = node + 24
+            for _ in range(used):
+                size, mask = struct.unpack_from("<II", raw, pos)
+                offsets = struct.unpack_from(f"<{rank}Q", raw, pos + 8)
+                child = struct.unpack_from("<Q", raw, pos + key)[0]
+                pos += key + 8
+                if level:
+                    stack.append(child)
+                else:
+                    self.index.append((offsets, size, mask, child))
+        self.index.sort()
+
+    def _decode(self, stored, mask):
+        data = stored
+        for i in reversed(range(len(self.filters))):
+            if mask >> i & 1:           # this filter was skipped for this chunk
+                continue
+            fid, _, values = self.filters[i]
+            if fid == _LZF:
+                from . import lzf
+                data = lzf.decompress(data, self.nbytes)
+            elif fid == _DEFLATE:
+                data = zlib.decompress(data)
+            else:
+                data = _unshuffle(data, values[0] if values else self.dtype.itemsize)
+        if len(data) != self.nbytes:
+            raise OSError(f"{self.path}: dataset {self.name!r}: a chunk decoded to "
+                          f"{len(data)} bytes, not {self.nbytes}")
+        return np.frombuffer(data, self.dtype).reshape(self.chunk)
+
+    def read(self, lo, hi):
+        """Rows lo:hi as an array, decoding only the chunks they overlap."""
+        shape, chunk = self.shape, self.chunk
+        out = np.full((hi - lo,) + tuple(shape[1:]), self.fill, self.dtype)
+        wanted = [c for c in self.index if c[0][0] < hi and c[0][0] + chunk[0] > lo]
+        if not wanted:
+            return out
+        with open(self.path, "rb") as f:
+            for offsets, size, mask, addr in wanted:
+                f.seek(addr)
+                try:
+                    block = self._decode(f.read(size), mask)
+                except (ValueError, zlib.error) as exc:
+                    raise OSError(f"{self.path}: dataset {self.name!r}: the chunk at "
+                                  f"{offsets} does not decode: {exc}") from None
+                self.decoded += 1
+                first = max(offsets[0], lo)
+                last = min(offsets[0] + chunk[0], hi)
+                src = [slice(first - offsets[0], last - offsets[0])]
+                dst = [slice(first - lo, last - lo)]
+                for o, c, n in zip(offsets[1:], chunk[1:], shape[1:]):
+                    src.append(slice(0, min(c, n - o)))
+                    dst.append(slice(o, min(o + c, n)))
+                out[tuple(dst)] = block[tuple(src)]
+        return out
+
+
+def _btree_levels(last_keys):
+    """The group B-tree over leaves whose last names sit at heap offsets
+    ``last_keys``: a list of levels from the root down, each a list of
+    nodes (the indices of its children in the level below, its keys).  A
+    node's first key is the last name left of it (0, the empty name, at the
+    left edge); each further key is its child's last name."""
+    level = list(range(len(last_keys)))
+    keys_of = list(last_keys)
+    levels = []
+    while True:
+        nodes = []
+        for i in range(0, len(level), 2 * _INTERNAL_K):
+            children = level[i:i + 2 * _INTERNAL_K]
+            first = keys_of[i - 1] if i else 0
+            nodes.append((list(range(i, i + len(children))), [first] + keys_of[i:i + len(children)]))
+        levels.insert(0, nodes)
+        if len(nodes) == 1:
+            return levels
+        level = list(range(len(nodes)))
+        keys_of = [keys[-1] for _, keys in nodes]
+
+
 class LiteFile(LiteGroup):
     """Read ("r") or write ("w") the HDF5 subset described above."""
 
@@ -367,22 +574,21 @@ class LiteFile(LiteGroup):
         """The bytes of ``group`` and everything under it, laid out from
         ``offset``; returns them and the group's (B-tree, heap) addresses."""
         names = group.keys()
-        if len(names) > 2 * _LEAF_K:
-            raise ValueError(f"{self.path}: group {group.name!r} has {len(names)} links; "
-                             f"LiteFile writes at most {2 * _LEAF_K} a group (one "
-                             "symbol-table node): write this file with h5py")
         heap = b"\0" * 8
         name_offsets = {}
         for name in names:
             name_offsets[name] = len(heap)
             heap += _pad8(name.encode() + b"\0")
+        leaves = [names[i:i + 2 * _LEAF_K] for i in range(0, len(names), 2 * _LEAF_K)] or [[]]
+        levels = _btree_levels([name_offsets[leaf[-1]] if leaf else 0 for leaf in leaves])
         attributes = group.attrs._messages()
         header_len = len(_object_header([_message(0x11, bytes(16))] + attributes))
         heap_addr = offset + header_len
         heap_data_addr = heap_addr + 32
         btree_addr = heap_data_addr + len(heap)
-        snod_addr = btree_addr + _BTREE_NODE
-        position = snod_addr + _SNOD
+        n_nodes = sum(len(level) for level in levels)
+        snod_addr = btree_addr + n_nodes * _BTREE_NODE
+        position = snod_addr + len(leaves) * _SNOD
         blobs, entries = [], []
         for name in names:
             child = group._links[name]
@@ -400,13 +606,31 @@ class LiteFile(LiteGroup):
         # free-list head 1 is the library's "no free block" (H5HL_FREE_NULL)
         local_heap = b"HEAP" + bytes([0, 0, 0, 0]) + struct.pack(
             "<QQQ", len(heap), 1, heap_data_addr) + heap
-        last = name_offsets[names[-1]] if names else 0
-        keys_children = struct.pack("<QQQ", 0, snod_addr, last)
-        btree = b"TREE" + struct.pack("<BBHQQ", 0, 0, 1, _UNDEF, _UNDEF) + keys_children
-        btree += b"\0" * (_BTREE_NODE - len(btree))
-        snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(names)) + b"".join(entries)
-        snod += b"\0" * (_SNOD - len(snod))
-        return b"".join([header, local_heap, btree, snod, *blobs]), (btree_addr, heap_addr)
+        # the nodes, the root first: level by level from the top, each level's
+        # children the next level's nodes (the bottom level's, the leaves)
+        node_addr, addr = [], btree_addr
+        for level in levels:
+            node_addr.append([addr + i * _BTREE_NODE for i in range(len(level))])
+            addr += len(level) * _BTREE_NODE
+        node_addr.append([snod_addr + i * _SNOD for i in range(len(leaves))])
+        btree = []
+        for depth, level in enumerate(levels):
+            height = len(levels) - 1 - depth
+            for i, (children, keys) in enumerate(level):
+                left = node_addr[depth][i - 1] if i else _UNDEF
+                right = node_addr[depth][i + 1] if i + 1 < len(level) else _UNDEF
+                node = b"TREE" + struct.pack("<BBHQQ", 0, height, len(children), left, right)
+                node += struct.pack("<Q", keys[0]) + b"".join(
+                    struct.pack("<QQ", node_addr[depth + 1][c], k)
+                    for c, k in zip(children, keys[1:]))
+                btree.append(node + b"\0" * (_BTREE_NODE - len(node)))
+        snods, done = [], 0
+        for leaf in leaves:
+            snod = b"SNOD" + struct.pack("<BBH", 1, 0, len(leaf)) + b"".join(
+                entries[done:done + len(leaf)])
+            snods.append(snod + b"\0" * (_SNOD - len(snod)))
+            done += len(leaf)
+        return b"".join([header, local_heap, *btree, *snods, *blobs]), (btree_addr, heap_addr)
 
     @staticmethod
     def _dataset_blob(dataset, offset):
@@ -506,16 +730,22 @@ class LiteFile(LiteGroup):
 
     @staticmethod
     def _numeric_dtype(body):
+        """The numpy dtype of a datatype message: an integer of 1, 2, 4 or 8
+        bytes, or an IEEE float of 2, 4 or 8 bytes; else None."""
         cls, size = body[0] & 0x0F, struct.unpack_from("<I", body, 4)[0]
         order = ">" if body[1] & 1 else "<"
-        if cls == 1 and size in (4, 8):
-            return np.dtype(f"{order}f{size}")
+        if cls == 1 and size in _FLOATS:
+            sign, props = _FLOATS[size]
+            if body[2] == sign and struct.unpack_from("<HHBBBBI", body, 8) == props:
+                return np.dtype(f"{order}f{size}")
+            return None
         if cls == 0 and size in (1, 2, 4, 8):
             return np.dtype(f"{order}{'i' if body[1] & 0x08 else 'u'}{size}")
         return None
 
     def _open_dataset(self, name, messages):
         shape = dtype = layout = None
+        filters, fill = [], None
         attrs = LiteAttrs(False)
         for mtype, body in messages:
             if mtype == 0x1:
@@ -524,12 +754,27 @@ class LiteFile(LiteGroup):
                 dtype = self._numeric_dtype(body)
             elif mtype == 0x8:
                 layout = body
+            elif mtype == 0x0B:
+                filters = _filter_pipeline(body)
+            elif mtype == 0x5 or (mtype == 0x4 and fill is None):
+                fill = (mtype, body)
             elif mtype == 0x0C:
                 self._read_attribute(attrs, body, name)
         if shape is None or dtype is None or layout is None or layout[0] != 3 \
-                or layout[1] != 1:
-            raise OSError(f"{self.path}: dataset {name!r} is not a contiguous numeric "
-                          "array (chunked or compressed?); read it with h5py")
+                or layout[1] not in (1, 2):
+            raise OSError(f"{self.path}: dataset {name!r} is not a numeric array stored "
+                          "contiguously or in chunks; read it with h5py")
+        for fid, fname, _ in filters:
+            if fid not in (_LZF, _DEFLATE, _SHUFFLE):
+                raise OSError(f"{self.path}: dataset {name!r} has the "
+                              f"{_FILTER_NAMES.get(fid, fname or 'unknown')} filter ({fid}), "
+                              "which LiteFile does not decode; read it with h5py")
+        if layout[1] == 2:
+            chunks = _Chunks(self, name, shape, dtype, layout, filters,
+                             _fill_value(fill, dtype))
+            return LiteDataset(chunks=chunks, shape=shape, dtype=dtype, name=name, attrs=attrs)
+        if filters:
+            raise OSError(f"{self.path}: dataset {name!r} is contiguous with filters")
         addr = struct.unpack_from("<Q", layout, 2)[0]
         path = self.path
 

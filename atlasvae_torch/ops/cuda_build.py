@@ -1,22 +1,22 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface.  Libraries are keyed on a hash of
-the sources, so an edited kernel is rebuilt and an unchanged one is loaded
-as it is.  The build directory defaults to ``build/atlasvae_torch`` beside
+shared library with a plain C interface, through the compile helper that
+the g++-built host libraries use (``native.compile_libraries``).  Libraries
+are keyed on a hash of the sources, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is.  The build directory defaults to ``build/atlasvae_torch`` beside
 the package (``ATLASVAE_TORCH_BUILD_DIR`` overrides it).  Nothing here runs
 when the package is imported.
 """
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from .. import native  # one compile helper and build directory for g++ and nvcc
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fused_mlp", "fused_vae", "fused_vae_bwd", "emd_sinkhorn", "fused_conv",
@@ -25,11 +25,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS = {}
-
-
-def build_dir():
-    default = Path(__file__).resolve().parents[2] / "build" / "atlasvae_torch"
-    return Path(os.environ.get("ATLASVAE_TORCH_BUILD_DIR", default))
 
 
 def nvcc_path():
@@ -42,41 +37,15 @@ def nvcc_path():
 
 
 def _library_path(name):
-    digest = hashlib.sha1()
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
-        digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return native.keyed_library(name, sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"],
+                                NVCC_FLAGS)
 
 
 def build(names=SOURCES):
     """Compile every stale library among ``names``, one ``nvcc`` each, all
     started together.  Returns {name: (path, seconds, ptxas report)}."""
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    report = {}
-    for name in names:
-        lib = _library_path(name)
-        if lib.is_file():
-            report[name] = (lib, 0.0, "")
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (lib, tmp, time.perf_counter(),
-                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (lib, tmp, start, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, lib)
-        report[name] = (lib, time.perf_counter() - start, log)
-    if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
-    return report
+    return native.compile_libraries({name: (_library_path(name), CSRC / f"{name}.cu")
+                                     for name in names}, nvcc_path(), NVCC_FLAGS)
 
 
 def load(name):

@@ -9,7 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                TF32 off so every plain reference runs in full float32; say
                whether matplotlib, h5py and scipy import here;
 2. build    -- compile the hand-written kernels (csrc/*.cu) with nvcc,
-               one process per source, all started together;
+               one process per source, all started together, and beside
+               them the host helpers (native/*.cpp: the LZF decoder, the
+               ROOT basket decoder) with g++;
 3. parity   -- hold each kernel against its plain PyTorch version at the
                scoring path's shape (65,536-row chunks of the canonical
                12->80/40/20/10 VAE), at the training batch (10,000 rows;
@@ -204,9 +206,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                AE.h5 against its npz cache in train_aae on 10,000 jets (the
                same loss history, the AE epochs skipped, every K1-K6 count
                0); prints each file's size and write and read ms;
-16. kernels -- one JSON line with every ported kernel (K1 to K6 as two
+16. etl      -- the ETL on the card machine's own installation (no h5py: every
+               file through LiteFile): seeded ntuples with the canonical
+               branches at the reference's kinematic scale (4 topo-dijet
+               files of DSID 361024, 50,000 jets each, 2 topo-ttbar files of
+               DSID 410284, 25,000 each; 1-100 constituents a jet) written
+               by rootio.write_tree, converted by cli/etl.py (the native
+               final_jets kernel checked), the dijet output merged with
+               --merging ON and held to the unmerged file (the same multiset
+               of rows, float16 constituents, uint8 counts, int8 JZW),
+               loaded by load_data (cuts, constituents ON, n_const 100), and
+               one constituents-mode epoch of cli/vae.py on it with the
+               ttbar file as OoD, the counters set to 0 just before (K2 and
+               K3 on their layer-wise routes); the native basket decoder
+               against the Python loop on a vector<vector<float>> tree; the
+               committed h5py fixtures (tests/fixtures/h5py_*.h5, lzf,
+               gzip+shuffle, a raw chunk under lzf's mask, unwritten chunks)
+               read through LiteFile bit-equal to their .npz; the MB/s of
+               the C and the plain LZF decoder; each stage's seconds;
+17. kernels -- one JSON line with every ported kernel (K1 to K6 as two
                entries each, one a route, and K5/K6's bf16 forms);
-17. last line: {"ok": true, "device": {...}}.
+18. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -462,6 +482,24 @@ KFOLD_PROB_TOL = (2e-3, 2e-4)
 # LiteFile write and read timed as the median of KERAS_REPEATS calls
 KERAS_VAE_EPOCHS = 2
 KERAS_REPEATS = 5
+
+# The ETL: seeded ntuples with the canonical branches of tests/test_etl.py's
+# _fixture_branches at the reference's kinematic scale (pt 450-1200 GeV,
+# m 30-300 GeV, in MeV as ntuples store them; 1-100 constituents a jet),
+# 4 topo-dijet files of DSID 361024 (tag 1) and 2 topo-ttbar files of DSID
+# 410284, converted and merged by cli/etl.py, then one constituents-mode
+# epoch of cli/vae.py on them (dijet as QCD, ttbar as OoD).
+ETL_DIJET = ("361024", 4, 50_000)     # DSID, files, jets a file
+ETL_TTBAR = ("410284", 2, 25_000)
+ETL_MAX_CONST = 100
+ETL_WRITE_LIMIT_S = 120               # cut the counts if writing alone takes longer
+ETL_TRAIN_ARGS = ["--n_train", "1e5", "--n_valid", "5e4", "--n_OoD", "5e4",
+                  "--batch_size", "1e4", "--n_epochs", "1", "--lr", "1e-3", "--beta", "2",
+                  "--lamb", "5", "--OE_type", "MAE", "--weight_type", "X-S",
+                  "--plotting", "OFF", "--apply_cuts", "OFF"] + CONST_ARGS
+ETL_STL_JETS = 20_000                 # a vector<vector<float>> tree for the native basket decoder
+LZF_MIN_S = 0.5                       # each LZF decoder timed for at least this long
+LZF_REF_CHUNK_BYTES = 10_000 * 400 * 2  # a merged file's constituents chunk, float16
 
 # Training: the canonical model with the vae.sh hyper-parameters, cut to
 # 3 epochs of 1e5 jets (200,000 synthetic events per sample).
@@ -989,9 +1027,16 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+    from atlasvae_torch import native
     from atlasvae_torch.ops import cuda_build
     start = time.perf_counter()
-    report = cuda_build.build()
+    with ThreadPoolExecutor(1) as pool:
+        gxx = pool.submit(native.build)            # the g++ runs beside the nvcc ones
+        report = cuda_build.build()
+        host = gxx.result()
+    for name, (path, secs, _) in host.items():
+        log("build", lib=path.name, gxx_s=f"{secs:.2f}")
     for name, (path, secs, ptxas) in report.items():
         usage = [l.split("info    :")[-1].strip() for l in ptxas.splitlines()
                  if "registers" in l or "spill" in l]
@@ -3017,6 +3062,246 @@ def phase_keras(device, root, jetid_data, aae_facts):
     return total
 
 
+def _etl_branches(rng, n, scale=1.0):
+    """The canonical branches (tests/test_etl.py::_fixture_branches) at the
+    reference's kinematic scale, in ntuple units (MeV)."""
+    import numpy as np
+    from atlasvae_torch.etl.root2h5 import MEV_SCALARS, SCALARS
+    out = {key: rng.uniform(0.5, 3.0, n).astype(np.float32) for key in SCALARS}
+    out.update({key: (rng.uniform(30e3, 300e3, n) if "_m_" in key else
+                      rng.uniform(450e3, 1200e3, n)).astype(np.float32) for key in MEV_SCALARS})
+    out["weight_mc"] = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    out["weight_pileup"] = rng.uniform(0.9, 1.1, n).astype(np.float32)
+    out["rljet_topTag_DNN19_qqb_score"] = rng.uniform(0, 1, n).astype(np.float32)
+    counts = rng.integers(1, ETL_MAX_CONST + 1, n)
+    out["rljet_n_constituents"] = counts.astype(np.int32)
+    ends = np.cumsum(counts)[:-1]
+    total = int(counts.sum())
+    out["rljet_assoc_cluster_pt"] = np.split(rng.uniform(1e3, 2e5, total).astype(np.float32), ends)
+    out["rljet_assoc_cluster_eta"] = np.split(rng.normal(0, 1, total).astype(np.float32), ends)
+    out["rljet_assoc_cluster_phi"] = np.split(rng.uniform(-3, 3, total).astype(np.float32), ends)
+    return out
+
+
+def _rows_multiset(path, dtypes=None):
+    """Every row of an HDF5 file's datasets (cast to ``dtypes``, where
+    given, with the cast checked to keep each value) as one sorted array of
+    byte strings, and each dataset's dtype."""
+    import numpy as np
+    from atlasvae_torch.data import hdf5
+    columns, kinds = [], {}
+    with hdf5.File(path, "r") as f:
+        for key in sorted(f.keys()):
+            col = f[key][()]
+            kinds[key] = col.dtype
+            if dtypes is not None and col.dtype != dtypes[key]:
+                cast = col.astype(dtypes[key])
+                if not np.array_equal(cast.astype(col.dtype), col):
+                    raise AssertionError(f"etl: {key} does not fit {dtypes[key]}")
+                col = cast
+            columns.append(np.ascontiguousarray(col).view(np.uint8).reshape(len(col), -1))
+    rows = np.ascontiguousarray(np.hstack(columns))
+    return np.sort(rows.view(np.dtype((np.void, rows.shape[1]))).ravel()), kinds
+
+
+def _lzf_rates(fixtures):
+    """MB/s of the C and of the plain LZF decoder, each held to the other,
+    twice: over every lzf chunk of the committed fixtures that lzf shrank
+    (a smoke rate: about 2 KB a chunk, so each call's overhead weighs), and
+    over one stream of LZF_REF_CHUNK_BYTES, a merged file's constituents
+    chunk (10,000 x 400 float16), made by concatenating those chunks (an
+    LZF back-reference is relative to the output position, so concatenated
+    streams decode to the concatenated outputs; the content stays the
+    fixtures')."""
+    from atlasvae_torch.data import hdf5, lzf
+    chunks = []
+    for name in fixtures:
+        with hdf5.LiteFile(name) as f:
+            for key in f.keys():
+                store = f[key]._chunks          # lzf alone: the dataset's only filter
+                if store is None or [fid for fid, _, _ in store.filters] != [32000]:
+                    continue
+                with open(name, "rb") as raw:
+                    for _, size, mask, addr in store.index:
+                        if mask & 1 == 0:
+                            raw.seek(addr)
+                            chunks.append((raw.read(size), store.nbytes))
+    if not chunks:
+        raise AssertionError("etl: no lzf chunk in the fixtures")
+    for data, size in chunks:
+        if lzf.decompress_native(data, size) != lzf.decompress_plain(data, size):
+            raise AssertionError("etl: the C and plain LZF decoders disagree")
+    fixture_bytes = sum(size for _, size in chunks)
+    reps = -(-LZF_REF_CHUNK_BYTES // fixture_bytes)
+    big = (b"".join(data for data, _ in chunks) * reps, fixture_bytes * reps)
+    if lzf.decompress_native(*big) != b"".join(lzf.decompress_plain(*c) for c in chunks) * reps:
+        raise AssertionError("etl: the concatenated LZF stream decodes unlike its parts")
+    rates = {}
+    for case, streams in (("fixture", chunks), ("ref_chunk", [big])):
+        for name, decode in (("native", lzf.decompress_native), ("plain", lzf.decompress_plain)):
+            out_bytes, t0 = 0, time.perf_counter()
+            while True:
+                for data, size in streams:
+                    out = decode(data, size)
+                    if out is None or len(out) != size:
+                        raise AssertionError(f"etl: the {name} LZF decoder gave {out!r:.40}")
+                    out_bytes += size
+                if time.perf_counter() - t0 >= LZF_MIN_S:
+                    break
+            rates[f"lzf_{case}_{name}_mb_per_s"] = out_bytes / (time.perf_counter() - t0) / 1e6
+    return rates, len(chunks), fixture_bytes, big[1]
+
+
+def phase_etl(device, workdir):
+    """The ETL on the card machine's own installation, which has no h5py
+    (the phase fails where h5py is importable): write seeded ntuples with
+    the port's rootio.write_tree, convert both samples and merge the dijet
+    one through cli/etl.py, hold the merged file to the unmerged one (the
+    same multiset of rows, float16 constituents, uint8 counts), load it
+    with load_data (cuts, constituents ON, n_const 100) and train one
+    constituents-mode epoch of cli/vae.py on it with the ttbar file as OoD,
+    the counters set to 0 just before (K2 and K3 on their layer-wise
+    routes).  Also: the native basket decoder against the Python loop on a
+    vector<vector<float>> tree, the committed h5py fixtures read through
+    LiteFile bit-equal to their .npz, and the MB/s of both LZF decoders
+    (``_lzf_rates``).  Prints each stage's
+    seconds; returns the phase's launches."""
+    import pickle
+    import numpy as np
+    import torch
+    from atlasvae_torch import native
+    from atlasvae_torch.cli import etl as cli_etl, vae as cli_vae
+    from atlasvae_torch.data import hdf5, load_data, lzf
+    from atlasvae_torch.etl import rootio, rootnative
+
+    os.makedirs(workdir)
+    if hdf5._h5py is not None:
+        raise AssertionError("etl: h5py is importable, so the phase would not run "
+                             "through LiteFile as the card machine's installation does")
+    facts = {"library": "LiteFile", "lzf_backend": lzf.backend()}
+    if facts["lzf_backend"] != "native":
+        raise AssertionError(f"etl: the C LZF decoder did not build: {native.error('lzf_decode')}")
+    rng = np.random.default_rng(16)
+    root = os.path.join(workdir, "ntuples")
+    counts = {}
+    t0 = time.perf_counter()
+    for dsid, files, jets in (ETL_DIJET, ETL_TTBAR):
+        folder = os.path.join(root, f"user.sim.{dsid}.ntuples")
+        os.makedirs(folder)
+        for i in range(files):
+            rootio.write_tree(os.path.join(folder, f"part._{i:06d}.root"), "nominal",
+                              _etl_branches(rng, jets))
+        counts[dsid] = files * jets
+    facts["write_s"] = time.perf_counter() - t0
+    if facts["write_s"] > ETL_WRITE_LIMIT_S:
+        raise AssertionError(f"etl: writing the ntuples took {facts['write_s']:.1f} s: cut "
+                             "ETL_DIJET and ETL_TTBAR and record the cut")
+    facts["ntuple_mb"] = sum(os.path.getsize(os.path.join(d, n)) for d, _, names in os.walk(root)
+                             for n in names) / 1e6
+
+    h5_dir, ttbar_dir = os.path.join(workdir, "dijet"), os.path.join(workdir, "ttbar")
+    native_before = dict(rootnative.native_calls)
+    for stage, argv in (("convert_dijet", ["--sample_type", "topo-dijet", "--tag", "1",
+                                           "--output_path", h5_dir]),
+                        ("convert_ttbar", ["--sample_type", "topo-ttbar",
+                                           "--output_path", ttbar_dir])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            if cli_etl.main(argv + ["--input_path", root]) != 0:
+                raise AssertionError(f"etl: cli/etl.py {' '.join(argv)} failed")
+        facts[f"{stage}_s"] = time.perf_counter() - t0
+    if rootnative.native_calls["final_jets_native"] - native_before["final_jets_native"] != 2:
+        raise AssertionError("etl: convert did not take the native final_jets kernel "
+                             f"({rootnative.native_calls})")
+    dijet = os.path.join(h5_dir, f"topo-dijet_{ETL_DIJET[0]}.h5")
+    ttbar = os.path.join(ttbar_dir, "topo-ttbar.h5")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli_etl.main(["--merging", "ON", "--input_path", h5_dir]) != 0:
+            raise AssertionError("etl: cli/etl.py --merging ON failed")
+    facts["merge_s"] = time.perf_counter() - t0
+    merged = os.path.join(h5_dir, "merging", "merging.h5")
+    facts["merged_mb"] = os.path.getsize(merged) / 1e6
+
+    # the merged file against the unmerged one: the same rows, the reference's dtypes
+    got, kinds = _rows_multiset(merged)
+    if kinds["constituents"] != np.float16 or kinds["rljet_n_constituents"] != np.uint8 \
+            or kinds["JZW"] != np.int8:
+        raise AssertionError(f"etl: the merged file's dtypes are {kinds}")
+    want, _ = _rows_multiset(dijet, kinds)
+    if len(got) != counts[ETL_DIJET[0]] or not np.array_equal(got, want):
+        raise AssertionError(f"etl: the merged file holds {len(got)} rows, not the "
+                             f"{len(want)} rows of {os.path.basename(dijet)}")
+
+    cuts = ['(sample["m"] >= 30)', '(sample["pt"] <= 5000)']     # cli/vae.py's train cuts
+    t0 = time.perf_counter()
+    sample = load_data(merged, counts[ETL_DIJET[0]], cuts, ETL_MAX_CONST, 3, "ON", "OFF",
+                       verbose=False, device=device)
+    facts["load_s"] = time.perf_counter() - t0
+    if sample["constituents"].shape != (counts[ETL_DIJET[0]], 3 * ETL_MAX_CONST) or \
+            not np.isfinite(sample["constituents"]).all():
+        raise AssertionError(f"etl: load_data gave constituents {sample['constituents'].shape}")
+
+    out_dir = os.path.join(workdir, "train")
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_vae.main(ETL_TRAIN_ARGS + ["--bkg_data", merged, "--OoD_data", ttbar,
+                                       "--output_dir", out_dir, "--device", str(device)])
+    torch.cuda.synchronize()
+    facts["train_s"] = time.perf_counter() - t0
+    launches = counters()
+    with open(os.path.join(out_dir, "history.pkl"), "rb") as f:
+        history = pickle.load(f)
+    if any(len(v) != 1 or not np.isfinite(v).all() for v in history.values()):
+        raise AssertionError(f"etl: the epoch's history is {history}")
+    if launches["stack_forward_layers"] <= 0 or launches["stack_backward_layers"] <= 0 \
+            or launches["stack_backward_layers"] % 4:
+        raise AssertionError(f"etl: training launched {launches}: want K2 and K3 on their "
+                             "layer-wise routes, K3 4 times a step")
+    facts["history"] = json.dumps({k: [float(x) for x in v] for k, v in history.items()})
+
+    # the native basket decoder against the Python loop, on the raw ATLAS layout
+    stl = os.path.join(workdir, "stl.root")
+    rootio.write_tree(stl, "nominal", {"clusters": [
+        [rng.normal(size=c).astype(np.float32) for c in rng.integers(0, 30, k)]
+        for k in rng.integers(0, 4, ETL_STL_JETS)]})
+    before = rootnative.native_calls["decode_stl_basket"]
+    t0 = time.perf_counter()
+    fast = rootio.read_tree(stl, "nominal").array_jagged("clusters")
+    facts["stl_native_s"] = time.perf_counter() - t0
+    if rootnative.native_calls["decode_stl_basket"] == before:
+        raise AssertionError("etl: the native basket decoder did not run")
+    load_lib, rootnative.load_lib = rootnative.load_lib, lambda: None
+    try:
+        t0 = time.perf_counter()
+        slow = rootio.read_tree(stl, "nominal").array_jagged("clusters")
+        facts["stl_python_s"] = time.perf_counter() - t0
+    finally:
+        rootnative.load_lib = load_lib
+    if not all(np.array_equal(a, b) for a, b in zip(fast, slow)):
+        raise AssertionError("etl: the native and Python basket decoders disagree")
+
+    # the committed h5py fixtures through LiteFile, and the LZF decoders' rates
+    fixtures = ROOT / "tests" / "fixtures"
+    expect = np.load(fixtures / "h5py_fixtures.npz")
+    names = sorted({key.split("/")[0] for key in expect.files})
+    for key in expect.files:
+        name, dataset = key.split("/")
+        with hdf5.LiteFile(fixtures / name) as f:
+            value = f[dataset][()]
+        if value.dtype != expect[key].dtype or value.tobytes() != expect[key].tobytes():
+            raise AssertionError(f"etl: LiteFile read {key} unlike its .npz")
+    facts["fixture_datasets"] = len(expect.files)
+    rates, n_chunks, n_bytes, ref_bytes = _lzf_rates([fixtures / name for name in names])
+    facts.update(lzf_fixture_chunks=n_chunks, lzf_fixture_bytes=n_bytes,
+                 lzf_ref_chunk_bytes=ref_bytes, **rates)
+    log("etl", **{k: (f"{v:.3f}" if isinstance(v, float) else v) for k, v in facts.items()},
+        launches=json.dumps(launches))
+    return launches, facts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3057,6 +3342,7 @@ def main():
                                                   jetid_data)
         aae_launches, aae_facts = phase_aae(device, os.path.join(workdir, "aae"), workdir)
         keras_launches = phase_keras(device, workdir, jetid_data, aae_facts)
+        etl_launches, etl_facts = phase_etl(device, os.path.join(workdir, "etl"))
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -3066,7 +3352,8 @@ def main():
                     "const_train": const_launches[name], "emd_slice": emd_launches[name],
                     "jetid": jetid_launches[name], "jetid_bf16": bf16_launches[name],
                     "sweep": sweep_launches[name], "kfold": kfold_launches[name],
-                    "aae": aae_launches[name], "keras": keras_launches[name]}
+                    "aae": aae_launches[name], "keras": keras_launches[name],
+                    "etl": etl_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
@@ -3090,7 +3377,8 @@ def main():
         kfold_ms_per_fold_step=f"{kfold_facts['ms_per_fold_step']:.4f}",
         aae_train_jets_per_s=f"{aae_facts['train_jets_per_s']:.0f}",
         aae_score_jets_per_s=f"{aae_facts['score_jets_per_s']:.0f}",
-        aae_scan_2d_ms=f"{aae_facts['scan_2d']['ms']:.4f}")
+        aae_scan_2d_ms=f"{aae_facts['scan_2d']['ms']:.4f}",
+        etl_train_s=f"{etl_facts['train_s']:.3f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

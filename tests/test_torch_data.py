@@ -240,11 +240,14 @@ def test_hdf5_lite_reads_h5py_files_and_refuses_compressed(tmp_path, rng):
         for key, val in arrays.items():
             f.create_dataset(key, data=val)
         f.create_dataset("packed", data=np.ones(64, np.float32), compression="lzf")
-    with pytest.raises(OSError, match="h5py"):
+        f.create_dataset("checked", data=np.ones(64, np.float32), fletcher32=True)
+    # lzf is read; a filter LiteFile does not decode is refused by name
+    with pytest.raises(OSError, match="fletcher32.*h5py"):
         hdf5.LiteFile(tmp_path / "h5py.h5")
     with h5py.File(tmp_path / "h5py.h5", "a") as f:
-        del f["packed"]
+        del f["checked"]
     with hdf5.LiteFile(tmp_path / "h5py.h5") as f:
-        assert sorted(f) == sorted(arrays)
+        assert sorted(f) == sorted([*arrays, "packed"])
+        np.testing.assert_array_equal(f["packed"][:], np.ones(64, np.float32))
         for key, val in arrays.items():
             np.testing.assert_array_equal(f[key][:], val)
