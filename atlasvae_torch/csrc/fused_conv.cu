@@ -8,8 +8,9 @@
 // and has no place here.  Two routes, chosen from the shape by
 // ops/fused_conv_cuda.py `route`:
 //
-// * The register route (conv_pool_relu_tiles_kernel): 3x3 taps, one
-//   channel, a 2x2 pool and at most 128 maps, the jet-ID CNN's first block.
+// * The register route (conv_pool_relu_tiles_kernel in float; its bf16 form
+//   below): 3x3 taps, one channel, a 2x2 pool and at most 128 maps, the
+//   jet-ID CNN's first block.
 //   A thread keeps the 9 taps and the bias of four consecutive maps in
 //   registers, loaded once, and walks a few pooled pixels: it loads the
 //   pixel's 4x4 input patch into registers once, sums the four conv pixels
@@ -24,24 +25,38 @@
 //   thread owns one (pooled pixel, map) at a time, reading both operands of
 //   each FMA from shared memory.
 //
-// Both sum each conv pixel's taps with the same chain of FMAs, from 0 in
-// (dy, dx, c) order, and keep the first position of the window that reaches
-// the maximum (rows, then columns, strictly greater), as K6
+// In float both sum each conv pixel's taps with the same chain of FMAs,
+// from 0 in (dy, dx, c) order, and keep the first position of the window
+// that reaches the maximum (rows, then columns, strictly greater), as K6
 // (fused_conv_bwd.cu) recomputes them.
 //
-// Both routes come in float and in bf16 (the _bf16 entry points; x, w, b
-// and out all bf16): bf16 is widened to float where it is loaded, the sums,
-// the pool, the bias and the clamp run in float as the Pallas kernel's f32
-// accumulation does, and the output is rounded once to bf16 where it is
-// stored (fused_conv.cuh `narrow`).  The register route then writes four
-// maps as one 8-byte store.  At the jet-ID training batch in bf16 the bytes
-// halve (x 2.6 MB, out 49 MB: 0.015 ms at 3.35 TB/s) and the float work
-// bounds it (0.026 ms at 67 TFLOP/s).
-//
 // Bound on an H100 at the jet-ID training batch (5,000 x 16x16x1, 3x3, 100
-// maps, pool 2x2): 5.1 MB read, 98 MB written, 1.8 GFLOP: the write bounds
-// it (0.03 ms at 3.35 TB/s; 0.026 ms of f32 work at 67 TFLOP/s).  The
+// maps, pool 2x2), float: 5.1 MB read, 98 MB written, 1.8 GFLOP: the write
+// bounds it (0.03 ms at 3.35 TB/s; 0.026 ms of f32 work at 67 TFLOP/s).  The
 // pre-pool block (392 MB) never exists.
+//
+// bf16 (the _bf16 entry points; x, w, b and out all bf16).  The band route
+// widens each bf16 value to float where it loads it and runs as in float,
+// rounding the output once to bf16 where it stores it (fused_conv.cuh
+// `narrow`).  The register route's bf16 form is a kernel of its own,
+// conv_pool_relu_tc_kernel, for the tensor cores (fused_conv.cuh, tc_*).
+// What bounds it: at the jet-ID training batch the bytes halve (x 2.6 MB,
+// out 49 MB: 0.0154 ms at 3.35 TB/s), and its 1.76 GFLOP of products take
+// 0.026 ms on the f32 CUDA cores, so an FMA form cannot reach the byte
+// bound; on the bf16 tensor cores they take 2 us.  The design: an implicit
+// GEMM, mma.sync m16n8k16 (bf16 in, f32 sums) with the 9 taps padded to 16;
+// each lane ends with the four window positions of its pooled pixel, so the
+// pool, the bias and the clamp run in its registers; the weights' fragments
+// sit in registers, loaded once; each warp gathers 16 pooled pixels x M
+// maps in shared memory and writes them with 16-byte stores; a group's
+// input loads go out a group ahead, to device memory through L1 (x is 5% of
+// the bytes: a CTA's span of x staged in shared memory by cp.async, with
+// two barriers a step of 128 pooled pixels, measured 18-29% slower).  What
+// holds it now is instruction issue
+// (a few hundred a group of four pooled pixels, most of them the pool and
+// the stores' staging), at about twice the byte bound (PERF.md §6).  The
+// pool keeps the largest value only (fmaxf): K6 picks the same value, and
+// its position, from the same products.
 #include <cstdint>
 
 #include "fused_conv.cuh"
@@ -126,6 +141,87 @@ conv_pool_relu_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// The bf16 register route on the tensor cores (fused_conv.cuh, tc_*).  Warp
+// v of the grid takes chunks v, v + warps, ... of 16 pooled pixels (four
+// groups of four); a chunk's pooled block (16 x M bf16, contiguous in out)
+// is gathered in the warp's slice of shared memory and written with 16-byte
+// stores.  Each group's input loads are issued a group ahead, and each
+// tile's products one tile ahead of its pool.  A lane holds its A fragments
+// and biases of every tile in registers (48 of them): two CTAs an SM, but no
+// shared-memory load a tile.
+template <bool kAllValid>
+__global__ void __launch_bounds__(32 * kTcWarps, 2)
+conv_pool_relu_tc_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ w,
+                         const unsigned short* __restrict__ b, unsigned short* __restrict__ out,
+                         const TcShape s, bool vec) {
+  __shared__ TcWeights tw;
+  __shared__ __align__(16) unsigned short stage[kTcWarps][kTcChunk * kTileMaps];
+  tc_stage_weights(w, b, s.M, &tw);
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  unsigned short* const st = stage[warp];
+  int tdy[2], tdx[2];
+  tc_lane_taps(lane, tdy, tdx);
+  const int n_chunks = (s.pixels + kTcChunk - 1) / kTcChunk, stride = gridDim.x * kTcWarps;
+  int chunk = blockIdx.x * kTcWarps + warp;
+  uint4 wa[kTcMTiles];
+  float2 wb[kTcMTiles];
+#pragma unroll
+  for (int j = 0; j < kTcMTiles; ++j) {
+    wa[j] = tw.a[j][lane];
+    wb[j] = tw.bias[j][lane];
+  }
+  unsigned raw[2][3];
+  tc_conv_load<kAllValid>(s, tc_pixel<kAllValid>(x, s, chunk * kTcChunk + g / 2), g % 2, t, tdy,
+                          tdx, raw);
+  for (; chunk < n_chunks; chunk += stride) {
+    const int c0 = chunk * kTcChunk;
+#pragma unroll 1
+    for (int grp = 0; grp < kTcChunk / 4; ++grp) {
+      const int p0 = c0 + 4 * grp;
+      unsigned bf[2][2];
+      tc_conv_pack(raw, bf);
+      const int next = grp + 1 < kTcChunk / 4 ? p0 + 4 : (chunk + stride) * kTcChunk;
+      tc_conv_load<kAllValid>(s, tc_pixel<kAllValid>(x, s, next + g / 2), g % 2, t, tdy, tdx,
+                              raw);
+      const TcPixel pe = tc_pixel<kAllValid>(x, s, p0 + t);
+      unsigned short* const row = st + (4 * grp + t) * s.M;
+      float z[2][4];
+      tc_conv_tile(wa[0], bf, z);
+#pragma unroll
+      for (int j = 0; j < kTcMTiles; ++j) {
+        if (j >= s.n_mtiles) break;
+        float zn[2][4];   // the next tile's products, in flight during this tile's pool
+        tc_conv_tile(wa[j + 1 < kTcMTiles ? j + 1 : j], bf, zn);
+        const float2 bias = wb[j];
+        const unsigned o = bf16x2_bits(fmaxf(tc_max(z, 0, pe) + bias.x, 0.f),
+                                       fmaxf(tc_max(z, 1, pe) + bias.y, 0.f));
+        const int m = 16 * j + g;
+        if (m < s.M) row[m] = (unsigned short)(o & 0xffffu);
+        if (m + 8 < s.M) row[m + 8] = (unsigned short)(o >> 16);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) z[r][i] = zn[r][i];
+      }
+    }
+    __syncwarp();
+    // the chunk's rows -> out; a chunk starts 32 M bytes into out, so on a
+    // 16-byte aligned out the 16-byte words line up
+    const int n = min(kTcChunk, s.pixels - c0) * s.M;
+    unsigned short* const dst = out + (size_t)c0 * s.M;
+    int done = 0;
+    if (vec) {
+      const uint4* src4 = reinterpret_cast<const uint4*>(st);
+      uint4* dst4 = reinterpret_cast<uint4*>(dst);
+      for (int i = lane; i < n / 8; i += 32) dst4[i] = src4[i];
+      done = n / 8 * 8;
+    }
+    for (int i = done + lane; i < n; i += 32) dst[i] = st[i];
+    __syncwarp();
+  }
+}
+
 // The band route: out (N, Ho, Wo, M).  Returns 0, a cudaError, -1 for a
 // shape outside the gate (K = kh*kw*C <= 512, M <= 1024, the kernel inside
 // the image) or -2 when one pooled row of one image does not fit a CTA's
@@ -173,6 +269,34 @@ int conv_forward_tiles(const void* x, const void* w, const void* b, void* out, i
   return (int)cudaGetLastError();
 }
 
+// The bf16 register route: as conv_forward_tiles, on the tensor cores.  The
+// grid fills the card once, two CTAs an SM (__launch_bounds__; each CTA
+// stages the weights once); the output does not depend on it.
+inline int conv_forward_tc(const void* x, const void* w, const void* b, void* out, int N, int H,
+                           int W, int M, void* stream) {
+  TcShape s;
+  if (!tc_shape(N, H, W, M, &s)) return -1;
+  const bool all_valid = H % 2 == 0 && W % 2 == 0;   // Hc and Wc even
+  int sms;
+  const int err = tc_device_setup(&conv_pool_relu_tc_kernel<true>,
+                                  &conv_pool_relu_tc_kernel<false>, 0, &sms);
+  if (err) return err;
+  const long long n_chunks = (s.pixels + kTcChunk - 1) / kTcChunk;
+  const long long need = (n_chunks + kTcWarps - 1) / kTcWarps;
+  const int grid = (int)(need < 2LL * sms ? need : 2LL * sms);
+  const bool vec = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const auto* xs = static_cast<const unsigned short*>(x);
+  const auto* ws = static_cast<const unsigned short*>(w);
+  const auto* bs = static_cast<const unsigned short*>(b);
+  auto* os = static_cast<unsigned short*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (all_valid)
+    conv_pool_relu_tc_kernel<true><<<grid, 32 * kTcWarps, 0, st>>>(xs, ws, bs, os, s, vec);
+  else
+    conv_pool_relu_tc_kernel<false><<<grid, 32 * kTcWarps, 0, st>>>(xs, ws, bs, os, s, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace atlasvae
 
 // The entry points: float (x, w, b, out all float32) and _bf16 (all bf16),
@@ -200,5 +324,5 @@ extern "C" int atlasvae_conv_pool_relu_tiles(const void* x, const void* w, const
 extern "C" int atlasvae_conv_pool_relu_tiles_bf16(const void* x, const void* w, const void* b,
                                                   void* out, int N, int H, int W, int M,
                                                   void* stream) {
-  return atlasvae::conv_forward_tiles<atlasvae::bf16>(x, w, b, out, N, H, W, M, stream);
+  return atlasvae::conv_forward_tc(x, w, b, out, N, H, W, M, stream);
 }

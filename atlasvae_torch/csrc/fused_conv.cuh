@@ -10,21 +10,36 @@
 //
 // A work item is (a group of nb images) x (a band of rb pooled rows).  Its
 // input rows sit in shared memory beside one tile of the weights (K x mt);
-// items whose maps do not fit one tile walk the tiles in turn.  The register
-// routes of both (tile_* below) keep no rows in shared memory: a thread holds
-// four maps' taps and one pooled pixel's input patch in registers.  Every
-// route sums the taps of a conv pixel with the same chain of FMAs, so the
-// backward sees the bits the forward pooled.
+// items whose maps do not fit one tile walk the tiles in turn.  The float
+// register routes of both (tile_* below) keep no rows in shared memory: a
+// thread holds four maps' taps and one pooled pixel's input patch in
+// registers.  Every float route, and the bf16 band route, sums the taps of a
+// conv pixel with the same chain of FMAs, so the backward sees the bits the
+// forward pooled.
 //
 // x, w, b, the output and g are all float or all bf16 (the element type T
-// of the kernels).  A bf16 value is widened to float where it is loaded (a
-// product of two bf16 values is exact in float) and everything after runs
-// as the float kernels run; an output is rounded once, where it is stored
-// (narrow).  Shared memory and the partial sums hold floats either way.
+// of the kernels).  On the FMA routes a bf16 value is widened to float where
+// it is loaded (a product of two bf16 values is exact in float) and
+// everything after runs as the float kernels run; an output is rounded once,
+// where it is stored (narrow).  Shared memory and the partial sums hold
+// floats either way.
+//
+// The bf16 register route (tc_* below) runs on the tensor cores instead: an
+// implicit GEMM with mma.sync m16n8k16 (bf16 in, f32 sums).  At the jet-ID
+// training batch its FMA form did 1.76 GFLOP of scalar products, 0.026 ms at
+// the f32 CUDA-core peak, above the 0.0154 ms its bytes take, so no FMA
+// design could reach the byte bound; on the tensor cores the products take
+// 2 us, and what is left is the pool or the routing a (pooled pixel, map)
+// and the operands' loads, a few hundred instructions a group of four pooled
+// pixels.  K5 and K6 build the same fragments in the same tap order and run
+// the same mma on them, so K6's argmax and ReLU mask see the bits K5 pooled.
+// The float routes keep the FMA chain.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
 
 namespace atlasvae {
 
@@ -35,40 +50,23 @@ __device__ __forceinline__ float load_widened(const bf16* p) {
   return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
-// Two consecutive elements, 8 bytes (float) or 4 (bf16) aligned.
+// Two consecutive floats, 8 bytes aligned (the float register routes).
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
 }
-__device__ __forceinline__ float2 load_pair(const bf16* p) {
-  const unsigned v = __ldg(reinterpret_cast<const unsigned*>(p));
-  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
-}
 
-// Four consecutive elements, 16 bytes (float) or 8 (bf16) aligned.
+// Four consecutive floats, 16 bytes aligned.
 __device__ __forceinline__ float4 load_quad(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load_quad(const bf16* p) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
 }
 
 template <typename T> __device__ __forceinline__ T narrow(float v);
 template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 narrow<bf16>(float v) { return __float2bfloat16_rn(v); }
 
-__device__ __forceinline__ unsigned bf16_bits(float v) {
-  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// Four values stored as one 16-byte (float) or 8-byte (bf16) word.
+// Four floats stored as one 16-byte word.
 __device__ __forceinline__ void store_quad(float* dst, const float (&v)[4]) {
   *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_quad(bf16* dst, const float (&v)[4]) {
-  *reinterpret_cast<uint2*>(dst) = make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
-                                              bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
 }
 
 constexpr int kConvThreads = 256;
@@ -339,6 +337,254 @@ __device__ __forceinline__ void tile_pool_window(const float (&patch)[4][4],
         }
       }
     }
+}
+
+// ---- The bf16 register route on the tensor cores (tc_*) ----
+//
+// A warp runs groups of four consecutive pooled pixels, all maps, as
+//   z (16 maps x 8 conv pixels) = W^T (16 maps x 16 taps) . P^T (16 taps x 8
+//   conv pixels),
+// mma.sync.m16n8k16 with the 9 taps (dy, dx) in 3 dy + dx order padded to 16
+// with zeros, two products a tile of 16 maps: window row r = 0 and r = 1.
+// Column 2 t + q of the product of row r is position (r, q) of pooled pixel
+// t of the group, so lane (g = lane / 4, t = lane % 4) ends with all four
+// positions of pooled pixel t for maps g and g + 8 in its accumulators, and
+// the pool, the argmax, the bias and the clamp run in its registers.  Each
+// product of two bf16 values is exact in f32; the mma sums them in f32.
+constexpr int kTcWarps = 8;                  // warps a CTA
+constexpr int kTcChunk = 16;                 // pooled pixels a warp stages at once: 4 groups
+constexpr int kTcMTiles = kTileMaps / 16;    // tiles of 16 maps, at most
+constexpr unsigned kBf16One = 0x3F80u;       // 1.0 in bf16
+constexpr int kTcMaxDevices = 64;
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1).
+struct FastDiv {
+  unsigned mul;
+  int shift;
+};
+
+inline FastDiv fast_div(int d) {
+  int l = 0;
+  while ((1LL << l) < d) ++l;
+  FastDiv f;
+  f.shift = l;
+  f.mul = (unsigned)(((1ULL << 32) * ((1ULL << l) - (unsigned long long)d)) /
+                     (unsigned long long)d + 1);
+  return f;
+}
+
+__device__ __forceinline__ int divide(const FastDiv& f, int n) {
+  return (int)((__umulhi((unsigned)n, f.mul) + (unsigned)n) >> f.shift);
+}
+
+struct TcShape {
+  int N, H, W, M, Ho, Wo, n_mtiles;
+  int pixels;     // N * Ho * Wo pooled pixels
+  FastDiv wo, ho;
+};
+
+inline bool tc_shape(int N, int H, int W, int M, TcShape* s) {
+  if (N < 1 || H < 3 || W < 3 || M < 1 || M > kTileMaps) return false;
+  s->N = N; s->H = H; s->W = W; s->M = M;
+  s->Ho = (H - 1) / 2;   // ceil((H - 2) / 2)
+  s->Wo = (W - 1) / 2;
+  const long long pixels = (long long)N * s->Ho * s->Wo;
+  if (pixels > 2147483647LL - (1LL << 24)) return false;   // 32-bit pixel indices
+  s->pixels = (int)pixels;
+  s->n_mtiles = (M + 15) / 16;
+  s->wo = fast_div(s->Wo);
+  s->ho = fast_div(s->Ho);
+  return true;
+}
+
+// Once a device, at its first launch: its SM count, and, where smem > 0,
+// the dynamic shared memory cap of both forms of a kernel raised to smem.
+// Returns 0 or a cudaError.  Static: each library (and each build of one,
+// loaded side by side) keeps its own table, where a static local of an
+// inline function would be one object for the whole process.
+template <typename Kernel>
+static int tc_device_setup(Kernel all_valid, Kernel edges, size_t smem, int* sms) {
+  static std::atomic<int> known[kTcMaxDevices];   // SM counts, 0 until set up
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= kTcMaxDevices) return (int)cudaErrorInvalidDevice;
+  int n = known[device].load(std::memory_order_relaxed);
+  if (n == 0) {
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess && smem > 0)
+      err = cudaFuncSetAttribute(all_valid, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err == cudaSuccess && smem > 0)
+      err = cudaFuncSetAttribute(edges, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    known[device].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return 0;
+}
+
+// d += a . b, one m16n8k16 product of bf16 pairs into f32.
+__device__ __forceinline__ void mma_bf16(const uint4& a, unsigned b0, unsigned b1, float (&d)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(unsigned lo, unsigned hi) { return lo | hi << 16; }
+
+// The weights as A fragments and the bias, per tile of 16 maps and lane, in
+// shared memory: a.x holds taps 2 t, 2 t + 1 of map 16 j + g, a.y those of
+// map 16 j + g + 8, a.z and a.w tap 8 of the two maps where t = 0 (the
+// zero-padded taps 9..15 elsewhere); 0 past M, all kTcMTiles tiles.  Built
+// once a CTA.
+struct TcWeights {
+  uint4 a[kTcMTiles][32];
+  float2 bias[kTcMTiles][32];
+};
+
+__device__ __forceinline__ void tc_stage_weights(const unsigned short* __restrict__ w,
+                                                 const unsigned short* __restrict__ b, int M,
+                                                 TcWeights* tw) {
+  for (int i = threadIdx.x; i < kTcMTiles * 32; i += blockDim.x) {
+    const int j = i / 32, lane = i % 32, g = lane / 4, t = lane % 4;
+    const int m0 = 16 * j + g, m1 = m0 + 8;
+    auto wk = [&](int k, int m) -> unsigned { return m < M ? __ldg(w + (size_t)k * M + m) : 0u; };
+    uint4 a;
+    a.x = pack_bf16(wk(2 * t, m0), wk(2 * t + 1, m0));
+    a.y = pack_bf16(wk(2 * t, m1), wk(2 * t + 1, m1));
+    a.z = t == 0 ? wk(8, m0) : 0u;
+    a.w = t == 0 ? wk(8, m1) : 0u;
+    tw->a[j][lane] = a;
+    tw->bias[j][lane] =
+        make_float2(m0 < M ? __uint_as_float((unsigned)__ldg(b + m0) << 16) : 0.f,
+                    m1 < M ? __uint_as_float((unsigned)__ldg(b + m1) << 16) : 0.f);
+  }
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// One pooled pixel's window: where its first conv pixel (y0, x0) lies in x,
+// whether the pixel exists, and which window positions lie inside the conv
+// output (position 0 always does; kAllValid: Hc and Wc even, all do).  A
+// pixel past the last one stands in the last one's place, so its loads stay
+// inside x; whatever it computes is dropped.
+struct TcPixel {
+  const unsigned short* at;
+  int y0, x0;
+  bool live, v1, v2, v3;
+};
+
+template <bool kAllValid>
+__device__ __forceinline__ TcPixel tc_pixel(const unsigned short* __restrict__ x, const TcShape& s,
+                                            int pix) {
+  TcPixel p;
+  p.live = pix < s.pixels;
+  if (!p.live) pix = s.pixels - 1;
+  const int rest = divide(s.wo, pix);
+  const int img = divide(s.ho, rest);
+  p.x0 = 2 * (pix - rest * s.Wo);
+  p.y0 = 2 * (rest - img * s.Ho);
+  p.at = x + (size_t)img * s.H * s.W + p.y0 * s.W + p.x0;
+  p.v1 = kAllValid || p.x0 + 1 < s.W - 2;
+  p.v2 = kAllValid || p.y0 + 1 < s.H - 2;
+  p.v3 = p.v1 && p.v2;
+  return p;
+}
+
+// x at (y0 + dy, x0 + dx) of the pixel's image as bf16 bits, 0 outside the
+// image (only a tap of a position outside the conv output lies there); off
+// is dy * W + dx, unsigned so that the address takes one wide multiply-add.
+template <bool kAllValid>
+__device__ __forceinline__ unsigned tc_x(const TcShape& s, const TcPixel& p, int dy, int dx,
+                                         unsigned off) {
+  if (!kAllValid && (p.y0 + dy >= s.H || p.x0 + dx >= s.W)) return 0u;
+  return __ldg(p.at + off);
+}
+
+// The taps 2 t, 2 t + 1 a lane gives the conv's B fragments, as (dy, dx).
+__device__ __forceinline__ void tc_lane_taps(int lane, int (&tdy)[2], int (&tdx)[2]) {
+  const int t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    tdy[i] = (2 * t + i) / 3;
+    tdx[i] = (2 * t + i) % 3;
+  }
+}
+
+// The B fragments (P^T, 16 taps x 8 conv pixels) of window rows r = 0, 1:
+// lane (g, t) gives conv pixel (r, q = g % 2) of p, the group's pooled pixel
+// g / 2, at taps 2 t, 2 t + 1 and, where t = 0, tap 8.  Loaded as raw bf16
+// bits a group ahead of their use, packed when the group starts.
+template <bool kAllValid>
+__device__ __forceinline__ void tc_conv_load(const TcShape& s, const TcPixel& p, int q, int t,
+                                             const int (&tdy)[2], const int (&tdx)[2],
+                                             unsigned (&raw)[2][3]) {
+  const unsigned W = s.W;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    raw[r][0] = tc_x<kAllValid>(s, p, r + tdy[0], q + tdx[0], (r + tdy[0]) * W + q + tdx[0]);
+    raw[r][1] = tc_x<kAllValid>(s, p, r + tdy[1], q + tdx[1], (r + tdy[1]) * W + q + tdx[1]);
+    raw[r][2] = t == 0 ? tc_x<kAllValid>(s, p, r + 2, q + 2, (r + 2) * W + q + 2) : 0u;
+  }
+}
+
+__device__ __forceinline__ void tc_conv_pack(const unsigned (&raw)[2][3], unsigned (&bf)[2][2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf[r][0] = pack_bf16(raw[r][0], raw[r][1]);
+    bf[r][1] = raw[r][2];
+  }
+}
+
+// The conv outputs of one tile of 16 maps for the group: z[r] holds
+// positions (r, 0), (r, 1) of pooled pixel t for map 16 j + g (z[r][0],
+// z[r][1]) and map 16 j + g + 8 (z[r][2], z[r][3]).
+__device__ __forceinline__ void tc_conv_tile(const uint4& a, const unsigned (&bf)[2][2],
+                                             float (&z)[2][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) z[r][i] = 0.f;
+    mma_bf16(a, bf[r][0], bf[r][1], z[r]);
+  }
+}
+
+// The window's positions of map half h (0: map g, 1: map g + 8), -inf at
+// a position outside the conv output (position 0 always lies inside).
+__device__ __forceinline__ void tc_window(const float (&z)[2][4], int h, const TcPixel& p,
+                                          float (&v)[4]) {
+  v[0] = z[0][2 * h];
+  v[1] = p.v1 ? z[0][2 * h + 1] : -INFINITY;
+  v[2] = p.v2 ? z[1][2 * h] : -INFINITY;
+  v[3] = p.v3 ? z[1][2 * h + 1] : -INFINITY;
+}
+
+// g routed to the window's first position that reaches its largest value
+// (rows, then columns: the FMA routes' first strictly greater one) where
+// zmax + b > 0, as the two bf16 pairs of Gc^T that hold map half h's
+// positions (0, 1) and (2, 3); 0 elsewhere.
+__device__ __forceinline__ void tc_route(const float (&z)[2][4], int h, const TcPixel& p,
+                                         float bias, bool live, unsigned g16, unsigned* lo,
+                                         unsigned* hi) {
+  float v[4];
+  tc_window(z, h, p, v);
+  const float zmax = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+  const unsigned gr = live && zmax + bias > 0.f ? g16 : 0u;
+  const bool e0 = v[0] == zmax, e1 = v[1] == zmax, e2 = v[2] == zmax;
+  *lo = e0 ? gr : e1 ? gr << 16 : 0u;
+  *hi = e0 || e1 ? 0u : e2 ? gr : gr << 16;
+}
+
+// The window's largest value (K5): the value tc_route routes by.
+__device__ __forceinline__ float tc_max(const float (&z)[2][4], int h, const TcPixel& p) {
+  float v[4];
+  tc_window(z, h, p, v);
+  return fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
 }
 
 }  // namespace atlasvae

@@ -12,14 +12,16 @@
 //   * conv_reduce_partials adds the slices in a fixed order.
 // So the result is the same bits on every call and every card.
 //
-// Both routes recompute each pooled pixel's window with K5's own chain of
-// FMAs, keep the first position that reaches the largest value (rows, then
-// columns: XLA's select-and-scatter order), mask g by zmax + b > 0 and add
-// g times that position's input patch to dW and g to db.  Two routes, chosen
-// from the shape by ops/fused_conv_cuda.py `route`, as K5's are:
+// Every route recomputes each pooled pixel's window with K5's own arithmetic
+// (in float, and in the bf16 band route: K5's chain of FMAs), keeps the
+// first position that reaches the largest value (rows, then columns: XLA's
+// select-and-scatter order), masks g by zmax + b > 0 and adds g times that
+// position's input patch to dW and g to db.  Two routes, chosen from the
+// shape by ops/fused_conv_cuda.py `route`, as K5's are:
 //
-// * The register route (conv_pool_relu_bwd_tiles_kernel): 3x3 taps, one
-//   channel, a 2x2 pool and at most 128 maps, the jet-ID CNN's first block.
+// * The register route (conv_pool_relu_bwd_tiles_kernel in float; its bf16
+//   form below): 3x3 taps, one channel, a 2x2 pool and at most 128 maps,
+//   the jet-ID CNN's first block.
 //   A thread owns four maps, as in K5's register route: their taps and bias
 //   in registers, loaded once, and their 36 dW and 4 db sums in registers
 //   over a fixed run of pooled pixels.  A pixel costs one 4x4 patch (8-byte
@@ -38,17 +40,35 @@
 //   patch[tap] * gradient, a thread per map the gradient for db.  Step 2
 //   spends three shared-memory loads on an FMA.
 //
-// Both routes come in float and in bf16 (the _bf16 entry points; x, w, b
-// and g all bf16): each bf16 value is widened to float where it is loaded,
-// g too, the recompute, the mask and every sum run in float exactly as in
-// the float kernels, and the partial slices stay float; conv_reduce_partials
-// rounds each finished dW and db element once to bf16, the dtype of w and
-// b, as the Pallas kernel's wrapper casts its float sums back.
-//
 // Bound on an H100 at the jet-ID training batch (5,000 x 16x16x1, 3x3, 100
-// maps, pool 2x2): x 5.1 MB and g 98 MB read, 4 KB written: 0.031 ms at 3.35
-// TB/s; 1.91 GFLOP to recompute and pool the conv, 0.47 GFLOP for dW and
-// db: 0.0355 ms at 67 TFLOP/s of f32.  Operations bound it, not g's read.
+// maps, pool 2x2), float: x 5.1 MB and g 98 MB read, 4 KB written: 0.031 ms
+// at 3.35 TB/s; 1.91 GFLOP to recompute and pool the conv, 0.47 GFLOP for
+// dW and db: 0.0355 ms at 67 TFLOP/s of f32.  Operations bound it, not g's
+// read.
+//
+// bf16 (the _bf16 entry points; x, w, b and g all bf16).  The band route
+// widens each bf16 value to float where it loads it, g too, and runs as in
+// float.  The register route's bf16 form is a kernel of its own,
+// conv_pool_relu_bwd_tc_kernel, for the tensor cores (fused_conv.cuh, tc_*).
+// What bounds it: g's read (49 MB: 0.0154 ms at 3.35 TB/s) at the jet-ID
+// batch; its 2.4 GFLOP of products would take 0.036 ms on the f32 CUDA
+// cores and take 3 us on the bf16 tensor cores.  The design: the recompute
+// is K5's (the same fragments, the same mma, so the argmax and the ReLU mask
+// see the bits K5 pooled); dW^T and db come from a second mma whose A
+// operand is built in registers from the first one's accumulators (g at the
+// routed position, 0 elsewhere: exact in bf16) and whose B operand is the
+// routed patches, with a column of ones for db; g comes into shared memory
+// by cp.async a chunk ahead, x through L1 as in K5; the mma's f32 sums,
+// which do not round to nearest, are folded into f32 sums in shared memory
+// every kTcFold chunks, so their error does not grow with the batch.  What
+// holds it now: the routing (argmax, mask,
+// packing) and the operands' shared-memory loads, at 128 registers a thread
+// (the 64 f32 dW/db accumulators), so two CTAs an SM, 4 warps a scheduler
+// to hide the mma and load latencies: about four times the byte bound
+// (PERF.md §6).  In every form the partial slices hold floats, and
+// conv_reduce_partials rounds each finished dW and db element once to the
+// dtype of w and b, as the Pallas kernel's wrapper casts its float sums
+// back.
 #include <cstdint>
 
 #include "fused_conv.cuh"
@@ -225,6 +245,209 @@ conv_pool_relu_bwd_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w
   }
 }
 
+// The bf16 register route on the tensor cores (fused_conv.cuh, tc_*).  CTA
+// c takes chunks c * per_cta .. (c + 1) * per_cta - 1 of 16 pooled pixels,
+// per_cta = kTcWarps * per_warp; its warp v takes chunks v, v + kTcWarps, ...
+// of them, in order, and the CTA writes partial slice c.  A chunk's g block
+// (16 x M bf16, contiguous) comes into the warp's slice of shared memory by
+// 16-byte cp.async, the next chunk's while this one runs.
+//
+// Per group and tile of 16 maps a lane recomputes K5's two products and pool
+// (the same fragments, the same mma; a group's loads issued a group ahead,
+// a tile's products one tile ahead), keeps g of pooled pixel t where
+// zmax + b > 0, and puts it at the routed position of a zero block: the
+// lane's accumulators are laid out as the A fragment of
+//   dW^T (16 maps x 8 taps) += Gc^T (16 maps x 16 conv pixels) . P (16 conv
+//   pixels x 8 taps),
+// two more products a tile: taps 0..7, then tap 8 and a column of ones,
+// which gives db.  Gc holds g or 0, exact in bf16.  The mma's f32 sums do
+// not round to nearest, so a run of them is kept short: every kTcFold
+// chunks, and after its last, a warp adds its accumulators into f32 sums of
+// its own in shared memory and clears them (a run grows with N otherwise:
+// 120 products a warp at the 20,000-jet chunk).  At the end the CTA adds
+// its warps' sums in warp order.
+constexpr int kTcParts = 264;   // CTAs, and partial slices, at most
+constexpr int kTcFold = 8;      // chunks a warp sums in the mma's accumulators
+
+// A warp's f32 sums: lane l's taps 2 t, 2 t + 1 of tile j, acc[j][0][i], at
+// (4 j + i) 32 + l; tap 8 and db, acc[j][1][i] of the lanes with t = 0, at
+// 128 n_mtiles + (4 j + i) 8 + g.  A lane touches its own sums only.
+__host__ __device__ __forceinline__ int tc_sums_per_warp(int n_mtiles) {
+  return 160 * n_mtiles;
+}
+
+__device__ __forceinline__ int tc_sum_index(int n_mtiles, int k, int m) {   // tap k, map m
+  const int j = m / 16, h = m % 16 / 8, g = m % 8;
+  return k < 8 ? (4 * j + 2 * h + k % 2) * 32 + 4 * g + k / 2
+               : 128 * n_mtiles + (4 * j + 2 * h + k - 8) * 8 + g;
+}
+
+// Shared memory: TcWeights, the g stages (two a warp), the warps' sums.
+inline size_t tc_bwd_smem(const TcShape& s) {
+  return sizeof(TcWeights) + (size_t)kTcWarps * 2 * kTcChunk * s.M * sizeof(unsigned short) +
+         (size_t)kTcWarps * tc_sums_per_warp(s.n_mtiles) * sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem));
+}
+
+// P (16 conv pixels x 8 taps) of pooled pixel p for the dW product: lane
+// (gq, t) gives rows (r, q) at tap gq (dy, dx) in the first tile, tap 8 in
+// the second where gq = 0 (a column of ones where gq = 1, the rest 0).  Raw
+// bf16 bits, loaded a group ahead of their use.
+template <bool kAllValid>
+__device__ __forceinline__ void tc_dw_load(const TcShape& s, const TcPixel& p, int gq, int dy,
+                                           int dx, unsigned (&raw)[2][4]) {
+  const unsigned W = s.W;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const unsigned o = (r + dy) * W + dx, o8 = (r + 2) * W + 2;
+    raw[r][0] = tc_x<kAllValid>(s, p, r + dy, dx, o);
+    raw[r][1] = tc_x<kAllValid>(s, p, r + dy, dx + 1, o + 1);
+    raw[r][2] = gq == 0 ? tc_x<kAllValid>(s, p, r + 2, 2, o8) : 0u;
+    raw[r][3] = gq == 0 ? tc_x<kAllValid>(s, p, r + 2, 3, o8 + 1) : 0u;
+  }
+}
+
+__device__ __forceinline__ void tc_dw_pack(const unsigned (&raw)[2][4], int gq,
+                                           unsigned (&bp)[2][2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bp[0][r] = pack_bf16(raw[r][0], raw[r][1]);
+    bp[1][r] = gq == 1 ? pack_bf16(kBf16One, kBf16One) : pack_bf16(raw[r][2], raw[r][3]);
+  }
+}
+
+template <bool kAllValid>
+__global__ void __launch_bounds__(32 * kTcWarps, 2)
+conv_pool_relu_bwd_tc_kernel(const unsigned short* __restrict__ x,
+                             const unsigned short* __restrict__ w,
+                             const unsigned short* __restrict__ b,
+                             const unsigned short* __restrict__ g,
+                             float* __restrict__ partial, const TcShape s, int per_warp,
+                             bool vec) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  TcWeights* const tw = reinterpret_cast<TcWeights*>(tc_smem);
+  unsigned short* const stage_all = reinterpret_cast<unsigned short*>(tc_smem + sizeof(TcWeights));
+  tc_stage_weights(w, b, s.M, tw);
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, gq = lane / 4, t = lane % 4;
+  const int M = s.M, chunk_len = kTcChunk * M;
+  unsigned short* const stage = stage_all + (size_t)warp * 2 * chunk_len;
+  float* const sums = reinterpret_cast<float*>(stage_all + (size_t)kTcWarps * 2 * chunk_len);
+  float* const mine = sums + warp * tc_sums_per_warp(s.n_mtiles);
+  for (int i = lane; i < tc_sums_per_warp(s.n_mtiles); i += 32) mine[i] = 0.f;
+  int tdy[2], tdx[2];
+  tc_lane_taps(lane, tdy, tdx);
+  const int tap_dy = gq / 3, tap_dx = gq % 3;   // tap gq of the dW product's first tile
+
+  float acc[kTcMTiles][2][4];
+#pragma unroll
+  for (int j = 0; j < kTcMTiles; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][u][i] = 0.f;
+
+  const int n_chunks = (s.pixels + kTcChunk - 1) / kTcChunk;
+  const int first = blockIdx.x * kTcWarps * per_warp + warp;
+  int count = 0;   // this warp's chunks: first + kTcWarps * k, k < count
+  while (count < per_warp && first + kTcWarps * count < n_chunks) ++count;
+
+  auto stage_in = [&](int k) {   // chunk k of this warp -> stage buffer k % 2
+    const int c0 = (first + kTcWarps * k) * kTcChunk;
+    const int n = min(kTcChunk, s.pixels - c0) * M;
+    const unsigned short* src = g + (size_t)c0 * M;
+    unsigned short* dst = stage + (k % 2) * chunk_len;
+    int done = 0;
+    if (vec) {
+      for (int i = lane; i < n / 8; i += 32) cp_async16(dst + 8 * i, src + 8 * i);
+      done = n / 8 * 8;
+    }
+    for (int i = done + lane; i < n; i += 32) dst[i] = __ldg(src + i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // both products' input operands of the group at p0, loaded a group ahead
+  unsigned raw[2][3], rawp[2][4];
+  auto load = [&](int p0) {
+    tc_conv_load<kAllValid>(s, tc_pixel<kAllValid>(x, s, p0 + gq / 2), gq % 2, t, tdy, tdx, raw);
+    tc_dw_load<kAllValid>(s, tc_pixel<kAllValid>(x, s, p0 + t), gq, tap_dy, tap_dx, rawp);
+  };
+
+  load(first * kTcChunk);
+  if (count > 0) stage_in(0);
+#pragma unroll 1
+  for (int k = 0; k < count; ++k) {
+    if (k + 1 < count) stage_in(k + 1);
+    else asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncwarp();
+    const unsigned short* gs = stage + (k % 2) * chunk_len;
+    const int c0 = (first + kTcWarps * k) * kTcChunk;
+#pragma unroll 1
+    for (int grp = 0; grp < kTcChunk / 4; ++grp) {
+      const int p0 = c0 + 4 * grp;
+      unsigned bf[2][2], bp[2][2];
+      tc_conv_pack(raw, bf);
+      tc_dw_pack(rawp, gq, bp);
+      load(grp + 1 < kTcChunk / 4 ? p0 + 4 : (first + kTcWarps * (k + 1)) * kTcChunk);
+      const TcPixel pe = tc_pixel<kAllValid>(x, s, p0 + t);
+      const unsigned short* grow = gs + (4 * grp + t) * M;
+      float z[2][4];
+      tc_conv_tile(tw->a[0][lane], bf, z);
+#pragma unroll
+      for (int j = 0; j < kTcMTiles; ++j) {
+        if (j >= s.n_mtiles) break;
+        float zn[2][4];   // the next tile's products, in flight during this tile's routing
+        tc_conv_tile(tw->a[j + 1 < kTcMTiles ? j + 1 : j][lane], bf, zn);
+        const float2 bias = tw->bias[j][lane];
+        unsigned lo[2], hi[2];   // Gc^T of map half h: positions 0, 1 and 2, 3
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 16 * j + gq + 8 * h;
+          const bool live = pe.live && m < M;
+          tc_route(z, h, pe, h ? bias.y : bias.x, live, live ? grow[m] : 0u, &lo[h], &hi[h]);
+        }
+        const uint4 a = make_uint4(lo[0], lo[1], hi[0], hi[1]);
+        mma_bf16(a, bp[0][0], bp[0][1], acc[j][0]);
+        mma_bf16(a, bp[1][0], bp[1][1], acc[j][1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) z[r][i] = zn[r][i];
+      }
+    }
+    if ((k + 1) % kTcFold == 0 || k + 1 == count) {   // the accumulators -> the warp's sums
+#pragma unroll
+      for (int j = 0; j < kTcMTiles; ++j) {
+        if (j >= s.n_mtiles) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mine[(4 * j + i) * 32 + lane] += acc[j][0][i];
+          if (t == 0) mine[128 * s.n_mtiles + (4 * j + i) * 8 + gq] += acc[j][1][i];
+          acc[j][0][i] = acc[j][1][i] = 0.f;
+        }
+      }
+    }
+    __syncwarp();   // done with this buffer before chunk k + 2 is staged into it
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  // thread i adds element i of every warp's sums, in warp order, into the
+  // CTA's slice (dW (9, M), then db)
+  __syncthreads();
+  float* const part = partial + (size_t)blockIdx.x * 10 * M;
+  for (int i = threadIdx.x; i < 10 * M; i += blockDim.x) {
+    const int at = tc_sum_index(s.n_mtiles, i / M, i % M);
+    float sum = 0.f;
+    for (int v = 0; v < kTcWarps; ++v) sum += sums[v * tc_sums_per_warp(s.n_mtiles) + at];
+    part[i] = sum;
+  }
+}
+
 // out[i] = the sum over slices j of partial[j][i], rounded once to T.
 // Warp v of a CTA adds the slices of its run, v * span .. (v + 1) * span -
 // 1, in slice order for 32 consecutive i; then the warps' sums are added in
@@ -277,6 +500,16 @@ inline int conv_tiles_plan(int N, int H, int W, int M, int* groups, int* slots,
   if (parts * per_cta > 2147483647LL) return -1;   // 32-bit pixel indices
   *per_thread = (int)per_thread_;
   return (int)parts;
+}
+
+// The bf16 tensor-core route's launch: per_warp chunks a warp; returns the
+// number of CTAs (= partial slices), or -1 for a shape it does not take.
+inline int conv_tc_plan(int N, int H, int W, int M, TcShape* s, int* per_warp) {
+  if (!tc_shape(N, H, W, M, s) || tc_bwd_smem(*s) > kConvMaxSmem) return -1;
+  const long long n_chunks = (s->pixels + kTcChunk - 1) / kTcChunk;
+  *per_warp = (int)((n_chunks + (long long)kTcParts * kTcWarps - 1) / ((long long)kTcParts * kTcWarps));
+  const long long per_cta = (long long)kTcWarps * *per_warp;
+  return (int)((n_chunks + per_cta - 1) / per_cta);
 }
 
 template <typename T>
@@ -344,6 +577,39 @@ int conv_backward_tiles(const void* x, const void* w, const void* b, const void*
                      s);
 }
 
+// The bf16 register route: as conv_backward_tiles, on the tensor cores,
+// with n_parts from atlasvae_conv_backward_tiles_parts_bf16.
+inline int conv_backward_tc(const void* x, const void* w, const void* b, const void* g,
+                            void* partial, int n_parts, void* grads, int N, int H, int W, int M,
+                            void* stream) {
+  TcShape s;
+  int per_warp;
+  const int parts = conv_tc_plan(N, H, W, M, &s, &per_warp);
+  if (parts < 0) return parts;
+  if (parts != n_parts) return (int)cudaErrorInvalidValue;
+  int sms;
+  const int setup = tc_device_setup(&conv_pool_relu_bwd_tc_kernel<true>,
+                                    &conv_pool_relu_bwd_tc_kernel<false>, kConvMaxSmem, &sms);
+  if (setup) return setup;
+  const bool vec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const size_t smem = tc_bwd_smem(s);
+  const auto* xs = static_cast<const unsigned short*>(x);
+  const auto* ws = static_cast<const unsigned short*>(w);
+  const auto* bs = static_cast<const unsigned short*>(b);
+  const auto* gs = static_cast<const unsigned short*>(g);
+  float* ps = static_cast<float*>(partial);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % 2 == 0 && W % 2 == 0)   // Hc and Wc even: every window position exists
+    conv_pool_relu_bwd_tc_kernel<true><<<parts, 32 * kTcWarps, smem, st>>>(xs, ws, bs, gs, ps, s,
+                                                                          per_warp, vec);
+  else
+    conv_pool_relu_bwd_tc_kernel<false><<<parts, 32 * kTcWarps, smem, st>>>(xs, ws, bs, gs, ps,
+                                                                           s, per_warp, vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return conv_reduce(ps, parts, 10 * M, static_cast<bf16*>(grads), st);
+}
+
 }  // namespace atlasvae
 
 // Number of partial slices (rows of the scratch buffer) the band route uses
@@ -355,12 +621,19 @@ extern "C" int atlasvae_conv_backward_parts(int N, int H, int W, int C, int kh, 
   return atlasvae::conv_bwd_prepare(N, H, W, C, kh, kw, M, ph, pw, &a);
 }
 
-// The register route's partial slices at x (N, H, W, 1), w (3, 3, 1, M),
-// in float and bf16 alike, or -1 for a shape it does not take (M above 128,
-// an image smaller than the taps, 2^31 pooled pixels).
+// The register route's partial slices at x (N, H, W, 1), w (3, 3, 1, M):
+// float, and bf16 (_bf16, the tensor-core kernel), or -1 for a shape it
+// does not take (M above 128, an image smaller than the taps, 2^31 pooled
+// pixels).
 extern "C" int atlasvae_conv_backward_tiles_parts(int N, int H, int W, int M) {
   int groups, slots, per_thread;
   return atlasvae::conv_tiles_plan(N, H, W, M, &groups, &slots, &per_thread);
+}
+
+extern "C" int atlasvae_conv_backward_tiles_parts_bf16(int N, int H, int W, int M) {
+  atlasvae::TcShape s;
+  int per_warp;
+  return atlasvae::conv_tc_plan(N, H, W, M, &s, &per_warp);
 }
 
 // The entry points: float (x, w, b, g and grads all float32) and _bf16 (all
@@ -393,6 +666,5 @@ extern "C" int atlasvae_conv_backward_tiles_bf16(const void* x, const void* w, c
                                                  const void* g, void* partial, int n_parts,
                                                  void* grads, int N, int H, int W, int M,
                                                  void* stream) {
-  return atlasvae::conv_backward_tiles<atlasvae::bf16>(x, w, b, g, partial, n_parts, grads, N,
-                                                       H, W, M, stream);
+  return atlasvae::conv_backward_tc(x, w, b, g, partial, n_parts, grads, N, H, W, M, stream);
 }

@@ -3,19 +3,22 @@ hand-written CUDA kernels.
 
 Each has two routes, which ``route`` picks from the shape alike for both:
 the register route (3x3 taps, one channel, a 2x2 pool, at most 128 maps:
-the jet-ID CNN's first block), where a thread keeps four maps' taps and
-sums in registers, and the band route (every other shape the gate takes),
-where a CTA stages a band of input rows and a tile of weights in shared
-memory.  ``conv_pool_relu`` launches ``csrc/fused_conv.cu``;
+the jet-ID CNN's first block) and the band route (every other shape the
+gate takes), where a CTA stages a band of input rows and a tile of weights
+in shared memory.  ``conv_pool_relu`` launches ``csrc/fused_conv.cu``;
 ``conv_pool_relu_backward`` launches ``csrc/fused_conv_bwd.cu``, whose CTAs
 write partial sums that a second launch adds in a fixed order.  Both take
-contiguous CUDA tensors, all float32 or all bfloat16 (the kernels' bf16 forms:
-loaded and widened to float, computed as in float32, the output, dW and db
-rounded once to bfloat16), and compute what
+contiguous CUDA tensors, all float32 or all bfloat16, and compute what
 ``ops.fused_conv.conv1_pool_relu_plain`` and
-``conv1_pool_relu_backward_plain`` compute; ``ops.fused_conv.FusedConv1``
-chooses between kernel and plain version by the tensors' device.  Both raise
-on anything the kernels do not take and never run another path: a bfloat16
+``conv1_pool_relu_backward_plain`` compute: the output, dW and db rounded
+once to the tensors' dtype.  In float32, and on the bf16 band route, a
+thread sums taps with a chain of FMAs (the register route: four maps' taps
+and sums in registers), bf16 widened to float where it is loaded.  The bf16
+register route runs on the tensor cores instead (an implicit GEMM on
+``mma.sync``, bf16 products summed in float32), so its partial slices are
+cut by its own count (``_n_parts``).  ``ops.fused_conv.FusedConv1`` chooses
+between kernel and plain version by the tensors' device.  Both raise on
+anything the kernels do not take and never run another path: a bfloat16
 tensor is never widened to run a float32 kernel.
 """
 
@@ -82,8 +85,8 @@ def pick_route(what, x_shape, w_shape, pool, force_route=None):
 @functools.cache
 def _backward_entries(form):
     lib = cuda_build.load("fused_conv_bwd")
-    tiles_parts, bands_parts = lib.atlasvae_conv_backward_tiles_parts, \
-        lib.atlasvae_conv_backward_parts
+    tiles_parts = getattr(lib, "atlasvae_conv_backward_tiles_parts" + form)
+    bands_parts = lib.atlasvae_conv_backward_parts
     tiles = getattr(lib, "atlasvae_conv_backward_tiles" + form)
     bands = getattr(lib, "atlasvae_conv_backward" + form)
     tiles_parts.argtypes = [ctypes.c_int] * 4
@@ -168,10 +171,11 @@ def conv_pool_relu(x, w, b, pool, force_route=None):
 
 
 @functools.cache
-def _n_parts(which, shape):
-    """Partial slices (rows of the scratch buffer) K6 uses on a route, the
-    same for both forms (the slices hold float32 sums)."""
-    tiles_parts, _, bands_parts, _ = _backward_entries("")
+def _n_parts(which, shape, form):
+    """Partial slices (rows of the scratch buffer, float32 sums) K6 uses on a
+    route: the band route cuts them alike in both forms, the register route's
+    bf16 form (the tensor-core kernel) cuts its own."""
+    tiles_parts, _, bands_parts, _ = _backward_entries(form)
     if which == "tiles":
         n, h, wd, _, _, _, m, _, _ = shape
         return tiles_parts(n, h, wd, m)
@@ -189,7 +193,7 @@ def conv_pool_relu_backward(x, w, b, g, pool, force_route=None):
         raise ValueError(f"{what}: g {tuple(g.shape)} is not the output's "
                          f"shape {out_shape(x.shape, w.shape, shape[7:])}")
     which = pick_route(what, x.shape, w.shape, shape[7:], force_route)
-    n_parts = _n_parts(which, shape)
+    n_parts = _n_parts(which, shape, _FORMS[x.dtype])
     _raise(min(n_parts, 0), f"{what} ({which} route)", x, w)
     n_params = w.numel() + b.numel()
     partial = torch.empty((n_parts, n_params), device=x.device, dtype=torch.float32)

@@ -60,7 +60,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                within one bf16 ulp of the plain version (or ATOL where a
                ReLU input sits at 0), dW/db within one bf16 ulp plus
                CONV_GRAD_TOL of each leaf's largest value, the same bits on
-               a second call, beside cuDNN's bf16 chain;
+               a second call, beside cuDNN's bf16 chain (the bf16 register
+               routes run on the tensor cores; CONV_SHAPES' last five
+               stress their mma tiles and their runs of sums: an odd
+               image, 1, 7 and 128 maps, 100,000 images); beside each
+               conv kernel's time a call (host work included), its time
+               queued behind a sleeping kernel (device_ms: the device
+               alone);
                K1/K2 also at the evaluate phase's 10,000-row chunk;
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
@@ -399,7 +405,17 @@ CONV_SHAPES = [
     ("pool 3 low pad", 4, 10, 10, 1, 2, 2, 5, (3, 3)),
     ("130 maps", 2, 12, 9, 1, 3, 3, 130, (2, 2)),
     ("pool 4", 3, 9, 9, 1, 3, 3, 4, (4, 4)),
+    # the bf16 register route's mma tiles (16 maps by four pooled pixels)
+    ("odd 15x15 100 maps", 37, 15, 15, 1, 3, 3, 100, (2, 2)),
+    ("one map", 64, 16, 16, 1, 3, 3, 1, (2, 2)),
+    ("7 maps odd H", 64, 13, 16, 1, 3, 3, 7, (2, 2)),
+    ("128 maps", 1000, 16, 16, 1, 3, 3, 128, (2, 2)),
+    ("jetid large batch", 100000, 16, 16, 1, 3, 3, 100, (2, 2)),
 ]
+# time_ms(queued=True) holds a call's launches behind a sleeping kernel of
+# this many clocks a call (0.5 ms at the H100's 1.98 GHz boost), longer than
+# any conv case's host work a call
+QUEUE_SLEEP_CYCLES_A_CALL = 1_000_000
 CONV_GRAD_TOL = 2e-4        # dW/db leaf over its largest value, at test sizes
 CONV_GRAD_TOL_BIG = 3e-4    # at a thousand images and more
 # CUDA against the CPU through the whole CNN: a batch has 12.5 million conv
@@ -543,12 +559,18 @@ def log(phase, **facts):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in facts.items()), flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3):
+def time_ms(fn, iters=20, warmup=3, queued=False):
+    """CUDA-event ms a call of fn over iters warm calls.  ``queued``: the
+    calls wait behind a sleeping kernel until all are enqueued, so the events
+    time the device alone; otherwise a call whose host work (a wrapper's
+    checks, allocation, ctypes) outlasts its kernels times the host."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES_A_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -871,7 +893,9 @@ def parity_conv(gen, shape, sparse, device, dtype=None):
     """K5 and K6 against their plain versions on the same inputs; the same
     bits on a second call; times of kernel, plain version and the library
     yardstick (cuDNN's conv2d, a -inf pad where XLA's SAME pool has one,
-    max_pool2d and relu in NCHW views; autograd through it for K6); bounds.
+    max_pool2d and relu in NCHW views; autograd through it for K6), and the
+    kernel's calls queued behind a sleeping kernel (``device_ms``: the
+    device alone, where a call's host work outlasts its kernels); bounds.
     At a shape the register routes take, the band routes' times beside
     theirs, and K6's band route held to the plain version as well.
 
@@ -978,7 +1002,8 @@ def parity_conv(gen, shape, sparse, device, dtype=None):
         res = dict(shape=name + (" sparse" if sparse else "") + (" bf16" if bf16 else ""),
                    batch=n, image=[h, wd, c], kernel=[kh, kw], maps=m, pool=list(pool),
                    sparse=sparse, dtype=str(dtype).split(".")[-1], same_bits=same_bits,
-                   ms=time_ms(fn, iters), plain_ms=time_ms(fn_plain, iters),
+                   ms=time_ms(fn, iters), device_ms=time_ms(fn, iters, queued=True),
+                   plain_ms=time_ms(fn_plain, iters),
                    library_ms=time_ms(fn_lib, iters), bound_ms=b_ms, bound_by=b_by,
                    flops=flops, bytes=nbytes)
         res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
@@ -1162,7 +1187,7 @@ def log_conv_parity(name, res):
         **({"max_err_over_leaf_scale": f"{res['max_err_over_leaf_scale']:.3g}"}
            if "max_err_over_leaf_scale" in res else {}),
         **{k: res[k] for k in ("not_bit_equal", "max_ulps", "over_one_ulp") if k in res},
-        same_bits=res["same_bits"], ms=f"{res['ms']:.4f}",
+        same_bits=res["same_bits"], ms=f"{res['ms']:.4f}", device_ms=f"{res['device_ms']:.4f}",
         **({"bands_route_ms": f"{res['bands_route_ms']:.4f}"} if "bands_route_ms" in res else {}),
         plain_ms=f"{res['plain_ms']:.4f}", library_ms=f"{res['library_ms']:.4f}",
         bound_ms=f"{res['bound_ms']:.4f}", bound_by=res["bound_by"],

@@ -1,47 +1,120 @@
 #!/usr/bin/env python3
-"""Probe K6's register route (csrc/fused_conv_bwd.cu) on one NVIDIA GPU.
+"""Probe K5's and K6's register routes (csrc/fused_conv.cu, csrc/fused_conv_bwd.cu)
+on one NVIDIA GPU.
 
-    python3 probes/conv_backward.py [--out build/probe_conv_backward.json]
+    python3 probes/conv_backward.py [--dtype float32|bfloat16] [--build NAME=DIR ...]
+                                    [--out build/probe_conv_<dtype>.json]
 
-Builds the kernel as it is and variants of its design choices, one nvcc
-each, all started together, into build/probe_conv_backward/: its first
-form, which divided each pixel's index anew instead of stepping it by the
-slot stride, with other numbers of partial slices (kTileParts), the pixel
-loop unrolled twice, a register cap for two CTAs an SM, or the next pixel's
-g loaded before this pixel's FMAs; and the form as it is with that
-prefetch.  Prints each build's ptxas line (registers, stack frame, spills)
-and the static opcode mix of its SASS.
+Builds, one nvcc a source, all started together, into build/probe_conv/:
 
-Then, on sparse seeded images at the jet-ID training batch (5,000 x
-16x16x1, 3x3, 100 maps, pool 2x2), a ragged batch (1,037) and the predict
-chunk (20,000): holds every variant against the plain version (3e-4 of
-each leaf's largest value, chip_smoke.py's bar from 1,000 images) and a
-second call (the same bits), times each in interleaved rounds (CUDA events,
-the median of the rounds' means), and splits the kernel as it is between
-its two launches with torch.profiler (device time alone).  Beside them,
-through the package's wrappers (host work included): both routes of K6,
-and K5's register route (the same recompute, writing instead of reading
-g).  Prints one JSON object as its last line.
+* ``--dtype float32`` (the default): K6's float register route as it is
+  and variants of its design choices (VARIANTS: its first form, which
+  divided each pixel's index anew instead of stepping it by the slot
+  stride, with other numbers of partial slices, the pixel loop unrolled
+  twice, a register cap for two CTAs an SM, or the next pixel's g loaded
+  before this pixel's FMAs).
+* ``--dtype bfloat16``: K5's and K6's bf16 register routes (the
+  tensor-core kernels) as they are.
+
+and, in either, both sources of every earlier tree of the repository named
+by ``--build NAME=DIR`` (e.g. the parent commit, ``git archive``d into a
+directory .gitignore lists; its ``atlasvae_torch/csrc/`` is enough).
+Prints each build's ptxas lines (registers, shared memory, spills) and the
+static opcode mix of the probed kernels' SASS (cuobjdump -sass), with the
+HMMA instructions by their full name; a bf16 build without HMMA fails.
+
+Then, on sparse seeded images (a few lit pixels: whole windows tie) at the
+jet-ID training batch (5,000 x 16x16x1, 3x3, 100 maps, pool 2x2), a ragged
+batch (1,037), the predict chunk (20,000) and 100,000 images: holds every
+build's output and dW/db against the plain versions at chip_smoke.py's
+bars and a second call (the same bits), times every build's C entry points
+on preallocated buffers (``chip_smoke.time_ms(queued=True)``: the device
+alone; in rounds, the builds in order and then in reverse, the median of
+the rounds), the package's wrappers (host work included), and splits one
+call of each build into its kernels' device times with torch.profiler.
+Prints one JSON object as its last line.
 """
 
 import argparse
 import ctypes
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-SOURCE = ROOT / "atlasvae_torch" / "csrc" / "fused_conv_bwd.cu"
+CSRC = ROOT / "atlasvae_torch" / "csrc"
+SHAPES = [("jetid train batch", 5000), ("ragged batch", 1037), ("jetid predict chunk", 20000),
+          ("large batch", 100000)]
+MAPS = 100
+KERNELS = {"float32": ("conv_pool_relu_bwd_tiles_kernel",),
+           "bfloat16": ("conv_pool_relu_tc_kernel", "conv_pool_relu_bwd_tc_kernel")}
+
 LOOP = "#pragma unroll 1\n  for (int k = 0; k < per_thread; ++k) {"
 PARTS = "constexpr int kTileParts = 264;"
 BOUNDS = "__launch_bounds__(256)\nconv_pool_relu_bwd_tiles_kernel"
-# Tuning choices of the first form (each pixel's index divided anew, DIVIDE
-# below): name -> replacements in the source
+G_LOAD = """    const T* gp = g + (size_t)pix * M + m0;
+    float gv[4];
+    if (vec4) {
+      const float4 t = load_quad(gp);
+      gv[0] = t.x;
+      gv[1] = t.y;
+      gv[2] = t.z;
+      gv[3] = t.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gv[j] = m0 + j < M ? load_widened(gp + j) : 0.f;
+    }
+"""
+# Load the next pixel's g before this pixel's FMAs (4 more registers).
+G_PREFETCH = [
+    (LOOP, """auto load_g = [&](int pix, float (&gv)[4]) {
+    const T* gp = g + (size_t)pix * M + m0;
+    if (vec4) {
+      const float4 t = load_quad(gp);
+      gv[0] = t.x;
+      gv[1] = t.y;
+      gv[2] = t.z;
+      gv[3] = t.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gv[j] = m0 + j < M ? load_widened(gp + j) : 0.f;
+    }
+  };
+  float gn[4] = {0.f, 0.f, 0.f, 0.f};
+  if (first < pixels) load_g(first, gn);
+""" + LOOP),
+    (G_LOAD, """    float gv[4] = {gn[0], gn[1], gn[2], gn[3]};
+    if (k + 1 < per_thread && pix + slots < pixels) load_g(pix + slots, gn);
+"""),
+]
+# Divide each pixel's index anew instead of stepping (image, oy, ox) by the
+# slot stride: the float kernel's first form.
+DIVIDE = [
+    ("""  const int step_x = slots % Wo, step_y = slots / Wo;
+  int ox = first % Wo, oy = first / Wo % Ho, img = first / Wo / Ho;
+""", ""),
+    ("    if (pix >= pixels) break;\n", """    if (pix >= pixels) break;
+    const int ox = pix % Wo, rest = pix / Wo;
+    const int oy = rest % Ho, img = rest / Ho;
+"""),
+    ("""    ox += step_x;
+    oy += step_y;
+    if (ox >= Wo) {
+      ox -= Wo;
+      ++oy;
+    }
+    if (oy >= Ho) {
+      img += oy / Ho;
+      oy %= Ho;
+    }
+""", ""),
+]
 TUNING = {
     "first": [],
     "parts_132": [(PARTS, PARTS.replace("264", "132"))],
@@ -53,217 +126,225 @@ TUNING = {
                             (LOOP, LOOP.replace("unroll 1", "unroll 2"))],
     "two_ctas_an_sm": [(BOUNDS, BOUNDS.replace("(256)", "(256, 2)"))],
 }
-# Load the next pixel's g before this pixel's FMAs (4 more registers).
-G_LOAD = """    const float* gp = g + (size_t)pix * M + m0;
-    float gv[4];
-    if (vec4) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(gp));
-      gv[0] = t.x;
-      gv[1] = t.y;
-      gv[2] = t.z;
-      gv[3] = t.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = m0 + j < M ? __ldg(gp + j) : 0.f;
-    }
-"""
-G_PREFETCH = [
-    (LOOP, """auto load_g = [&](int pix, float (&gv)[4]) {
-    const float* gp = g + (size_t)pix * M + m0;
-    if (vec4) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(gp));
-      gv[0] = t.x;
-      gv[1] = t.y;
-      gv[2] = t.z;
-      gv[3] = t.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = m0 + j < M ? __ldg(gp + j) : 0.f;
-    }
-  };
-  float gn[4] = {0.f, 0.f, 0.f, 0.f};
-  if (first < pixels) load_g(first, gn);
-""" + LOOP),
-    (G_LOAD, """    float gv[4] = {gn[0], gn[1], gn[2], gn[3]};
-    if (k + 1 < per_thread && pix + slots < pixels) load_g(pix + slots, gn);
-"""),
-]
-# Divide each pixel's index anew instead of stepping (image, oy, ox) by the
-# slot stride: the first form of the kernel, before this probe's second run.
-STEP = """  const int step_x = slots % Wo, step_y = slots / Wo;
-  int ox = first % Wo, oy = first / Wo % Ho, img = first / Wo / Ho;
-"""
-LOOP_HEAD = "    if (pix >= pixels) break;\n"
-LOOP_END = """    ox += step_x;
-    oy += step_y;
-    if (ox >= Wo) {
-      ox -= Wo;
-      ++oy;
-    }
-    if (oy >= Ho) {
-      img += oy / Ho;
-      oy %= Ho;
-    }
-"""
-DIVIDE = [
-    (STEP, ""),
-    (LOOP_HEAD, LOOP_HEAD + """    const int ox = pix % Wo, rest = pix / Wo;
-    const int oy = rest % Ho, img = rest / Ho;
-"""),
-    (LOOP_END, ""),
-]
+# edits of fused_conv_bwd.cu a float32 variant makes: name -> (old, new) pairs
 VARIANTS = {name: DIVIDE + edits for name, edits in TUNING.items()}
-VARIANTS.update({
-    "first_g_prefetch": DIVIDE + G_PREFETCH,
-    "as_is": [],   # the slot-stride walk
-    "g_prefetch": G_PREFETCH,
-    "g_prefetch_parts_528": G_PREFETCH + [(PARTS, PARTS.replace("264", "528"))],
-})
-SHAPES = [("jetid train batch", 5000), ("ragged batch", 1037), ("jetid predict chunk", 20000)]
+VARIANTS.update({"first_g_prefetch": DIVIDE + G_PREFETCH, "g_prefetch": G_PREFETCH,
+                 "g_prefetch_parts_528": G_PREFETCH + [(PARTS, PARTS.replace("264", "528"))]})
+TEMPLATE_ARGS = {"ILb1E": "<true>", "ILb0E": "<false>", "IfE": "<float>",
+                 "I13__nv_bfloat16E": "<bf16>"}
 
 
-def sass_mix(lib):
-    """Opcodes of conv_pool_relu_bwd_tiles_kernel's SASS, counted statically."""
+def label(line, kernels):
+    """kernel<template argument> for a ptxas or cuobjdump line naming one of kernels."""
+    for k in kernels:
+        if k in line:
+            return k + next((v for key, v in TEMPLATE_ARGS.items() if k + key in line), "")
+    return None
+
+
+def build_all(builds, out_dir, kernels):
+    """nvcc of every build's two sources, all started together, with the
+    package's flags.  builds: {name: {source: text}}.  Returns {name:
+    ({source: ctypes handle}, {kernel: ptxas lines}, {kernel: opcode mix})}."""
+    from atlasvae_torch.ops import cuda_build
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, sources in builds.items():
+        for src, text in sources.items():
+            path, lib = out_dir / f"{name}_{src}.cu", out_dir / f"{name}_{src}.so"
+            path.write_text(text)
+            procs[name, src] = (lib, subprocess.Popen(
+                [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", str(CSRC), "-o", str(lib),
+                 str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    done = {name: ({}, {}, {}) for name in builds}
+    for (name, src), (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {src} ({name}): {log[-3000:]}")
+        libs, ptxas, mix = done[name]
+        libs[src] = ctypes.CDLL(str(lib))
+        current = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                current = label(line, kernels)
+            elif current and ("Used" in line or "spill" in line or "stack frame" in line):
+                ptxas.setdefault(current, []).append(line.split(":", 1)[-1].strip())
+        mix.update(sass_mix(lib, kernels))
+    return done
+
+
+def sass_mix(lib, kernels):
+    """{kernel: {opcode: count}} over the SASS of lib, counted statically."""
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True).stdout
-    counts, inside = {}, False
+    counts, current = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            inside = "conv_pool_relu_bwd_tiles_kernel" in line
-        elif inside and line.strip().startswith("/*") and "*/" in line:
+            current = label(line, kernels)
+        elif current and line.strip().startswith("/*") and "*/" in line:
             body = line.split("*/", 1)[1].strip().rstrip(";").split()
             if body and body[0].startswith("@"):
                 body = body[1:]
             if body:
-                op = body[0].split(".")[0]
-                counts[op] = counts.get(op, 0) + 1
-    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+                op = body[0] if body[0].startswith("HMMA") else body[0].split(".")[0]
+                counts.setdefault(current, {})
+                counts[current][op] = counts[current].get(op, 0) + 1
+    return {k: dict(sorted(v.items(), key=lambda kv: -kv[1])) for k, v in counts.items()}
 
 
-def build(out_dir):
-    from atlasvae_torch.ops import cuda_build
-    out_dir.mkdir(parents=True, exist_ok=True)
-    text = SOURCE.read_text()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        src = text
-        for old, new in edits:
-            assert old in src, (name, old)
-            src = src.replace(old, new)
-        path = out_dir / f"{name}.cu"
-        path.write_text(src)
-        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", str(SOURCE.parent),
-               "-o", str(out_dir / f"lib{name}.so"), str(path)]
-        procs[name] = (time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs, ptxas = {}, {}
-    for name, (start, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
-        lines = log.splitlines()
-        at = next(i for i, l in enumerate(lines) if "conv_pool_relu_bwd_tiles_kernel" in l
-                  and "Compiling" in l)
-        ptxas[name] = [l.split("info    :")[-1].strip() for l in lines[at + 1:at + 4]]
-        print(f"[build] {name} {time.perf_counter() - start:.1f}s {ptxas[name]}", flush=True)
-        mix = sass_mix(out_dir / f"lib{name}.so")
-        print(f"[sass] {name} total={sum(mix.values())} {json.dumps(mix)}", flush=True)
-        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        parts, fn = lib.atlasvae_conv_backward_tiles_parts, lib.atlasvae_conv_backward_tiles
-        parts.argtypes = [ctypes.c_int] * 4
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        parts.restype = fn.restype = ctypes.c_int
-        libs[name] = (parts, fn)
-    return libs, ptxas
+def entries(libs, own_fwd, bf16):
+    """(forward or None, backward parts, backward) C entry points of the
+    register route of one form; own_fwd: the package's forward library, for
+    builds that changed only the backward."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    form = "_bf16" if bf16 else ""
+    fwd = getattr(libs.get("fused_conv", own_fwd), "atlasvae_conv_pool_relu_tiles" + form)
+    fwd.argtypes, fwd.restype = [p] * 4 + [i] * 4 + [p], i
+    bwd_lib = libs["fused_conv_bwd"]
+    parts = getattr(bwd_lib, "atlasvae_conv_backward_tiles_parts" + form, None) \
+        or bwd_lib.atlasvae_conv_backward_tiles_parts   # earlier trees: one count for both forms
+    parts.argtypes, parts.restype = [i] * 4, i
+    bwd = getattr(bwd_lib, "atlasvae_conv_backward_tiles" + form)
+    bwd.argtypes, bwd.restype = [p] * 5 + [i, p] + [i] * 4 + [p], i
+    return fwd, parts, bwd
 
 
 def main():
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--out", default=str(ROOT / "build" / "probe_conv_backward.json"))
-    parser.add_argument("--rounds", type=int, default=5)
-    args = parser.parse_args()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", choices=tuple(KERNELS), default="float32")
+    ap.add_argument("--build", action="append", default=[], metavar="NAME=DIR")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=30)
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
-        print("probe_conv_backward: needs an NVIDIA GPU", file=sys.stderr)
+        print("probes/conv_backward.py: needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     import chip_smoke
-    from atlasvae_torch.ops import fused_conv, fused_conv_cuda
+    from atlasvae_torch.ops import cuda_build, fused_conv, fused_conv_cuda
+    from atlasvae_torch.utils.bf16 import ulp, ulps_apart
     torch.backends.cudnn.allow_tf32 = False
+    bf16 = args.dtype == "bfloat16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    kernels = KERNELS[args.dtype]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    libs, ptxas = build(ROOT / "build" / "probe_conv_backward")
-    gen = torch.Generator("cuda").manual_seed(9)
-    report = {"card": smi, "ptxas": ptxas, "shapes": {}}
+
+    own = {src: (CSRC / f"{src}.cu").read_text() for src in ("fused_conv", "fused_conv_bwd")}
+    sources = {"as_is": own}
+    if not bf16:
+        for name, edits in VARIANTS.items():
+            text = own["fused_conv_bwd"]
+            for old, new in edits:
+                assert old in text, (name, old)
+                text = text.replace(old, new)
+            sources[name] = {"fused_conv_bwd": text}
+    for item in args.build:
+        name, tree = item.split("=", 1)
+        csrc = Path(tree).resolve() / "atlasvae_torch" / "csrc"
+        sources[name] = {src: (csrc / f"{src}.cu").read_text().replace(
+            '#include "fused_conv.cuh"', f'#include "{csrc / "fused_conv.cuh"}"') for src in own}
+    built = build_all(sources, ROOT / "build" / "probe_conv", kernels)
+    report = {"card": smi, "dtype": args.dtype, "torch": torch.__version__, "builds": {}}
+    builds = {}
+    for name, (libs, ptxas, mix) in built.items():
+        report["builds"][name] = {"ptxas": ptxas, "sass": mix}
+        for k in sorted(set(ptxas) | set(mix)):
+            print(f"[build] {name} {k}: {' | '.join(ptxas.get(k, []))} "
+                  f"total={sum(mix.get(k, {}).values())} {json.dumps(mix.get(k, {}))}", flush=True)
+        if bf16 and name == "as_is" and not all(
+                any(op.startswith("HMMA") for op in mix.get(k + v, {}))
+                for k in kernels for v in ("<true>", "<false>")):
+            raise SystemExit("a tensor-core kernel has no HMMA instruction")
+        builds[name] = entries(libs, cuda_build.load("fused_conv"), bf16)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    report["shapes"] = {}
     for shape_name, n in SHAPES:
-        x = torch.randn((n, 16, 16, 1), generator=gen, device="cuda")
-        x = x.abs() * (torch.rand(x.shape, generator=gen, device="cuda") < 0.08)
-        w = torch.randn((3, 3, 1, 100), generator=gen, device="cuda") * 0.3
-        b = torch.randn((100,), generator=gen, device="cuda") * 0.1
-        g = torch.randn((n, 7, 7, 100), generator=gen, device="cuda") / n
-        want = fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, (2, 2))
+        x = torch.randn((n, 16, 16, 1), generator=gen, device=dev)
+        x = (x.abs() * (torch.rand(x.shape, generator=gen, device=dev) < 0.08)).to(dtype)
+        w = (torch.randn((3, 3, 1, MAPS), generator=gen, device=dev) * 0.3).to(dtype)
+        b = (torch.randn((MAPS,), generator=gen, device=dev) * 0.1).to(dtype)
+        want = fused_conv.conv1_pool_relu_plain(x, w, b, (2, 2))
+        g = (torch.randn(want.shape, generator=gen, device=dev) / n).to(dtype)
+        want_grads = fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, (2, 2))
         tol = chip_smoke.CONV_GRAD_TOL_BIG if n >= 1000 else chip_smoke.CONV_GRAD_TOL
-        calls, rows = {}, {}
-        for name, (parts_fn, fn) in libs.items():
-            parts = parts_fn(n, 16, 16, 100)
-            partial = torch.empty((parts, 1000), device="cuda")
-            grads = torch.empty(1000, device="cuda")
-            stream = torch.cuda.current_stream().cuda_stream
-
-            def call(fn=fn, parts=parts, partial=partial, grads=grads, stream=stream):
-                err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
-                         partial.data_ptr(), parts, grads.data_ptr(), n, 16, 16, 100, stream)
-                if err:
-                    raise RuntimeError(f"{name}: error {err}")
-                return grads
-
-            got = call().clone()
-            again = call().clone()
+        calls, facts = {}, {}
+        for name, (fwd, parts_fn, bwd) in builds.items():
+            out, parts = torch.empty_like(want), parts_fn(n, 16, 16, MAPS)
+            partial = torch.empty((parts, 10 * MAPS), device=dev)
+            grads = torch.empty(10 * MAPS, device=dev, dtype=dtype)
+            call_f = lambda fwd=fwd, out=out: fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                                   out.data_ptr(), n, 16, 16, MAPS, stream())
+            call_b = lambda bwd=bwd, parts=parts, partial=partial, grads=grads: bwd(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                parts, grads.data_ptr(), n, 16, 16, MAPS, stream())
+            if call_f() or call_b():
+                raise RuntimeError(f"{name}: a launch failed")
             torch.cuda.synchronize()
-            rel = max(float((a - r).abs().max()) / float(r.abs().max())
-                      for a, r in ((got[:900].view(3, 3, 1, 100), want[0]), (got[900:], want[1])))
-            if not rel <= tol or not torch.equal(got, again):
-                raise AssertionError(f"{name} at {shape_name}: {rel} over {tol} of a leaf, or "
-                                     "other bits on a second call")
-            calls[name] = call
-            rows[name] = {"parts": parts, "err_over_leaf_scale": rel}
-        calls["wrapper_tiles"] = lambda: fused_conv_cuda.conv_pool_relu_backward(
-            x, w, b, g, (2, 2))
-        calls["wrapper_bands"] = lambda: fused_conv_cuda.conv_pool_relu_backward(
-            x, w, b, g, (2, 2), force_route="bands")
-        calls["k5_tiles_forward"] = lambda: fused_conv_cuda.conv_pool_relu(x, w, b, (2, 2))
-        times = {name: [] for name in calls}
-        for _ in range(args.rounds):   # interleaved: every variant once a round
-            for name, call in calls.items():
-                times[name].append(chip_smoke.time_ms(call, iters=20, warmup=2))
-        for name, ts in times.items():
-            rows.setdefault(name, {}).update(ms=sorted(ts)[len(ts) // 2], ms_min=min(ts),
-                                             ms_max=max(ts))
-        # the register route's two kernels apart, in the variant as it is
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                calls["as_is"]()
+            first_out, first_grads = out.clone(), grads.clone()
+            call_f(), call_b()
             torch.cuda.synchronize()
-        split = {e.key[:60]: e.self_device_time_total / e.count / 1e3
-                 for e in prof.key_averages() if e.self_device_time_total > 0}
-        bound = chip_smoke.bound_conv(n, 16, 16, 1, 3, 3, 100, (2, 2), True)[0]
-        report["shapes"][shape_name] = {"batch": n, "bound_ms": bound, "variants": rows,
-                                        "kernel_ms_as_is": split}
-        for name, row in rows.items():
-            print(f"[probe] {shape_name} {name} " + " ".join(
-                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()),
-                flush=True)
-        print(f"[probe] {shape_name} bound_ms={bound:.4f} split={json.dumps(split)}", flush=True)
-        del x, g, want
+            gap = (out.float() - want.float()).abs()
+            if bf16:
+                ok = bool(((ulps_apart(out, want) <= 1) | (gap <= chip_smoke.ATOL)).all())
+            else:
+                ok = bool((gap <= chip_smoke.ATOL + chip_smoke.RTOL * want.abs()).all())
+            rel = []
+            for got, ref in zip((grads[:9 * MAPS].view(3, 3, 1, MAPS), grads[9 * MAPS:]),
+                                want_grads):
+                scale = float(ref.float().abs().max())
+                d = (got.float() - ref.float()).abs()
+                ok &= bool((d <= tol * scale + 1e-12 + (ulp(ref) if bf16 else 0.0)).all())
+                rel.append(float(d.max()) / scale)
+            facts[name] = dict(parts=parts, within_bars=ok, dw_db_err_over_leaf_scale=rel,
+                               same_bits=torch.equal(out, first_out)
+                               and torch.equal(grads, first_grads))
+            calls[name] = {"forward": call_f, "backward": call_b}
+        times = {(name, d): [] for name in calls for d in ("forward", "backward")}
+        order = list(calls) + list(calls)[::-1]
+        for _ in range(args.rounds):
+            for name in order:
+                for d, fn in calls[name].items():
+                    times[name, d].append(chip_smoke.time_ms(fn, args.iters, 2, queued=True))
+        for name in calls:
+            for d, fn in calls[name].items():
+                facts[name][f"{d}_ms"] = statistics.median(times[name, d])
+                facts[name][f"{d}_ms_min_max"] = [min(times[name, d]), max(times[name, d])]
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                facts[name][f"{d}_kernels_ms"] = [
+                    (re.sub(r"\(.*", "", e.name.replace("void ", "").replace("atlasvae::", "")),
+                     round(e.device_time_total / 1e3, 4))
+                    for e in prof.events() if e.device_type == DeviceType.CUDA]
+        wrappers = {"forward": lambda: fused_conv_cuda.conv_pool_relu(x, w, b, (2, 2)),
+                    "backward": lambda: fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, (2, 2))}
+        for d, fn in wrappers.items():
+            facts[f"wrapper_{d}_ms"] = statistics.median(
+                chip_smoke.time_ms(fn, args.iters, 2) for _ in range(3))
+        facts["bound_ms"] = {d: chip_smoke.bound_conv(n, 16, 16, 1, 3, 3, MAPS, (2, 2),
+                                                      d == "backward", elem=2 if bf16 else 4)[0]
+                             for d in ("forward", "backward")}
+        report["shapes"][shape_name] = facts
+        for name, row in facts.items():
+            print(f"[probe] {shape_name} (n={n}) {name} {json.dumps(row)}", flush=True)
+        del x, w, b, g, want, want_grads, calls
         torch.cuda.empty_cache()
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(report, f, indent=1)
-    print(json.dumps(report))
-    return 0
+    out = Path(args.out or ROOT / "build" / f"probe_conv_{args.dtype}.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    ok = all(f["as_is"]["within_bars"] and f["as_is"]["same_bits"]
+             for f in report["shapes"].values())
+    print(json.dumps({"ok": ok, "card": smi, "dtype": args.dtype, "out": str(out)}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

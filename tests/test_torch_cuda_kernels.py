@@ -543,6 +543,11 @@ CONV_SHAPES = [
     (4, 16, 16, 1, 3, 3, 3, (2, 2)),      # one partly live group of four maps
     (6, 16, 16, 1, 3, 3, 126, (2, 2)),    # M % 4 != 0: scalar loads of g
     (5, 14, 15, 1, 3, 3, 128, (2, 2)),    # the register route's widest
+    # the bf16 register route's mma tiles (16 maps by four pooled pixels):
+    (37, 15, 15, 1, 3, 3, 100, (2, 2)),   # odd image, SAME high pad, a ragged last group
+    (6, 16, 16, 1, 3, 3, 1, (2, 2)),      # M = 1: one live map of a tile
+    (7, 13, 16, 1, 3, 3, 7, (2, 2)),      # M = 7, odd H only
+    (11, 16, 16, 1, 3, 3, 128, (2, 2)),   # M = 128, eight full tiles
 ]
 GRAD_TOL = 2e-4
 
@@ -664,13 +669,15 @@ def test_conv_pool_relu_takes_the_route_of_its_shape(cuda):
     assert _conv_counts() + _conv_backward_counts() == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("which", fused_conv_cuda.ROUTES)
-def test_conv_backward_routes_tied_windows_to_the_first_match(cuda, which):
+def test_conv_backward_routes_tied_windows_to_the_first_match(cuda, which, dtype):
     """Windows that tie: w all ones sums each 3x3 sub-patch, and three of
     four 4x4 images light two pixels that several positions of their one
     window see alike.  dW must take the first position in row order, db
     count each window once, as the plain version does, bit for bit (integer
-    sums).  Sparse
+    sums, exact in bf16 too: the bf16 register route picks the first
+    position by another formula than the FMA routes).  Sparse
     images whose windows tie at 0 too: an all-zero image gives db the
     window count where b > 0 and dW 0."""
     x = torch.zeros((4, 4, 4, 1))
@@ -680,15 +687,18 @@ def test_conv_backward_routes_tied_windows_to_the_first_match(cuda, which):
     x[3, 1, 3] = x[3, 3, 1] = 1     # (1, 1) alone is largest: a later position takes over
     w, b = torch.ones((3, 3, 1, 8)), torch.tensor([0.5, -0.5, 0.25, 0.0, 1.0, -1.0, 2.0, 0.1])
     g = torch.ones((4, 1, 1, 8))
+    x, w, b, g = (t.to(dtype) for t in (x, w, b, g))
     want = fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, (2, 2))
     args = [t.to(cuda) for t in (x, w, b, g)]
     got = fused_conv_cuda.conv_pool_relu_backward(*args, (2, 2), force_route=which)
     assert all(torch.equal(a.cpu(), r) for a, r in zip(got, want))
-    assert torch.equal(want[0][:, :, 0, 0], torch.tensor([[1.0, 0, 2], [0, 1, 0], [1, 0, 1]]))
-    zero = torch.zeros((3, 16, 16, 1), device=cuda)
+    assert torch.equal(want[0][:, :, 0, 0].float(),
+                       torch.tensor([[1.0, 0, 2], [0, 1, 0], [1, 0, 1]]))
+    zero = torch.zeros((3, 16, 16, 1), device=cuda, dtype=dtype)
     dw, db = fused_conv_cuda.conv_pool_relu_backward(
-        zero, args[1], args[2], torch.ones((3, 7, 7, 8), device=cuda), (2, 2), force_route=which)
-    assert torch.equal(db.cpu(), 3 * 49 * (b > 0).float())
+        zero, args[1], args[2], torch.ones((3, 7, 7, 8), device=cuda, dtype=dtype), (2, 2),
+        force_route=which)
+    assert torch.equal(db.cpu().float(), 3 * 49 * (b > 0).float())
     assert not dw.any()
 
 

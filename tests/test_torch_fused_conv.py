@@ -142,6 +142,8 @@ CHIP_CONV_ROUTES = {
     "jetid train batch": "tiles", "jetid predict chunk": "tiles", "ragged batch": "tiles",
     "reference tower": "tiles", "5x16x16 10 maps": "tiles", "two channels pool 3": "bands",
     "pool 3 low pad": "bands", "130 maps": "bands", "pool 4": "bands",
+    "odd 15x15 100 maps": "tiles", "one map": "tiles", "7 maps odd H": "tiles",
+    "128 maps": "tiles", "jetid large batch": "tiles",
 }
 
 
@@ -203,7 +205,15 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_launching(force_route):
 # rounding; dW and db within one bf16 ulp of the kernel's plus GRAD_TOL of the
 # leaf's largest value.  Against the XLA chain, which rounds after the conv
 # and after the bias: rtol/atol 1e-2, tests/test_fused_conv.py's bf16 bar.
-BF16_SHAPES = SHAPES[:2]
+# The cases the card adds for K5/K6's bf16 mma tiles, on small images (JAX
+# compiles the interpreted kernel once a shape, about 2 s here at these
+# sizes and three times that at 16x16): odd Hc and Wc (the SAME pool's high
+# pad) with M = 7, M = 1, and M = 128, the register route's limit.
+BF16_SHAPES = SHAPES[:2] + [
+    (3, 5, 7, 1, 3, 3, 7, (2, 2)),
+    (3, 6, 4, 1, 3, 3, 1, (2, 2)),
+    (2, 4, 6, 1, 3, 3, 128, (2, 2)),
+]
 BF16_CHAIN_TOL = 1e-2
 
 
