@@ -25,8 +25,10 @@ the Keras export in place of its npz checkpoint.  Keras files go through
 h5py where it is installed and through ``data/hdf5.py``'s ``LiteFile``
 where it is not (the machine with the card).
 
-Refused with ``NotImplementedError`` before any data is loaded:
-``--n_devices`` above 1 (ROADMAP Queue 1 item 11).
+``--n_devices N`` above 1 (0: every visible card; 1 under ``--device
+cpu``) runs the GAN cycle data-parallel over N ranks
+(``parallel/multihost.py::launch``); rank 0 alone prints, writes and
+evaluates.
 """
 
 import os
@@ -35,6 +37,9 @@ from argparse import ArgumentParser
 from pathlib import Path
 
 import numpy as np
+
+from ..parallel.mesh import is_writer
+from ..parallel.multihost import cli_ranks, launch
 
 _HOST = "cpu"  # data preparation runs on the host; the device gets packed batches
 CUTS = ['(sample["m"] >= 30)', '(sample["pt"] <= 5000)']   # the training and validation cuts
@@ -82,8 +87,8 @@ def build_parser():
     parser.add_argument("--scan_2d", default="OFF",
                         help="run the AE x Disc 2-D grid scan")
     parser.add_argument("--n_devices", default=0, type=int,
-                        help="kept for command-line compatibility: 0 or 1 trains on one "
-                             "device (--device)")
+                        help="data-parallel ranks for the GAN cycle, one a card (0 = all "
+                             "cards; 1 under --device cpu)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train and evaluate on (default cuda)")
     return parser
@@ -94,14 +99,11 @@ def _on(v):
 
 
 def _check_supported(args):
-    """Refuse, before any data is loaded, what the port does not run yet,
-    and an evaluation (which draws) where matplotlib cannot be imported."""
+    """Refuse an evaluation (which draws), before any data is loaded, where
+    matplotlib cannot be imported."""
     if _on(args.plotting) or _on(args.apply_cuts):
         from ..plotting.backend import require_matplotlib
         require_matplotlib("--plotting ON" if _on(args.plotting) else "--apply_cuts ON")
-    if args.n_devices > 1:
-        raise NotImplementedError("--n_devices > 1: the data-parallel GAN cycle is ported "
-                                  "with ROADMAP Queue 1 item 11")
 
 
 def _wire_paths(args):
@@ -184,10 +186,11 @@ def _draw_signal(args, numbers, sig_label, output_dir, device):
     print("best cut:", best)
 
 
-def _make_generator(args, hlv_list, train_cuts, hlv_scaler, const_scaler):
+def _make_generator(args, hlv_list, train_cuts, hlv_scaler, const_scaler, writer=True):
     """Scaler fit (where a type is given and none was loaded), the OoD
-    sample, and the training ``BatchGenerator``, on the host.  Returns
-    (train_gen, hlv_scaler, const_scaler)."""
+    sample, and the training ``BatchGenerator``, on the host; a process that
+    is not the ``writer`` saves no scaler.  Returns (train_gen, hlv_scaler,
+    const_scaler)."""
     from ..data import load_data, BatchGenerator, fit_scaler, apply_scaler
 
     need_hlv = _on(args.HLVs) and args.HLV_scaler_type and hlv_scaler is None
@@ -202,10 +205,12 @@ def _make_generator(args, hlv_list, train_cuts, hlv_scaler, const_scaler):
                                  device=_HOST)
         if need_hlv:
             hlv_scaler = fit_scaler(train_sample["HLVs"], args.n_dims,
-                                    args.HLV_scaler_out, args.HLV_scaler_type)
+                                    args.HLV_scaler_out if writer else None,
+                                    args.HLV_scaler_type)
         if need_const:
             const_scaler = fit_scaler(train_sample["constituents"], args.n_dims,
-                                      args.const_scaler_out, args.const_scaler_type)
+                                      args.const_scaler_out if writer else None,
+                                      args.const_scaler_type)
     print("\nLOADING OUTLIER SAMPLE")
     ood_sample = load_data(args.OoD_data, args.n_OoD, train_cuts, args.n_const,
                            args.n_dims, args.constituents, args.HLVs, hlv_list,
@@ -240,10 +245,17 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_supported(args)
     device = resolve_device(args.device)
+    n_ranks = cli_ranks(args.n_devices, device)
     out_root = _wire_paths(args)
     if args.synthetic:
         ensure_synthetic_registry(n_events=int(args.synthetic),
                                   n_const_max=max(args.n_const, 20))
+    placed = launch(main, (list(sys.argv[1:] if argv is None else argv),), n_ranks, device)
+    if placed is None:
+        return 0
+    mesh, device = placed
+    if mesh is not None:
+        print(f"Data-parallel GAN cycle over {n_ranks} devices")
 
     hlv_list = list(HLV_LIST)
     input_dim = (args.n_dims * args.n_const) * _on(args.constituents) + \
@@ -264,14 +276,15 @@ def main(argv=None):
 
     if args.n_epochs > 0:
         train_gen, hlv_scaler, const_scaler = _make_generator(args, hlv_list, CUTS, hlv_scaler,
-                                                              const_scaler)
+                                                              const_scaler, is_writer(mesh))
         params, _ = train_aae(params, train_gen, args.n_epochs, args.batch_size, out_root,
                               os.path.basename(args.model_out), args.hist_file,
                               os.path.basename(args.AE_weights) if args.AE_weights else "",
-                              args.lamb, args.beta, args.lr)
-        if maybe_export_keras(params, args.model_out, "aae"):
+                              args.lamb, args.beta, args.lr, mesh=mesh)
+        if is_writer(mesh) and maybe_export_keras(params, args.model_out, "aae"):
             print("Keras-compatible weights exported to " + args.model_out)
-    if not _on(args.plotting) and not _on(args.apply_cuts):
+    # the evaluation has no collective: rank 0 alone runs it
+    if not is_writer(mesh) or (not _on(args.plotting) and not _on(args.apply_cuts)):
         return 0
 
     print("\n+" + 36 * "-" + "+\n+--- VALIDATION SAMPLE EVALUATION ---+\n+"

@@ -39,9 +39,13 @@ mode, whose files stay ``model_<f>.npz``.  Keras files go through h5py
 where it is installed and through ``data/hdf5.py``'s ``LiteFile`` where it
 is not (the machine with the card).
 
-Not ported yet, and refused with ``NotImplementedError`` while the
-arguments are checked, before any data is loaded: ``--n_devices`` above 1
-(ROADMAP Queue 1 item 11).
+``--n_devices N`` (``--n_gpus``, the reference's MirroredStrategy count)
+above 1 trains data-parallel over N ranks, one a card (1 under ``--device
+cpu``; 0 means 1, as in the JAX CLI), with the batch N times
+``--batch_size`` (ref jet-ID/classifier.py:136-138); k-fold runs train
+their folds in turn over the ranks, and ``--vmap_folds ON`` is refused with
+it, as in the JAX package.  Rank 0 alone prints, writes, predicts and
+draws.
 ``--plotting ON``, the default, draws the ROC curves and class
 distributions with matplotlib; where matplotlib cannot be imported it is
 refused before any data is loaded (pass ``--plotting OFF``).
@@ -54,6 +58,9 @@ from argparse import ArgumentParser, SUPPRESS
 from pathlib import Path
 
 import numpy as np
+
+from ..parallel.mesh import is_writer
+from ..parallel.multihost import cli_ranks, launch
 
 _HOST = "cpu"  # data preparation runs on the host; the device gets packed batches
 
@@ -172,13 +179,6 @@ def _on(v):
     return v.upper() == "ON" if isinstance(v, str) else bool(v)
 
 
-def _check_supported(args):
-    """Refuse, before any data is loaded, what the port does not run yet."""
-    if (args.n_devices or 1) > 1:
-        raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
-                                  "ROADMAP Queue 1 item 11")
-
-
 def _eta_cuts(args, sample):
     """Compose the named |eta| window into valid_cuts on results
     re-evaluation."""
@@ -278,12 +278,20 @@ def main(argv=None):
         print("\nPROGRAM ARGUMENTS:\n" + args_banner(args))
         _reevaluate(args, out_root)
         return 0
-    _check_supported(args)
     device = resolve_device(args.device)
+    n_ranks = cli_ranks(args.n_devices, device, zero_means_all=False)
     Path(out_root).mkdir(parents=True, exist_ok=True)
     if args.synthetic:
         ensure_synthetic_registry(n_events=int(args.synthetic),
                                   n_const_max=max(args.n_const, 20))
+    # synchronous data parallelism, the MirroredStrategy replacement (ref
+    # jet-ID/models.py:69-81), with its per-replica batch scaling
+    placed = launch(main, (list(sys.argv[1:] if argv is None else argv),), n_ranks, device)
+    if placed is None:
+        return 0
+    mesh, device = placed
+    writer = is_writer(mesh)
+    batch_size = n_ranks * args.batch_size        # ref classifier.py:137-138
     print("\nPROGRAM ARGUMENTS:\n" + args_banner(args))
 
     hlv_list = list(HLV_LIST)
@@ -344,8 +352,9 @@ def main(argv=None):
         else:
             fit_rows = imgs[train_idx] if len(train_idx) else imgs
             img_scale = max(float(fit_rows.max()), 1e-6)
-            with open(scale_file, "wb") as f:
-                pickle.dump(img_scale, f)
+            if writer:
+                with open(scale_file, "wb") as f:
+                    pickle.dump(img_scale, f)
         sample["images"] = imgs / img_scale
         images, image_shapes = ("images",), ((px, px),)
         const_dim = 0   # the flat branch is replaced by the image tower
@@ -373,7 +382,7 @@ def main(argv=None):
     elif args.scaler_type and scaling:
         scaler_out = args.scaler_out or f"scaler_{args.scaler_type}.pkl"
         fit_rows = first_chunk["HLVs"] if streaming else sample["HLVs"][train_idx]
-        scaler = fit_scaler(fit_rows, scaler_out=out_root + "/" + scaler_out,
+        scaler = fit_scaler(fit_rows, scaler_out=out_root + "/" + scaler_out if writer else None,
                             scaler_type=args.scaler_type)
         sample["HLVs"] = apply_scaler(sample["HLVs"], scaler=scaler, device=_HOST)
 
@@ -388,7 +397,8 @@ def main(argv=None):
                 sample["constituents"][train_idx if len(train_idx) else slice(None)]
             print("Fitting track scaler", end="")
             t_scaler = fit_scaler(fit_rows, n_dims=args.n_dims,
-                                  scaler_out=out_root + "/" + args.t_scaler_out,
+                                  scaler_out=out_root + "/" + args.t_scaler_out if writer
+                                  else None,
                                   scaler_type="RobustScaler", reshape=True, verbose=False)
             print(" -> " + out_root + "/" + args.t_scaler_out)
         sample["constituents"] = apply_scaler(sample["constituents"], args.n_dims, t_scaler,
@@ -443,12 +453,15 @@ def main(argv=None):
             return np.asarray([class_weight[int(l)] for l in labels[idx]], np.float32)
 
         if _on(args.vmap_folds):
+            if mesh is not None:
+                raise SystemExit("--vmap_folds ON shards the fold axis, not the data axis — "
+                                 "drop --n_devices or use sequential folds")
             from ..train.jetid_loop import train_kfold_vmapped
             best, _ = train_kfold_vmapped(
                 [fold_init(fold) for fold in range(1, args.n_folds + 1)], config,
                 [(inputs_for(t), labels[t], fold_weights(t)) for t, _ in fold_splits],
                 [(inputs_for(v), labels[v], np.ones(len(v), np.float32)) for _, v in fold_splits],
-                args.n_epochs, args.batch_size, args.lr, args.patience, fold_outs,
+                args.n_epochs, batch_size, args.lr, args.patience, fold_outs,
                 monitor=args.metrics, verbose=bool(args.verbose))
             print(f"{args.n_folds} folds trained through train_kfold_vmapped")
         else:
@@ -456,11 +469,13 @@ def main(argv=None):
             for fold, (t_idx, v_idx) in enumerate(fold_splits, start=1):
                 fold_params, _ = train_classifier(
                     fold_init(fold), config, inputs_for(t_idx), labels[t_idx],
-                    inputs_for(v_idx), labels[v_idx], args.n_epochs, args.batch_size, args.lr,
+                    inputs_for(v_idx), labels[v_idx], args.n_epochs, batch_size, args.lr,
                     args.patience, class_weight, None, fold_outs[fold - 1], verbose=False,
-                    monitor=args.metrics)
+                    mesh=mesh, monitor=args.metrics)
                 best.append(fold_params)
                 print(f"fold {fold}/{args.n_folds} trained")
+        if not writer:      # the rest has no collective: rank 0 alone runs it
+            return 0
         # cross_valid loads every fold's file, written even where no epoch
         # improved (or --n_epochs 0)
         for path, fold_params in zip(fold_outs, best):
@@ -528,16 +543,18 @@ def main(argv=None):
                   "jets (--n_eval)")
         params, _ = train_classifier_streaming(
             params, config, load_iter, inputs_for(eval_idx), labels[eval_idx], args.n_epochs,
-            args.batch_size, args.lr, args.patience, model_out, state_file=state_file,
-            verbose=bool(args.verbose), monitor=args.metrics)
+            batch_size, args.lr, args.patience, model_out, state_file=state_file,
+            verbose=bool(args.verbose), mesh=mesh, monitor=args.metrics)
     elif args.n_epochs > 0:
         params, _ = train_classifier(
             params, config, inputs_for(train_idx), labels[train_idx], inputs_for(valid_idx),
-            labels[valid_idx], args.n_epochs, args.batch_size, args.lr, args.patience,
+            labels[valid_idx], args.n_epochs, batch_size, args.lr, args.patience,
             class_weight, sample_weight, model_out, state_file=state_file,
-            verbose=bool(args.verbose), monitor=args.metrics)
+            verbose=bool(args.verbose), mesh=mesh, monitor=args.metrics)
     elif args.model_in and os.path.isfile(out_root + "/" + args.model_in):
         params = load_params_auto(out_root + "/" + args.model_in, params, "jetid", config)
+    if not writer:          # the rest has no collective: rank 0 alone runs it
+        return 0
     if args.n_epochs > 0 and args.n_folds <= 1 and \
             maybe_export_keras(params, model_out, "jetid", config):
         print("Keras-compatible weights exported to " + model_out)

@@ -9,7 +9,10 @@ dense-stack kernel on CUDA) and the requested per-jet metrics (EMD through
 the Sinkhorn kernel on CUDA, in constituents mode); the AAE writes its three
 discriminants, ``score_Autoencoder``, ``score_Discriminator`` and
 ``score_Auto+Disc`` (``eval/aae_eval.py::get_data``, unmapped).
-Runs on ``--device cuda`` unless asked for the CPU.
+Runs on ``--device cuda`` unless asked for the CPU.  ``--n_devices N``
+above 1 (0: every visible card; 1 under ``--device cpu``) scores on N ranks
+(``parallel/multihost.py::launch``): each predicts the chunk and the
+EMD/KSD jet axes are split over the ranks; rank 0 alone writes.
 
     python -m atlasvae_torch.cli.score --data QCD-Geneva --model_in model.npz \\
         --HLV_scaler_in HLV_RobustScaler.pkl --metrics MAE Latent --output scores.h5
@@ -21,11 +24,15 @@ Runs on ``--device cuda`` unless asked for the CPU.
         --model_type aae --HLV_scaler_in HLV_RobustScaler.pkl --output scores.h5
 """
 
+import contextlib
 import sys
 import time
 from argparse import ArgumentParser
 
 import numpy as np
+
+from ..parallel.mesh import is_writer
+from ..parallel.multihost import cli_ranks, launch
 
 
 def build_parser():
@@ -48,9 +55,8 @@ def build_parser():
     parser.add_argument("--chunk", default=1_000_000, type=float)
     parser.add_argument("--output", default="scores.h5")
     parser.add_argument("--n_devices", default=0, type=int,
-                        help="kept for command-line compatibility; the port "
-                             "scores every metric, EMD and KSD included, on "
-                             "one device (--device)")
+                        help="ranks the EMD/KSD jet axes are split over, one a card "
+                             "(0 = all cards; 1 under --device cpu)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to score on (default cuda)")
     return parser
@@ -68,6 +74,11 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    n_ranks = cli_ranks(args.n_devices, device)
+    placed = launch(main, (list(sys.argv[1:] if argv is None else argv),), n_ranks, device)
+    if placed is None:
+        return 0
+    mesh, device = placed
     on = lambda v: v.upper() == "ON" if isinstance(v, str) else bool(v)
     hlv_list = list(HLV_LIST)
     input_dim = (args.n_dims * args.n_const) * on(args.constituents) + \
@@ -89,7 +100,8 @@ def main(argv=None):
     total = 0
     chunk = int(args.chunk)
     n_jets = int(args.n_jets)
-    with torch.inference_mode(), hdf5.File(args.output, "w") as out:
+    with torch.inference_mode(), (hdf5.File(args.output, "w") if is_writer(mesh)
+                                  else contextlib.nullcontext()) as out:
         dsets = {}
         offset = 0
         while offset < n_jets:
@@ -113,7 +125,7 @@ def main(argv=None):
                      for i in range(args.n_iter)], dim=-1)
                 x_pred = preds.mean(dim=-1)
                 scores = compute_metric_bank(x_true, x_pred, params, tuple(args.metrics),
-                                             normal_losses=False, device=device)
+                                             normal_losses=False, device=device, mesh=mesh)
             else:
                 from ..eval.aae_eval import get_data
                 scores = get_data(params, sample, np.ones(n, int), x_true.cpu().numpy(),
@@ -122,6 +134,8 @@ def main(argv=None):
                       "m": sample["m"], "pt": sample["pt"],
                       "weights": sample["weights"]}
             for key, val in record.items():
+                if out is None:         # ranks above 0 write nothing
+                    break
                 val = np.asarray(val, np.float32)
                 if key not in dsets:
                     dsets[key] = out.create_dataset(

@@ -29,9 +29,13 @@ JAX package.
 margin, lr, seed) as lanes of one ensemble over one data preparation
 (``train/ensemble.py``); ``cli/sweep.py --vmap ON`` drives it.
 
-Not ported yet, and refused with ``NotImplementedError`` while the
-arguments are checked, before any data is loaded: ``--n_devices`` above 1
-(ROADMAP Queue 1 item 11).
+``--n_devices N`` above 1 (0: every visible card; 1 under ``--device
+cpu``) trains data-parallel over N ranks (``parallel/multihost.py``:
+``launch`` starts them, unless the program already runs inside a group,
+as under torchrun): each rank prepares the same data, steps its rows of
+every batch and evaluates (the EMD/KSD metrics sharded over the ranks);
+rank 0 alone prints, writes files and draws.  The ensemble shards its
+configurations over the N ranks instead, where N divides them.
 """
 
 import os
@@ -41,6 +45,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import barrier, is_writer
+from ..parallel.multihost import cli_ranks, launch
 
 _HOST = "cpu"  # data preparation runs on the host; the device gets packed batches
 _EVAL_CHUNK = 10_000               # rows per prediction call in _evaluate
@@ -90,8 +97,8 @@ def build_parser():
     parser.add_argument("--constituents", default="OFF")
     parser.add_argument("--HLVs", default="ON")
     parser.add_argument("--n_devices", default=0, type=int,
-                        help="kept for command-line compatibility; the port trains "
-                             "on one device (--device)")
+                        help="data-parallel ranks, one a card (0 = all cards; 1 under "
+                             "--device cpu)")
     parser.add_argument("--synthetic", default=0, type=float,
                         help="generate synthetic datasets with N events each")
     parser.add_argument("--bkg_data", default="QCD-Geneva")
@@ -108,14 +115,11 @@ def _on(v):
 
 
 def _check_supported(args):
-    """Refuse, before any data is loaded, what the port does not run yet,
-    and drawing where matplotlib cannot be imported."""
+    """Refuse drawing, before any data is loaded, where matplotlib cannot be
+    imported."""
     if _on(args.plotting):
         from ..plotting.backend import require_matplotlib
         require_matplotlib("--plotting ON")
-    if args.n_devices > 1:
-        raise NotImplementedError("--n_devices > 1: data-parallel training is ported with "
-                                  "ROADMAP Queue 1 item 11")
 
 
 def _wire_paths(args):
@@ -147,15 +151,17 @@ def _load_model_in(args, params, out_root):
     return params
 
 
-def _reload_model_out(args, params):
+def _reload_model_out(args, params, mesh=None):
     """After training: the weights ``model_out`` holds (the best epoch's),
     then, for a ``model.h5`` run, the Keras export in place of the npz
-    checkpoint."""
+    checkpoint, written by rank 0 once every rank has read the file."""
     from ..train.keras_export import maybe_export_keras
     from ..train.keras_import import load_params_auto
+    barrier(mesh)
     if os.path.isfile(args.model_out):
         params = load_params_auto(args.model_out, params, "vae")
-        if maybe_export_keras(params, args.model_out, "vae"):
+        barrier(mesh)
+        if is_writer(mesh) and maybe_export_keras(params, args.model_out, "vae"):
             print("Keras-compatible weights exported to " + args.model_out)
     return params
 
@@ -180,10 +186,11 @@ def _select_samples(args):
     return hlv_list, input_dim, train_cuts, valid_cuts
 
 
-def _make_generators(args, hlv_list, train_cuts, const_scaler, hlv_scaler):
+def _make_generators(args, hlv_list, train_cuts, const_scaler, hlv_scaler, writer=True):
     """Scaler fit + OoD load + train/valid BatchGenerators, on the host.
     Under ``--plotting ON`` the training generator draws the first load's
-    distributions."""
+    distributions.  A process that is not the ``writer`` (ranks above 0)
+    saves no scaler and draws nothing."""
     from ..data import load_data, BatchGenerator, fit_scaler, apply_scaler
 
     if (args.const_scaler_type and const_scaler is None) or \
@@ -195,9 +202,11 @@ def _make_generators(args, hlv_list, train_cuts, const_scaler, hlv_scaler):
                                  device=_HOST)
         if _on(args.constituents) and const_scaler is None and args.const_scaler_type:
             const_scaler = fit_scaler(train_sample["constituents"], args.n_dims,
-                                      args.const_scaler_out, args.const_scaler_type)
+                                      args.const_scaler_out if writer else None,
+                                      args.const_scaler_type)
         if _on(args.HLVs) and hlv_scaler is None and args.HLV_scaler_type:
-            hlv_scaler = fit_scaler(train_sample["HLVs"], args.n_dims, args.HLV_scaler_out,
+            hlv_scaler = fit_scaler(train_sample["HLVs"], args.n_dims,
+                                    args.HLV_scaler_out if writer else None,
                                     args.HLV_scaler_type)
     print("\nLOADING OUTLIER SAMPLE")
     ood_sample = load_data(args.OoD_data, args.n_OoD, train_cuts, args.n_const, args.n_dims,
@@ -216,7 +225,8 @@ def _make_generators(args, hlv_list, train_cuts, const_scaler, hlv_scaler):
                   mem_gb=args.memGB)
     train_gen = BatchGenerator(args.bkg_data, args.OoD_data, args.n_const, args.n_dims,
                                args.n_train, ood_sample, is_train=True,
-                               output_dir=args.output_dir if _on(args.plotting) else None,
+                               output_dir=args.output_dir if _on(args.plotting) and writer
+                               else None,
                                **common)
     valid_gen = BatchGenerator(args.bkg_data, args.OoD_data, args.n_const, args.n_dims,
                                args.n_valid, ood_sample, **common)
@@ -278,9 +288,11 @@ def _valid_predictions(args, params, const_scaler, hlv_scaler, hlv_list, valid_c
     return y_true, x_true, x_pred, sample, step
 
 
-def _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device):
+def _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device, mesh=None):
     """Validation predictions, then, under ``--plotting ON``, the training
-    history and ``plot_results`` (ref OE-VAE/vae.py:145-176)."""
+    history and ``plot_results`` (ref OE-VAE/vae.py:145-176).  ``mesh``
+    shards the EMD/KSD metrics' jet axes over its ranks, each of which
+    calls this; rank 0 alone draws."""
     from ..eval import plot_results
     from ..plotting.history import plot_history
 
@@ -289,11 +301,12 @@ def _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, devi
     y_true, x_true, x_pred, sample, _ = _valid_predictions(
         args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device)
     if _on(args.plotting):
-        if os.path.isfile(args.hist_file):
+        if os.path.isfile(args.hist_file) and is_writer(mesh):
             plot_history(args.hist_file, args.output_dir)
         plot_results(y_true, x_true, x_pred, sample, args.n_dims, params, EVAL_METRICS,
                      EVAL_LOSS, args.sig_data, args.output_dir, args.apply_cuts,
-                     args.normal_losses, args.decorrelation, npe=args.npe, device=device)
+                     args.normal_losses, args.decorrelation, npe=args.npe, mesh=mesh,
+                     device=device)
 
 
 def main(argv=None):
@@ -306,8 +319,13 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_supported(args)
     device = resolve_device(args.device)
+    n_ranks = cli_ranks(args.n_devices, device)
     out_root = _wire_paths(args)
     hlv_list, input_dim, train_cuts, valid_cuts = _select_samples(args)
+    placed = launch(main, (list(sys.argv[1:] if argv is None else argv),), n_ranks, device)
+    if placed is None:
+        return 0
+    mesh, device = placed
     print("\nPROGRAM ARGUMENTS:\n" + args_banner(args))
 
     config = VAEConfig(fc_layers=tuple(args.FC_layers), input_dim=input_dim)
@@ -323,16 +341,16 @@ def main(argv=None):
 
     if args.n_epochs > 0:
         train_gen, valid_gen, const_scaler, hlv_scaler = _make_generators(
-            args, hlv_list, train_cuts, const_scaler, hlv_scaler)
+            args, hlv_list, train_cuts, const_scaler, hlv_scaler, is_writer(mesh))
         state_file = out_root + "/" + args.state_file if args.state_file else None
         params, _ = train_model(params, train_gen, valid_gen, args.OE_type, args.n_epochs,
                                 args.batch_size, args.beta, args.lamb, args.margin, args.lr,
-                                args.hist_file, args.model_in, args.model_out,
+                                args.hist_file, args.model_in, args.model_out, mesh=mesh,
                                 seed=args.seed, state_file=state_file)
-        params = _reload_model_out(args, params)
+        params = _reload_model_out(args, params, mesh)
     if not _on(args.plotting) and not _on(args.apply_cuts):
         return 0
-    _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device)
+    _evaluate(args, params, const_scaler, hlv_scaler, hlv_list, valid_cuts, device, mesh)
     return 0
 
 
@@ -391,6 +409,20 @@ def run_ensemble(passthrough, names, value_rows, output_dirs):
         _grid_configs(passthrough, names, value_rows, output_dirs)
     lead, out_root = configs[0], out_roots[0]
     device = resolve_device(lead.device)
+    n_ranks = cli_ranks(lead.n_devices, device)
+    mesh = None
+    if n_ranks > 1 and len(configs) % n_ranks:
+        print(f"NOTE: {len(configs)} configs not divisible by --n_devices {n_ranks}; "
+              "training on one device")
+    elif n_ranks > 1:
+        placed = launch(run_ensemble, (list(passthrough), list(names),
+                                       [list(r) for r in value_rows], list(output_dirs)),
+                        n_ranks, device, axis="config")
+        if placed is None:
+            return 0
+        mesh, device = placed
+        print(f"Sharding the {len(configs)}-config axis over {n_ranks} devices "
+              "(zero-collective sweep)")
     print("\nPROGRAM ARGUMENTS (ensemble lead):\n" + args_banner(lead))
     const_scaler = hlv_scaler = None
     if lead.const_scaler_type and os.path.isfile(lead.const_scaler_in):
@@ -406,7 +438,7 @@ def run_ensemble(passthrough, names, value_rows, output_dirs):
 
     if lead.n_epochs > 0:
         train_gen, valid_gen, const_scaler, hlv_scaler = _make_generators(
-            lead, hlv_list, train_cuts, const_scaler, hlv_scaler)
+            lead, hlv_list, train_cuts, const_scaler, hlv_scaler, is_writer(mesh))
         hyper = tuple(np.array([getattr(a, k) for a in configs], np.float32)
                       for k in ("beta", "lamb", "margin"))
         stacked, _ = train_ensemble(
@@ -414,7 +446,10 @@ def run_ensemble(passthrough, names, value_rows, output_dirs):
             lead.batch_size, lr=[a.lr for a in configs],
             hist_files=[a.hist_file for a in configs],
             model_outs=[a.model_out for a in configs], seeds=[a.seed for a in configs],
+            mesh=mesh,
             state_file=out_root + "/" + lead.state_file if lead.state_file else None)
+    if not is_writer(mesh):
+        return 0
 
     for g, args in enumerate(configs):
         params = _reload_model_out(args, tree_slice(stacked, g))

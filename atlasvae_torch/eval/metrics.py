@@ -5,8 +5,8 @@ X-S and Inputs over (jets, features) tensors on their own device, the
 encoder-KLD Latent metric (through the stack-forward kernel on CUDA),
 ``loss_mapping`` and ``compute_metric_bank``.  EMD treats each row as a
 constituent cloud and KSD as a sample (``ops/emd.py``: the hand-written
-Sinkhorn kernel on CUDA); the port scores them on one device.  Scores come
-back as numpy arrays.
+Sinkhorn kernel on CUDA); with a ``mesh`` their jet axis is split over the
+``data`` ranks.  Scores come back as numpy arrays.
 """
 
 import numpy as np
@@ -53,17 +53,18 @@ def _metric_kernel(p, q, metric):
 
 
 def loss_function(p, q, n_dims=3, metric="MAE", x_losses=None, multiloss=True,
-                  device="cuda"):
+                  device="cuda", mesh=None):
     """One discriminant over (true, predicted) matrices -> numpy (jets,).
     Tensors are scored on their own device; arrays on ``device``.  EMD
-    reads each row as ``n_dims``-component constituents."""
+    reads each row as ``n_dims``-component constituents; ``mesh`` shards
+    EMD's and KSD's jet axis."""
     p = as_float_tensor(p, device)
     q = as_float_tensor(q, p.device)
     if metric == "EMD":
         # on the model's input as it is fed, scaled constituents included
-        out = emd_pairs(jets_3v(p, n_dims), jets_3v(q, n_dims))
+        out = emd_pairs(jets_3v(p, n_dims), jets_3v(q, n_dims), mesh=mesh)
     elif metric == "KSD":
-        out = ks_pairs(p, q)
+        out = ks_pairs(p, q, mesh=mesh)
     else:
         out = np.concatenate([
             _metric_kernel(p[i:i + _CHUNK], q[i:i + _CHUNK], metric).cpu().numpy()
@@ -108,8 +109,10 @@ def loss_mapping(x):
 
 
 def compute_metric_bank(x_true, x_pred, params=None, metrics=("Latent", "MAE", "KLD", "JSD"),
-                        n_dims=3, sample=None, normal_losses=True, device="cuda"):
-    """Every requested metric in turn -> {name: numpy (jets,)}."""
+                        n_dims=3, sample=None, normal_losses=True, device="cuda", mesh=None):
+    """Every requested metric in turn -> {name: numpy (jets,)}; ``mesh``
+    shards the EMD/KSD jet axis over its ``data`` ranks (each rank calls
+    with the same arguments)."""
     x_losses = {}
     for metric in metrics:
         if metric == "Latent":
@@ -124,7 +127,7 @@ def compute_metric_bank(x_true, x_pred, params=None, metrics=("Latent", "MAE", "
                                                       device=device)
         else:
             x_losses[metric] = loss_function(x_true, x_pred, n_dims, metric,
-                                             multiloss=False, device=device)
+                                             multiloss=False, device=device, mesh=mesh)
     if normal_losses:
         x_losses = {k: loss_mapping(v) for k, v in x_losses.items()}
     return x_losses

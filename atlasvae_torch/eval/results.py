@@ -14,6 +14,7 @@ from .bump import _best_cut, _cut_samples, _draw_cuts, _draw_scan, _hunter_numbe
 from .deco import mass_deco
 from .metrics import compute_metric_bank, loss_mapping
 from .roc import get_rates
+from ..parallel.mesh import is_writer
 from ..utils.logging import StepTimes
 
 
@@ -23,7 +24,7 @@ def _on(flag):
 
 def _evaluation_numbers(y_true, x_true, x_pred, sample, n_dims, params, metrics, loss_metric,
                         apply_cuts="OFF", normal_losses="ON", decorrelation="OFF", npe=1000,
-                        device="cuda"):
+                        device="cuda", mesh=None):
     """Every number ``plot_results`` draws, as a dict: ``x_losses`` and
     ``metrics`` (the bank, mapped to [0, 1] and decorrelated as asked),
     ``best_loss``, ``scan`` and, at the best cut, ``cut_sample`` and
@@ -31,7 +32,8 @@ def _evaluation_numbers(y_true, x_true, x_pred, sample, n_dims, params, metrics,
     ROC rates), ``curves`` (each metric's mass-sculpting JSD curves per
     class), ``cuts`` (the background-suppression cut samples under
     ``apply_cuts``, else None) and ``wall_ms``, each step's host-clock
-    time (every step ends with its results on the host)."""
+    time (every step ends with its results on the host).  ``mesh`` shards
+    the EMD/KSD metrics' jet axis over its ``data`` ranks."""
     from ..plotting.performance import _mass_curves
     step = StepTimes()
     # 'ON' means 2d (ref OE-VAE/plots.py:36-39); 'm', 'pt' and '2d' pick the
@@ -40,7 +42,7 @@ def _evaluation_numbers(y_true, x_true, x_pred, sample, n_dims, params, metrics,
     deco = "2d" if deco.upper() == "ON" else deco.lower()
     deco_active = deco in ("m", "pt", "2d")
     x_losses = step("metrics", compute_metric_bank, x_true, x_pred, params, metrics, n_dims,
-                    sample, normal_losses=False, device=device)
+                    sample, normal_losses=False, device=device, mesh=mesh)
     metrics = list(x_losses.keys())
     if _on(normal_losses) or deco_active:
         x_losses = {key: loss_mapping(val) for key, val in x_losses.items()}
@@ -86,14 +88,14 @@ def plot_results(y_true, x_true, x_pred, sample, n_dims, params, metrics,
                  normal_losses="ON", decorrelation="OFF", npe=1000,
                  mesh=None, device="cuda"):
     """The evaluation's numbers, then its plots under ``output_dir``;
-    returns (best_loss, x_losses) as the JAX package does."""
-    if mesh is not None:
-        raise NotImplementedError("plot_results over a device mesh (the sharded EMD/KSD "
-                                  "metrics) is ported with ROADMAP Queue 1 item 11")
+    returns (best_loss, x_losses) as the JAX package does.  With ``mesh``
+    every rank computes the numbers (the EMD/KSD metrics' jet axis split
+    over the ``data`` ranks) and rank 0 alone draws."""
     print("\nPLOTTING PERFORMANCE RESULTS:")
     numbers = _evaluation_numbers(y_true, x_true, x_pred, sample, n_dims, params, metrics,
                                   loss_metric, apply_cuts, normal_losses, decorrelation, npe,
-                                  device)
-    _draw_results(numbers, y_true, sample, sig_data, output_dir)
+                                  device, mesh)
+    if is_writer(mesh):
+        _draw_results(numbers, y_true, sample, sig_data, output_dir)
     print()
     return numbers["best_loss"], numbers["x_losses"]

@@ -12,7 +12,9 @@ Counterpart of ``atlasvae/ops/emd.py``:
 * ``ks_pairs``: the exact two-sample KS statistic between paired rows.
 
 Both take arrays or tensors and return numpy arrays; a tensor is scored on
-the device it lies on.
+the device it lies on.  With a ``mesh``, the jet axis is split over its
+``data`` ranks (``_shard_rows``): per-jet programs are independent, so
+each rank scores its block and one gather puts the result back together.
 """
 
 import math
@@ -20,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.mesh import axis_size, gather, shard_leading
 from ..utils.tensors import as_float_tensor
 from . import emd_cuda
 
@@ -106,16 +109,34 @@ def _emd_batch(p, q, r_param, n_iters, eps_final):
     return emd_cuda.emd_sinkhorn(p, q, r_param, n_iters, eps_final)
 
 
-def emd_pairs(jets_p, jets_q, r_param=1.0, n_iters=100, eps_final=0.01, device="cuda"):
+def _shard_rows(mesh, fn, a, b):
+    """``fn(a, b)`` of paired (n, ...) tensors with the row axis split over
+    the mesh's ``data`` ranks: n zero-padded up to a multiple of the ranks,
+    each rank computing its block, the blocks gathered and the padding
+    rows dropped."""
+    n = len(a)
+    pad = -n % axis_size(mesh, "data")
+    if pad:
+        a, b = (torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in (a, b))
+    a, b = shard_leading(mesh, (a, b), "data")
+    return gather(mesh, fn(a.contiguous(), b.contiguous()))[:n]
+
+
+def emd_pairs(jets_p, jets_q, r_param=1.0, n_iters=100, eps_final=0.01, device="cuda",
+              mesh=None):
     """EMD between paired jets -> numpy (n_jets,); inputs (n_jets, n_const,
     3) in (pt, y, phi) from ``atlasvae_torch.data.jets_3v``.  Tensors are
     scored where they lie, arrays on ``device``, in chunks of the JAX
-    package's size."""
+    package's size, the chunk times the ``data`` ranks under a ``mesh``
+    (the scratch budget is a device's)."""
     jets_p = as_float_tensor(jets_p, device)
     jets_q = as_float_tensor(jets_q, jets_p.device)
     chunk = max(1, min(_CHUNK * 8, _EMD_BUDGET_BYTES // (16 * max(jets_p.shape[1], 1) ** 2)))
-    out = [_emd_batch(jets_p[i:i + chunk].contiguous(), jets_q[i:i + chunk].contiguous(),
-                      r_param, n_iters, eps_final).cpu().numpy()
+    batch = lambda a, b: _emd_batch(a, b, r_param, n_iters, eps_final)
+    if mesh is not None:
+        chunk *= axis_size(mesh, "data")
+        batch = lambda a, b, one=batch: _shard_rows(mesh, one, a, b)
+    out = [batch(jets_p[i:i + chunk].contiguous(), jets_q[i:i + chunk].contiguous()).cpu().numpy()
            for i in range(0, len(jets_p), chunk)]
     return np.concatenate(out) if out else np.zeros(0, np.float32)
 
@@ -136,12 +157,17 @@ def _ks_batch(p, q):
     return torch.where(boundary, cum.abs(), 0.0).amax(dim=1)
 
 
-def ks_pairs(p, q, device="cuda"):
+def ks_pairs(p, q, device="cuda", mesh=None):
     """Two-sample KS statistic per paired row -> numpy (rows,); exact, as
-    ``scipy.stats.ks_2samp``'s statistic."""
+    ``scipy.stats.ks_2samp``'s statistic.  ``mesh`` shards the row axis as
+    ``emd_pairs`` does."""
     p = as_float_tensor(p, device)
     q = as_float_tensor(q, p.device)
     chunk = _CHUNK * 8
-    out = [_ks_batch(p[i:i + chunk], q[i:i + chunk]).cpu().numpy()
+    batch = _ks_batch
+    if mesh is not None:
+        chunk *= axis_size(mesh, "data")
+        batch = lambda a, b: _shard_rows(mesh, _ks_batch, a, b)
+    out = [batch(p[i:i + chunk], q[i:i + chunk]).cpu().numpy()
            for i in range(0, len(p), chunk)]
     return np.concatenate(out) if out else np.zeros(0, np.float32)

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.gammainc import log_gammainc_lower, log_gammainc_upper, sigma_from_log_pval
+from ..parallel.mesh import all_sum, axis_size, shard_leading
 from .deprecation import deprecated, warn_legacy_arg
 
 
@@ -817,10 +818,14 @@ def batched_local_sigma(data_hists, bkg_hists, widths, scan_steps, mode="excess"
             _bin_significance(data, bkg))
 
 
-def _global_sigmas(min_logp, npe):
-    """(local sigma, global sigma, t_data) from (..., 1 + npe) min log p."""
+def _global_sigmas(min_logp, npe, mesh=None, axis="data"):
+    """(local sigma, global sigma, t_data) from (..., 1 + npe) min log p;
+    with ``mesh``, the pseudo-experiments are this rank's share and the
+    exceedance count is summed over the ``axis`` ranks as an integer."""
     t = -min_logp
     s = (t[..., 1:] >= t[..., :1]).sum(-1)
+    if mesh is not None:
+        all_sum(mesh, s, axis)
     global_logp = torch.log(torch.clamp(s.to(torch.float32), min=1.0) / npe)
     return sigma_from_log_pval(min_logp[..., 0]), sigma_from_log_pval(global_logp), t[..., 0]
 
@@ -828,23 +833,27 @@ def _global_sigmas(min_logp, npe):
 def bump_sigma_sharded(data_hist, bkg_hist, widths, scan_steps, npe=1000,
                        mode="excess", seed=0, mesh=None, axis="data", device="cuda"):
     """Global BumpHunter scan of one (data, background) pair with npe
-    pseudo-experiments; the JAX package shards the pseudo-experiment axis
-    over a device mesh, which waits here for ROADMAP Queue 1 item 11
-    (``mesh`` must be None).
+    pseudo-experiments.  With ``mesh``, every rank draws the whole (npe,
+    nbins) pseudo-data from the seeded generator and scans its share of
+    them beside the data; the exceedance count, an integer, is the only
+    collective, so the result equals the single-device scan exactly.  npe
+    must be a multiple of the ``axis`` ranks.
 
     Returns (local_sigma, global_sigma, t_data) scalars as tensors."""
-    if mesh is not None:
-        raise NotImplementedError("bump_sigma_sharded over a device mesh is ported with "
-                                  "ROADMAP Queue 1 item 11; pass mesh=None")
     device = resolve_device(device)
     npe = int(npe)
+    if mesh is not None and npe % axis_size(mesh, axis):
+        raise ValueError(f"npe={npe} must be a multiple of the '{axis}' mesh axis size "
+                         f"{axis_size(mesh, axis)}")
     data, bkg = _f32(data_hist, device), _f32(bkg_hist, device)
     pseudo = _poisson_pseudo(torch.Generator(device).manual_seed(seed), bkg, npe)
+    if mesh is not None:
+        pseudo = shard_leading(mesh, pseudo, axis)
     hists = torch.cat([data[None, :], pseudo])
     hinf, hsup = _scan_ranges(bkg[None])
     min_logp = _scan(hists[None], bkg[None], tuple(widths), tuple(scan_steps), hinf, hsup,
                      mode, False, None)[0][0]
-    return _global_sigmas(min_logp, npe)
+    return _global_sigmas(min_logp, npe, mesh, axis)
 
 
 def batched_bump_sigma(data_hists, bkg_hists, widths, scan_steps, npe=1000,

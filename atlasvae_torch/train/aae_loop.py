@@ -18,6 +18,13 @@ phase-epoch ends.  The history keeps the reference's semantics: the last
 batch of an AE epoch; the last batch's loss and the epoch's mean accuracy of
 a Disc epoch; the batch mean of an AAE epoch, with the real 3-class
 discriminator loss and accuracy on the epoch's last batch after it.
+
+Data parallelism (``mesh``): each rank steps its rows of every batch.  A
+weighted mean's gradient term is the rank's weighted sum over the global
+weight sum (the weight sums of a phase-epoch's batches are all-reduced once
+when it starts), so the all-reduced gradient is the global one; the metrics
+are those terms summed over the ranks, once when the phase-epoch ends.  Only
+the trained subtree's gradient is reduced.
 """
 
 import os
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from ..models.aae import ae_apply, discriminator_apply
+from ..parallel.mesh import all_sum, axis_size, is_writer, shard_batch
 from .checkpoint import (save_pytree, load_pytree, tree_flatten, tree_unflatten,
                          sniff_weights_format)
 from .keras_import import load_keras_aae
@@ -93,8 +101,9 @@ def _mae(x, y):
     return torch.mean(torch.abs(x - y), dim=-1)
 
 
-def _wmean(loss, w):
-    return torch.sum(loss * w) / torch.clamp(torch.sum(w), min=1e-30)
+def _wmean(loss, w, den=None):
+    """sum(loss * w) over ``den``, the weight sum (by default ``w``'s)."""
+    return torch.sum(loss * w) / torch.clamp(torch.sum(w) if den is None else den, min=1e-30)
 
 
 def _sparse_ce(probs, labels):
@@ -102,8 +111,8 @@ def _sparse_ce(probs, labels):
     return -torch.log(torch.clamp(p, min=1e-7))
 
 
-def _accuracy(probs, labels, w):
-    return _wmean((torch.argmax(probs, dim=1) == labels).to(w.dtype), w)
+def _accuracy(probs, labels, w, den=None):
+    return _wmean((torch.argmax(probs, dim=1) == labels).to(w.dtype), w, den)
 
 
 def _labels(counts, device):
@@ -111,36 +120,40 @@ def _labels(counts, device):
                       for c, n in enumerate(counts)])
 
 
-def _ae_losses(params, bkg_x, ood_x, bkg_w, ood_w, activation):
+def _ae_losses(params, bkg_x, ood_x, bkg_w, ood_w, activation, dens=(None, None)):
     recon_bkg = ae_apply(params, bkg_x, activation)
     recon_ood = ae_apply(params, ood_x, activation)
     mae_bkg, mae_ood = _mae(bkg_x, recon_bkg), _mae(ood_x, recon_ood)
-    qcd = _wmean(mae_bkg, bkg_w)
-    oe = _wmean(torch.sigmoid(mae_bkg - mae_ood), ood_w)
-    ood_mae = _wmean(mae_ood, ood_w).detach()   # 'OoD-AE Loss', a metric only
+    qcd = _wmean(mae_bkg, bkg_w, dens[0])
+    oe = _wmean(torch.sigmoid(mae_bkg - mae_ood), ood_w, dens[1])
+    ood_mae = _wmean(mae_ood, ood_w, dens[1]).detach()   # 'OoD-AE Loss', a metric only
     return qcd, oe, ood_mae, recon_bkg, recon_ood
 
 
-def disc_batch_loss(params, bkg_x, ood_x, bkg_w, ood_w, activation="relu"):
+def disc_batch_loss(params, bkg_x, ood_x, bkg_w, ood_w, activation="relu", den=None):
     """The discriminator's weighted CE and accuracy on {QCD: 0,
-    reconstructed QCD: 1, OoD: 2}."""
+    reconstructed QCD: 1, OoD: 2}; ``den``: their weight sum (by default
+    this batch's)."""
     recon_bkg = ae_apply(params, bkg_x, activation)
     x = torch.cat([bkg_x, recon_bkg, ood_x])
     w = torch.cat([bkg_w, bkg_w, ood_w])
     labels = _labels((len(bkg_w), len(bkg_w), len(ood_w)), w.device)
     probs = discriminator_apply(params, x, activation)
-    return _wmean(_sparse_ce(probs, labels), w), _accuracy(probs, labels, w)
+    return _wmean(_sparse_ce(probs, labels), w, den), _accuracy(probs, labels, w, den)
 
 
-def _descend(loss, state, key, lr):
-    """One guarded ``GanAdam`` step of subtree ``key`` down ``loss``."""
+def _descend(loss, state, key, lr, mesh=None):
+    """One guarded ``GanAdam`` step of subtree ``key`` down ``loss``, its
+    gradient summed over the ``data`` ranks under a ``mesh``."""
     grads = torch.autograd.grad(loss, state.leaves, materialize_grads=True)
     with torch.no_grad():
-        flat = clip_gradients(torch.cat([g.reshape(-1) for g in grads]))
-        state.adam.step(key, state.flat, flat, lr)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        if mesh is not None:
+            all_sum(mesh, flat)
+        state.adam.step(key, state.flat, clip_gradients(flat), lr)
 
 
-def make_aae_step_fns(lamb=0.0, beta=0.0, activation="relu", lr=1.0):
+def make_aae_step_fns(lamb=0.0, beta=0.0, activation="relu", lr=1.0, mesh=None):
     """Build (ae_epoch, disc_epoch, aae_epoch).  Each takes the AE and the
     discriminator ``TrainState`` (sharing one ``GanAdam`` as their
     ``adam``, keyed 'ae' and 'disc'), a batch order
@@ -150,61 +163,79 @@ def make_aae_step_fns(lamb=0.0, beta=0.0, activation="relu", lr=1.0):
     total, OoD MAE]; Disc (n, 2) [loss, accuracy]; AAE ((n, 6) [QCD, OE,
     total, fooling CE, fooling accuracy, OoD MAE], and the 3-class
     discriminator's [loss, accuracy] on batch ``perm[-1]`` after the
-    epoch's updates)."""
+    epoch's updates).  With ``mesh``, ``batches`` are this rank's rows and
+    the metrics the global values."""
     lr = float(lr)
+
+    def weight_sums(batches):
+        """Per batch (bkg, OoD, Disc, fooling) weight sums: None each on one
+        device (every weighted mean sums its own weights), the global sums
+        with a ``mesh``."""
+        if mesh is None:
+            return [(None,) * 4] * batches[0].shape[0]
+        bkg, ood = all_sum(mesh, torch.stack([batches[2].sum(1), batches[3].sum(1)], 1)).unbind(1)
+        return list(zip(bkg, ood, 2 * bkg + ood, bkg + ood))
+
+    def summed(metrics):
+        return metrics if mesh is None else all_sum(mesh, metrics)
 
     def ae_epoch(ae, disc, perm, batches):
         rest = _frozen(disc)
+        dens = weight_sums(batches)
         out = []
         for i in perm:
             batch = tuple(b[i] for b in batches)
-            qcd, oe, ood_mae, _, _ = _ae_losses({**ae.params, **rest}, *batch, activation)
+            qcd, oe, ood_mae, _, _ = _ae_losses({**ae.params, **rest}, *batch, activation,
+                                                dens[i][:2])
             total = qcd + lamb * oe
-            _descend(total, ae, "ae", lr)
+            _descend(total, ae, "ae", lr, mesh)
             out.append(torch.stack([qcd, oe, total, ood_mae]).detach())
-        return torch.stack(out)
+        return summed(torch.stack(out))
 
     def disc_epoch(ae, disc, perm, batches):
         rest = _frozen(ae)
+        dens = weight_sums(batches)
         out = []
         for i in perm:
             loss, acc = disc_batch_loss({**rest, **disc.params}, *(b[i] for b in batches),
-                                        activation=activation)
-            _descend(loss, disc, "disc", lr)
+                                        activation=activation, den=dens[i][2])
+            _descend(loss, disc, "disc", lr, mesh)
             out.append(torch.stack([loss, acc]).detach())
-        return torch.stack(out)
+        return summed(torch.stack(out))
 
     def aae_epoch(ae, disc, perm, batches):
         frozen = _frozen(disc)
+        dens = weight_sums(batches)
         out = []
         for i in perm:
             bkg_x, ood_x, bkg_w, ood_w = (b[i] for b in batches)
             qcd, oe, ood_mae, recon_bkg, recon_ood = _ae_losses(
-                {**ae.params, **frozen}, bkg_x, ood_x, bkg_w, ood_w, activation)
+                {**ae.params, **frozen}, bkg_x, ood_x, bkg_w, ood_w, activation, dens[i][:2])
             # the frozen discriminator judges every reconstruction with the
             # fooling labels {QCD: 0, OoD: 1}
             w_all = torch.cat([bkg_w, ood_w])
             labels = _labels((len(bkg_w), len(ood_w)), w_all.device)
             probs = discriminator_apply(frozen, torch.cat([recon_bkg, recon_ood]), activation)
-            d_ce = _wmean(_sparse_ce(probs, labels), w_all)
-            d_acc = _accuracy(probs, labels, w_all)
+            d_ce = _wmean(_sparse_ce(probs, labels), w_all, dens[i][3])
+            d_acc = _accuracy(probs, labels, w_all, dens[i][3])
             total = qcd + lamb * oe + beta * d_ce
-            _descend(total, ae, "ae", lr)
+            _descend(total, ae, "ae", lr, mesh)
             out.append(torch.stack([qcd, oe, total, d_ce, d_acc, ood_mae]).detach())
         with torch.no_grad():
             disc_m = torch.stack(disc_batch_loss({**_frozen(ae), **frozen},
                                                  *(b[perm[-1]] for b in batches),
-                                                 activation=activation))
-        return torch.stack(out), disc_m
+                                                 activation=activation, den=dens[perm[-1]][2]))
+        return summed(torch.stack(out)), summed(disc_m)
 
     return ae_epoch, disc_epoch, aae_epoch
 
 
-def pack_load(sample, batch_size, device, feature_key=None):
+def pack_load(sample, batch_size, device, feature_key=None, mesh=None):
     """One load, a (bkg, OoD) pair of sample dicts, as the device batches
     (bkg_x, ood_x, bkg_w, ood_w), each (n_batches, batch_size, ...), the
     tail padded with zero-weight rows.  ``feature_key=None`` stacks the
-    constituents and HLVs the model was sized with."""
+    constituents and HLVs the model was sized with.  With ``mesh``, only
+    this rank's rows of each batch are copied to the device."""
     bkg_sample, ood_sample = sample if isinstance(sample, tuple) else (sample["bkg"],
                                                                        sample["OoD"])
     if feature_key is None:
@@ -225,8 +256,10 @@ def pack_load(sample, batch_size, device, feature_key=None):
         bkg_w = np.concatenate([bkg_w, np.zeros(pad, np.float32)])
         ood_w = np.concatenate([ood_w, np.zeros(pad, np.float32)])
     shape = (n_batches, batch_size)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a.reshape(shape + a.shape[1:])))
-                 .to(device) for a in (bkg_x, ood_x, bkg_w, ood_w))
+    host = tuple(a.reshape(shape + a.shape[1:]) for a in (bkg_x, ood_x, bkg_w, ood_w))
+    if mesh is not None:
+        host = shard_batch(mesh, host)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host)
 
 
 def gan_states(params, device):
@@ -253,12 +286,17 @@ def train_aae(params, train_generator, n_cycles, batch_size, output_dir,
     after the first cycle's AE epochs when their last 'AE Loss' is below
     100 (else RuntimeError, as the reference aborts).  Writes ``hist_file``
     (the reference's {series: [(cycle, epoch, value)]} pickle) and
-    ``model_out`` (npz) under ``output_dir``.
+    ``model_out`` (npz) under ``output_dir``.  ``mesh``: a ``data`` mesh
+    to train over, every rank calling with the same arguments; the batch is
+    rounded down to a multiple of its ranks, and rank 0 alone writes.
     Returns (params, loss_history).
     """
     if mesh is not None:
-        raise NotImplementedError("train_aae over a device mesh (data-parallel GAN cycle) is "
-                                  "ported with ROADMAP Queue 1 item 11")
+        # even per-rank shards, as MirroredStrategy splits its global batch
+        # (ref jet-ID/classifier.py:136-138)
+        n_shards = axis_size(mesh, "data")
+        batch_size = max(n_shards, batch_size - batch_size % n_shards)
+    writer = is_writer(mesh)
     ae_path = os.path.join(output_dir, ae_weights) if ae_weights else None
     device = tree_flatten(params)[0].device
     epoch_dict = {"AE": np.full(n_cycles, 0), "Disc": np.full(n_cycles, 5),
@@ -266,7 +304,7 @@ def train_aae(params, train_generator, n_cycles, batch_size, output_dir,
     if n_cycles > 0:
         epoch_dict["AE"][0] = 100
 
-    batches = pack_load(train_generator[0], batch_size, device, feature_key)
+    batches = pack_load(train_generator[0], batch_size, device, feature_key, mesh)
     n_batches = batches[0].shape[0]
 
     if ae_path and os.path.isfile(ae_path):
@@ -278,7 +316,7 @@ def train_aae(params, train_generator, n_cycles, batch_size, output_dir,
         params = {**params, **ae}
         epoch_dict["AE"][0] = epoch_dict["AE"][1] if n_cycles > 1 else 0
     ae, disc = gan_states(params, device)
-    ae_epoch, disc_epoch, aae_epoch = make_aae_step_fns(lamb, beta, lr=float(lr))
+    ae_epoch, disc_epoch, aae_epoch = make_aae_step_fns(lamb, beta, lr=float(lr), mesh=mesh)
 
     loss_history = {k: [] for k in ["QCD-AE Loss", "OoD-AE Loss", "OE Loss",
                                     "AE Loss", "Disc Loss", "Disc Accuracy"]}
@@ -306,7 +344,8 @@ def train_aae(params, train_generator, n_cycles, batch_size, output_dir,
             last_ae = loss_history["AE Loss"][-1][2]
             if last_ae < 100:
                 print("Saving pre-trained AE file to:", ae_path)
-                save_pytree(ae_path, ae.params)
+                if writer:
+                    save_pytree(ae_path, ae.params)
             else:
                 raise RuntimeError(f"first-cycle AE loss {last_ae} >= 100 "
                                    "(the reference aborts here)")
@@ -350,10 +389,10 @@ def train_aae(params, train_generator, n_cycles, batch_size, output_dir,
                   f"Disc Loss = {disc_m[0]:4.3e} ({time.time() - start:.1f}s)")
 
     params = {**ae.detached(), **disc.detached()}
-    if hist_file:
+    if hist_file and writer:
         with open(os.path.join(output_dir, hist_file) if output_dir else hist_file,
                   "wb") as f:
             pickle.dump(loss_history, f)
-    if model_out:
+    if model_out and writer:
         save_pytree(os.path.join(output_dir, model_out) if output_dir else model_out, params)
     return params, loss_history

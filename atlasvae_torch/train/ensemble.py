@@ -25,9 +25,12 @@ through ``train/loop.py::train_lanes``, the epoch loop ``train_model`` runs
 on one lane.  A lane the plateau schedule has stopped takes no further step
 and no validation: its parameters, history and checkpoints stay as they
 were, which is what the JAX package's freeze at lr=0 gives (there its Adam
-moments still move; they are read by nothing but the state file).  The JAX
-package's ``mesh`` (the config axis sharded over devices) is ROADMAP Queue
-1 item 11.
+moments still move; they are read by nothing but the state file).
+
+``mesh`` (``parallel.config_mesh``) shards the configuration axis: each rank
+trains its G/n lanes with no collective, writes their histories and
+checkpoints, and the results are gathered in configuration order on every
+rank; rank 0 writes the state file, which holds every lane.
 """
 
 import os
@@ -35,6 +38,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.mesh import axis_rank, axis_size, gather, is_writer
 from .checkpoint import load_history, load_pytree, save_pytree, tree_flatten, tree_map, \
     tree_unflatten
 from .loop import Lane, train_lanes
@@ -67,26 +71,51 @@ def train_ensemble(params_stack, hyper, train_sample, valid_sample, oe_type="KLD
     optional G ``train_model``-style noise injectors, one a lane.
 
     Returns (params_stack, histories): histories is a list of G dicts with
-    ``train_model``'s keys and semantics.
+    ``train_model``'s keys and semantics.  ``mesh``: a ``config_axis`` mesh
+    whose ranks share the G lanes (G a multiple of its size), every rank
+    calling with the same arguments.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"sharding the {config_axis!r} axis over a device mesh is "
-                                  "ported with ROADMAP Queue 1 item 11")
     beta, lamb, margin = (np.asarray(h, np.float32) for h in hyper)
     n_cfg = len(beta)
+    mine = range(n_cfg)
+    if mesh is not None:
+        n_shard = axis_size(mesh, config_axis)
+        if n_cfg % n_shard:
+            raise ValueError(f"n_configs={n_cfg} must be a multiple of the '{config_axis}' "
+                             f"mesh axis size {n_shard}")
+        share = n_cfg // n_shard
+        mine = range(axis_rank(mesh, config_axis) * share,
+                     (axis_rank(mesh, config_axis) + 1) * share)
     lrs = np.broadcast_to(np.asarray(lr, np.float64), (n_cfg,))
     seeds = list(range(n_cfg)) if seeds is None else [int(s) for s in seeds]
     noise_sources = noise_sources or [None] * n_cfg
     lanes = [Lane(tree_slice(params_stack, g), oe_type, float(beta[g]), float(lamb[g]),
                   float(margin[g]), activation, float(lrs[g]), seeds[g],
                   hist_files[g] if hist_files else None, model_outs[g] if model_outs else None,
-                  noise_sources[g], tag=f"cfg{g}: ") for g in range(n_cfg)]
+                  noise_sources[g], tag=f"cfg{g}: ") for g in mine]
+
+    def lane_states():
+        return [tree_map(lambda t: t.detach().cpu(), lane.state_tree()) for lane in lanes]
 
     def state_trees():
-        return {"lanes": [lane.state_tree() for lane in lanes]}
+        states = lane_states() if mesh is None else gather(mesh, lane_states(), config_axis)
+        return {"lanes": states}
+
+    def save_state():
+        trees = state_trees()
+        if is_writer(mesh):
+            save_pytree(state_file, trees)
+
+    def all_stopped():
+        """Every lane stopped, on every rank: the ranks run as many epochs
+        (and collectives) as the longest lane needs."""
+        here = all(lane.stopped for lane in lanes)
+        return here if mesh is None else all(gather(mesh, [here], config_axis))
 
     if state_file and os.path.isfile(state_file):
-        for lane, saved in zip(lanes, load_pytree(state_file, state_trees())["lanes"]):
+        template = {"lanes": [lanes[0].state_tree()] * n_cfg}
+        saved_lanes = load_pytree(state_file, template)["lanes"]
+        for lane, saved in zip(lanes, [saved_lanes[g] for g in mine]):
             lane.load_state(saved)
             if lane.hist_file and os.path.isfile(lane.hist_file):
                 lane.history = load_history(lane.hist_file)
@@ -94,8 +123,12 @@ def train_ensemble(params_stack, hyper, train_sample, valid_sample, oe_type="KLD
         print(f"Resuming ensemble train state from {state_file} "
               f"({stopped}/{n_cfg} configs already stopped)")
     print(f"STARTING ENSEMBLE TRAINING ({n_cfg} configs, loads/epoch: {len(train_sample)})")
-    if not all(lane.stopped for lane in lanes):
+    if not all_stopped():
         train_lanes(lanes, train_sample, valid_sample, n_epochs, batch_size, valid_batch_size,
-                    (lambda: save_pytree(state_file, state_trees())) if state_file else None)
-    return stack_trees([lane.state.detached() for lane in lanes]), \
-        [lane.history for lane in lanes]
+                    save_state if state_file else None, all_stopped)
+    params_stack = stack_trees([lane.state.detached() for lane in lanes])
+    histories = [lane.history for lane in lanes]
+    if mesh is None:
+        return params_stack, histories
+    return tree_map(lambda leaf: gather(mesh, leaf, config_axis), params_stack), \
+        gather(mesh, histories, config_axis)

@@ -28,8 +28,19 @@ training device, seeded with ``seed``.
 ``train_kfold_vmapped`` keeps the JAX package's signature for its
 fold-vmapped program and runs the folds (or feature-removal lanes) one
 after another through ``train_classifier_streaming`` on that program's
-batch grid.  Not ported yet: the data-parallel ``mesh`` (ROADMAP Queue 1
-item 11).
+batch grid.
+
+Data parallelism (``mesh``, the reference's ``MirroredStrategy``, ref
+jet-ID/models.py:69-81): each rank steps its rows of every batch (the batch
+rounded down to a multiple of the ``data`` ranks); a rank's loss is its
+cross-entropy sum over the global weight sum plus the L2 term over the
+ranks, so the all-reduced gradient is the global one, as the JAX package's
+``psum`` gives it.  Each rank draws its own dropout masks (its generator
+seeded with ``seed + (rank << 32)``; the JAX package folds the replica
+index into the key); with dropout 0 the run equals the single-device run
+up to the order of the sums.  Rank 0 alone writes checkpoints and the state
+file, which holds rank 0's dropout stream: a resumed run restores it on
+every rank.
 """
 
 import contextlib
@@ -40,6 +51,7 @@ import numpy as np
 import torch
 
 from ..models.jetid import jetid_apply, l2_penalty
+from ..parallel.mesh import all_sum, axis_rank, axis_size, is_writer, shard_batch
 from .checkpoint import save_pytree, load_pytree, tree_flatten
 from .step import Adam, LoadCache, TrainState, clip_gradients, to_device
 
@@ -83,9 +95,19 @@ def strict_precision():
         matmul.allow_bf16_reduced_precision_reduction = before
 
 
-def batch_loss(params, config, inputs, labels, weights, generator):
-    """(training loss of one batch, its [loss, accuracy] metrics)."""
+def batch_loss(params, config, inputs, labels, weights, generator, mesh=None):
+    """(training loss of one batch, its [loss, accuracy] metrics).  With
+    ``mesh``, the batch is this rank's rows: the loss is the rank's share
+    of the global one, the metrics the global values."""
     probs = jetid_apply(params, config, inputs, generator=generator, train=True)
+    if mesh is not None:
+        num = _ce_sum(probs, labels, weights)
+        sums = all_sum(mesh, torch.stack([weights.sum(), num.detach(),
+                                          _correct_sum(probs.detach(), labels, weights)]))
+        den = torch.clamp_min(sums[0], 1e-30)
+        reg = config.l2 * l2_penalty(params) if config.l2 else 0.0
+        loss = num / den + reg / axis_size(mesh, "data")
+        return loss, torch.stack([sums[1] / den + reg, sums[2] / den]).detach()
     loss = _ce_loss(probs, labels, weights)
     if config.l2:
         loss = loss + config.l2 * l2_penalty(params)
@@ -93,27 +115,30 @@ def batch_loss(params, config, inputs, labels, weights, generator):
     return loss, torch.stack([loss.detach(), accuracy])
 
 
-def train_epoch(state, config, lr, generator, inputs, labels, weights):
+def train_epoch(state, config, lr, generator, inputs, labels, weights, mesh=None):
     """One Adam step per batch of a packed load; returns the (n_batches, 2)
-    [loss, accuracy] metrics on the device."""
+    [loss, accuracy] metrics on the device.  With ``mesh``, the load is this
+    rank's rows and the gradients are summed over the ``data`` ranks."""
     out = []
     with strict_precision():
         for i in range(labels.shape[0]):
             loss, metrics = batch_loss(state.params, config, {k: v[i] for k, v in inputs.items()},
-                                       labels[i], weights[i], generator)
+                                       labels[i], weights[i], generator, mesh)
             grads = torch.autograd.grad(loss, state.leaves, allow_unused=True,
                                         materialize_grads=True)
             with torch.no_grad():
-                flat = clip_gradients(torch.cat([g.reshape(-1) for g in grads]))
-                state.adam.step(state.flat, flat, lr)
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                if mesh is not None:
+                    all_sum(mesh, flat)
+                state.adam.step(state.flat, clip_gradients(flat), lr)
             out.append(metrics)
     return torch.stack(out)
 
 
-def eval_epoch(params, config, inputs, labels, weights):
+def eval_epoch(params, config, inputs, labels, weights, mesh=None):
     """(n_batches, 3) per batch: the weighted cross-entropy sum with the L2
     term times the weight sum, the weight sum, the weighted count of correct
-    jets."""
+    jets; with ``mesh``, summed over the ``data`` ranks' rows."""
     out = []
     with torch.no_grad(), strict_precision():
         reg = config.l2 * l2_penalty(params) if config.l2 else 0.0
@@ -122,7 +147,8 @@ def eval_epoch(params, config, inputs, labels, weights):
             w = weights[i]
             out.append(torch.stack([_ce_sum(probs, labels[i], w) + reg * w.sum(), w.sum(),
                                     _correct_sum(probs, labels[i], w)]))
-    return torch.stack(out)
+    out = torch.stack(out)
+    return out if mesh is None else all_sum(mesh, out)
 
 
 def _pack(inputs, labels, weights, batch_size):
@@ -158,7 +184,7 @@ def _unflatten(keys, arrays):
 def train_classifier(params, config, inputs, labels, valid_inputs, valid_labels,
                      epochs=100, batch_size=5000, lr=1e-3, patience=10,
                      class_weight=None, sample_weight=None, model_out=None,
-                     seed=0, verbose=True, state_file=None, monitor="val_loss"):
+                     seed=0, verbose=True, state_file=None, mesh=None, monitor="val_loss"):
     """Fit the classifier on an in-memory sample, on the device its
     ``params`` lie on; returns (best params, history dict)."""
     weights = np.ones(len(labels), np.float32) if sample_weight is None \
@@ -168,7 +194,7 @@ def train_classifier(params, config, inputs, labels, valid_inputs, valid_labels,
     return train_classifier_streaming(
         params, config, lambda: [(inputs, labels, weights)], valid_inputs, valid_labels,
         epochs, batch_size, lr, patience, model_out, seed, verbose, state_file=state_file,
-        monitor=monitor)
+        mesh=mesh, monitor=monitor)
 
 
 def _state_tree(state, best_params, lr, best_val, lr_wait, stop_wait, generator, monitor):
@@ -184,22 +210,35 @@ def _state_tree(state, best_params, lr, best_val, lr_wait, stop_wait, generator,
 def train_classifier_streaming(params, config, load_iter_fn, valid_inputs, valid_labels,
                                epochs=10, batch_size=5000, lr=1e-3, patience=10,
                                model_out=None, seed=0, verbose=True, min_delta=1e-6,
-                               state_file=None, monitor="val_loss"):
+                               state_file=None, mesh=None, monitor="val_loss"):
     """The single implementation of the epoch loop.  ``load_iter_fn()``
     returns an iterable of (inputs, labels, weights) loads per epoch
-    (weights None: ones)."""
+    (weights None: ones).  ``mesh``: a ``data`` mesh to train over, every
+    rank calling with the same arguments."""
     device = tree_flatten(params)[0].device
     state = TrainState(params)
     lr = float(lr)
     batch_size = int(batch_size)
+    n_shards = 1 if mesh is None else axis_size(mesh, "data")
+    writer = is_writer(mesh)
+    if mesh is not None:
+        # even per-rank shards, as MirroredStrategy splits its global batch
+        # (ref jet-ID/classifier.py:136-138)
+        batch_size = max(n_shards, batch_size - batch_size % n_shards)
     history = {"loss": [], "val_loss": [], "accuracy": [], "val_accuracy": []}
     if monitor not in history:
         raise ValueError(f"monitor {monitor!r}: pick one of {list(history)}")
     sign = -1.0 if "accuracy" in monitor else 1.0   # higher is better for the accuracy pair
     v_batch = min(batch_size, len(valid_labels))
-    v_inputs, v_labels, v_weights = _unflatten(valid_inputs, to_device(_packed_arrays(
-        valid_inputs, valid_labels, np.ones(len(valid_labels), np.float32), v_batch), device))
-    generator = torch.Generator(device).manual_seed(seed)
+    if mesh is not None:
+        v_batch = max(n_shards, v_batch - v_batch % n_shards)
+    v_host = _packed_arrays(valid_inputs, valid_labels, np.ones(len(valid_labels), np.float32),
+                            v_batch)
+    if mesh is not None:
+        v_host = shard_batch(mesh, v_host)
+    v_inputs, v_labels, v_weights = _unflatten(valid_inputs, to_device(v_host, device))
+    generator = torch.Generator(device).manual_seed(
+        seed + (0 if mesh is None else axis_rank(mesh, "data") << 32))
     best_val, best_params, lr_wait, stop_wait = np.inf, state.detached(), 0, 0
     if state_file and os.path.isfile(state_file):
         saved = load_pytree(state_file, _state_tree(state, best_params, lr, 0.0, 0, 0,
@@ -236,15 +275,15 @@ def train_classifier_streaming(params, config, load_iter_fn, valid_inputs, valid
             ones = np.ones(len(labels), np.float32) if weights is None else weights
             batches = load_cache.get(
                 samples, batch_size,
-                lambda: _packed_arrays(inputs, labels, ones, batch_size))
+                lambda: _packed_arrays(inputs, labels, ones, batch_size), mesh)
             metrics = train_epoch(state, config, lr, generator,
-                                  *_unflatten(inputs, batches)).cpu().numpy()
+                                  *_unflatten(inputs, batches), mesh).cpu().numpy()
             if not np.isfinite(metrics).all():
                 print("NaN loss encountered — terminating training")
                 return best_params, history
             sums += metrics.mean(axis=0)
             n_loads += 1
-        vm = eval_epoch(state.params, config, v_inputs, v_labels, v_weights).cpu().numpy()
+        vm = eval_epoch(state.params, config, v_inputs, v_labels, v_weights, mesh).cpu().numpy()
         val_loss = vm[:, 0].sum() / vm[:, 1].sum()
         history["loss"].append(float(sums[0] / max(n_loads, 1)))
         history["accuracy"].append(float(sums[1] / max(n_loads, 1)))
@@ -258,7 +297,7 @@ def train_classifier_streaming(params, config, load_iter_fn, valid_inputs, valid
         if score < best_val - min_delta:   # checkpoint the best
             best_val, best_params = score, state.detached()
             lr_wait = stop_wait = 0
-            if model_out:
+            if model_out and writer:
                 save_pytree(model_out, best_params)
         else:
             lr_wait += 1
@@ -268,7 +307,7 @@ def train_classifier_streaming(params, config, load_iter_fn, valid_inputs, valid
                 if verbose:
                     print(f"Reducing learning rate to {lr}")
                 lr_wait = 0
-        if state_file:
+        if state_file and writer:
             # written before any break, so that the state records the stop
             # decision and a rerun resumes as already stopped
             save_pytree(state_file, _state_tree(state, best_params, lr, best_val, lr_wait,

@@ -13,6 +13,10 @@ Counterpart of ``atlasvae/train/loop.py``, same control flow:
 
 ``train_lanes`` is the epoch loop; ``train_model`` runs it on one lane and
 ``train/ensemble.py`` on G lanes that share every load's device batches.
+With a ``mesh``, every rank runs ``train_model`` on the whole sample and
+steps its rows of each batch (``train/step.py``; ``batch_load`` rounds the
+batch down to a multiple of the ``data`` ranks), and rank 0 alone writes
+the history, checkpoints and state file.
 
 The reparameterization noise comes from one ``torch.Generator`` on the
 training device, seeded with ``seed``.
@@ -24,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.mesh import axis_size, is_writer, shard_batch
 from .checkpoint import save_weights, save_history, load_history, save_pytree, load_pytree
 from .step import make_vae_step_fns, batch_load, LoadCache, TrainState, Adam, to_device
 
@@ -59,11 +64,12 @@ class Lane:
     stopped the lane."""
 
     def __init__(self, params, oe_type, beta, lamb, margin, activation, lr, seed,
-                 hist_file=None, model_out=None, noise_source=None, tag=""):
+                 hist_file=None, model_out=None, noise_source=None, tag="", mesh=None):
         self.state = TrainState(params)
         self.device = self.state.flat.device
+        self.mesh = mesh
         self.train_on_load, self.valid_losses = make_vae_step_fns(oe_type, beta, lamb, margin,
-                                                                  activation)
+                                                                  activation, mesh)
         self.beta, self.lamb, self.lr, self.count, self.stopped = beta, lamb, float(lr), 0, False
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.history = new_history(beta, lamb)
@@ -88,8 +94,11 @@ class Lane:
     def noise(self, phase, epoch, load_idx, batches):
         if self.noise_source is None:
             return None
-        return to_device(self.noise_source(phase, epoch, load_idx, *batches[0].shape[:2]),
-                         self.device)
+        rows = batches[0].shape[1] * (1 if self.mesh is None else axis_size(self.mesh, "data"))
+        noise = self.noise_source(phase, epoch, load_idx, batches[0].shape[0], rows)
+        if self.mesh is not None:
+            noise = shard_batch(self.mesh, tuple(noise))
+        return to_device(noise, self.device)
 
     def losses(self, sums, n_seen):
         d = n_seen if n_seen > 0 else 1.0  # all-padding load guard
@@ -104,7 +113,7 @@ class Lane:
 
 def train_model(params, train_sample, valid_sample, oe_type="KLD", n_epochs=1,
                 batch_size=5000, beta=0.0, lamb=0.0, margin=0.0, lr=1e-3, hist_file=None,
-                model_in=None, model_out=None, seed=0, activation="relu",
+                model_in=None, model_out=None, mesh=None, seed=0, activation="relu",
                 valid_batch_size=int(1e6), state_file=None, noise_source=None):
     """Train the VAE on the device its ``params`` lie on; returns (params,
     history).
@@ -117,9 +126,12 @@ def train_model(params, train_sample, valid_sample, oe_type="KLD", n_epochs=1,
     (noise_bkg, noise_ood)`` each shaped (n_batches, batch, latent), phase
     "train" or "valid"; it replaces the generator's draws so a run can
     share its latent draws with another framework.
+
+    ``mesh``: a ``data`` mesh (``parallel.data_parallel_mesh``) to train
+    over, every rank calling with the same arguments.
     """
     lane = Lane(params, oe_type, beta, lamb, margin, activation, lr, seed, hist_file, model_out,
-                noise_source)
+                noise_source, mesh=mesh)
     resuming_state = state_file and os.path.isfile(state_file)
     if hist_file and os.path.isfile(hist_file) and \
             (resuming_state or (model_in and os.path.isfile(model_in))):
@@ -134,19 +146,26 @@ def train_model(params, train_sample, valid_sample, oe_type="KLD", n_epochs=1,
               f"(lr={lane.lr:g}, plateau count={lane.count})")
     print("STARTING TRAINING (loads/epoch: %d)" % len(train_sample))
     train_lanes([lane], train_sample, valid_sample, n_epochs, batch_size, valid_batch_size,
-                (lambda: save_pytree(state_file, lane.state_tree())) if state_file else None)
+                (lambda: save_pytree(state_file, lane.state_tree()))
+                if state_file and is_writer(mesh) else None)
     return lane.state.detached(), lane.history
 
 
 def train_lanes(lanes, train_sample, valid_sample, n_epochs, batch_size,
-                valid_batch_size=int(1e6), save_state=None):
+                valid_batch_size=int(1e6), save_state=None, all_stopped=None):
     """The single implementation of the VAE epoch loop, over one lane
     (``train_model``) or several (``train/ensemble.py``).  The lanes share
     each load's device batches (one ``LoadCache``); every load is stepped
     lane after lane, and each lane accumulates its metrics as a run of its
     own would.  A lane the plateau schedule has stopped takes no further
-    step or validation.  ``save_state()`` runs after every epoch."""
+    step or validation.  ``save_state()`` runs after every epoch; the loop
+    ends early once ``all_stopped()`` (default: every lane has stopped)."""
+    if all_stopped is None:
+        all_stopped = lambda: all(lane.stopped for lane in lanes)
     load_cache = LoadCache(lanes[0].device)
+    mesh = lanes[0].mesh
+    n_devices = 1 if mesh is None else axis_size(mesh, "data")
+    writer = is_writer(mesh)
     for epoch in range(n_epochs):
         start_time = time.time()
         print("\nEpoch %d/%d:" % (epoch + 1, n_epochs))
@@ -155,9 +174,10 @@ def train_lanes(lanes, train_sample, valid_sample, n_epochs, batch_size,
         n_seen = [0.0] * len(live)
         for load_idx, (bkg_sample, ood_sample) in enumerate(train_sample):
             batches = load_cache.get(
-                (bkg_sample, ood_sample), (batch_size, 1),
+                (bkg_sample, ood_sample), (batch_size, n_devices),
                 lambda: batch_load(features(bkg_sample), features(ood_sample),
-                                   bkg_sample["weights"], ood_sample["weights"], batch_size))
+                                   bkg_sample["weights"], ood_sample["weights"], batch_size,
+                                   n_devices), mesh)
             for i, lane in enumerate(live):
                 metrics = lane.train_on_load(lane.state, lane.lr, lane.generator, batches,
                                              lane.noise("train", epoch, load_idx, batches))
@@ -172,9 +192,10 @@ def train_lanes(lanes, train_sample, valid_sample, n_epochs, batch_size,
         for load_idx, (bkg_sample, ood_sample) in enumerate(valid_sample):
             vbs = min(valid_batch_size, len(bkg_sample["weights"]))
             batches = load_cache.get(
-                (bkg_sample, ood_sample), (vbs, 1),
+                (bkg_sample, ood_sample), (vbs, n_devices),
                 lambda: batch_load(features(bkg_sample), features(ood_sample),
-                                   bkg_sample["weights"], ood_sample["weights"], vbs))
+                                   bkg_sample["weights"], ood_sample["weights"], vbs,
+                                   n_devices), mesh)
             for i, lane in enumerate(live):
                 metrics = lane.valid_losses(lane.state.params, lane.generator, batches,
                                             lane.noise("valid", epoch, load_idx, batches))
@@ -194,21 +215,22 @@ def train_lanes(lanes, train_sample, valid_sample, n_epochs, batch_size,
             for k in lane.history:
                 lane.history[k] = list(lane.history[k]) + [float(losses[k]) if k in losses
                                                            else 0.0]
-            if lane.hist_file:
+            if lane.hist_file and writer:
                 save_history(lane.history, lane.hist_file)
             # a resumed run has prior history to compare against, so its
             # first epoch checkpoints too (a fresh run skips epoch 0:
             # history[:-1] is empty)
             if epoch > 0 or len(lane.history["Train loss"]) > 1:
                 lane.lr, count = model_checkpoint(lane.state.params, lane.lr, lane.history,
-                                                  lane.model_out, lane.count)
+                                                  lane.model_out if writer else None,
+                                                  lane.count)
                 lane.stopped = count is None
                 lane.count = lane.count if count is None else count
         if save_state:
             # a stopped lane's count is saved as -1, so that a rerun does not
             # resume training past the schedule's stop decision
             save_state()
-        if all(lane.stopped for lane in lanes):
+        if all_stopped():
             break
 
 

@@ -16,6 +16,14 @@ on the device and the host reads them once per load, as the JAX package's
 The parameters of a run live as views of one flat tensor
 (``TrainState``): one gradient concatenation, one guard and one Adam update
 over all leaves per step.
+
+Data parallelism (``mesh``): each rank steps its rows of every batch
+(``LoadCache.get(..., mesh)`` copies only those to its device), draws the
+reparameterization noise at the global batch shape and keeps its rows
+(``global_noise``), and sums the flat gradient over the mesh's ``data``
+ranks with one all-reduce before the guard and Adam, as the JAX package's
+``psum`` does; so every rank holds the same parameters and the run
+reproduces the single-device step up to the order of the sums.
 """
 
 import math
@@ -26,6 +34,7 @@ import torch
 
 from ..losses import get_losses
 from ..models.vae import clip_values
+from ..parallel.mesh import all_sum, axis_rank, axis_size, shard_batch
 from .checkpoint import tree_flatten, tree_unflatten
 
 
@@ -100,17 +109,40 @@ class TrainState:
         return tree_unflatten(self.params, [v.detach().clone() for v in self.leaves])
 
 
-def make_vae_step_fns(oe_type="KLD", beta=0.0, lamb=0.0, margin=0.0, activation="relu"):
+def global_noise(generator, latent, rows, n_shards, shard, oe_type, device):
+    """The latent draws of one batch of ``n_shards * rows`` rows, as the
+    single-device step draws them from ``generator`` (background, then OoD
+    unless the OE term is 'KLD', which runs no OoD sample), each cut to this
+    shard's ``rows``: data-parallel runs then reproduce the single-device
+    draws exactly."""
+    shape = (n_shards * rows, latent)
+    rows_of = slice(shard * rows, (shard + 1) * rows)
+    noise_bkg = torch.randn(shape, generator=generator, device=device)[rows_of]
+    if oe_type == "KLD":
+        return noise_bkg, None
+    return noise_bkg, torch.randn(shape, generator=generator, device=device)[rows_of]
+
+
+def make_vae_step_fns(oe_type="KLD", beta=0.0, lamb=0.0, margin=0.0, activation="relu",
+                      mesh=None, data_axis="data"):
     """Build (train_on_load, valid_losses).
 
     Both take a load's batches shaped (n_batches, batch, ...) with a
     (n_batches, batch) float ``valid`` mask for tail padding, and optional
     ``noise = (noise_bkg, noise_ood)`` each (n_batches, batch, latent)
     holding the reparameterization draws (the external-noise hook); without
-    it the draws come from ``generator``.
+    it the draws come from ``generator``.  With ``mesh``, ``batches`` and
+    ``noise`` are this rank's rows, and the metrics and gradients are summed
+    over the ``data_axis`` ranks.
     """
+    n_shards = 1 if mesh is None else axis_size(mesh, data_axis)
+    shard = 0 if mesh is None else axis_rank(mesh, data_axis)
 
     def batch_losses(params, generator, noise, bkg_x, ood_x, bkg_w, ood_w, valid):
+        if noise is None and mesh is not None:
+            latent = params["encoder"]["mean"]["b"].shape[0]
+            noise = global_noise(generator, latent, bkg_x.shape[0], n_shards, shard, oe_type,
+                                 bkg_x.device)
         mse, kld, oe, total = get_losses(params, bkg_x, ood_x, bkg_w, ood_w, generator,
                                          oe_type, beta, lamb, margin, activation, noise)
         total = total * valid
@@ -122,6 +154,10 @@ def make_vae_step_fns(oe_type="KLD", beta=0.0, lamb=0.0, margin=0.0, activation=
     def _noise(noise, i):
         return None if noise is None else (noise[0][i], noise[1][i])
 
+    def _summed(metrics):
+        metrics = torch.stack(metrics)
+        return metrics if mesh is None else all_sum(mesh, metrics, data_axis)
+
     def train_on_load(state, lr, generator, batches, noise=None):
         """One Adam step per batch; returns the (n_batches, 5) metrics
         (sum mse*v, kld*v, oe*v, total, v) on the device."""
@@ -132,10 +168,12 @@ def make_vae_step_fns(oe_type="KLD", beta=0.0, lamb=0.0, margin=0.0, activation=
             grads = torch.autograd.grad(loss, state.leaves, allow_unused=True,
                                         materialize_grads=True)
             with torch.no_grad():
-                flat = clip_gradients(torch.cat([g.reshape(-1) for g in grads]))
-                state.adam.step(state.flat, flat, lr)
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                if mesh is not None:
+                    all_sum(mesh, flat, data_axis)
+                state.adam.step(state.flat, clip_gradients(flat), lr)
             out.append(metrics)
-        return torch.stack(out)
+        return _summed(out)
 
     def valid_losses(params, generator, batches, noise=None):
         """(n_batches, 2) metrics (sum total, sum valid) on the device."""
@@ -145,7 +183,7 @@ def make_vae_step_fns(oe_type="KLD", beta=0.0, lamb=0.0, margin=0.0, activation=
                 _, m = batch_losses(params, generator, _noise(noise, i),
                                     *(b[i] for b in batches))
                 out.append(m[3:])
-        return torch.stack(out)
+        return _summed(out)
 
     return train_on_load, valid_losses
 
@@ -196,14 +234,19 @@ class LoadCache:
         self._entries = {}  # key -> (sample_refs, device_batches, nbytes)
         self._total = 0
 
-    def get(self, samples, geometry, build):
+    def get(self, samples, geometry, build, mesh=None, data_axis="data"):
         """Device batches for (samples, geometry); ``build`` makes the
-        packed numpy batches on a miss."""
+        packed numpy batches on a miss.  With ``mesh``, only this rank's
+        rows of each batch (``shard_batch`` over ``data_axis``) are kept and
+        copied, as the JAX package's ``device_put_load`` commits a load
+        sharded over the mesh."""
         key = tuple(id(s) for s in samples) + (geometry,)
         entry = self._entries.get(key)
         if entry is not None and all(a is b for a, b in zip(entry[0], samples)):
             return entry[1]
         host = build()
+        if mesh is not None:
+            host = shard_batch(mesh, host, data_axis)
         nbytes = sum(b.nbytes for b in host)
         batches = to_device(host, self.device)
         if nbytes > self.budget:

@@ -230,9 +230,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                gzip+shuffle, a raw chunk under lzf's mask, unwritten chunks)
                read through LiteFile bit-equal to their .npz; the MB/s of
                the C and the plain LZF decoder; each stage's seconds;
-17. kernels -- one JSON line with every ported kernel (K1 to K6 as two
+17. scaleout -- item 11 on the one card (phase_scaleout): a 1-rank NCCL
+               world's data-parallel VAE load bit-equal to the one-device
+               load; two ranks sharing the card over gloo (NCCL refuses two
+               ranks on one device; first a check that this gloo's
+               all_reduce takes CUDA tensors), each stepping its half of
+               every batch: the train phase's canonical VAE (4 batches of
+               10,000 at tests/test_train.py's DP bars), the jet-ID CLI's
+               bf16 CNN (three steps of 5,000), both also through Adam's
+               first moment after the steps (the exchanged gradients'
+               record, which the weights cannot show: Adam is blind to a
+               gradient's scale), the emd_slice chunk's EMD
+               (13,421 jets of 100 constituents) and a 1,000-experiment
+               BumpHunter scan (exactly equal), each against one device on
+               the same inputs, the ranks' launch counters summed into the
+               phase's; ms a step with 2 ranks beside one device alone;
+               cli/vae.py --n_devices 2 refused on one card;
+               utils/profiling.trace around a train step, the trace naming
+               K2's and K3's kernels;
+18. kernels -- one JSON line with every ported kernel (K1 to K6 as two
                entries each, one a route, and K5/K6's bf16 forms);
-18. last line: {"ok": true, "device": {...}}.
+19. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -2372,7 +2390,9 @@ def phase_seeds(device, trials=SEED_TRIALS):
     alone far from float64) and a badly conditioned draw (both far) tell
     apart.  Seed 3 is the test's own case: the sha1 of its outputs on each
     side is printed, to compare between processes, and the CPU side is run
-    again on inputs and weights one float off 16-byte alignment.  Fails if
+    again on the same tensors (do two runs in one process part?) and on
+    inputs and weights one float off 16-byte alignment, beside the settings
+    that steer the CPU's float32 products.  Fails if
     the card gives other bits on a second call or a non-finite value."""
     import torch
     from atlasvae_torch.models import vae_apply
@@ -2399,9 +2419,14 @@ def phase_seeds(device, trials=SEED_TRIALS):
                     raise AssertionError("seeds: vae_apply on the card gave other bits on a "
                                          "second call at seed 3")
                 cpu_shifted = vae_apply(tree_map(shifted, params), shifted(x), noise=shifted(noise))
+                cpu_again = vae_apply(params, x, noise=noise)
                 cpu_f64_gap = max(float((a.double() - b).abs().max()) for a, b in zip(cpu, f64))
                 log("seeds", seed=3, card_sha=_sha(card), cpu_sha=_sha(cpu),
                     cpu_f64_gap=f"{cpu_f64_gap:.3e}",
+                    cpu_same_bits_again=all(torch.equal(a, b) for a, b in zip(cpu, cpu_again)),
+                    matmul_precision=torch.get_float32_matmul_precision(),
+                    cpu_capability=torch.backends.cpu.get_cpu_capability(),
+                    threads=torch.get_num_threads(),
                     cpu_shifted_sha=_sha(cpu_shifted),
                     cpu_same_bits_shifted=all(torch.equal(a, b) for a, b in zip(cpu, cpu_shifted)),
                     rows_card_vs_cpu=_rows_over(card, cpu))
@@ -2817,10 +2842,10 @@ def phase_kfold(device, workdir, data_dir):
     epochs = []
     train_epoch = jetid_loop.train_epoch
 
-    def timed_epoch(state, config, lr, generator, inputs, labels, weights):
+    def timed_epoch(state, config, lr, generator, inputs, labels, weights, mesh=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = train_epoch(state, config, lr, generator, inputs, labels, weights)
+        out = train_epoch(state, config, lr, generator, inputs, labels, weights, mesh)
         torch.cuda.synchronize()
         epochs.append((time.perf_counter() - t0, labels.shape[0]))
         return out
@@ -3327,6 +3352,315 @@ def phase_etl(device, workdir):
     return launches, facts
 
 
+# The scale-out phase (ROADMAP Queue 1 item 11): two ranks share the one card
+# over gloo (NCCL refuses two ranks on one device), each stepping its half
+# of every batch at the train phase's width, the jet-ID CLI's bf16 CNN, the
+# emd_slice chunk's EMD and the evaluate phase's BumpHunter scan; a 1-rank
+# NCCL world in this process; cli/vae.py --n_devices 2 refused on one card;
+# utils/profiling.trace around a train step.
+SCALEOUT_WORLD = 2
+SCALEOUT_VAE_BATCHES = 4             # of TRAIN_BATCH rows, global
+SCALEOUT_JETID_BATCHES = 3           # of JETID_BATCH images, global: three steps
+SCALEOUT_EMD_JETS = 13_421           # the emd_slice chunk (jets of EMD_CONST)
+SCALEOUT_NPE = 1000
+SCALEOUT_LR = 1e-3
+SCALEOUT_TIMED = 3                   # timed loads a world size, after a warm one
+# DP against one device: tests/test_train.py:34-60's bars (summed metrics
+# rtol 2e-3, weights atol 5e-4); the jet-ID bf16 steps: every step's loss
+# at JETID_BF16_LOSS_REL_TOL (the second and third after the exchanged
+# updates), its accuracy within two jets of the batch, and the weights'
+# drift (_drift) within SCALEOUT_BF16_DRIFT_TOL: not each weight, since
+# Adam moves a weight by up to lr a step whatever its gradient's size, so
+# a gradient that is rounding noise on one side can take the other sign
+# and put that weight 2 lr a step apart.  Adam is blind to the gradient's scale, so
+# the gradient exchange itself is held through Adam's first moment after
+# the steps (a decayed sum of the exchanged gradients), each entry within
+# SCALEOUT_MOMENT_TOL (VAE) or SCALEOUT_BF16_MOMENT_TOL (jet-ID) of the
+# one-device moment's largest entry: a gradient sum dropped, doubled or
+# halved moves it by half that entry or more.  Sound runs on the card gave
+# a drift of 0.034 and moment gaps of 1.8e-7 (VAE) and 3.2e-3 (jet-ID) of
+# that entry, the CPU's bf16 plain path 0.039 and 6.1e-2 (PERF.md, §6).
+SCALEOUT_METRIC_RTOL, SCALEOUT_WEIGHT_ATOL = 2e-3, 5e-4
+SCALEOUT_BF16_DRIFT_TOL = 0.2
+SCALEOUT_MOMENT_TOL, SCALEOUT_BF16_MOMENT_TOL = 1e-3, 0.2
+
+
+def _scaleout_cases(device, world):
+    """The inputs every rank builds alike: the canonical VAE's load, the
+    jet-ID CLI's bf16 CNN and its batches, an emd_slice chunk's clouds and
+    a binned background with a signal bump."""
+    import numpy as np
+    import torch
+    from atlasvae_torch.models import JetIDConfig, VAEConfig, init_jetid, init_vae
+    from atlasvae_torch.train.jetid_loop import _packed_arrays
+    from atlasvae_torch.train.step import batch_load
+    rng = np.random.default_rng(0)
+    n = SCALEOUT_VAE_BATCHES * TRAIN_BATCH
+    vae_load = batch_load(rng.normal(0, 1, (n, 12)).astype(np.float32),
+                          rng.normal(2, 1, (n, 12)).astype(np.float32),
+                          np.ones(n, np.float32), rng.uniform(0.5, 2, n).astype(np.float32),
+                          TRAIN_BATCH, world)
+    vae_params = init_vae(torch.Generator(device).manual_seed(7), VAEConfig(), device=device)
+    jets = SCALEOUT_JETID_BATCHES * JETID_BATCH
+    images = rng.gamma(0.3, 1.0, (jets, JETID_IMAGE, JETID_IMAGE)).astype(np.float32)
+    images[rng.random(images.shape) < 0.7] = 0.0
+    inputs = {"HLVs": rng.normal(0, 1, (jets, 12)).astype(np.float32), "images": images}
+    labels = rng.integers(0, 2, jets)
+    config = JetIDConfig(n_classes=2, scalars=("HLVs",), scalar_dims=(12,), images=("images",),
+                         image_shapes=((JETID_IMAGE, JETID_IMAGE),), nn_type="CNN",
+                         dropout=0.0, compute_dtype="bfloat16")
+    jetid = (config, init_jetid(torch.Generator(device).manual_seed(0), config, device=device),
+             inputs, _packed_arrays(inputs, labels, np.ones(jets, np.float32), JETID_BATCH))
+    clouds = emd_clouds(torch.Generator(device).manual_seed(11), SCALEOUT_EMD_JETS, EMD_CONST,
+                        device)
+    edges = np.linspace(0, 400, 101)
+    bkg = np.histogram(rng.exponential(80, 500_000) + 20, bins=edges)[0].astype(float)
+    data = bkg + np.histogram(rng.normal(250, 10, 3000), bins=edges)[0].astype(float)
+    return vae_load, vae_params, jetid, clouds, (data, bkg)
+
+
+def _scaleout_vae(batches, params, device, mesh):
+    """One load's steps of the train phase's model (MAE OE, beta 2, lamb 5)
+    from ``params`` with the seed-7 generator, over ``mesh`` or on one
+    device: (metrics, flat weights, Adam's first moment, the step function
+    and its state)."""
+    import torch
+    from atlasvae_torch.parallel.mesh import shard_batch
+    from atlasvae_torch.train.step import TrainState, make_vae_step_fns, to_device
+    train_on_load, _ = make_vae_step_fns("MAE", 2.0, 5.0, 1.0, mesh=mesh)
+    state = TrainState(params)
+    local = to_device(batches if mesh is None else shard_batch(mesh, batches), device)
+    metrics = train_on_load(state, SCALEOUT_LR, torch.Generator(device).manual_seed(7), local)
+    torch.cuda.synchronize()
+    return (metrics.cpu().numpy(), state.flat.cpu().numpy().copy(),
+            state.adam.mu.cpu().numpy().copy(), (train_on_load, state, local))
+
+
+def _scaleout_jetid(jetid, device, mesh):
+    import torch
+    from atlasvae_torch.parallel.mesh import shard_batch
+    from atlasvae_torch.train.jetid_loop import _unflatten, train_epoch
+    from atlasvae_torch.train.step import TrainState, to_device
+    config, params, inputs, host = jetid
+    state = TrainState(params)
+    start = state.flat.cpu().numpy().copy()
+    batches = _unflatten(inputs, to_device(host if mesh is None else shard_batch(mesh, host),
+                                           device))
+    metrics = train_epoch(state, config, SCALEOUT_LR, torch.Generator(device).manual_seed(3),
+                          *batches, mesh)
+    return (metrics.cpu().numpy(), state.flat.cpu().numpy().copy(),
+            state.adam.mu.cpu().numpy().copy(), start)
+
+
+def _drift(got, want, start, tol, what):
+    """|got - want| / |want - start| (2-norms): how far two runs from
+    ``start`` ended apart, against how far ``want`` travelled; raises
+    above ``tol``."""
+    import numpy as np
+    drift = float(np.linalg.norm(got - want) / np.linalg.norm(want - start))
+    if not drift <= tol:
+        raise AssertionError(f"{what}: drift {drift} over {tol}")
+    return drift
+
+
+def _moment_gap(got, want, tol, what):
+    """max |got - want| of two Adam first moments; raises where it passes
+    ``tol`` times the largest |want|."""
+    import numpy as np
+    return _largest_gap(got, want, 0.0, tol * float(np.abs(want).max()), what)
+
+
+def _scaleout_step_ms(run):
+    """Median ms a step of ``run()`` (one load of SCALEOUT_VAE_BATCHES
+    steps) over SCALEOUT_TIMED timed loads after a warm one."""
+    import torch
+    times = []
+    for i in range(SCALEOUT_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3 / SCALEOUT_VAE_BATCHES)
+    return sorted(times)[len(times) // 2]
+
+
+def _scaleout_rank(workdir, device):
+    """A rank of the gloo world on the one card (``device``): every check's
+    reference on one device first, then the data-parallel runs with the
+    launch counters set to 0 just before and read just after, then the
+    times.  Writes its results to workdir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from atlasvae_torch.ops.emd import emd_pairs
+    from atlasvae_torch.parallel.mesh import data_parallel_mesh
+    from atlasvae_torch.stats.bumphunter import bump_sigma_sharded
+    rank, world = dist.get_rank(), dist.get_world_size()
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    probe = torch.full((4,), float(rank + 1), device=device)
+    try:
+        dist.all_reduce(probe)
+    except RuntimeError as err:        # this gloo takes no CUDA tensor
+        out = {"gloo_cuda": f"{type(err).__name__}: {err}"}
+    else:
+        if probe.tolist() != [world * (world + 1) / 2] * 4:
+            raise AssertionError(f"scaleout: gloo's all_reduce on the card gave {probe}")
+        out = _scaleout_ranked(device, world, data_parallel_mesh(), emd_pairs,
+                               bump_sigma_sharded)
+        out["gloo_cuda"] = True
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _scaleout_ranked(device, world, mesh, emd_pairs, bump_sigma_sharded):
+    import numpy as np
+    import torch
+    vae_load, vae_params, jetid, (p, q), (data, bkg) = _scaleout_cases(device, world)
+    m1, w1, mu1, _ = _scaleout_vae(vae_load, vae_params, device, None)
+    jm1, jw1, jmu1, jw0 = _scaleout_jetid(jetid, device, None)
+    emd1 = emd_pairs(p, q, device=device)
+    bump_kw = dict(widths=(2, 3, 4), scan_steps=(1, 1, 1), npe=SCALEOUT_NPE, seed=5,
+                   device=device)
+    bump1 = [float(t) for t in bump_sigma_sharded(data, bkg, **bump_kw)]
+    torch.cuda.synchronize()
+    reset_counters()
+    mn, wn, mun, ranked = _scaleout_vae(vae_load, vae_params, device, mesh)
+    jmn, jwn, jmun, _ = _scaleout_jetid(jetid, device, mesh)
+    emdn = emd_pairs(p, q, mesh=mesh)
+    bumpn = [float(t) for t in bump_sigma_sharded(data, bkg, mesh=mesh, **bump_kw)]
+    torch.cuda.synchronize()
+    launches = counters()
+    out = {"launches": launches,
+           "vae_metric_gap": _largest_gap(mn[:, :4].sum(0), m1[:, :4].sum(0),
+                                          SCALEOUT_METRIC_RTOL, 0.0, "scaleout vae metrics"),
+           "vae_weight_gap": _largest_gap(wn, w1, 0.0, SCALEOUT_WEIGHT_ATOL,
+                                          "scaleout vae weights"),
+           "vae_moment_gap": _moment_gap(mun, mu1, SCALEOUT_MOMENT_TOL,
+                                         "scaleout vae first moment"),
+           "vae_moment_max": float(np.abs(mu1).max()),
+           "jetid_loss_gap": _largest_gap(jmn[:, 0], jm1[:, 0], JETID_BF16_LOSS_REL_TOL, 0.0,
+                                          "scaleout jetid bf16 loss"),
+           "jetid_accuracy_gap": _largest_gap(jmn[:, 1], jm1[:, 1], 0.0, 2 / JETID_BATCH,
+                                              "scaleout jetid bf16 accuracy"),
+           "jetid_weight_gap": float(np.abs(jwn - jw1).max()),
+           "jetid_weight_drift": _drift(jwn, jw1, jw0, SCALEOUT_BF16_DRIFT_TOL,
+                                        "scaleout jetid bf16 weights"),
+           "jetid_moment_gap": _moment_gap(jmun, jmu1, SCALEOUT_BF16_MOMENT_TOL,
+                                           "scaleout jetid bf16 first moment"),
+           "jetid_moment_max": float(np.abs(jmu1).max()),
+           "emd_gap": _largest_gap(emdn, emd1, EMD_RTOL, EMD_ATOL, "scaleout emd"),
+           "bump": bumpn, "bump_equal": bumpn == bump1}
+    if not out["bump_equal"]:
+        raise AssertionError(f"scaleout: bump_sigma_sharded {bumpn} != one device {bump1}")
+    if not (np.isfinite(wn).all() and np.isfinite(jwn).all()):
+        raise AssertionError("scaleout: non-finite weights after the data-parallel steps")
+    step, state, local = ranked
+    gen = torch.Generator(device).manual_seed(9)
+    out["ms_per_step_world"] = _scaleout_step_ms(lambda: step(state, SCALEOUT_LR, gen, local))
+    return out
+
+
+def phase_scaleout(device, workdir, smi):
+    """Item 11 on the one card.  (a) A 1-rank NCCL world in this process:
+    its data-parallel VAE load bit-equal to the one-device load.  (b) Two
+    ranks on the card over gloo (after checking that this gloo's all_reduce
+    takes CUDA tensors; where it does not, that is printed and (a) stands
+    alone): the VAE DP load at the CPU tests' bars, three jet-ID bf16 DP
+    steps of 5,000 images, both with their Adam first moments, the
+    emd_slice chunk's EMD sharded (EMD_RTOL/EMD_ATOL)
+    and the sharded BumpHunter scan exactly equal, each against one device
+    on the same inputs; ms a step with 2 ranks (each timing its own while
+    the other runs) beside one device alone on the card.  (c) cli/vae.py
+    --n_devices 2 refused here (one card).  (d) utils/profiling.trace around
+    a train step: the trace names K2's and K3's kernels.  Returns the
+    phase's launches: the ranks' counted runs and (a)'s, summed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from atlasvae_torch.cli import vae as cli_vae
+    from atlasvae_torch.parallel.mesh import data_parallel_mesh
+    from atlasvae_torch.parallel.multihost import run_ranks
+    from atlasvae_torch.utils.profiling import annotate, trace
+
+    os.makedirs(workdir)
+    start = time.perf_counter()
+    # (a) a 1-rank NCCL world: the all-reduce of one rank changes no bit
+    vae_load, vae_params, *_ = _scaleout_cases(device, 1)
+    m1, w1, mu1, _ = _scaleout_vae(vae_load, vae_params, device, None)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{workdir}/nccl_group", world_size=1, rank=0)
+    try:
+        reset_counters()
+        mn, wn, mun, _ = _scaleout_vae(vae_load, vae_params, device, data_parallel_mesh())
+        launches = counters()
+    finally:
+        dist.destroy_process_group()
+    if not (np.array_equal(m1, mn) and np.array_equal(w1, wn) and np.array_equal(mu1, mun)):
+        raise AssertionError("scaleout: the 1-rank NCCL step differs from the one-device step: "
+                             f"metrics {np.abs(m1 - mn).max()}, weights {np.abs(w1 - wn).max()}, "
+                             f"first moments {np.abs(mu1 - mun).max()}")
+    log("scaleout", nccl_world=1, bit_equal=True, launches=json.dumps(launches))
+
+    # (b) two ranks on the one card over gloo
+    run_ranks(_scaleout_rank, (workdir, str(device)), SCALEOUT_WORLD, device.type,
+              backend="gloo")
+    ranks = []
+    for rank in range(SCALEOUT_WORLD):
+        with open(os.path.join(workdir, f"rank{rank}.json")) as f:   # written by the rank
+            ranks.append(json.load(f))
+    if ranks[0]["gloo_cuda"] is not True:
+        log("scaleout", gloo_cuda=json.dumps(ranks[0]["gloo_cuda"]),
+            note="two ranks on one card need gloo's CUDA all_reduce; the 1-rank world stands")
+    else:
+        for rank, res in enumerate(ranks):
+            for name, n in res.pop("launches").items():
+                launches[name] += n
+            log("scaleout", world=SCALEOUT_WORLD, rank=rank,
+                **{k: (json.dumps(v) if isinstance(v, list) else v) for k, v in res.items()})
+        for name in ("stack_forward", "stack_backward", "emd_sinkhorn", "fused_conv_bf16",
+                     "fused_conv_backward_bf16"):
+            if launches[name] <= 0:
+                raise AssertionError(f"scaleout: {name} was not launched by the ranks")
+        step, state, local = _scaleout_vae(vae_load, vae_params, device, None)[3]
+        gen = torch.Generator(device).manual_seed(9)
+        ms_one = _scaleout_step_ms(lambda: step(state, SCALEOUT_LR, gen, local))
+        log("scaleout", card=json.dumps(smi), world=SCALEOUT_WORLD,
+            ms_per_step_world=f"{ranks[0]['ms_per_step_world']:.4f}",
+            ms_per_step_one=f"{ms_one:.4f}", rows_per_step=TRAIN_BATCH)
+
+    # (c) more ranks than cards
+    try:
+        cli_vae.main(["--n_devices", "2", "--plotting", "OFF",
+                      "--output_dir", os.path.join(workdir, "refused")])
+    except SystemExit as err:
+        if "--n_devices 2: only 1 devices" not in str(err):
+            raise
+    else:
+        raise AssertionError("scaleout: cli/vae.py --n_devices 2 ran on one card")
+    if os.path.exists(os.path.join(workdir, "refused")):
+        raise AssertionError("scaleout: the refused run wrote its output folder")
+
+    # (d) the trace of one train step names the training kernels
+    train_on_load, state, local = _scaleout_vae(vae_load, vae_params, device, None)[3]
+    with trace(os.path.join(workdir, "trace")):
+        with annotate("train step"):
+            train_on_load(state, SCALEOUT_LR, torch.Generator(device).manual_seed(1),
+                          tuple(b[:1] for b in local))
+            torch.cuda.synchronize()
+    (trace_file,) = os.listdir(os.path.join(workdir, "trace"))
+    with open(os.path.join(workdir, "trace", trace_file)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    named = {k: sum(k in n for n in names) for k in ("dense_stack_kernel", "stack_bwd_kernel",
+                                                    "train step")}
+    if not all(named.values()):
+        raise AssertionError(f"scaleout: the trace misses a kernel or span: {named}")
+    log("scaleout", trace_events=len(names), trace_names=json.dumps(named),
+        seconds=f"{time.perf_counter() - start:.1f}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3368,6 +3702,7 @@ def main():
         aae_launches, aae_facts = phase_aae(device, os.path.join(workdir, "aae"), workdir)
         keras_launches = phase_keras(device, workdir, jetid_data, aae_facts)
         etl_launches, etl_facts = phase_etl(device, os.path.join(workdir, "etl"))
+        scaleout_launches = phase_scaleout(device, os.path.join(workdir, "scaleout"), smi)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -3378,7 +3713,7 @@ def main():
                     "jetid": jetid_launches[name], "jetid_bf16": bf16_launches[name],
                     "sweep": sweep_launches[name], "kfold": kfold_launches[name],
                     "aae": aae_launches[name], "keras": keras_launches[name],
-                    "etl": etl_launches[name]}
+                    "etl": etl_launches[name], "scaleout": scaleout_launches[name]}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_phase.values()), launches_by_phase=by_phase,

@@ -264,5 +264,17 @@ def test_first_cycle_gate_and_refusals(tmp_path):
     with pytest.raises(OSError):                  # a broken Keras file: no fallback
         aae_loop.train_aae(params, [sample], 1, 64, str(tmp_path), ae_weights="AE.h5",
                            feature_key="HLVs")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        aae_loop.train_aae(params, None, 1, 64, str(tmp_path), mesh=object())
+    # once refused (ROADMAP Queue 1 item 11), now run: the cycle over a mesh
+    # of one rank keeps the history of the cycle without one, at the data-
+    # parallel bar of tests/test_aae.py:246
+    from atlasvae_torch.parallel import data_parallel_mesh
+    from torch_dist_checks import one_rank_group
+    kwargs = dict(lamb=1.0, beta=1.0, lr=1e-3, feature_key="HLVs", hist_file="", model_out="")
+    _, one = aae_loop.train_aae(params, [_sample(64, 64)], 1, 32, str(tmp_path), **kwargs)
+    with one_rank_group(tmp_path):
+        _, ranked = aae_loop.train_aae(params, [_sample(64, 64)], 1, 32, str(tmp_path),
+                                       mesh=data_parallel_mesh(), **kwargs)
+    assert set(one) == set(ranked)
+    for key in one:
+        assert_close(np.asarray([v for _, _, v in ranked[key]]),
+                     np.asarray([v for _, _, v in one[key]]), key, rtol=5e-3, atol=1e-5)

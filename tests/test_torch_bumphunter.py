@@ -373,7 +373,7 @@ def _jax_global(data, bkg, pseudo, npe):
             float(-min_logp[0]))
 
 
-def test_batched_bump_sigma_and_sharded_match_jax_on_injected_draws(monkeypatch):
+def test_batched_bump_sigma_and_sharded_match_jax_on_injected_draws(monkeypatch, tmp_path):
     data, bkg = _cut_matrices(n_cuts=4, n_rows=4)
     npe = 20
     draw = np.random.default_rng(6).poisson(bkg, (npe,) + bkg.shape).astype(np.float32)
@@ -386,8 +386,14 @@ def test_batched_bump_sigma_and_sharded_match_jax_on_injected_draws(monkeypatch)
         assert_close(torch.stack([g[b] for g in got]), want, f"cut {b}", rtol=RTOL, atol=ATOL)
     assert_close(torch.stack(one), _jax_global(data[0], bkg[0], draw[:, 0], npe), "sharded",
                  rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bh.bump_sigma_sharded(data[0], bkg[0], WIDTHS, _steps(1), mesh=object(), device=CPU)
+    # once refused (ROADMAP Queue 1 item 11), now run: over a mesh of one
+    # rank, exactly the scan without one
+    from atlasvae_torch.parallel import data_parallel_mesh
+    from torch_dist_checks import one_rank_group
+    with one_rank_group(tmp_path):
+        ranked = bh.bump_sigma_sharded(data[0], bkg[0], WIDTHS, _steps(1), npe=npe,
+                                       mesh=data_parallel_mesh(), device=CPU)
+    assert [float(t) for t in ranked] == [float(t) for t in one]
 
 
 def test_scan_launches_do_not_grow_with_the_cuts():

@@ -190,12 +190,25 @@ def test_keras_files_in_and_out(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("extra,item", [
     (["--n_devices", "2"], "item 11"),
 ])
-def test_unported_options_refused_before_any_load(tmp_path, extra, item):
-    argv = ["--plotting", "OFF", "--bkg_data", "no-such-sample", "--output_dir",
-            str(tmp_path / "out"), "--device", "cpu"] + extra
-    with pytest.raises(NotImplementedError, match=item):
-        aae.main(argv)
-    assert not (tmp_path / "out").exists()
+def test_unported_options_refused_before_any_load(tmp_path, extra, item, monkeypatch):
+    """Once refused (ROADMAP Queue 1 ``item``), now run: the GAN cycle on
+    two CPU ranks writes what the one-device run writes, its loss history
+    at the data-parallel bar of tests/test_aae.py:246 (rtol 5e-3, atol
+    1e-5)."""
+    _fresh_registries(monkeypatch, tmp_path / "data")
+    roots = {n: tmp_path / n for n in ("1", extra[1])}
+    for n, root in roots.items():
+        assert aae.main(ARGS + ["--n_epochs", "1", "--plotting", "OFF", "--apply_cuts", "OFF",
+                                "--output_dir", str(root), "--device", "cpu",
+                                "--n_devices", n]) == 0
+    one, ranked = roots["1"], roots[extra[1]]
+    assert sorted(os.listdir(ranked)) == sorted(os.listdir(one))
+    with open(one / "history.pkl", "rb") as f, open(ranked / "history.pkl", "rb") as g:
+        want, got = pickle.load(f), pickle.load(g)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose([v for _, _, v in got[key]], [v for _, _, v in want[key]],
+                                   rtol=5e-3, atol=1e-5, err_msg=key)
 
 
 @pytest.mark.parametrize("extra", [[], ["--plotting", "OFF", "--apply_cuts", "ON"]],

@@ -32,6 +32,7 @@ port's weights.
 """
 
 import dataclasses
+import os
 import pickle
 import shutil
 import sys
@@ -251,12 +252,29 @@ def test_keras_files_in_and_out(synth_dir, tmp_path, monkeypatch):
     (["--n_devices", "2"], "item 11"),
     (["--n_gpus", "4"], "item 11"),
 ])
-def test_unported_options_refused_before_any_load(tmp_path, extra, item):
-    argv = COMMON + ["--output_dir", str(tmp_path / "out"), "--bkg_data", "no-such-sample",
-                     "--device", "cpu"] + extra
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(argv)
-    assert not (tmp_path / "out").exists()
+def test_unported_options_refused_before_any_load(synth_dir, tmp_path, monkeypatch, extra,
+                                                 item):
+    """Once refused (ROADMAP Queue 1 ``item``), now run: the FCN trained on
+    N CPU ranks (dropout 0), each stepping its share of a global batch of N
+    x --batch_size, writes what one device writes with that batch; its
+    weights and probabilities at the data-parallel bars of
+    tests/test_jetid.py:293 (rtol 2e-4, atol 2e-6)."""
+    monkeypatch.setenv("ATLASVAE_DATA_DIR", str(synth_dir))     # the ranks' registry
+    _register(synth_dir)
+    n = int(extra[1])
+    base = _argv("FCN") + ["--n_epochs", "1", "--dropout", "0", "--device", "cpu"]
+    base[base.index("--batch_size") + 1] = str(500 // n)
+    runs = {"one": ["--batch_size", "500"], "ranked": extra}
+    for tag, more in runs.items():
+        assert cli.main(base + more + ["--output_dir", str(tmp_path / tag)]) == 0
+    one, ranked = tmp_path / "one", tmp_path / "ranked"
+    assert sorted(os.listdir(ranked)) == sorted(os.listdir(one))
+    (_, labels, probs), (_, want_labels, want_probs) = _results(ranked), _results(one)
+    np.testing.assert_array_equal(labels, want_labels)
+    np.testing.assert_allclose(probs, want_probs, rtol=2e-4, atol=2e-6)
+    with np.load(ranked / "model.npz") as got, np.load(one / "model.npz") as want:
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=2e-4, atol=2e-6, err_msg=key)
 
 
 @pytest.fixture(scope="module")

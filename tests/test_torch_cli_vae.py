@@ -130,12 +130,33 @@ def test_keras_files_in_and_out(synth_dir, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--n_devices", "2"], "item 11"),
 ])
-def test_unported_options_refused_before_any_load(tmp_path, extra, item):
-    argv = ARGS + extra + ["--output_dir", str(tmp_path), "--bkg_data", "no-such-sample",
-                           "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=item):
-        vae.main(argv)
-    assert not os.path.exists(tmp_path / "plots")
+def test_unported_options_refused_before_any_load(tmp_path, extra, item, synth_dir,
+                                                 monkeypatch):
+    """Once refused (ROADMAP Queue 1 ``item``), now run: ``--n_devices 2``
+    trains on two CPU ranks over gloo and writes what the one-device run
+    writes, its history and weights at the data-parallel bars of
+    tests/test_train.py:34-60 (rtol 2e-3, atol 5e-4), the scaler the same."""
+    monkeypatch.setenv("ATLASVAE_DATA_DIR", str(synth_dir))     # the ranks' registry
+    for name in ("QCD-Geneva", "OoD-H"):
+        registry.register_file(name, synth_dir / f"synthetic_{name}.h5")
+    roots = {n: tmp_path / n for n in ("1", extra[1])}
+    for n, root in roots.items():
+        assert vae.main(ARGS + ["--output_dir", str(root), "--device", "cpu",
+                                "--n_devices", n]) == 0
+    one, ranked = roots["1"], roots[extra[1]]
+    assert sorted(os.listdir(ranked)) == sorted(os.listdir(one))
+    with open(one / "history.pkl", "rb") as f, open(ranked / "history.pkl", "rb") as g:
+        want, got = pickle.load(f), pickle.load(g)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=2e-3, err_msg=key)
+    template = init_vae(torch.Generator().manual_seed(0), VAEConfig(), device="cpu")
+    for a, b in zip(tree_flatten(load_pytree(str(ranked / "model.npz"), template)),
+                    tree_flatten(load_pytree(str(one / "model.npz"), template))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-4)
+    with open(one / "HLV_RobustScaler.pkl", "rb") as f, \
+            open(ranked / "HLV_RobustScaler.pkl", "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_plotting_without_matplotlib_refused_before_any_load(tmp_path, monkeypatch):

@@ -190,14 +190,20 @@ def test_vae_apply_on_cuda_matches_cpu(cuda):
     on_card = tree_map(lambda t: t.to(cuda), params)
     with torch.inference_mode():
         got = vae_apply(on_card, x.to(cuda), noise=noise.to(cuda))
-    # the same model in float64, so that a failure says which side left it
+    # the same model in float64, so that a failure says which side left it,
+    # and the CPU side once more in this process
     f64 = vae_apply(tree_map(lambda t: t.double(), params), x.double(), noise=noise.double())
+    again = all(torch.equal(a, b) for a, b in zip(want, vae_apply(params, x, noise=noise)))
     assert len(got) == len(want)
     for i, (g, w, r) in enumerate(zip(got, want, f64)):
         card_gap = float((g.cpu().double() - r).abs().max())
         cpu_gap = float((w.double() - r).abs().max())
         assert_close(g, w, f"vae_apply output {i} (card against float64 {card_gap:.3g}, "
-                     f"CPU against float64 {cpu_gap:.3g})", rtol=RTOL, atol=ATOL)
+                     f"CPU against float64 {cpu_gap:.3g}; float32 matmul precision "
+                     f"{torch.get_float32_matmul_precision()!r}, CPU capability "
+                     f"{torch.backends.cpu.get_cpu_capability()!r}, "
+                     f"{torch.get_num_threads()} threads; the CPU again the same bits: "
+                     f"{again})", rtol=RTOL, atol=ATOL)
 
 
 def test_kernels_refuse_autograd_and_bad_input(cuda):

@@ -215,8 +215,17 @@ def test_state_file_resume_is_bit_exact(tmp_path):
     assert _equal_trees(p_res, p_ref)
 
 
-def test_mesh_is_refused():
+def test_mesh_is_refused(tmp_path):
+    """Once refused (ROADMAP Queue 1 item 11), now run: two lanes over a
+    config mesh of one rank equal the unsharded lanes bit for bit."""
+    from atlasvae_torch.parallel import config_mesh
+    from torch_dist_checks import one_rank_group
     train_s, valid_s = _samples(3, n=60)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_ensemble(stack_trees([_init(0)]), ([1.0], [1.0], [1.0]), train_s, valid_s,
-                       mesh=object())
+    hyper = ([1.0, 2.0], [1.0, 0.5], [1.0, 1.0])
+    params, hist = train_ensemble(stack_trees([_init(0), _init(1)]), hyper, train_s, valid_s,
+                                  n_epochs=2)
+    with one_rank_group(tmp_path):
+        ranked, ranked_hist = train_ensemble(stack_trees([_init(0), _init(1)]), hyper, train_s,
+                                             valid_s, n_epochs=2, mesh=config_mesh())
+    assert ranked_hist == hist
+    assert _equal_trees(ranked, params)

@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor the JAX package, nor matplotlib (the
-machine with the card has none; the drawing functions import it in their
-bodies), and importing it touches no CUDA device and builds nothing."""
+"""The port imports neither JAX nor the JAX package, nor matplotlib or
+sklearn (the machine with the card has neither; the drawing functions
+import them in their bodies), and importing it touches no CUDA device,
+starts no process group and builds nothing."""
 
 import os
 import subprocess
@@ -28,13 +29,19 @@ for name in ("atlasvae_torch.plotting.performance", "atlasvae_torch.cli.jetid",
              "atlasvae_torch.train.keras_export", "atlasvae_torch.etl",
              "atlasvae_torch.etl.rootio", "atlasvae_torch.etl.merging",
              "atlasvae_torch.etl.root2h5", "atlasvae_torch.cli.etl",
-             "atlasvae_torch.native", "atlasvae_torch.data.lzf"):
+             "atlasvae_torch.native", "atlasvae_torch.data.lzf",
+             "atlasvae_torch.parallel", "atlasvae_torch.parallel.mesh",
+             "atlasvae_torch.parallel.multihost", "atlasvae_torch.parallel.tp",
+             "atlasvae_torch.utils.profiling", "atlasvae_torch.plotting.extras",
+             "atlasvae_torch.plotting.pedagogy"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "atlasvae", "matplotlib"))
+                if m.split(".")[0] in ("jax", "atlasvae", "matplotlib", "sklearn"))
 assert not leaked, leaked
 import torch
+import torch.distributed as dist
 assert not torch.cuda.is_initialized()
+assert not dist.is_initialized()          # importing the parallel package starts no group
 from atlasvae_torch.ops import cuda_build
 assert not cuda_build._LIBS
 from atlasvae_torch import native

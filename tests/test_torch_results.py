@@ -147,9 +147,29 @@ def test_plot_results_matches_jax(deco, cuts, model, tmp_path, monkeypatch):
     assert best["eff"] == pytest.approx(want_best["eff"], abs=1e-4)
 
 
-def test_plot_results_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        plot_results(None, None, None, None, 3, None, [], "MAE", "2HDM", "out", mesh=object())
+def test_plot_results_refuses_a_mesh(model, tmp_path):
+    """Once refused (ROADMAP Queue 1 item 11), now run: over a mesh of one
+    rank, with the EMD and KSD metrics that the mesh shards, the same
+    numbers and the same plots as without it."""
+    from atlasvae_torch.parallel import data_parallel_mesh
+    from torch_dist_checks import one_rank_group
+    _, params = model
+    y_true, x_true, x_pred, sample = _results_inputs(8, n_bkg=680, n_sig=120)
+    metrics = ["MAE", "EMD", "KSD"]
+    out = {}
+    with one_rank_group(tmp_path):
+        for side, mesh in (("one", None), ("mesh", data_parallel_mesh())):
+            folder = tmp_path / side
+            folder.mkdir()
+            with recording(folder) as records:
+                best, losses = plot_results(y_true, x_true, x_pred, sample, 3, params, metrics,
+                                            "MAE", "2HDM-Geneva", folder, npe=10, mesh=mesh,
+                                            device=CPU)
+            out[side] = best, losses, records
+    assert_same_structure(out["mesh"][2], out["one"][2])
+    assert out["mesh"][0] == out["one"][0]
+    for key in metrics:
+        np.testing.assert_array_equal(out["mesh"][1][key], out["one"][1][key], err_msg=key)
 
 
 def test_jetid_report_draws_what_jax_draws(tmp_path, monkeypatch, capsys):

@@ -137,8 +137,10 @@ def scored(synth_dir, tmp_path_factory):
               "--n_jets", "3000", "--chunk", "1000"]
     jax_score.main(common + ["--output", str(tmp / "jax.h5")])
     score.main(common + ["--output", str(tmp / "port.h5"), "--device", "cpu"])
+    score.main(common + ["--output", str(tmp / "ranked.h5"), "--device", "cpu",
+                         "--n_devices", "2"])
     out = {}
-    for name in ("jax", "port"):
+    for name in ("jax", "port", "ranked"):
         with hdf5.File(tmp / f"{name}.h5", "r") as f:
             out[name] = {k: f[k][:] for k in f}
     return out
@@ -192,8 +194,10 @@ def scored_constituents(synth_dir, tmp_path_factory):
               "--chunk", "600", *CONST_ARGS]
     jax_score.main(common + ["--output", str(tmp / "jax.h5")])
     score.main(common + ["--output", str(tmp / "port.h5"), "--device", "cpu"])
+    score.main(common + ["--output", str(tmp / "ranked.h5"), "--device", "cpu",
+                         "--n_devices", "2"])
     out = {}
-    for name in ("jax", "port"):
+    for name in ("jax", "port", "ranked"):
         with hdf5.File(tmp / f"{name}.h5", "r") as f:
             out[name] = {k: f[k][:] for k in f}
     return out
@@ -218,6 +222,17 @@ def test_constituents_cli_scores_match_per_jet(scored_constituents):
     np.testing.assert_allclose(got["score_MAE"], want["score_MAE"], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(got["score_Latent"], want["score_Latent"], rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(got["score_EMD"], want["score_EMD"], rtol=1e-4, atol=1e-5)
+
+
+def test_constituents_cli_shards_emd_and_ksd_over_ranks(scored_constituents):
+    """--n_devices 2 on the CPU: two gloo ranks split EMD's and KSD's jet
+    axis, rank 0 writes the file: the one-device scores, EMD at
+    tests/test_emd.py:151's rtol 1e-5 / atol 1e-7, the rest equal."""
+    got, want = scored_constituents["ranked"], scored_constituents["port"]
+    assert set(got) == set(want)
+    np.testing.assert_allclose(got["score_EMD"], want["score_EMD"], rtol=1e-5, atol=1e-7)
+    for key in sorted(set(want) - {"score_EMD"}):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_constituents_cli_ksd_matches_but_for_flipped_near_ties(scored_constituents):

@@ -12,11 +12,13 @@
 * What the ensemble does not run is refused before any data is loaded.
 """
 
+import os
 import pickle
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from atlasvae.cli import sweep as jax_sweep, vae as jax_vae
 from atlasvae.models import VAEConfig as JaxVAEConfig, init_vae as jax_init_vae
@@ -141,8 +143,27 @@ def test_ensemble_keras_files_in_and_out(synth_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [(["--n_devices", "2"], "item 11")])
-def test_ensemble_refuses_before_any_load(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        sweep.main(["--vmap", "ON", "--output_dir", str(tmp_path / "out")] + GRID
-                   + ["--", "--bkg_data", "no-such-sample"] + ARGS + extra)
-    assert not (tmp_path / "out").exists()
+def test_ensemble_refuses_before_any_load(synth_dir, tmp_path, monkeypatch, extra, item):
+    """Once refused (ROADMAP Queue 1 ``item``), now run: the four configs
+    sharded over two CPU ranks, two lanes each with no collective, write
+    what the one-device ensemble writes (tests/test_ensemble.py:198, rtol
+    1e-6)."""
+    monkeypatch.setenv("ATLASVAE_DATA_DIR", str(synth_dir))     # the ranks' registry
+    _register(synth_dir)
+    for tag, more in (("one", []), ("ranked", extra)):
+        assert sweep.main(["--vmap", "ON", "--output_dir", str(tmp_path / tag)] + GRID
+                          + ["--"] + ARGS + more) == 0
+    from atlasvae_torch.models import VAEConfig, init_vae
+    from atlasvae_torch.train.checkpoint import load_history, load_pytree, tree_flatten
+    template = init_vae(torch.Generator().manual_seed(0),
+                        VAEConfig(fc_layers=(16, 8, 4), input_dim=12), device="cpu")
+    for run in TAGS:
+        one, ranked = tmp_path / "one" / run, tmp_path / "ranked" / run
+        assert sorted(os.listdir(ranked)) == sorted(os.listdir(one))
+        want, got = load_history(str(one / "history.pkl")), load_history(str(ranked /
+                                                                              "history.pkl"))
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-6, err_msg=f"{run} {key}")
+        for a, b in zip(tree_flatten(load_pytree(str(ranked / "model.npz"), template)),
+                        tree_flatten(load_pytree(str(one / "model.npz"), template))):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-7)
