@@ -58,11 +58,13 @@ def load(name):
     return _LIBS[name]
 
 
-# Widest input/hidden layer the dense-stack wrappers accept.  Stacks wider
-# than 128 take the layer-wise routes of K1-K3, which keep no layer in shared
-# memory and could take wider ones; the bound keeps the port to the widths it
-# is tested at.  kMaxHidden and kMaxHeads bound the layer counts.
-MAX_WIDTH = 750
+# Widest input/hidden layer the dense-stack wrappers accept: the widest
+# constituents-mode input the data can give, 255 constituents (uint8 counts)
+# of 4 components (1020).  Stacks wider than 128 take the layer-wise routes
+# of K1-K3, which keep no layer in shared memory and could take wider ones;
+# the bound keeps the port to the widths it is tested at.  kMaxHidden and
+# kMaxHeads bound the layer counts.
+MAX_WIDTH = 1024
 MAX_HIDDEN = 8
 MAX_HEADS = 4
 
@@ -99,7 +101,7 @@ def check_stack(x, hidden, heads, what):
             raise ValueError(f"{what}: head {k} w {tuple(w.shape)} / b {tuple(b.shape)} "
                              f"does not follow width {width}")
     if max(widths) > MAX_WIDTH:
-        raise ValueError(f"{what}: widths above {MAX_WIDTH} do not fit shared memory")
+        raise ValueError(f"{what}: widths above {MAX_WIDTH} are not taken (the widest tested)")
 
 
 def check(err, what):

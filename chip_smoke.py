@@ -26,23 +26,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernel, plain version, a torch.addmm/relu chain (library
                yardstick: its forward, or autograd through it) and the
                bound; the forward kernels also at the constituents-mode
-               scoring chunk (65,536 x 300->256/128/64/32) and at
+               scoring chunks (65,536 x 300->256/128/64/32 and, for 255
+               constituents, 65,536 x 765->256/128/64/32) and at
                const_train's 10,000-row batch (K2 in both roles, K1 on the
                decoder), every stack wider than 128 on their layer-wise
                route (its per-launch device ms at 1,000,003 rows), with the
                same bits asked of a second call; the wrapper's host time of
                one canonical K1 call; the Sinkhorn
                EMD kernel (K4) against its plain version at (8192, 100),
-               (65,536, 20), (1,000, 128) and at the scoring path's chunk
-               (13,421, 100), 100 iterations, and at 20 iterations on a
-               permuted copy (true EMD 0) and on a far transport at
-               (8192, 100) and (1,000, 233), the widest jet it takes, each
-               beside the plain version in float64, with the same bits
-               asked of a second call (no PyTorch call computes a staged
-               Sinkhorn, so it has no library yardstick): every jet of at
-               most 128 constituents on its register route, with the wide
-               route's time on the same clouds beside it, the 233-wide
-               ones on the wide route; the fused conv
+               (65,536, 20), (1,000, 128) and at the scoring path's chunks
+               (13,421, 100) and (2,064, 255), 100 iterations, and at 20
+               iterations on a permuted copy (true EMD 0) and on a far
+               transport at (8192, 100), (1,000, 233), (2,064, 255),
+               (500, 352) and (200, 400), each beside the plain version in
+               float64, with the same bits asked of a second call (no
+               PyTorch call computes a staged Sinkhorn, so it has no library
+               yardstick): every jet of at most 128 constituents on its
+               register route, 129 to 352 on its cluster route, wider ones
+               on its wide route, with the wide route's time on the same
+               clouds beside the other two; the fused conv
                block (K5) and its backward (K6) against their plain versions
                at the jet-ID training batch (5,000 x 16x16x1 -> 3x3, 100
                maps, pool 2x2), the predict chunk (20,000), a ragged batch,
@@ -133,9 +135,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                0 just before each file; check rows, finiteness, that K1
                and K2 ran on their layer-wise route only and the EMD
                kernel 5 times a file on its register route and never on
-               its wide route, EMD and KSD against the plain CPU path on the first
-               1,024 jets; print each metric's AUC (bkg against signal);
-               then a warm timed run and a profiled run;
+               its other routes, MAE, Latent, EMD and KSD against the
+               plain CPU path on the first 1,024 jets (KLD and JSD on all
+               but 2% of them); print each metric's AUC (bkg against signal);
+               then a warm timed run and a profiled run; then the same two
+               files made 255 constituents wide (the widest jet the data's
+               uint8 counts give; a 765-wide VAE input), scored the same
+               way: K4 32 times a file on its cluster route and never on
+               the others, every metric against the plain CPU path as at
+               100 (the EMD on the first 160 jets), and the EMD of those
+               160 jets against the plain version on the CPU fed the
+               clouds the CLI's chunk gave the kernel (the kernel on those
+               clouds giving the CLI's bits), at the kernel's bar;
 9. jetid    -- the jet-ID CNN at the CLI's default widths (16x16 image ->
                conv 3x3/100 -> pool -> conv 3x3/100 -> pool -> 900; scalars
                -> 200; trunk 200/200; softmax 2): train 3 epochs of 1e5 jets
@@ -248,8 +259,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                cli/vae.py --n_devices 2 refused on one card;
                utils/profiling.trace around a train step, the trace naming
                K2's and K3's kernels;
-18. kernels -- one JSON line with every ported kernel (K1 to K6 as two
-               entries each, one a route, and K5/K6's bf16 forms);
+18. kernels -- one JSON line with every ported kernel (K1 to K6 as an
+               entry a route, K4's three, and K5/K6's bf16 forms);
 19. last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
@@ -294,6 +305,13 @@ EMD_STAGES = 10
 EMD_RTOL, EMD_ATOL = 2e-5, 1e-6   # kernel vs plain version, same inputs, same card
 EMD_MASS_TOL = 1e-5               # of min(sum pt), where the EMD is small beside it
 EMD_FEW_ITERS = 20
+# The same scoring at the widest jet the data's uint8 counts give (the
+# cluster route): a 765-wide VAE input, the plain CPU path on fewer jets
+EMD_WIDE_CONST = 255
+EMD_WIDE_REF_ROWS = 160
+# the KERNELS name of each K4 route
+EMD_KERNELS = {"tiles": "emd_sinkhorn", "cluster": "emd_sinkhorn_cluster",
+               "wide": "emd_sinkhorn_wide"}
 # Constituents-mode training: the emd_slice model, 100 constituents, trained
 # The evaluation half of vae.sh (docs/MIGRATION.md:24-28: --decorrelation=ON,
 # --npe 1000): the steps of atlasvae/cli/vae.py::_evaluate and
@@ -343,13 +361,17 @@ KERNELS = {
     "stack_backward_layers": dict(source="atlasvae_torch/csrc/fused_vae_bwd.cu",
                                   replaces="atlasvae/ops/fused_vae.py:130",
                                   main_shape="const_train encoder"),
-    # K4's register route (jets of at most 128 constituents) and its wide route
+    # K4's register route (jets of at most 128 constituents), its cluster
+    # route (129 to 352) and its wide route (any width)
     "emd_sinkhorn": dict(source="atlasvae_torch/csrc/emd_sinkhorn.cu",
                          replaces="atlasvae/ops/emd_pallas.py:45",
                          main_shape="emd_slice chunk"),
+    "emd_sinkhorn_cluster": dict(source="atlasvae_torch/csrc/emd_sinkhorn.cu",
+                                 replaces="atlasvae/ops/emd_pallas.py:45",
+                                 main_shape="emd_slice255 chunk"),
     "emd_sinkhorn_wide": dict(source="atlasvae_torch/csrc/emd_sinkhorn.cu",
                               replaces="atlasvae/ops/emd_pallas.py:45",
-                              main_shape="1000x233 far"),
+                              main_shape="200x400 far"),
     # K5's register route (the jet-ID block: 3x3, one channel, pool 2x2) and
     # its band route (every other shape)
     "fused_conv": dict(source="atlasvae_torch/csrc/fused_conv.cu",
@@ -560,7 +582,8 @@ def counters():
             "stack_forward_layers": fused_vae.layered_launches,
             "stack_backward": fused_vae.backward_launches,
             "stack_backward_layers": fused_vae.layered_backward_launches,
-            "emd_sinkhorn": emd_cuda.launches, "emd_sinkhorn_wide": emd_cuda.wide_launches,
+            "emd_sinkhorn": emd_cuda.launches, "emd_sinkhorn_cluster": emd_cuda.cluster_launches,
+            "emd_sinkhorn_wide": emd_cuda.wide_launches,
             **conv}
 
 
@@ -569,7 +592,7 @@ def reset_counters():
     fused_mlp.launches = fused_vae.launches = fused_vae.backward_launches = 0
     fused_mlp.layered_launches = fused_vae.layered_launches = 0
     fused_vae.layered_backward_launches = 0
-    emd_cuda.launches = emd_cuda.wide_launches = 0
+    emd_cuda.launches = emd_cuda.cluster_launches = emd_cuda.wide_launches = 0
     fused_conv_cuda.launches.update(dict.fromkeys(fused_conv_cuda.launches, 0))
 
 
@@ -822,9 +845,10 @@ def emd_clouds(gen, batch, n, device, kind="near"):
     return p.contiguous(), q.contiguous()
 
 
-def parity_emd(gen, batch, n, device, kind="near", n_iters=EMD_ITERS):
+def parity_emd(gen, batch, n, device, kind="near", n_iters=EMD_ITERS, force_route=None):
     """K4 vs its plain version on the same clouds; the gap, both times, the
-    bound, and the same bits on a second call.
+    bound, and the same bits on a second call.  ``force_route`` runs another
+    route than the width's own (``emd_sinkhorn``'s argument).
 
     The EMD is transport * min(sum p, sum q) + |sum p - sum q|, and the
     float32 rounding of the transport term does not shrink with the
@@ -836,7 +860,8 @@ def parity_emd(gen, batch, n, device, kind="near", n_iters=EMD_ITERS):
     import torch
     from atlasvae_torch.ops import emd, emd_cuda
     p, q = emd_clouds(gen, batch, n, device, kind)
-    kernel = lambda: emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, EMD_EPS, EMD_STAGES)
+    kernel = lambda: emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, EMD_EPS, EMD_STAGES,
+                                           force_route=force_route)
     plain = lambda: emd._sinkhorn_emd(p, q, 1.0, n_iters, EMD_EPS, EMD_STAGES)
     got, want = kernel(), plain()
     again = kernel()
@@ -863,9 +888,10 @@ def parity_emd(gen, batch, n, device, kind="near", n_iters=EMD_ITERS):
     # one iteration a stage: what the n_stages + 1 rebuilds of K and the
     # epilogue cost beside the iterations (9 in 10 of them left out)
     res["ms_one_iter_a_stage"] = time_ms(
-        lambda: emd_cuda.emd_sinkhorn(p, q, 1.0, EMD_STAGES, EMD_EPS, EMD_STAGES), 10, 2)
-    res["route"] = emd_cuda.route(n)[0]
-    if res["route"] == "tiles":   # the wide route on the same clouds, for comparison
+        lambda: emd_cuda.emd_sinkhorn(p, q, 1.0, EMD_STAGES, EMD_EPS, EMD_STAGES,
+                                      force_route=force_route), 10, 2)
+    res["route"] = force_route or emd_cuda.route(n)[0]
+    if res["route"] != "wide":   # the wide route on the same clouds, for comparison
         res["wide_route_ms"] = time_ms(
             lambda: emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, EMD_EPS, EMD_STAGES,
                                           force_route="wide"), 10, 2)
@@ -1097,6 +1123,8 @@ def phase_parity(device):
         "canonical": (VAEConfig(), BIG_B),
         "constituents": (VAEConfig(fc_layers=(256, 128, 64, 32), input_dim=312), BIG_B),
         "emd_slice": (VAEConfig(fc_layers=EMD_LAYERS, input_dim=3 * EMD_CONST), SLICE_CHUNK),
+        "emd_slice255": (VAEConfig(fc_layers=EMD_LAYERS, input_dim=3 * EMD_WIDE_CONST),
+                         SLICE_CHUNK),
         "const_train": (VAEConfig(fc_layers=CONST_LAYERS, input_dim=3 * EMD_CONST), TRAIN_BATCH),
         "evaluate": (VAEConfig(), EVAL_CHUNK),
     }
@@ -1105,7 +1133,8 @@ def phase_parity(device):
     # training batches it is held in both roles, beside K1 on the same
     # decoder.  Stacks wider than 128 take the layer-wise route of both.
     fwd = {"canonical": (("fused_mlp", "decoder"), ("stack_forward", "encoder"))}
-    fwd["constituents"] = fwd["emd_slice"] = fwd["evaluate"] = fwd["canonical"]
+    fwd["constituents"] = fwd["emd_slice"] = fwd["emd_slice255"] = fwd["evaluate"] = \
+        fwd["canonical"]
     fwd["slice"] = fwd["train"] = fwd["const_train"] = \
         fwd["canonical"] + (("stack_forward", "decoder"),)
     results = {name: [] for name in KERNELS}
@@ -1155,22 +1184,25 @@ def phase_parity(device):
             del x
         del params
         torch.cuda.empty_cache()
-    # K4 at the three reference shapes and at the chunk emd_pairs cuts a
-    # 100-constituent sample into (2 GiB / (16 n^2) jets); then, at few
-    # iterations, a permuted copy (true EMD 0) and a far transport at
-    # n = 100 and at the widest jet the kernel takes
+    # K4 at the three reference shapes and at the chunks emd_pairs cuts a
+    # 100- and a 255-constituent sample into (2 GiB / (16 n^2) jets); then,
+    # at few iterations, a permuted copy (true EMD 0) and a far transport at
+    # n = 100 (the register route), at 233, 255 and the widest jet of the
+    # cluster route, and at a width above it (the wide route)
     from atlasvae_torch.ops import emd, emd_cuda
-    chunk = emd._EMD_BUDGET_BYTES // (16 * EMD_CONST ** 2)
-    widest = emd_cuda.MAX_CONST
+    chunk, chunk255 = (emd._EMD_BUDGET_BYTES // (16 * n ** 2) for n in (EMD_CONST, EMD_WIDE_CONST))
     cases = [("8192x100", 8192, 100, "near", EMD_ITERS), ("65536x20", 65_536, 20, "near", EMD_ITERS),
              ("1000x128", 1000, 128, "near", EMD_ITERS),
-             ("emd_slice chunk", chunk, EMD_CONST, "near", EMD_ITERS)]
+             ("emd_slice chunk", chunk, EMD_CONST, "near", EMD_ITERS),
+             ("emd_slice255 chunk", chunk255, EMD_WIDE_CONST, "near", EMD_ITERS)]
     cases += [(f"{batch}x{n} {kind}", batch, n, kind, EMD_FEW_ITERS)
-              for batch, n in ((8192, 100), (1000, widest)) for kind in ("permuted", "far")]
+              for batch, n in ((8192, 100), (1000, 233), (chunk255, EMD_WIDE_CONST),
+                               (500, emd_cuda.CLUSTER_MAX), (200, 400))
+              for kind in ("permuted", "far")]
     for shape, batch, n, kind, n_iters in cases:
         res = parity_emd(gen, batch, n, device, kind, n_iters)
         res["shape"] = shape
-        name = "emd_sinkhorn" if res["route"] == "tiles" else "emd_sinkhorn_wide"
+        name = EMD_KERNELS[res["route"]]
         results[name].append(res)
         log("parity", kernel=name, shape=json.dumps(shape), batch=batch, n_const=n,
             n_iters=n_iters, mean_emd=f"{res['mean_emd']:.4g}", mean_mass=f"{res['mean_mass']:.4g}",
@@ -1924,35 +1956,40 @@ def phase_const_train(device, workdir):
     return launches, facts
 
 
-def phase_emd_slice(device, workdir):
-    """Constituents-mode scoring at full width through cli.score, EMD and
-    KSD included, on a background and a signal file."""
+def _emd_slice_files(device, workdir, n_const):
+    """Score a synthetic background and signal file of EMD_EVENTS jets of
+    ``n_const`` constituents through cli.score in constituents mode, the
+    counters set to 0 just before each file; check the rows, finiteness, K1
+    and K2 on their layer-wise routes only, and K4 on the route of its
+    width only, once an emd_pairs chunk.  Returns the scores by file, the
+    counts by file, the cold seconds by file and what a rerun needs."""
     import numpy as np
     import torch
     from atlasvae_torch.cli import score
-    from atlasvae_torch.data import (ensure_synthetic_registry, load_data, fit_scaler,
-                                     apply_scaler, hdf5, Scaler)
-    from atlasvae_torch.eval import compute_metric_bank, auc_score
-    from atlasvae_torch.models import VAEConfig, init_vae, vae_apply
-    from atlasvae_torch.ops import emd
-    from atlasvae_torch.train.checkpoint import save_weights, load_weights
+    from atlasvae_torch.data import ensure_synthetic_registry, load_data, fit_scaler, hdf5
+    from atlasvae_torch.models import VAEConfig, init_vae
+    from atlasvae_torch.ops import emd, emd_cuda
+    from atlasvae_torch.train.checkpoint import save_weights
 
     t0 = time.perf_counter()
     os.makedirs(workdir)
     names = ["QCD-Geneva", "2HDM-Geneva"]
-    ensure_synthetic_registry(workdir, n_events=EMD_EVENTS, n_const_max=EMD_CONST,
+    # the generator builds constituents in mirrored pairs, so its files are
+    # an even number wide; load_data cuts them to n_const
+    ensure_synthetic_registry(workdir, n_events=EMD_EVENTS, n_const_max=n_const + n_const % 2,
                               names=names, seed=0)
-    mode = ["--constituents", "ON", "--HLVs", "OFF", "--n_const", str(EMD_CONST), "--n_dims", "3"]
-    const = load_data("QCD-Geneva", EMD_EVENTS, (), EMD_CONST, 3, "ON", "OFF", verbose=False,
+    mode = ["--constituents", "ON", "--HLVs", "OFF", "--n_const", str(n_const), "--n_dims", "3"]
+    const = load_data("QCD-Geneva", EMD_EVENTS, (), n_const, 3, "ON", "OFF", verbose=False,
                       device=device)["constituents"]
     scaler_path = os.path.join(workdir, "const_RobustScaler.pkl")
     fit_scaler(const, scaler_out=scaler_path, scaler_type="RobustScaler", verbose=False)
-    cfg = VAEConfig(fc_layers=EMD_LAYERS, input_dim=3 * EMD_CONST)
+    del const
+    cfg = VAEConfig(fc_layers=EMD_LAYERS, input_dim=3 * n_const)
     model_path = os.path.join(workdir, "model.npz")
     save_weights(init_vae(torch.Generator(device).manual_seed(11), cfg, device=device), model_path)
     size_mb = os.path.getsize(os.path.join(workdir, "synthetic_QCD-Geneva.h5")) / 1e6
     log("emd_slice", setup_s=f"{time.perf_counter() - t0:.2f}", events=EMD_EVENTS,
-        n_const=EMD_CONST, file_mb=f"{size_mb:.1f}", input_dim=cfg.input_dim)
+        n_const=n_const, file_mb=f"{size_mb:.1f}", input_dim=cfg.input_dim)
 
     def run(name, output):
         score.main(["--data", name, "--model_in", model_path, "--const_scaler_in", scaler_path,
@@ -1960,8 +1997,9 @@ def phase_emd_slice(device, workdir):
                     "--chunk", str(SLICE_CHUNK), "--output", output, "--device", str(device)])
         torch.cuda.synchronize()
 
-    chunk = emd._EMD_BUDGET_BYTES // (16 * EMD_CONST ** 2)
-    want_emd_launches = -(-EMD_EVENTS // chunk)
+    chunk = emd._EMD_BUDGET_BYTES // (16 * n_const ** 2)
+    want_emd = {name: 0 for name in EMD_KERNELS.values()}
+    want_emd[EMD_KERNELS[emd_cuda.route(n_const)[0]]] = -(-EMD_EVENTS // chunk)
     got, launches, cold_s = {}, {}, {}
     for name in names:
         out_path = os.path.join(workdir, f"scores_{name}.h5")
@@ -1985,46 +2023,113 @@ def phase_emd_slice(device, workdir):
                 raise AssertionError(f"kernel {kernel} scoring {name}: layer-wise route "
                                      f"{launches[name][kernel + '_layers']} times (want > 0), "
                                      f"fused body {launches[name][kernel]} (want 0)")
-        if (launches[name]["emd_sinkhorn"] != want_emd_launches
-                or launches[name]["emd_sinkhorn_wide"] != 0):
-            raise AssertionError(f"emd_sinkhorn launched {launches[name]['emd_sinkhorn']} times "
-                                 f"on the register route and {launches[name]['emd_sinkhorn_wide']} "
-                                 f"on the wide route scoring {name}, want {want_emd_launches} "
-                                 "and 0")
+        ran = {k: launches[name][k] for k in want_emd}
+        if ran != want_emd:
+            raise AssertionError(f"K4 scoring {name} at {n_const} constituents ran {ran}, "
+                                 f"want {want_emd}")
+    log("emd_slice", n_const=n_const, cold_s=json.dumps(cold_s), emd_launches=json.dumps(want_emd))
+    return names, got, launches, cold_s, dict(run=run, cfg=cfg, model_path=model_path,
+                                              scaler_path=scaler_path)
 
-    # reference: the plain CPU path on the first jets of the background file,
-    # with the latent noise the scorer drew for its chunk (CUDA generator 0)
+
+def _card_clouds(device, n_const, files, rows):
+    """The (pt, y, phi) clouds that cli.score's first chunk hands the EMD
+    for the first ``rows`` background jets, made on the card the way the
+    CLI makes them (load, scale, the VAE with generator 0's noise)."""
+    import torch
+    from atlasvae_torch.data import load_data, apply_scaler, jets_3v, Scaler
+    from atlasvae_torch.models import init_vae, vae_apply
+    from atlasvae_torch.train.checkpoint import load_pytree
+    from atlasvae_torch.train.loop import features
+    with torch.inference_mode():
+        sample = load_data("QCD-Geneva", (0, min(SLICE_CHUNK, EMD_EVENTS)), (), n_const, 3, "ON",
+                           "OFF", verbose=False, device=device)
+        sample["constituents"] = apply_scaler(
+            torch.as_tensor(sample["constituents"], device=device), 3,
+            Scaler.load(files["scaler_path"]), verbose=False)
+        x_true = features(sample).contiguous()
+        params = load_pytree(files["model_path"],
+                             init_vae(torch.Generator().manual_seed(0), files["cfg"], device=device))
+        x_pred = vae_apply(params, x_true, torch.Generator(device).manual_seed(0))[0]
+        x_pred = torch.stack([x_pred], dim=-1).mean(dim=-1)
+        return (jets_3v(x_true[:rows], 3).contiguous(), jets_3v(x_pred[:rows], 3).contiguous())
+
+
+def _cpu_reference(device, n_const, files, scored, rows, emd_rows=None):
+    """Hold the CLI's scores of the first ``rows`` background jets against
+    the plain CPU path (load, scale, the VAE with the latent noise the
+    scorer drew for its first chunk, CUDA generator 0, then the metric
+    bank), the EMD on the first ``emd_rows`` of them (all by default).
+    Returns each metric's gap; raises past a bar."""
+    import numpy as np
+    import torch
+    from atlasvae_torch.data import load_data, apply_scaler, Scaler
+    from atlasvae_torch.eval import compute_metric_bank
+    from atlasvae_torch.models import init_vae, vae_apply
+    from atlasvae_torch.train.checkpoint import load_weights
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    sample = load_data("QCD-Geneva", EMD_REF_ROWS, (), EMD_CONST, 3, "ON", "OFF", verbose=False,
-                       device=cpu)
-    x = apply_scaler(torch.as_tensor(sample["constituents"]), 3, Scaler.load(scaler_path),
-                     verbose=False)
-    params = load_weights(model_path, init_vae(torch.Generator().manual_seed(0), cfg, device=cpu))
+    emd_rows = rows if emd_rows is None else emd_rows
+    sample = load_data("QCD-Geneva", rows, (), n_const, 3, "ON", "OFF", verbose=False, device=cpu)
+    x = apply_scaler(torch.as_tensor(sample["constituents"]), 3,
+                     Scaler.load(files["scaler_path"]), verbose=False)
+    params = load_weights(files["model_path"],
+                          init_vae(torch.Generator().manual_seed(0), files["cfg"], device=cpu))
     noise = torch.randn((SLICE_CHUNK, EMD_LAYERS[-1]),
                         generator=torch.Generator(device).manual_seed(0),
-                        device=device)[:EMD_REF_ROWS].cpu()
+                        device=device)[:rows].cpu()
     with torch.inference_mode():
         x_pred = vae_apply(params, x, noise=noise)[0]
-        ref = compute_metric_bank(x, x_pred, params, ("MAE", "EMD", "KSD"),
+        ref = compute_metric_bank(x, x_pred, params, ("MAE", "Latent", "KLD", "JSD", "KSD"),
                                   normal_losses=False, device=cpu)
-    scored = got["QCD-Geneva"]
+        ref["EMD"] = compute_metric_bank(x[:emd_rows], x_pred[:emd_rows], None, ("EMD",),
+                                         normal_losses=False, device=cpu)["EMD"]
     gaps = {}
-    for m, rtol, atol in (("MAE", 1e-4, 1e-4), ("EMD", 1e-3, 1e-4)):
-        a, b = scored[f"score_{m}"][:EMD_REF_ROWS], ref[m]
+    # MAE and Latent at the slice phase's bar, the EMD at its own
+    for m, rtol, atol in (("MAE", 1e-4, 1e-4), ("Latent", 1e-4, 1e-4), ("EMD", 1e-3, 1e-4)):
+        b = ref[m]
+        a = scored[f"score_{m}"][:len(b)]
         gaps[m] = float(np.max(np.abs(a - b) / (np.abs(b) + 1e-3)))
         if not np.allclose(a, b, rtol=rtol, atol=atol):
-            raise AssertionError(f"score_{m} differs from the plain CPU path beyond rtol {rtol} "
-                                 f"+ atol {atol}: max rel gap {gaps[m]}")
-    # KSD counts sorted positions in steps of 1/300: equal but where a true
-    # and a predicted value lie within the two paths' rounding of each other
-    ks_gap = np.abs(scored["score_KSD"][:EMD_REF_ROWS] - ref["KSD"])
-    step = 1.0 / (3 * EMD_CONST)
+            raise AssertionError(f"{n_const} constituents: score_{m} differs from the plain CPU "
+                                 f"path beyond rtol {rtol} + atol {atol}: max rel gap {gaps[m]}")
+    # KSD counts sorted positions in steps of 1/(3 n): equal but where a
+    # true and a predicted value lie within the two paths' rounding of each
+    # other
+    ks_gap = np.abs(scored["score_KSD"][:rows] - ref["KSD"])
+    step = 1.0 / (3 * n_const)
     gaps["KSD_max"], gaps["KSD_share_over_1e-6"] = float(ks_gap.max()), float(np.mean(ks_gap > 1e-6))
     if ks_gap.max() > 2 * step + 1e-6 or np.mean(ks_gap > 1e-6) > 0.02:
-        raise AssertionError(f"score_KSD differs from the plain CPU path: {gaps}")
-    log("emd_slice", reference_s=f"{time.perf_counter() - t0:.2f}", rows=EMD_REF_ROWS,
-        gaps=json.dumps(gaps))
+        raise AssertionError(f"{n_const} constituents: score_KSD differs from the plain CPU "
+                             f"path: {gaps}")
+    # KLD and JSD sum p log2(p/q) over the features, a term dropped where
+    # p/q < 0: a predicted value within the two paths' rounding of 0 flips
+    # its sign and the row's sum, so all but a few rows are held at the
+    # slice phase's bar
+    for m in ("KLD", "JSD"):
+        a, b = scored[f"score_{m}"][:rows], ref[m]
+        over = np.abs(a - b) > 1e-4 + 1e-4 * np.abs(b)
+        gaps[f"{m}_share_over_1e-4"] = float(np.mean(over))
+        if np.mean(over) > 0.02 or not np.isfinite(a).all():
+            raise AssertionError(f"{n_const} constituents: score_{m} differs from the plain CPU "
+                                 f"path beyond rtol/atol 1e-4 on {np.mean(over):.3%} of rows")
+    log("emd_slice", n_const=n_const, reference_s=f"{time.perf_counter() - t0:.2f}", rows=rows,
+        emd_rows=emd_rows, gaps=json.dumps(gaps))
+    return gaps
+
+
+def phase_emd_slice(device, workdir):
+    """Constituents-mode scoring at full width through cli.score, EMD and
+    KSD included, on a background and a signal file: at 100 constituents
+    (the register route), then at 255 (the cluster route)."""
+    import numpy as np
+    from atlasvae_torch.eval import auc_score
+    from atlasvae_torch.ops import emd, emd_cuda
+
+    names, got, launches, cold_s, files = _emd_slice_files(device, workdir, EMD_CONST)
+    run = files["run"]
+    gaps = _cpu_reference(device, EMD_CONST, files, got["QCD-Geneva"], EMD_REF_ROWS)
+    scored = got["QCD-Geneva"]
 
     # what each score is worth: background (label 1) against signal (label 0)
     labels = np.concatenate([np.ones(EMD_EVENTS), np.zeros(EMD_EVENTS)])
@@ -2046,9 +2151,45 @@ def phase_emd_slice(device, workdir):
     total = {k: sum(launches[name][k] for name in names) for k in launches[names[0]]}
     facts = dict(jets=EMD_EVENTS, cold_s=cold_s[names[0]], warm_s=warm_s,
                  warm_jets_per_s=EMD_EVENTS / warm_s, idle_share=idle,
-                 launches_per_file=launches[names[0]], auc=aucs)
+                 launches_per_file=launches[names[0]], auc=aucs, gaps=gaps)
     log("emd_slice", **{k: (json.dumps(v) if isinstance(v, dict) else v)
                         for k, v in facts.items() if k != "auc"})
+
+    # 255 constituents: the same scoring on the cluster route, held against
+    # the plain CPU path as at 100 (the EMD on fewer jets); then the EMD of
+    # the first background jets against the plain version on the CPU, fed
+    # the clouds the CLI's chunk gave the kernel, at the kernel's own bar
+    wide_dir = os.path.join(workdir, f"n{EMD_WIDE_CONST}")
+    names, got, launches, cold_s, files = _emd_slice_files(device, wide_dir, EMD_WIDE_CONST)
+    for name in names:
+        for k in total:
+            total[k] += launches[name][k]
+    wide_gaps = _cpu_reference(device, EMD_WIDE_CONST, files, got["QCD-Geneva"], EMD_REF_ROWS,
+                               EMD_WIDE_REF_ROWS)
+    t0 = time.perf_counter()
+    p, q = _card_clouds(device, EMD_WIDE_CONST, files, EMD_WIDE_REF_ROWS)
+    scored = got["QCD-Geneva"]["score_EMD"][:EMD_WIDE_REF_ROWS]
+    again = emd_cuda.emd_sinkhorn(p, q, 1.0, EMD_ITERS, EMD_EPS, EMD_STAGES).cpu().numpy()
+    plain = emd._sinkhorn_emd(p.cpu(), q.cpu(), 1.0, EMD_ITERS, EMD_EPS, EMD_STAGES).numpy()
+    gap = float(np.max(np.abs(scored - plain) - EMD_RTOL * np.abs(plain)))
+    if not np.array_equal(again, scored):
+        raise AssertionError(f"emd_slice {EMD_WIDE_CONST}: the kernel on the CLI's clouds of "
+                             f"the first {EMD_WIDE_REF_ROWS} jets gives other bits than the CLI: "
+                             f"max gap {np.abs(again - scored).max()}")
+    if gap > EMD_ATOL:
+        raise AssertionError(f"emd_slice {EMD_WIDE_CONST}: score_EMD differs from the plain "
+                             f"version on the CPU beyond rtol {EMD_RTOL} + atol {EMD_ATOL}: "
+                             f"largest excess over rtol {gap}")
+    aucs = {m: auc_score(labels, np.concatenate([got[names[0]][f"score_{m}"],
+                                                 got[names[1]][f"score_{m}"]]), device=device)
+            for m in EMD_METRICS}
+    facts[f"n{EMD_WIDE_CONST}"] = dict(cold_s=cold_s[names[0]], cold_jets_per_s=EMD_EVENTS / cold_s[names[0]],
+                         launches_per_file=launches[names[0]], auc=aucs, gaps=wide_gaps)
+    log("emd_slice", n_const=EMD_WIDE_CONST, reference_s=f"{time.perf_counter() - t0:.2f}",
+        rows=EMD_WIDE_REF_ROWS, emd_gap_over_rtol=f"{gap:.3g}",
+        max_rel_gap=f"{float(np.max(np.abs(scored - plain) / np.abs(plain))):.3g}",
+        same_bits_as_cli=True,
+        **{k: json.dumps(v) for k, v in facts[f"n{EMD_WIDE_CONST}"].items()})
     return total, facts
 
 

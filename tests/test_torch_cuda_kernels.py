@@ -117,13 +117,18 @@ def test_fused_mlp_matches_plain(cuda, batch, dims, final):
 
 
 # K1/K2's layer-wise route: the constituents-mode stacks (300 wide in
-# training, 312 in the parity phase), an odd stack whose widths turn off the
-# 16-byte copies and stores, and wide heads that are one product
+# training, 312 in the parity phase, 765 and 1020 at 255 constituents of 3
+# and 4 components, the widest the data counts), an odd stack whose widths
+# turn off the 16-byte copies and stores, and wide heads that are one product
 WIDE_FORWARD = {
     "const_encoder": ((300, 256, 128, 64), (32, 32)),
     "const_encoder_312": ((312, 256, 128, 64), (32, 32)),
+    "const_encoder_765": ((765, 256, 128, 64), (32, 32)),
+    "const_encoder_1020": ((1020, 256, 128, 64), (32, 32)),
     "const_decoder": ((32, 64, 128, 256), (300,)),
     "const_decoder_312": ((32, 64, 128, 256), (312,)),
+    "const_decoder_765": ((32, 64, 128, 256), (765,)),
+    "const_decoder_1020": ((32, 64, 128, 256), (1020,)),
     "odd": ((301, 130, 33), (5, 5)),
     "wide_heads": ((12, 80), (129, 67, 5)),
 }
@@ -271,12 +276,15 @@ def test_stack_backward_matches_plain(cuda, batch, dims, head_dims, want_dx):
 
 
 # the constituents-mode stacks (100 constituents x (px, py, pz) in training,
-# 312 wide in the parity phase), and a stack whose fused tile does not fit
+# 312 wide in the parity phase, 765 and 1020 at 255 constituents), and a
+# stack whose fused tile does not fit
 WIDE_STACKS = {
     "const_encoder": ((300, 256, 128, 64), (32, 32), False),
     "const_decoder": ((32, 64, 128, 256), (300,), True),
     "const_encoder_312": ((312, 256, 128, 64), (32, 32), False),
     "const_decoder_312": ((32, 64, 128, 256), (312,), True),
+    "const_encoder_765": ((765, 256, 128, 64), (32, 32), False),
+    "const_decoder_1020": ((32, 64, 128, 256), (1020,), True),
     "eight_hidden_128": ((128,) * 9, (16, 16), True),
 }
 
@@ -396,13 +404,14 @@ def _clouds(gen, batch, n, device):
 
 
 @pytest.mark.parametrize("batch,n,n_iters", [(8192, 100, 100), (1000, 20, 100), (7, 128, 100),
-                                             (3, 1, 100), (50, 33, 25), (50, 16, 3)])
+                                             (3, 1, 100), (50, 33, 25), (50, 16, 3),
+                                             (2064, 255, 100)])
 def test_emd_sinkhorn_matches_plain(cuda, batch, n, n_iters):
     gen = torch.Generator().manual_seed(batch + n)
     p, q = _clouds(gen, batch, n, cuda)
-    before = emd_cuda.launches
+    before = _route_counts()
     got = emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, 0.01)
-    assert emd_cuda.launches == before + 1
+    assert _route_counts() == _launched_on(before, emd_cuda.route(n)[0])
     want = emd._sinkhorn_emd(p, q, 1.0, n_iters, 0.01)
     assert got.shape == (batch,) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-6)
@@ -416,7 +425,7 @@ def test_emd_sinkhorn_matches_plain(cuda, batch, n, n_iters):
 
 
 @pytest.mark.parametrize("kind", ["permuted", "far"])
-@pytest.mark.parametrize("batch,n", [(512, 100), (64, emd_cuda.MAX_CONST)])
+@pytest.mark.parametrize("batch,n", [(512, 100), (64, 233)])
 def test_emd_sinkhorn_small_emd_beside_large_pt(cuda, batch, n, kind):
     """Few iterations on a cloud against itself in the reverse order (true
     EMD 0) and against a far copy of equal total pt.  The float32 rounding
@@ -445,16 +454,25 @@ def test_emd_sinkhorn_small_emd_beside_large_pt(cuda, batch, n, kind):
     assert bool(((want - exact).abs() <= 2e-5 * exact.abs() + 1e-5 * mass).all())
 
 
-# K4's two routes at the widths around their edges: the register route's
+# K4's three routes at the widths around their edges: the register route's
 # tiles (8, 16, 20, 32 packed a warp or less a pair; 64, 112, 128 several
-# warps) and the wide route, which takes every n up to MAX_CONST
-EMD_WIDTHS = [1, 20, 32, 33, 100, 128, emd_cuda.MAX_CONST]
+# warps), the cluster route's clusters of 2 (129), 4 (233, 255) and 8
+# (CLUSTER_MAX), which take every n up to CLUSTER_MAX, and the wide route,
+# which takes every n
+EMD_WIDTHS = [1, 20, 32, 33, 100, 128, 129, 233, 255, emd_cuda.CLUSTER_MAX,
+              emd_cuda.CLUSTER_MAX + 1, 400]
 EMD_ROUTE_CASES = [(n, which) for n in EMD_WIDTHS for which in emd_cuda.ROUTES
-                   if which == "wide" or n <= emd_cuda.TILES[-1]]
+                   if which == "wide" or n <= emd_cuda.TILES[-1]
+                   or (which == "cluster" and n <= emd_cuda.CLUSTER_MAX)]
 
 
 def _route_counts():
-    return emd_cuda.launches, emd_cuda.wide_launches
+    return emd_cuda.launches, emd_cuda.cluster_launches, emd_cuda.wide_launches
+
+
+def _launched_on(before, which):
+    """The route counts after one launch on route ``which``."""
+    return tuple(b + (which == r) for b, r in zip(before, emd_cuda.ROUTES))
 
 
 @pytest.mark.parametrize("kind", ["near", "permuted", "far"])
@@ -464,7 +482,7 @@ def test_emd_sinkhorn_routes_match_plain(cuda, n, which, kind):
     CTA half full): the near clouds at 100 iterations, rtol 2e-5 / atol 1e-6;
     a permuted copy (true EMD 0) and a far copy at 20 iterations, the bars of
     test_emd_sinkhorn_small_emd_beside_large_pt; the same bits on a second
-    call; one launch counted on the route, none on the other."""
+    call; one launch counted on the route, none on the others."""
     gen = torch.Generator().manual_seed(31 * n + len(kind))
     p, q = _clouds(gen, 67, n, cuda)
     n_iters = 100
@@ -476,7 +494,7 @@ def test_emd_sinkhorn_routes_match_plain(cuda, n, which, kind):
         q[..., 2] -= 0.6
     before = _route_counts()
     got = emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, 0.01, force_route=which)
-    assert _route_counts() == (before[0] + (which == "tiles"), before[1] + (which == "wide"))
+    assert _route_counts() == _launched_on(before, which)
     want = emd._sinkhorn_emd(p, q, 1.0, n_iters, 0.01)
     assert got.shape == (67,) and bool(torch.isfinite(got).all())
     assert torch.equal(got, emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, 0.01, force_route=which))
@@ -488,19 +506,26 @@ def test_emd_sinkhorn_routes_match_plain(cuda, n, which, kind):
 
 
 def test_emd_sinkhorn_takes_the_route_of_its_width(cuda):
-    """Without force_route every width runs the route ``route`` names, and
-    the register route refuses a jet wider than its largest tile."""
+    """Without force_route every width runs the route ``route`` names (the
+    register route to 128, the cluster route to CLUSTER_MAX, the wide route
+    above), and the register and cluster routes refuse a jet wider than they
+    take."""
     gen = torch.Generator().manual_seed(5)
     for n in EMD_WIDTHS:
         p, q = _clouds(gen, 3, n, cuda)
         before = _route_counts()
         emd_cuda.emd_sinkhorn(p, q, 1.0, 5, 0.01)
         which = emd_cuda.route(n)[0]
-        assert _route_counts() == (before[0] + (which == "tiles"), before[1] + (which == "wide"))
+        assert which == ("tiles" if n <= 128 else "cluster" if n <= emd_cuda.CLUSTER_MAX
+                         else "wide")
+        assert _route_counts() == _launched_on(before, which)
     wide = _clouds(gen, 3, emd_cuda.TILES[-1] + 1, cuda)
+    wider = _clouds(gen, 3, emd_cuda.CLUSTER_MAX + 1, cuda)
     before = _route_counts()
     with pytest.raises(ValueError, match="register route takes at most"):
         emd_cuda.emd_sinkhorn(*wide, force_route="tiles")
+    with pytest.raises(ValueError, match=f"cluster route takes at most {emd_cuda.CLUSTER_MAX}"):
+        emd_cuda.emd_sinkhorn(*wider, force_route="cluster")
     with pytest.raises(ValueError, match="force_route"):
         emd_cuda.emd_sinkhorn(*wide, force_route="fast")
     assert _route_counts() == before
@@ -520,16 +545,16 @@ def test_emd_sinkhorn_rejects_bad_input(cuda):
                          (p[:, :, 0], q[:, :, 0])):              # not (B, n, 3)
         with pytest.raises(ValueError):
             emd_cuda.emd_sinkhorn(bad_p, bad_q)
-    big = torch.zeros((1, emd_cuda.MAX_CONST + 1, 3), device=cuda)
-    with pytest.raises(ValueError, match=f"at most {emd_cuda.MAX_CONST}"):
-        emd_cuda.emd_sinkhorn(big, big)
+    big = torch.zeros((1, emd_cuda.CLUSTER_MAX + 1, 3), device=cuda)
+    with pytest.raises(ValueError, match=f"at most {emd_cuda.CLUSTER_MAX}"):
+        emd_cuda.emd_sinkhorn(big, big, force_route="cluster")
     with pytest.raises(ValueError, match="out of range"):
         emd_cuda.emd_sinkhorn(p, q, eps_final=0.0)
     with pytest.raises(NotImplementedError, match="no gradient"):
         emd_cuda.emd_sinkhorn(p.clone().requires_grad_(), q)
     assert _route_counts() == before
-    # the widest jet the kernel takes still runs
-    p, q = _clouds(gen, 2, emd_cuda.MAX_CONST, cuda)
+    # a jet wider than the cluster route takes runs on the wide route
+    p, q = _clouds(gen, 2, emd_cuda.CLUSTER_MAX + 1, cuda)
     torch.testing.assert_close(emd_cuda.emd_sinkhorn(p, q), emd._sinkhorn_emd(p, q, 1.0, 100, 0.01),
                                rtol=2e-5, atol=1e-6)
 

@@ -44,8 +44,13 @@ def _plain(jp, jq, n_iters, eps_final=0.01, **kwargs):
                              eps_final, **kwargs).numpy()
 
 
-@pytest.mark.parametrize("n_jets,n_const,n_iters", [(6, 8, 30), (3, 20, 30), (4, 100, 100)])
+@pytest.mark.parametrize("n_jets,n_const,n_iters", [(6, 8, 30), (3, 20, 30), (4, 100, 100),
+                                                    (3, 129, 20), (2, 255, 15), (2, 300, 10)])
 def test_plain_sinkhorn_matches_xla_and_pallas(rng, n_jets, n_const, n_iters):
+    """At the register route's widths (up to 128) and at widths of each of
+    the cluster route's sizes: 129 (2 CTAs), 255 (4; the widest jet the
+    data's uint8 counts give) and 300 (8; the Pallas kernel pads it to
+    384)."""
     jp, jq = _clouds(rng, n_jets, n_const)
     got = _plain(jp, jq, n_iters)
     xla = jax_emd._emd_batch_xla(jnp.asarray(jp), jnp.asarray(jq), 1.0, n_iters, 0.01)
@@ -224,47 +229,61 @@ def test_emd_discriminant_fidelity_vs_exact_ot(rng):
 
 
 def test_cuda_wrapper_checks_before_it_launches(rng):
-    """The kernel's wrapper refuses CPU tensors and states its shared-memory
-    limit; ``_emd_batch`` picks the plain version only by the device."""
+    """The kernel's wrapper refuses CPU tensors; the wide route's device
+    scratch for one of ``emd_pairs``'s chunks (the JAX package's rule,
+    2 GiB / (16 n^2) jets) stays near 512 MiB at every width it takes;
+    ``_emd_batch`` picks the plain version only by the device."""
     jp, jq = _clouds(rng, 2, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         emd_cuda.emd_sinkhorn(torch.from_numpy(jp), torch.from_numpy(jq))
-    assert emd_cuda.launches == 0
-    assert emd_cuda.smem_bytes(emd_cuda.MAX_CONST) <= emd_cuda.SMEM_LIMIT \
-        < emd_cuda.smem_bytes(emd_cuda.MAX_CONST + 1)
-    assert emd_cuda.MAX_CONST >= 128 and emd_cuda.smem_bytes(100) < 48 * 1024
+    assert emd_cuda.launches == emd_cuda.cluster_launches == emd_cuda.wide_launches == 0
+    for n in range(emd_cuda.CLUSTER_MAX + 1, 4097, 37):
+        chunk = max(1, emd._EMD_BUDGET_BYTES // (16 * n * n))
+        assert 4 * chunk * emd_cuda.wide_scratch_floats(n) <= 1.05 * 2 ** 29
+    assert emd_cuda.wide_scratch_floats(5) == 14 * 8 + 25
     np.testing.assert_array_equal(
         emd._emd_batch(torch.from_numpy(jp), torch.from_numpy(jq), 1.0, 10, 0.01).numpy(),
         _plain(jp, jq, 10))
 
 
 def test_route_choice_covers_every_width_once():
-    """Every jet width the kernel takes has exactly one route: the register
-    route's smallest tile that holds it up to the largest tile, the wide
-    route above; widths outside 1..MAX_CONST are refused."""
-    tiles = emd_cuda.TILES
-    assert list(tiles) == sorted(set(tiles)) and tiles[-1] < emd_cuda.MAX_CONST
+    """Every jet width n >= 1 has exactly one route: the register route's
+    smallest tile that holds it up to the largest tile, then the cluster
+    route on the least cluster that holds it up to CLUSTER_MAX (255, the
+    widest jet the data's uint8 counts give, on 4 CTAs), then the wide
+    route at any width; n = 0 alone is refused."""
+    tiles, clusters = emd_cuda.TILES, emd_cuda.CLUSTERS
+    assert list(tiles) == sorted(set(tiles)) and tiles[-1] < clusters[0][1]
+    assert [c for c, _ in clusters] == [2, 4, 8]
+    assert [w for _, w in clusters] == sorted(w for _, w in clusters)
+    assert emd_cuda.CLUSTER_MAX == clusters[-1][1] and emd_cuda.route(255) == ("cluster", 4)
     taken = {which: [] for which in emd_cuda.ROUTES}
-    for n in range(1, emd_cuda.MAX_CONST + 1):
-        which, tile = emd_cuda.route(n)
+    for n in range(1, 1025):
+        which, size = emd_cuda.route(n)
         taken[which].append(n)
         if which == "tiles":
-            assert tile == min(t for t in tiles if t >= n)
+            assert size == min(t for t in tiles if t >= n)
+        elif which == "cluster":
+            assert size == min(c for c, widest in clusters if n <= widest)
+            assert size == emd_cuda.cluster_size(n)
         else:
-            assert tile is None and n > tiles[-1]
+            assert size is None
     assert taken["tiles"] == list(range(1, tiles[-1] + 1))
-    assert taken["wide"] == list(range(tiles[-1] + 1, emd_cuda.MAX_CONST + 1))
-    for n in (0, emd_cuda.MAX_CONST + 1):
-        with pytest.raises(ValueError, match=f"at most {emd_cuda.MAX_CONST}"):
-            emd_cuda.route(n)
+    assert taken["cluster"] == list(range(tiles[-1] + 1, emd_cuda.CLUSTER_MAX + 1))
+    assert taken["wide"] == list(range(emd_cuda.CLUSTER_MAX + 1, 1025))
+    with pytest.raises(ValueError, match="at least 1"):
+        emd_cuda.route(0)
+    with pytest.raises(ValueError, match=f"at most {emd_cuda.CLUSTER_MAX}"):
+        emd_cuda.cluster_size(emd_cuda.CLUSTER_MAX + 1)
 
 
-@pytest.mark.parametrize("force_route", [None, "tiles", "wide", "fast"])
+@pytest.mark.parametrize("force_route", [None, "tiles", "cluster", "wide", "fast"])
 def test_cuda_wrapper_refuses_cpu_tensors_on_every_route(rng, force_route):
     """Whatever route is asked for, a CPU tensor is refused before anything
     is built or launched."""
     jp, jq = _clouds(rng, 2, 4)
-    before = (emd_cuda.launches, emd_cuda.wide_launches)
+    counts = lambda: (emd_cuda.launches, emd_cuda.cluster_launches, emd_cuda.wide_launches)
+    before = counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         emd_cuda.emd_sinkhorn(torch.from_numpy(jp), torch.from_numpy(jq), force_route=force_route)
-    assert (emd_cuda.launches, emd_cuda.wide_launches) == before == (0, 0)
+    assert counts() == before == (0, 0, 0)

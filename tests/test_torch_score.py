@@ -124,6 +124,25 @@ def test_one_chunk_with_injected_noise_matches_jax(synth_dir, model, rng):
         np.testing.assert_allclose(got[key], ref, err_msg=key, **tol)
 
 
+def test_metric_bank_emd_and_ksd_at_255_constituents_match_jax(rng):
+    """The bank's EMD and KSD on 16 jets of 255 (px, py, pz) constituents
+    (765 wide: the widest jet the data's uint8 counts give, scored on the
+    card by K4's cluster route), with zero-padded tails of their own
+    lengths, against the JAX package's on the same inputs: EMD at rtol 2e-5
+    / atol 1e-6 (the bar of its two forms), KSD at atol 1e-6."""
+    n_jets, n_const = 16, 255
+    p = rng.normal(0, 1, (n_jets, n_const, 3)).astype(np.float32)
+    p[np.arange(n_const)[None, :] >= rng.integers(20, n_const + 1, (n_jets, 1))] = 0.0
+    q = np.where(p != 0, p + rng.normal(0, 0.1, p.shape), 0.0).astype(np.float32)
+    p, q = p.reshape(n_jets, -1), q.reshape(n_jets, -1)
+    got = compute_metric_bank(torch.from_numpy(p), torch.from_numpy(q), None, ("EMD", "KSD"),
+                              normal_losses=False, device=CPU)
+    want = jax_metric_bank(p, q, None, ("EMD", "KSD"), normal_losses=False)
+    assert got["EMD"].shape == got["KSD"].shape == (n_jets,)
+    np.testing.assert_allclose(got["EMD"], np.asarray(want["EMD"]), rtol=2e-5, atol=1e-6)
+    np.testing.assert_allclose(got["KSD"], np.asarray(want["KSD"]), atol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def scored(synth_dir, tmp_path_factory):
     """The JAX CLI and the port's CLI on the same sample, checkpoint and scaler."""
