@@ -19,56 +19,51 @@
 
 namespace {
 
-atlasvae::StackArgs make_args(const void* x, long long batch, int n_layers, const int* dims,
-                              const void* const* weights, const void* const* biases, void* out,
-                              int final_relu) {
-  using namespace atlasvae;
-  StackArgs a = {};
-  a.x = static_cast<const float*>(x);
-  a.batch = batch;
-  a.n_hidden = n_layers - 1;
-  a.max_width = 0;
-  for (int i = 0; i < n_layers; ++i) {
-    a.dims[i] = dims[i];
-    if (dims[i] > a.max_width) a.max_width = dims[i];
-  }
-  for (int i = 0; i < a.n_hidden; ++i) {
-    a.w[i] = static_cast<const float*>(weights[i]);
-    a.b[i] = static_cast<const float*>(biases[i]);
-  }
-  a.n_heads = 1;
-  a.head_dims[0] = dims[n_layers];
-  a.hw[0] = static_cast<const float*>(weights[n_layers - 1]);
-  a.hb[0] = static_cast<const float*>(biases[n_layers - 1]);
-  a.out[0] = static_cast<float*>(out);
-  a.final_relu = final_relu;
-  return a;
+// The stack's last layer is its one head.  `out` must outlive the view.
+atlasvae::StackView make_view(const void* x, long long batch, int n_layers, const int* dims,
+                              const void* const* weights, const void* const* biases,
+                              float* const* out, int final_relu) {
+  atlasvae::StackView v = {};
+  v.x = static_cast<const float*>(x);
+  v.batch = batch;
+  v.n_hidden = n_layers - 1;
+  v.dims = dims;
+  v.w = reinterpret_cast<const float* const*>(weights);
+  v.b = reinterpret_cast<const float* const*>(biases);
+  v.n_heads = 1;
+  v.head_dims = dims + n_layers;
+  v.hw = v.w + v.n_hidden;
+  v.hb = v.b + v.n_hidden;
+  v.out = out;
+  v.final_relu = final_relu;
+  return v;
 }
 
 }  // namespace
 
-// The fused body: the whole stack in one launch.
+// The fused body: the whole stack in one launch (at most kMaxHidden + 1 layers).
 extern "C" int atlasvae_fused_mlp_forward(const void* x, long long batch, int n_layers,
                                           const int* dims, const void* const* weights,
                                           const void* const* biases, void* out, int final_relu,
                                           void* stream) {
-  using namespace atlasvae;
-  if (n_layers < 1 || n_layers > kMaxHidden + 1) return (int)cudaErrorInvalidValue;
-  return (int)launch_dense_stack(
-      make_args(x, batch, n_layers, dims, weights, biases, out, final_relu),
+  if (n_layers < 1) return (int)cudaErrorInvalidValue;
+  float* const outs[1] = {static_cast<float*>(out)};
+  return (int)atlasvae::forward_fused(
+      make_view(x, batch, n_layers, dims, weights, biases, outs, final_relu),
       static_cast<cudaStream_t>(stream));
 }
 
-// The layer-wise route: the segments of ops/fused_vae.py::forward_plan.
+// The layer-wise route: the segments of ops/fused_vae.py::forward_plan, any depth.
 extern "C" int atlasvae_fused_mlp_forward_layers(const void* x, long long batch, int n_layers,
                                                  const int* dims, const void* const* weights,
                                                  const void* const* biases, void* out,
                                                  int final_relu, int n_segments,
                                                  const int* segments, void* buf0, void* buf1,
                                                  void* stream) {
-  using namespace atlasvae;
-  if (n_layers < 1 || n_layers > kMaxHidden + 1) return (int)cudaErrorInvalidValue;
-  return (int)forward_layers(make_args(x, batch, n_layers, dims, weights, biases, out, final_relu),
-                             n_segments, segments, static_cast<float*>(buf0),
-                             static_cast<float*>(buf1), static_cast<cudaStream_t>(stream));
+  if (n_layers < 1) return (int)cudaErrorInvalidValue;
+  float* const outs[1] = {static_cast<float*>(out)};
+  return (int)atlasvae::forward_layers(
+      make_view(x, batch, n_layers, dims, weights, biases, outs, final_relu), n_segments,
+      segments, static_cast<float*>(buf0), static_cast<float*>(buf1),
+      static_cast<cudaStream_t>(stream));
 }

@@ -21,65 +21,49 @@
 
 namespace {
 
-atlasvae::StackArgs make_args(const void* x, long long batch, int n_hidden, const int* dims,
+atlasvae::StackView make_view(const void* x, long long batch, int n_hidden, const int* dims,
                               const void* const* weights, const void* const* biases, int n_heads,
                               const int* head_dims, const void* const* head_weights,
                               const void* const* head_biases, void* const* outs) {
-  using namespace atlasvae;
-  StackArgs a = {};
-  a.x = static_cast<const float*>(x);
-  a.batch = batch;
-  a.n_hidden = n_hidden;
-  a.max_width = 0;
-  for (int i = 0; i <= n_hidden; ++i) {
-    a.dims[i] = dims[i];
-    if (dims[i] > a.max_width) a.max_width = dims[i];
-  }
-  for (int i = 0; i < n_hidden; ++i) {
-    a.w[i] = static_cast<const float*>(weights[i]);
-    a.b[i] = static_cast<const float*>(biases[i]);
-  }
-  a.n_heads = n_heads;
-  for (int h = 0; h < n_heads; ++h) {
-    a.head_dims[h] = head_dims[h];
-    a.hw[h] = static_cast<const float*>(head_weights[h]);
-    a.hb[h] = static_cast<const float*>(head_biases[h]);
-    a.out[h] = static_cast<float*>(outs[h]);
-  }
-  a.final_relu = 0;
-  return a;
-}
-
-bool valid(int n_hidden, int n_heads) {
-  using namespace atlasvae;
-  return n_hidden >= 0 && n_hidden <= kMaxHidden && n_heads >= 1 && n_heads <= kMaxHeads;
+  atlasvae::StackView v = {};
+  v.x = static_cast<const float*>(x);
+  v.batch = batch;
+  v.n_hidden = n_hidden;
+  v.dims = dims;
+  v.w = reinterpret_cast<const float* const*>(weights);
+  v.b = reinterpret_cast<const float* const*>(biases);
+  v.n_heads = n_heads;
+  v.head_dims = head_dims;
+  v.hw = reinterpret_cast<const float* const*>(head_weights);
+  v.hb = reinterpret_cast<const float* const*>(head_biases);
+  v.out = reinterpret_cast<float* const*>(outs);
+  v.final_relu = 0;
+  return v;
 }
 
 }  // namespace
 
-// The fused body: the whole stack in one launch.
+// The fused body: the whole stack in one launch (at most kMaxHidden hidden layers).
 extern "C" int atlasvae_stack_forward(const void* x, long long batch, int n_hidden,
                                       const int* dims, const void* const* weights,
                                       const void* const* biases, int n_heads,
                                       const int* head_dims, const void* const* head_weights,
                                       const void* const* head_biases, void* const* outs,
                                       void* stream) {
-  if (!valid(n_hidden, n_heads)) return (int)cudaErrorInvalidValue;
-  return (int)atlasvae::launch_dense_stack(
-      make_args(x, batch, n_hidden, dims, weights, biases, n_heads, head_dims, head_weights,
+  return (int)atlasvae::forward_fused(
+      make_view(x, batch, n_hidden, dims, weights, biases, n_heads, head_dims, head_weights,
                 head_biases, outs),
       static_cast<cudaStream_t>(stream));
 }
 
-// The layer-wise route: the segments of ops/fused_vae.py::forward_plan.
+// The layer-wise route: the segments of ops/fused_vae.py::forward_plan, any depth.
 extern "C" int atlasvae_stack_forward_layers(
     const void* x, long long batch, int n_hidden, const int* dims, const void* const* weights,
     const void* const* biases, int n_heads, const int* head_dims,
     const void* const* head_weights, const void* const* head_biases, void* const* outs,
     int n_segments, const int* segments, void* buf0, void* buf1, void* stream) {
-  if (!valid(n_hidden, n_heads)) return (int)cudaErrorInvalidValue;
   return (int)atlasvae::forward_layers(
-      make_args(x, batch, n_hidden, dims, weights, biases, n_heads, head_dims, head_weights,
+      make_view(x, batch, n_hidden, dims, weights, biases, n_heads, head_dims, head_weights,
                 head_biases, outs),
       n_segments, segments, static_cast<float*>(buf0), static_cast<float*>(buf1),
       static_cast<cudaStream_t>(stream));

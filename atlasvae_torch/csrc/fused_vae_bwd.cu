@@ -7,22 +7,51 @@
 // on request (the decoder needs dz, the encoder's input is data).  The TPU
 // kernel summed dW/db in output blocks revisited by a grid that runs in order
 // on one core.  Here CTAs run in parallel and in no order, so each CTA (or
-// row split) sums into its own slice of a scratch buffer, and a second kernel
-// adds the slices in slice order: the same bits on every run and every card,
-// no float atomics.  Two routes; ops/fused_vae.py::backward_plan picks one by
-// the stack's shape alone.
+// row split) sums into its own slice of a scratch buffer, and the slices are
+// added in a fixed order: the same bits on every run, no float atomics.  Two
+// routes; ops/fused_vae.py::backward_plan picks one by the stack's shape
+// alone.
 //
-// 1. The fused body (stack_bwd_kernel), for stacks no wider than 128 whose
-//    64-row tile fits a CTA (the canonical 12->80/40/20 + 2x10 VAE).  Per
-//    tile of rows, in shared memory: every layer's activation (feature-major,
-//    act[k * S + row]), two ping-pong gradient buffers and one staged chunk of
-//    a weight matrix; the row-by-feature products reuse the register tiling
-//    of dense_stack.cuh (8 rows x 4 columns a thread).  Bound at B = 10,000
-//    rows, canonical encoder, no dx: about 29 kFLOP and 128 B of HBM traffic
-//    a row, 230 FLOP/B, far above the f32 ridge of 20, so 4.4 us of f32 work
-//    on an H100, spread over 157 tiles on 132 SMs: one wave, bound by launch
-//    latency, barriers and occupancy.  One launch, all activations on chip,
-//    two CTAs an SM (93 KB of shared memory each).
+// 1. The fused body (stack_bwd_kernel), for stacks of at most kMaxHidden
+//    hidden layers, every width at most 128, whose weights and a 128-row
+//    tile's activations and gradients fit one CTA's shared memory (the
+//    canonical 12->80/40/20 + 2x10 VAE: 25 KB of weights, 168 KB of tile).
+//    Bound at B = 10,000 rows, canonical encoder, no dx: 29.4 kFLOP and 128 B
+//    of HBM traffic a row, 230 FLOP/B, far above the f32 ridge of 20: 4.4 us
+//    of f32 work on an H100.  That is 76 rows an SM, so the body is held back
+//    by latency, not by throughput; the design (PR 21) removes what made the
+//    old body wait:
+//    - weights on chip once: each CTA copies the whole stack's W and b into
+//      shared memory with cp.async at its start (hidden layer i as
+//      dims[i] + 1 rows, the bias last, zero-padded to 4 rows and to a pitch
+//      of 4 mod 8 floats); no product restages a chunk or waits at a barrier
+//      for one, and g W^T reads W's rows as float4 without bank conflicts;
+//    - rows owned by warps: a warp carries 8 rows through the recompute
+//      (ReLU(a W + b), the bias against a ones column kept beside each
+//      activation) and the descent of g (masked g W^T, heads first), with
+//      __syncwarp only; a lane owns columns lane, lane + 32, ... of a layer,
+//      so a 20-wide layer keeps 20 lanes busy, not 20 of 128 columns of a
+//      CTA; each step reads 8 rows' float4 (one broadcast each) and feeds
+//      8 x (columns a lane) FMAs;
+//    - dW/db as one product with the rows as its k: after the tile's warps
+//      are done (one barrier), each of 512 threads sums 4 x 4 blocks of
+//      a^T g (db is the ones column's row) over the tile's rows, in
+//      registers that live across the CTA's tiles; two barriers a tile in
+//      all;
+//    - no second launch: each CTA writes its block sums once, as one slice
+//      in block order (coalesced), and after a grid-wide barrier (an integer
+//      counter; the launch is cooperative, so every CTA is resident) every
+//      CTA adds a share of the elements over all slices in slice order:
+//      16 warps take a run of slices each and one warp adds their 16 sums
+//      in warp order;
+//    - dx staged in shared memory and stored as whole rows, coalesced.
+//    One CTA of 512 threads an SM (W once an SM), at most 132 CTAs, each
+//    taking an equal run of rows (at least 32): 76 rows a CTA at 10,000.
+//    f32 FMAs, not the 3xTF32 tensor-core products of K1/K2's row
+//    segments: at 12-80 columns, 8 rows a warp, the mma tiles would pad 12
+//    and 20 up to 16 and 24 and cost three products and the splits each,
+//    while FMAs keep the recompute's ReLU masks the plain version's within
+//    f32 rounding.
 //
 // 2. The layer-wise route (the rest of this file), for everything else: the
 //    constituents-mode 312->256/128/64 + 2x32 encoder and its decoder, and
@@ -52,402 +81,532 @@
 //    (registers capped at 128 a thread), a weight gradient's tiles x splits
 //    at most 264 CTAs: one wave.
 #include <cstdint>
+#include <vector>
 
 #include "dense_stack.cuh"
 #include "gemm_tile.cuh"
 
 namespace atlasvae {
 
-constexpr int kMaxParts = 264;  // partial slices: 2 per SM of an H100, fixed
-constexpr int kMaxLayers = kMaxHidden + kMaxHeads;
-constexpr size_t kMaxSmem = 232448;  // a CTA's shared memory on sm_90
+constexpr int kBwdThreads = 512;                 // 16 warps, one CTA an SM
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kWarpRows = 8;                     // rows a warp carries through every layer
+constexpr int kBwdRows = kBwdWarps * kWarpRows;  // 128: a tile
+constexpr int kBwdMaxParts = 132;                // CTAs, and partial slices, at most
+constexpr int kBwdMinRows = 32;                  // fewest rows a CTA takes
+constexpr int kMaxBlocks = 2;                    // 4 x 4 dW/db blocks a thread owns
+constexpr int kBwdMaxWidth = 128;
+constexpr int kBwdLayers = kMaxHidden + 1;       // the hidden layers, then the heads as one
+constexpr size_t kMaxSmem = 232448;              // a CTA's shared memory on sm_90
 
 struct BwdArgs {
   const float* x;                   // (batch, dims[0])
   long long batch;
-  long long n_tiles;
-  int n_hidden;
+  int n_hidden, n_heads;
   int dims[kMaxHidden + 1];
   const float* w[kMaxHidden];       // (dims[i], dims[i + 1]), JAX (in, out) layout
   const float* b[kMaxHidden];
-  int n_heads;
   int head_dims[kMaxHeads];
+  int head_off[kMaxHeads + 1];      // a head's first column among the heads' columns
   const float* hw[kMaxHeads];       // (dims[n_hidden], head_dims[h])
   const float* g[kMaxHeads];        // (batch, head_dims[h]): the head outputs' gradients
   float* dx;                        // (batch, dims[0]), or null: no dx
-  float* partial;                   // (grid, n_params): one slice per CTA
-  int n_params;
-  int off[kMaxLayers];              // layer i's dW in a parameter vector; its db follows
-  int act_off[kMaxHidden + 1];      // floats from the start of shared memory
-  int g_off;                        // first gradient buffer; the second follows
-  int g_width;                      // rows of each gradient buffer
-  int ws_off;                       // staged weight chunk
+  float* partial;                   // (gridDim.x, 16 n_blocks): a CTA's block sums
+  float* grads;                     // [dW_0, db_0, ..., dW_head0, db_head0, ...]
+  unsigned* counter;                // 2 integers, 0 at the launch and left 0
+  // shared memory, in floats from its start.  Layer t < n_hidden is hidden
+  // layer t (a_t -> a_{t + 1}); t = n_hidden is the heads, concatenated.
+  int w_off[kBwdLayers], pitch[kBwdLayers];
+  int act_off[kMaxHidden + 1], act_w[kMaxHidden + 1];  // a_l, then 1, then zeros
+  int g_off[kMaxHidden + 1], g_w[kMaxHidden + 1];      // [0] the heads' g; [l] dL/dz_l masked
+  int dx_off, dx_w;
+  int blk_begin[kBwdLayers + 1];    // layer t's first dW/db block; the last entry: n_blocks
+  int param_off[kMaxHidden + kMaxHeads];  // layer i's dW in grads; its db follows
 };
 
-__device__ __forceinline__ int bwd_head_of(const BwdArgs& a, int n, int* col) {
-  int h = 0;
-  while (h + 1 < a.n_heads && n >= a.head_dims[h]) {
-    n -= a.head_dims[h];
-    ++h;
-  }
-  *col = n;
-  return h;
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+// A weight row's pitch: a multiple of 4 floats (float4 reads) that is 4 mod
+// 8, so that the float4 reads of 8 consecutive rows by a quarter-warp hit 8
+// distinct groups of 4 banks.
+inline int bwd_pitch(int n) { const int p = round4(n); return (p / 4) % 2 == 0 ? p + 4 : p; }
+
+__device__ __forceinline__ int bwd_cols(const BwdArgs& a, int t) {
+  return t < a.n_hidden ? a.dims[t + 1] : a.head_off[a.n_heads];
 }
 
-// out[row][n] = sum_k in[k * S + row] * w_at(k, n) for n < N, k < K; the
-// epilogue gets each owned column n with its 8 rows.  Starts with a barrier,
-// so `in` may have been written just before the call.
-template <int TM, class WAt, class Epi>
-__device__ __forceinline__ void rows_gemm(const float* in, int K, int N, float* ws, WAt w_at,
-                                          Epi epi) {
-  using T = TileShape<TM>;
-  constexpr int NC = T::kCols;
-  constexpr int S = T::kStride;
-  const int tid = threadIdx.x;
-  const int r0 = (tid / T::kColGroups) * kRowsPerThread;
-  const int c0 = (tid % T::kColGroups) * kColsPerThread;
-  for (int n0 = 0; n0 < N; n0 += NC) {
-    float acc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kChunkK) {
-      __syncthreads();  // input written / previous chunk consumed
-      for (int i = tid; i < kChunkK * NC; i += kThreads) {
-        const int kk = i / NC;
-        const int n = n0 + (i - kk * NC);
-        const int k = k0 + kk;
-        ws[i] = (k < K && n < N) ? w_at(k, n) : 0.f;
-      }
-      __syncthreads();
-      const int kmax = min(kChunkK, K - k0);
-#pragma unroll 4
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float* ak = in + (k0 + kk) * S + r0;
-        const float4 a0 = *reinterpret_cast<const float4*>(ak);
-        const float4 a1 = *reinterpret_cast<const float4*>(ak + 4);
-        const float4 wv = *reinterpret_cast<const float4*>(ws + kk * NC + c0);
-        const float av[kRowsPerThread] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float wj[kColsPerThread] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = fmaf(av[r], wj[j], acc[r][j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int n = n0 + c0 + j;
-      if (n >= N) continue;
-      float v[kRowsPerThread];
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) v[r] = acc[r][j];
-      epi(n, r0, v);
-    }
-  }
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// dw[j * N + c] (+)= sum_row act[j * S + row] * g[c * S + row] for j < K,
-// c < N, and db[c] (+)= sum_row g[c * S + row]: the first tile of a CTA
-// stores, later tiles add.  Each output has one owner thread, the same one
-// for every tile, so the read-modify-write of the CTA's slice needs no sync.
-template <int TM>
-__device__ __forceinline__ void weight_grad(const float* act, int K, const float* g, int N,
-                                            float* dw, float* db, bool first) {
-  constexpr int S = TileShape<TM>::kStride;
-  __syncthreads();  // act and g written
-  const int jg = (K + 3) / 4;
-  const int cg = (N + 3) / 4;
-  for (int t = threadIdx.x; t < jg * cg; t += kThreads) {
-    const int j0 = (t / cg) * 4;
-    const int c0 = (t % cg) * 4;
-    const float* ar[4];
-    const float* gr[4];
+// out[r][c] = relu(sum_k in[r][k] W[k][c]) for the warp's 8 rows and c < n,
+// k over in_w columns: the bias enters as W's row dims of the layer against
+// in's ones column, zeros beyond.  Then out's own ones column and zero pads.
+template <int NI>
+__device__ __forceinline__ void warp_forward(const float* in, int in_w, const float* W,
+                                             int pitch, int n, float* out, int out_w) {
+  const int lane = threadIdx.x & 31;
+  int col[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) col[i] = min(lane + 32 * i, n - 1);
+  float acc[kWarpRows][NI];
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) acc[r][i] = 0.f;
+  for (int k = 0; k < in_w; k += 4) {
+    float4 av[kWarpRows];
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r)
+      av[r] = *reinterpret_cast<const float4*>(in + r * in_w + k);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      ar[u] = act + min(j0 + u, K - 1) * S;
-      gr[u] = g + min(c0 + u, N - 1) * S;
+      float wv[NI];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) wv[i] = W[(k + u) * pitch + col[i]];
+#pragma unroll
+      for (int r = 0; r < kWarpRows; ++r)
+#pragma unroll
+        for (int i = 0; i < NI; ++i) acc[r][i] = fmaf(lane_of(av[r], u), wv[i], acc[r][i]);
     }
-    float acc[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-    for (int r = 0; r < TM; r += 4) {
-      float4 av[4], gv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        av[u] = *reinterpret_cast<const float4*>(ar[u] + r);
-        gv[u] = *reinterpret_cast<const float4*>(gr[u] + r);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          acc[u][v] = fmaf(av[u].x, gv[v].x, acc[u][v]);
-          acc[u][v] = fmaf(av[u].y, gv[v].y, acc[u][v]);
-          acc[u][v] = fmaf(av[u].z, gv[v].z, acc[u][v]);
-          acc[u][v] = fmaf(av[u].w, gv[v].w, acc[u][v]);
-        }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int j = j0 + u, c = c0 + v;
-        if (j < K && c < N) {
-          float* p = dw + (size_t)j * N + c;
-          *p = first ? acc[u][v] : *p + acc[u][v];
-        }
-      }
   }
-  for (int c = threadIdx.x; c < N; c += kThreads) {
-    const float* gc = g + c * S;
-    float s = 0.f;
-    for (int r = 0; r < TM; ++r) s += gc[r];
-    db[c] = first ? s : db[c] + s;
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int c = lane + 32 * i;
+    if (c < n) {
+#pragma unroll
+      for (int r = 0; r < kWarpRows; ++r) out[r * out_w + c] = fmaxf(acc[r][i], 0.f);
+    }
+  }
+  const int extra = out_w - n;
+  for (int e = lane; e < kWarpRows * extra; e += 32) {
+    const int r = e / extra, c = n + (e - r * extra);
+    out[r * out_w + c] = c == n ? 1.f : 0.f;
   }
 }
 
-template <int TM>
-__global__ void __launch_bounds__(kThreads)
-stack_bwd_kernel(const __grid_constant__ BwdArgs a) {
-  constexpr int S = TileShape<TM>::kStride;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* const gA = smem + a.g_off;
-  float* const gB = gA + (size_t)a.g_width * S;
-  float* const ws = smem + a.ws_off;
+// out[r][k] = (sum_c g[r][c] W[k][c]) * (mask[r][k] > 0) for the warp's 8
+// rows and k < n (no mask for dx), c over g_w columns; then zero pads.  A
+// lane owns outputs lane, lane + 32, ... and reads its rows of W as float4.
+template <int NI>
+__device__ __forceinline__ void warp_backward(const float* g, int g_w, const float* W, int pitch,
+                                              int n, const float* mask, int mask_w, float* out,
+                                              int out_w) {
+  const int lane = threadIdx.x & 31;
+  const float* wrow[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) wrow[i] = W + min(lane + 32 * i, n - 1) * pitch;
+  float acc[kWarpRows][NI];
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r)
+#pragma unroll
+    for (int i = 0; i < NI; ++i) acc[r][i] = 0.f;
+  for (int c = 0; c < g_w; c += 4) {
+    float4 gv[kWarpRows];
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) gv[r] = *reinterpret_cast<const float4*>(g + r * g_w + c);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const float4 w = *reinterpret_cast<const float4*>(wrow[i] + c);
+#pragma unroll
+      for (int r = 0; r < kWarpRows; ++r) {
+        acc[r][i] = fmaf(gv[r].x, w.x, acc[r][i]);
+        acc[r][i] = fmaf(gv[r].y, w.y, acc[r][i]);
+        acc[r][i] = fmaf(gv[r].z, w.z, acc[r][i]);
+        acc[r][i] = fmaf(gv[r].w, w.w, acc[r][i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int k = lane + 32 * i;
+    if (k < n) {
+#pragma unroll
+      for (int r = 0; r < kWarpRows; ++r) {
+        float v = acc[r][i];
+        if (mask != nullptr) v *= mask[r * mask_w + k] > 0.f ? 1.f : 0.f;
+        out[r * out_w + k] = v;
+      }
+    }
+  }
+  const int extra = out_w - n;
+  for (int e = lane; e < kWarpRows * extra; e += 32) {
+    const int r = e / extra;
+    out[r * out_w + n + (e - r * extra)] = 0.f;
+  }
+}
+
+__device__ __forceinline__ void forward_any(const float* in, int in_w, const float* W, int pitch,
+                                            int n, float* out, int out_w) {
+  switch ((n + 31) / 32) {
+    case 1: warp_forward<1>(in, in_w, W, pitch, n, out, out_w); break;
+    case 2: warp_forward<2>(in, in_w, W, pitch, n, out, out_w); break;
+    case 3: warp_forward<3>(in, in_w, W, pitch, n, out, out_w); break;
+    default: warp_forward<4>(in, in_w, W, pitch, n, out, out_w); break;
+  }
+}
+
+__device__ __forceinline__ void backward_any(const float* g, int g_w, const float* W, int pitch,
+                                             int n, const float* mask, int mask_w, float* out,
+                                             int out_w) {
+  switch ((n + 31) / 32) {
+    case 1: warp_backward<1>(g, g_w, W, pitch, n, mask, mask_w, out, out_w); break;
+    case 2: warp_backward<2>(g, g_w, W, pitch, n, mask, mask_w, out, out_w); break;
+    case 3: warp_backward<3>(g, g_w, W, pitch, n, mask, mask_w, out, out_w); break;
+    default: warp_backward<4>(g, g_w, W, pitch, n, mask, mask_w, out, out_w); break;
+  }
+}
+
+// The warp's rows [row, row + n) (n <= 8) into rows r0.. of the tile: x into
+// a_0 with its ones column, the heads' gradients into g[0] concatenated;
+// rows past n are zero.
+__device__ __forceinline__ void warp_load(const BwdArgs& a, float* sm, long long row, int n,
+                                          int r0) {
+  const int lane = threadIdx.x & 31;
+  {
+    const int d = a.dims[0], w = a.act_w[0];
+    float* dst = sm + a.act_off[0] + r0 * w;
+    const float* src = a.x + row * d;
+    for (int e = lane; e < kWarpRows * w; e += 32) {
+      const int r = e / w, k = e - r * w;
+      dst[e] = k < d ? (r < n ? __ldg(src + r * d + k) : 0.f) : (k == d ? 1.f : 0.f);
+    }
+  }
+  const int w = a.g_w[0], total = a.head_off[a.n_heads];
+  float* dst = sm + a.g_off[0] + r0 * w;
+  for (int e = lane; e < kWarpRows * w; e += 32) {
+    const int r = e / w, c = e - r * w;
+    float v = 0.f;
+    if (c < total && r < n) {
+      int h = 0;
+      while (h + 1 < a.n_heads && c >= a.head_off[h + 1]) ++h;
+      v = __ldg(a.g[h] + (row + r) * a.head_dims[h] + (c - a.head_off[h]));
+    }
+    dst[e] = v;
+  }
+}
+
+// The recompute, the descent of g and dx for the warp's rows.
+__device__ __forceinline__ void warp_rows(const BwdArgs& a, float* sm, long long row, int n,
+                                          int r0) {
   const int L = a.n_hidden;
-  const int tid = threadIdx.x;
-  int head_total = 0;
-  for (int h = 0; h < a.n_heads; ++h) head_total += a.head_dims[h];
-  float* const part = a.partial + (size_t)blockIdx.x * a.n_params;
-
-  for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const bool first = tile == (long long)blockIdx.x;
-    const long long row0 = tile * TM;
-    const long long left = a.batch - row0;
-    const int rows = left < TM ? (int)left : TM;
-    __syncthreads();  // the previous tile is done with every buffer
-
-    // x tile -> act[0], head gradients -> gA (concatenated), both
-    // feature-major; rows past the batch end are zero
-    {
-      float* act0 = smem + a.act_off[0];
-      const int d0 = a.dims[0];
-      const float* xt = a.x + row0 * d0;
-      for (int i = tid; i < TM * d0; i += kThreads) {
-        const int r = i / d0;
-        const int k = i - r * d0;
-        act0[k * S + r] = r < rows ? __ldg(xt + i) : 0.f;
-      }
-      for (int i = tid; i < TM * head_total; i += kThreads) {
-        const int r = i / head_total;
-        const int n = i - r * head_total;
-        int c;
-        const int h = bwd_head_of(a, n, &c);
-        gA[n * S + r] = r < rows ? __ldg(a.g[h] + (row0 + r) * a.head_dims[h] + c) : 0.f;
-      }
+  auto act = [&](int l) { return sm + a.act_off[l] + r0 * a.act_w[l]; };
+  auto grad = [&](int l) { return sm + a.g_off[l] + r0 * a.g_w[l]; };
+  for (int l = 1; l <= L; ++l) {
+    forward_any(act(l - 1), a.act_w[l - 1], sm + a.w_off[l - 1], a.pitch[l - 1], a.dims[l],
+                act(l), a.act_w[l]);
+    __syncwarp();
+  }
+  // g of a_l from the layer above it (hidden layer l, or the heads at l = L)
+  for (int l = L; l >= 1; --l) {
+    const int above = l == L ? 0 : l + 1;
+    backward_any(grad(above), a.g_w[above], sm + a.w_off[l], a.pitch[l], a.dims[l], act(l),
+                 a.act_w[l], grad(l), a.g_w[l]);
+    __syncwarp();
+  }
+  if (a.dx != nullptr) {
+    const int lowest = L > 0 ? 1 : 0;
+    float* stage = sm + a.dx_off + r0 * a.dx_w;
+    backward_any(grad(lowest), a.g_w[lowest], sm + a.w_off[0], a.pitch[0], a.dims[0], nullptr,
+                 0, stage, a.dx_w);
+    __syncwarp();
+    const int d = a.dims[0];
+    float* dst = a.dx + row * d;   // the warp's rows are one run of n * d floats
+    for (int e = threadIdx.x & 31; e < n * d; e += 32) {
+      const int r = e / d;
+      dst[e] = stage[r * a.dx_w + (e - r * d)];
     }
+  }
+}
 
-    // recompute the hidden activations
-    for (int l = 0; l < L; ++l) {
-      const int K = a.dims[l], N = a.dims[l + 1];
-      const float* w = a.w[l];
-      const float* b = a.b[l];
-      float* out = smem + a.act_off[l + 1];
-      rows_gemm<TM>(smem + a.act_off[l], K, N, ws,
-                    [&](int k, int n) { return __ldg(w + (size_t)k * N + n); },
-                    [&](int n, int r0, const float* v) {
-                      const float bias = __ldg(b + n);
-                      float4* dst = reinterpret_cast<float4*>(out + n * S + r0);
-                      dst[0] = make_float4(fmaxf(v[0] + bias, 0.f), fmaxf(v[1] + bias, 0.f),
-                                           fmaxf(v[2] + bias, 0.f), fmaxf(v[3] + bias, 0.f));
-                      dst[1] = make_float4(fmaxf(v[4] + bias, 0.f), fmaxf(v[5] + bias, 0.f),
-                                           fmaxf(v[6] + bias, 0.f), fmaxf(v[7] + bias, 0.f));
-                    });
-    }
+// Element p of a slice (block p / 16, its row p / 4 % 4 and column p % 4) to
+// its place in grads; the padding of a block goes nowhere.
+__device__ __forceinline__ void store_grad(const BwdArgs& a, int p, float v) {
+  const int blk = p >> 4;
+  int t = 0;
+  while (blk >= a.blk_begin[t + 1]) ++t;
+  const int K = a.dims[t], N = bwd_cols(a, t), C = (N + 3) / 4;
+  const int local = blk - a.blk_begin[t];
+  const int j = (local / C) * 4 + ((p >> 2) & 3), c = (local % C) * 4 + (p & 3);
+  if (j > K || c >= N) return;   // row K of a block column is db: it follows dW
+  if (t < a.n_hidden) {
+    a.grads[a.param_off[t] + j * N + c] = v;
+    return;
+  }
+  int h = 0;
+  while (h + 1 < a.n_heads && c >= a.head_off[h + 1]) ++h;
+  a.grads[a.param_off[t + h] + j * a.head_dims[h] + (c - a.head_off[h])] = v;
+}
 
-    const float* actL = smem + a.act_off[L];
-    const int dL = a.dims[L];
-    // heads: dW_h = act_L^T g_h, db_h = sum g_h
-    for (int h = 0, col0 = 0; h < a.n_heads; col0 += a.head_dims[h], ++h) {
-      float* dw = part + a.off[L + h];
-      weight_grad<TM>(actL, dL, gA + col0 * S, a.head_dims[h], dw,
-                      dw + (size_t)dL * a.head_dims[h], first);
-    }
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
 
-    // store one column of g @ W^T: masked by a ReLU activation into a
-    // gradient buffer, or (the input layer) unmasked into dx in HBM
-    auto store_grad = [&](float* dst, const float* mask_act) {
-      return [&, dst, mask_act](int n, int r0, const float* v) {
-        if (dst != nullptr) {
-          const float* m = mask_act + n * S + r0;
-          float o[kRowsPerThread];
-#pragma unroll
-          for (int r = 0; r < kRowsPerThread; ++r) o[r] = v[r] * (m[r] > 0.f ? 1.f : 0.f);
-          float4* d = reinterpret_cast<float4*>(dst + n * S + r0);
-          d[0] = make_float4(o[0], o[1], o[2], o[3]);
-          d[1] = make_float4(o[4], o[5], o[6], o[7]);
-        } else {
-          const int d0 = a.dims[0];
-#pragma unroll
-          for (int r = 0; r < kRowsPerThread; ++r)
-            if (r0 + r < rows) a.dx[(row0 + r0 + r) * d0 + n] = v[r];
+__device__ __forceinline__ void copy4_async(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+stack_bwd_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int L = a.n_hidden;
+
+  // every layer's weights (hidden: W, then b as row dims[t]; heads
+  // concatenated), zero past the edges, by cp.async; waited for after the
+  // first tile's loads are issued
+  for (int t = 0; t <= L; ++t) {   // a warp a row, its lanes along the row
+    const int K = a.dims[t], N = bwd_cols(a, t), pitch = a.pitch[t];
+    const int rows = t < L ? round4(K + 1) : K;
+    for (int k = warp; k < rows; k += kBwdWarps) {
+      float* const dst = sm + a.w_off[t] + k * pitch;
+      for (int c = lane; c < pitch; c += 32) {
+        const float* src = a.x;   // any address: not read where the copy is a zero fill
+        const bool valid = c < N && k <= K && !(t == L && k == K);
+        if (valid) {
+          if (t < L) {
+            src = k < K ? a.w[t] + k * N + c : a.b[t] + c;
+          } else {
+            int h = 0;
+            while (h + 1 < a.n_heads && c >= a.head_off[h + 1]) ++h;
+            src = a.hw[h] + k * a.head_dims[h] + (c - a.head_off[h]);
+          }
         }
-      };
-    };
-
-    // g_hidden = sum_h g_h W_h^T, masked by act_L > 0 (or dx if no hidden layer)
-    if (L > 0 || a.dx != nullptr) {
-      rows_gemm<TM>(gA, head_total, dL, ws,
-                    [&](int k, int n) {
-                      int c;
-                      const int h = bwd_head_of(a, k, &c);
-                      return __ldg(a.hw[h] + (size_t)n * a.head_dims[h] + c);
-                    },
-                    store_grad(L > 0 ? gB : nullptr, actL));
-    }
-
-    // hidden layers, last to first
-    float* gcur = gB;
-    float* gnext = gA;
-    for (int i = L - 1; i >= 0; --i) {
-      const int K = a.dims[i], N = a.dims[i + 1];
-      float* dw = part + a.off[i];
-      weight_grad<TM>(smem + a.act_off[i], K, gcur, N, dw, dw + (size_t)K * N, first);
-      if (i > 0 || a.dx != nullptr) {
-        const float* w = a.w[i];
-        rows_gemm<TM>(gcur, N, K, ws,
-                      [&](int k, int n) { return __ldg(w + (size_t)n * N + k); },
-                      store_grad(i > 0 ? gnext : nullptr, smem + a.act_off[i]));
-        float* t = gcur;
-        gcur = gnext;
-        gnext = t;
+        copy4_async(dst + c, src, valid);
       }
     }
   }
-}
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-// out[p] = sum over slices i = 0, 1, ... of partial[i][p], in slice order.
-__global__ void reduce_partials(const float* __restrict__ partial, int n_parts, int n_params,
-                                float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_params) return;
-  float s = 0.f;
-  for (int i = 0; i < n_parts; ++i) s += partial[(size_t)i * n_params + p];
-  out[p] = s;
-}
-
-constexpr int kFusedRows = 64;  // TM of the fused body
-
-struct BwdPlan {
-  bool fits;  // every width at most 128 (else the layer-wise route)
-  int n_parts;
-  size_t smem;
-};
-
-inline BwdPlan plan_bwd(long long batch, int n_hidden, const int* dims, int n_heads,
-                        const int* head_dims) {
-  int head_total = 0;
-  for (int h = 0; h < n_heads; ++h) head_total += head_dims[h];
-  int widest = head_total, sum_dims = 0, g_width = head_total;
-  for (int i = 0; i <= n_hidden; ++i) {
-    widest = widest > dims[i] ? widest : dims[i];
-    sum_dims += dims[i];
-    if (i > 0 && dims[i] > g_width) g_width = dims[i];
+  // this thread's dW/db blocks: offsets of their a and g columns
+  const int n_blocks = a.blk_begin[L + 1];
+  int a_at[kMaxBlocks], a_w[kMaxBlocks], g_at[kMaxBlocks], g_w[kMaxBlocks];
+  float acc[kMaxBlocks][16];
+#pragma unroll
+  for (int q = 0; q < kMaxBlocks; ++q) {
+    const int blk = tid + q * kBwdThreads;
+    a_at[q] = -1;
+    a_w[q] = g_at[q] = g_w[q] = 0;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[q][e] = 0.f;
+    if (blk < n_blocks) {
+      int t = 0;
+      while (blk >= a.blk_begin[t + 1]) ++t;
+      const int C = (bwd_cols(a, t) + 3) / 4, local = blk - a.blk_begin[t];
+      const int gl = t < L ? t + 1 : 0;
+      a_at[q] = a.act_off[t] + 4 * (local / C);
+      a_w[q] = a.act_w[t];
+      g_at[q] = a.g_off[gl] + 4 * (local % C);
+      g_w[q] = a.g_w[gl];
+    }
   }
-  BwdPlan p;
-  p.fits = widest <= 128;
-  const int stride = kFusedRows + 4;
-  const int cols = kThreads / (kFusedRows / kRowsPerThread) * kColsPerThread;
-  p.smem = sizeof(float) * ((size_t)(sum_dims + 2 * g_width) * stride + kChunkK * cols);
-  const long long tiles = (batch + kFusedRows - 1) / kFusedRows;
-  p.n_parts = (int)(tiles < kMaxParts ? tiles : kMaxParts);
-  return p;
+
+  // this CTA's rows: an equal run of the batch
+  const long long rb = blockIdx.x * a.batch / gridDim.x;
+  const long long re = (blockIdx.x + 1) * a.batch / gridDim.x;
+  for (long long t0 = rb; t0 < re; t0 += kBwdRows) {
+    const int rows = re - t0 < kBwdRows ? (int)(re - t0) : kBwdRows;
+    const int r0 = warp * kWarpRows;
+    const int n = rows - r0 < kWarpRows ? rows - r0 : kWarpRows;
+    if (n > 0) warp_load(a, sm, t0 + r0, n, r0);
+    if (t0 == rb) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // the weights (first tile); every warp's rows loaded before any compute
+    if (n > 0) warp_rows(a, sm, t0 + r0, n, r0);
+    __syncthreads();  // the tile's a and g complete
+#pragma unroll
+    for (int q = 0; q < kMaxBlocks; ++q) {
+      if (a_at[q] < 0) continue;
+      const float* ap = sm + a_at[q];
+      const float* gp = sm + g_at[q];
+#pragma unroll 2
+      for (int r = 0; r < rows; ++r) {
+        const float4 av = *reinterpret_cast<const float4*>(ap + r * a_w[q]);
+        const float4 gv = *reinterpret_cast<const float4*>(gp + r * g_w[q]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float x = lane_of(av, u);
+          acc[q][4 * u + 0] = fmaf(x, gv.x, acc[q][4 * u + 0]);
+          acc[q][4 * u + 1] = fmaf(x, gv.y, acc[q][4 * u + 1]);
+          acc[q][4 * u + 2] = fmaf(x, gv.z, acc[q][4 * u + 2]);
+          acc[q][4 * u + 3] = fmaf(x, gv.w, acc[q][4 * u + 3]);
+        }
+      }
+    }
+    __syncthreads();  // the tile's buffers are free for the next one
+  }
+
+  // this CTA's slice, block by block, then a grid-wide barrier
+  const int P = 16 * n_blocks;
+  float* const slice = a.partial + (size_t)blockIdx.x * P;
+#pragma unroll
+  for (int q = 0; q < kMaxBlocks; ++q) {
+    if (a_at[q] < 0) continue;
+    float4* dst = reinterpret_cast<float4*>(slice + 16 * (tid + q * kBwdThreads));
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      dst[u] = make_float4(acc[q][4 * u], acc[q][4 * u + 1], acc[q][4 * u + 2], acc[q][4 * u + 3]);
+  }
+  __syncthreads();
+  if (tid == 0) {   // the CTA's writes, ordered before its arrival by the fence
+    __threadfence();
+    atomicAdd(a.counter, 1u);
+    while (load_acquire(a.counter) < gridDim.x) __nanosleep(64);
+  }
+  __syncthreads();
+
+  // the sum over the slices in 32-element chunks: a chunk's slices are cut
+  // into runs of at most kSpan, one warp a run, and the run's sums added in
+  // run order by the chunk's first warp; with few slices the CTA's warps take
+  // several chunks at once.  Fixed by the grid alone: the same bits on every
+  // call.
+  float* const red = sm;  // the tile buffers are free
+  constexpr int kSpan = (kBwdMaxParts + kBwdWarps - 1) / kBwdWarps;  // slices a run, at most
+  const int G = gridDim.x;
+  const int runs = (G + kSpan - 1) / kSpan, span = (G + runs - 1) / runs;
+  const int per_round = kBwdWarps / runs;          // chunks the CTA takes at once
+  const int run = warp % runs, slot = warp / runs;
+  const int s0 = min(G, run * span), s1 = min(G, s0 + span);
+  for (int c0 = blockIdx.x * per_round; c0 * 32 < P; c0 += G * per_round) {
+    const int p = (c0 + slot) * 32 + lane;
+    const bool mine = slot < per_round && p < P;
+    float v[kSpan];   // every load in flight before the first add
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i)
+      v[i] = mine && s0 + i < s1 ? __ldcg(a.partial + (size_t)(s0 + i) * P + p) : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i)
+      if (s0 + i < s1) s += v[i];
+    red[warp * 32 + lane] = s;
+    __syncthreads();
+    if (mine && run == 0) {
+      float total = 0.f;
+      for (int r = 0; r < runs; ++r) total += red[(slot * runs + r) * 32 + lane];
+      store_grad(a, p, total);
+    }
+    __syncthreads();
+  }
+  // the last CTA out leaves the counter at 0 for the next call
+  if (tid == 0 && atomicAdd(a.counter + 1, 1u) == gridDim.x - 1) {
+    a.counter[0] = 0;
+    a.counter[1] = 0;
+  }
 }
 
-template <int TM>
-cudaError_t launch_bwd(BwdArgs& a, const BwdPlan& p, float* grads, cudaStream_t stream) {
-  constexpr int S = TileShape<TM>::kStride;
-  int off = 0;
-  for (int i = 0; i <= a.n_hidden; ++i) {
-    a.act_off[i] = off;
-    off += a.dims[i] * S;
+// The fused body's layout of a stack, into a; the shared memory bytes, or 0
+// where the body does not take the stack (ops/fused_vae.py::_fused_fits
+// mirrors it).
+inline size_t plan_fused_bwd(BwdArgs& a, bool want_dx) {
+  const int L = a.n_hidden;
+  if (L < 0 || L > kMaxHidden || a.n_heads < 1 || a.n_heads > kMaxHeads) return 0;
+  a.head_off[0] = 0;
+  for (int h = 0; h < a.n_heads; ++h) a.head_off[h + 1] = a.head_off[h] + a.head_dims[h];
+  const int total = a.head_off[a.n_heads];
+  if (total < 1 || total > kBwdMaxWidth) return 0;
+  for (int l = 0; l <= L; ++l)
+    if (a.dims[l] < 1 || a.dims[l] > kBwdMaxWidth) return 0;
+  int off = 0, nb = 0, params = 0;
+  for (int t = 0; t <= L; ++t) {
+    const int K = a.dims[t], N = t < L ? a.dims[t + 1] : total;
+    a.w_off[t] = off;
+    a.pitch[t] = bwd_pitch(N);
+    off += (t < L ? round4(K + 1) : K) * a.pitch[t];
+    a.blk_begin[t] = nb;
+    nb += ((K + 4) / 4) * ((N + 3) / 4);
+    if (t < L) {
+      a.param_off[t] = params;
+      params += K * N + N;
+    } else {
+      for (int h = 0; h < a.n_heads; ++h) {
+        a.param_off[L + h] = params;
+        params += K * a.head_dims[h] + a.head_dims[h];
+      }
+    }
   }
-  a.g_off = off;
-  a.ws_off = off + 2 * a.g_width * S;
-  a.n_tiles = (a.batch + TM - 1) / TM;
-  cudaError_t err = cudaFuncSetAttribute(stack_bwd_kernel<TM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)p.smem);
-  if (err != cudaSuccess) return err;
-  stack_bwd_kernel<TM><<<p.n_parts, kThreads, p.smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  reduce_partials<<<(a.n_params + 255) / 256, 256, 0, stream>>>(a.partial, p.n_parts,
-                                                                a.n_params, grads);
-  return cudaGetLastError();
+  a.blk_begin[L + 1] = nb;
+  if (nb > kMaxBlocks * kBwdThreads) return 0;
+  for (int l = 0; l <= L; ++l) {
+    a.act_off[l] = off;
+    a.act_w[l] = round4(a.dims[l] + 1);
+    off += kBwdRows * a.act_w[l];
+  }
+  for (int l = 0; l <= L; ++l) {
+    a.g_off[l] = off;
+    a.g_w[l] = round4(l == 0 ? total : a.dims[l]);
+    off += kBwdRows * a.g_w[l];
+  }
+  a.dx_off = off;
+  a.dx_w = round4(a.dims[0]);
+  if (want_dx) off += kBwdRows * a.dx_w;
+  const size_t bytes = sizeof(float) * (size_t)off;
+  return bytes <= kMaxSmem ? bytes : 0;
+}
+
+inline int fused_bwd_parts(long long batch) {
+  const long long parts = (batch + kBwdMinRows - 1) / kBwdMinRows;
+  return (int)(parts < kBwdMaxParts ? parts : kBwdMaxParts);
 }
 
 }  // namespace atlasvae
 
-// Number of partial slices (rows of the scratch buffer) the fused body uses
-// for this stack at this batch, or -1 if it does not take the stack.
-static int fused_parts(long long batch, int n_hidden, const int* dims, int n_heads,
-                       const int* head_dims) {
-  using namespace atlasvae;
-  if (n_hidden < 0 || n_hidden > kMaxHidden || n_heads < 1 || n_heads > kMaxHeads || batch < 1)
-    return -1;
-  const BwdPlan p = plan_bwd(batch, n_hidden, dims, n_heads, head_dims);
-  return !p.fits || p.smem > kMaxSmem ? -1 : p.n_parts;
-}
-
 // grads: the parameter vector [dW_0, db_0, ..., dW_head0, db_head0, ...];
-// partial: (parts, n_params) scratch, parts as ops/fused_vae.py::backward_plan
-// gives them; dx: (batch, dims[0]) or null.  The fused body.
+// partial: (n_parts, 16 x the stack's dW/db blocks) scratch and counter: 2
+// unsigned integers at 0, both as ops/fused_vae.py::backward_plan and the
+// wrapper give them; dx: (batch, dims[0]) or null.  The fused body: one
+// cooperative launch of n_parts CTAs (fewer on a card of fewer SMs).
 extern "C" int atlasvae_stack_backward(const void* x, long long batch, int n_hidden,
                                        const int* dims, const void* const* weights,
                                        const void* const* biases, int n_heads,
                                        const int* head_dims, const void* const* head_weights,
                                        const void* const* head_grads, void* dx, void* partial,
-                                       int n_parts, void* grads, void* stream) {
+                                       int n_parts, void* grads, void* counter, void* stream) {
   using namespace atlasvae;
-  if (fused_parts(batch, n_hidden, dims, n_heads, head_dims) != n_parts)
+  if (n_hidden < 0 || n_hidden > kMaxHidden || n_heads < 1 || n_heads > kMaxHeads || batch < 1 ||
+      n_parts != fused_bwd_parts(batch))
     return (int)cudaErrorInvalidValue;
-  const BwdPlan p = plan_bwd(batch, n_hidden, dims, n_heads, head_dims);
   BwdArgs a = {};
   a.x = static_cast<const float*>(x);
   a.batch = batch;
   a.n_hidden = n_hidden;
   a.n_heads = n_heads;
-  int off = 0;
   for (int i = 0; i <= n_hidden; ++i) a.dims[i] = dims[i];
   for (int i = 0; i < n_hidden; ++i) {
     a.w[i] = static_cast<const float*>(weights[i]);
     a.b[i] = static_cast<const float*>(biases[i]);
-    a.off[i] = off;
-    off += dims[i] * dims[i + 1] + dims[i + 1];
   }
-  a.g_width = 0;
   for (int h = 0; h < n_heads; ++h) {
     a.head_dims[h] = head_dims[h];
     a.hw[h] = static_cast<const float*>(head_weights[h]);
     a.g[h] = static_cast<const float*>(head_grads[h]);
-    a.off[n_hidden + h] = off;
-    off += dims[n_hidden] * head_dims[h] + head_dims[h];
-    a.g_width += head_dims[h];
   }
-  for (int i = 1; i <= n_hidden; ++i)
-    if (dims[i] > a.g_width) a.g_width = dims[i];
-  a.n_params = off;
   a.dx = static_cast<float*>(dx);
   a.partial = static_cast<float*>(partial);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(grads);
-  return (int)launch_bwd<kFusedRows>(a, p, out, s);
+  a.grads = static_cast<float*>(grads);
+  a.counter = static_cast<unsigned*>(counter);
+  const size_t smem = plan_fused_bwd(a, dx != nullptr);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(stack_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  static int sms[64] = {0};   // SMs of each device: every CTA must be resident at once
+  int device = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidValue;
+  if (sms[device] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device)) !=
+          cudaSuccess)
+    return (int)err;
+  const int grid = n_parts < sms[device] ? n_parts : sms[device];
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(stack_bwd_kernel), dim3(grid),
+                                    dim3(kBwdThreads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -580,12 +739,15 @@ split_gemm_kernel(const __grid_constant__ SplitArgs g) {
   }
 }
 
-// grads[p] = sum over the splits of p's layer, in split order.
+// grads[p] = sum over the splits of p's layer, in split order, for the
+// layers of one group (a stack of any depth reduces in groups of
+// kReduceLayers layers, one launch a group: one launch up to 12 layers).
+constexpr int kReduceLayers = 12;
 struct ReduceArgs {
   int n_layers;
-  long long off[kMaxLayers + 1];  // layer i's dW/db in grads: [off[i], off[i + 1])
-  long long base[kMaxLayers];     // its first slice in partial; slices follow at stride size
-  int splits[kMaxLayers];
+  long long off[kReduceLayers + 1];  // layer i's dW/db in grads: [off[i], off[i + 1])
+  long long base[kReduceLayers];     // its first slice in partial; slices follow at stride size
+  int splits[kReduceLayers];
 };
 
 __global__ void reduce_splits(const float* __restrict__ partial, const __grid_constant__ ReduceArgs r,
@@ -709,7 +871,7 @@ extern "C" int atlasvae_stack_backward_layers(
   using namespace atlasvae;
   using namespace atlasvae::layers;
   const int L = n_hidden;
-  if (L < 0 || L > kMaxHidden || n_heads < 1 || n_heads > kMaxHeads || batch < 1)
+  if (L < 0 || n_heads < 1 || n_heads > kMaxHeads || batch < 1)
     return (int)cudaErrorInvalidValue;
   const int n_layers = L + n_heads;
   for (int i = 0; i < 2 * L + 1; ++i)
@@ -730,28 +892,24 @@ extern "C" int atlasvae_stack_backward_layers(
   float* const P = static_cast<float*>(partial);
 
   // act[0] = x; act[l + 1] = hidden layer l's output, then its gradient
-  float* act[kMaxHidden + 1];
+  std::vector<float*> act(L + 1);
   act[0] = const_cast<float*>(static_cast<const float*>(x));
-  long long off = 0;
+  long long act_off = 0;
   for (int l = 0; l < L; ++l) {
-    act[l + 1] = static_cast<float*>(acts) + off;
-    off += batch * dims[l + 1];
+    act[l + 1] = static_cast<float*>(acts) + act_off;
+    act_off += batch * dims[l + 1];
   }
   const int dL = dims[L];
   int head_total = 0;
   for (int h = 0; h < n_heads; ++h) head_total += head_dims[h];
 
-  // each layer's dW/db: its place in grads, its slices in partial
-  ReduceArgs red = {};
-  red.n_layers = n_layers;
-  long long base = 0;
+  // each layer's dW/db: its place in grads (off), its slices in partial (base)
+  std::vector<long long> off(n_layers + 1, 0), base(n_layers, 0);
   for (int i = 0; i < n_layers; ++i) {
     const long long k = i < L ? dims[i] : dL;
     const long long n = i < L ? dims[i + 1] : head_dims[i - L];
-    red.off[i + 1] = red.off[i] + k * n + n;
-    red.base[i] = base;
-    red.splits[i] = split_plan[3 * i + 1];
-    base += red.splits[i] * (k * n + n);
+    off[i + 1] = off[i] + k * n + n;
+    if (i + 1 < n_layers) base[i + 1] = base[i] + split_plan[3 * i + 1] * (k * n + n);
   }
   auto weight_grad = [&](int i, const float* a, const float* g, int k, int n) {
     SplitArgs s = {};
@@ -761,7 +919,7 @@ extern "C" int atlasvae_stack_backward_layers(
     s.rows_per_split = split_plan[3 * i + 2];
     s.m = k;
     s.n = n;
-    s.part = P + red.base[i];
+    s.part = P + base[i];
     s.slice = (long long)k * n + n;
     s.vec_out = n % 4 == 0 && s.slice % 4 == 0 && aligned16(s.part);
     return launch_split(split_plan[3 * i], s, split_plan[3 * i + 1], st);
@@ -813,10 +971,20 @@ extern "C" int atlasvae_stack_backward_layers(
                          st));
     }
   }
+  // 4. the ordered sum of the splits, a group of layers a launch
+  for (int g0 = 0; g0 < n_layers; g0 += kReduceLayers) {
+    ReduceArgs red = {};
+    red.n_layers = n_layers - g0 < kReduceLayers ? n_layers - g0 : kReduceLayers;
+    for (int i = 0; i < red.n_layers; ++i) {
+      red.off[i + 1] = off[g0 + i + 1] - off[g0];
+      red.base[i] = base[g0 + i];
+      red.splits[i] = split_plan[3 * (g0 + i) + 1];
+    }
+    const long long n_params = red.off[red.n_layers];
+    reduce_splits<<<(unsigned)((n_params + 255) / 256), 256, 0, st>>>(
+        P, red, static_cast<float*>(grads) + off[g0]);
+    K3_TRY(cudaGetLastError());
+  }
 #undef K3_TRY
-  // 4. the ordered sum of the splits
-  const long long n_params = red.off[n_layers];
-  reduce_splits<<<(unsigned)((n_params + 255) / 256), 256, 0, st>>>(P, red,
-                                                                     static_cast<float*>(grads));
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }

@@ -14,6 +14,10 @@
 // layer-wise route accepts.  A run of narrow layers stays one launch of the
 // fused body, activations on chip, at its 128-row tile.
 //
+// A stack of any depth: a run of narrow layers is cut into fused segments of
+// at most kMaxHidden hidden layers each (the fused body's StackArgs holds no
+// more), which pass activations through buf0/buf1 as row segments do.
+//
 // segments: n_segments x kSegmentInts ints (kind, first layer, last layer
 // exclusive, column tile, output buffer), the stack's layers counted with
 // the heads as layer n_hidden; buf0/buf1: scratch of the sizes the plan
@@ -30,9 +34,76 @@ constexpr int kFusedSegment = 0;
 constexpr int kRowSegment = 1;
 constexpr int kTileCols[3] = {128, 64, 32};  // a row segment's column tile: FORWARD_TILE_COLS
 
-inline cudaError_t forward_layers(const StackArgs& a, int n_segments, const int* segments,
+// A whole stack as the caller's arrays hold it, any depth (host side only:
+// each launch copies what it needs into its own bounded arguments).
+struct StackView {
+  const float* x;              // (batch, dims[0]) row-major
+  long long batch;
+  int n_hidden;
+  const int* dims;             // n_hidden + 1 widths
+  const float* const* w;       // n_hidden (dims[i], dims[i + 1]) row-major
+  const float* const* b;
+  int n_heads;
+  const int* head_dims;
+  const float* const* hw;      // n_heads (dims[n_hidden], head_dims[h])
+  const float* const* hb;
+  float* const* out;           // n_heads (batch, head_dims[h])
+  int final_relu;
+};
+
+// Layers [first, last) of v as the arguments of one fused-body launch on
+// input `in`: layers first .. last - 2 are its hidden layers, last - 1 its
+// head, which is the stack's heads (last == n_hidden + 1) or the next hidden
+// layer, written with ReLU to `out`.  False if the segment is deeper than the
+// fused body takes.
+inline bool fused_segment(const StackView& v, int first, int last, const float* in, float* out,
+                          StackArgs* f) {
+  *f = StackArgs{};
+  f->x = in;
+  f->batch = v.batch;
+  f->n_hidden = last - first - 1;
+  if (f->n_hidden < 0 || f->n_hidden > kMaxHidden) return false;
+  f->max_width = 0;
+  for (int i = 0; i <= f->n_hidden; ++i) {
+    f->dims[i] = v.dims[first + i];
+    if (f->dims[i] > f->max_width) f->max_width = f->dims[i];
+  }
+  for (int i = 0; i < f->n_hidden; ++i) {
+    f->w[i] = v.w[first + i];
+    f->b[i] = v.b[first + i];
+  }
+  if (last == v.n_hidden + 1) {
+    f->n_heads = v.n_heads;
+    for (int h = 0; h < v.n_heads; ++h) {
+      f->head_dims[h] = v.head_dims[h];
+      f->hw[h] = v.hw[h];
+      f->hb[h] = v.hb[h];
+      f->out[h] = v.out[h];
+    }
+    f->final_relu = v.final_relu;
+  } else {
+    f->n_heads = 1;
+    f->head_dims[0] = v.dims[last];
+    f->hw[0] = v.w[last - 1];
+    f->hb[0] = v.b[last - 1];
+    f->out[0] = out;
+    f->final_relu = 1;
+  }
+  return true;
+}
+
+// The fused body over the whole stack: one launch.
+inline cudaError_t forward_fused(const StackView& v, cudaStream_t st) {
+  if (v.n_heads < 1 || v.n_heads > kMaxHeads) return cudaErrorInvalidValue;
+  StackArgs f;
+  if (!fused_segment(v, 0, v.n_hidden + 1, v.x, nullptr, &f)) return cudaErrorInvalidValue;
+  return launch_dense_stack(f, st);
+}
+
+inline cudaError_t forward_layers(const StackView& v, int n_segments, const int* segments,
                                   float* buf0, float* buf1, cudaStream_t st) {
-  const int n_layers = a.n_hidden + 1;
+  const int n_layers = v.n_hidden + 1;
+  if (v.n_hidden < 0 || v.n_heads < 1 || v.n_heads > kMaxHeads) return cudaErrorInvalidValue;
   if (n_segments < 1 || n_segments > n_layers) return cudaErrorInvalidValue;
   float* const buf[2] = {buf0, buf1};
   // check the whole plan before the first launch
@@ -40,16 +111,17 @@ inline cudaError_t forward_layers(const StackArgs& a, int n_segments, const int*
   for (int s = 0; s < n_segments; ++s) {
     const int* g = segments + kSegmentInts * s;
     const bool last_segment = s == n_segments - 1;
-    if (g[1] != expect || g[2] <= g[1] || g[2] > n_layers || (g[0] != kFusedSegment &&
+    if (g[1] != expect || g[2] <= g[1] || g[2] > n_layers ||
+        (g[0] == kFusedSegment && g[2] - g[1] - 1 > kMaxHidden) || (g[0] != kFusedSegment &&
         (g[0] != kRowSegment || g[2] != g[1] + 1 || g[3] < 0 || g[3] >= 3)) ||
         (last_segment ? g[4] != -1 : (g[4] < 0 || g[4] > 1 || buf[g[4]] == nullptr)))
       return cudaErrorInvalidValue;
     expect = g[2];
   }
   if (expect != n_layers) return cudaErrorInvalidValue;
-  if (a.batch <= 0) return cudaSuccess;
+  if (v.batch <= 0) return cudaSuccess;
 
-  const float* in = a.x;
+  const float* in = v.x;
   for (int s = 0; s < n_segments; ++s) {
     const int* g = segments + kSegmentInts * s;
     const int first = g[1], last = g[2];
@@ -57,58 +129,29 @@ inline cudaError_t forward_layers(const StackArgs& a, int n_segments, const int*
     float* const out = heads ? nullptr : buf[g[4]];
     cudaError_t err;
     if (g[0] == kFusedSegment) {
-      // layers first .. last - 2 are its hidden layers, last - 1 its head
-      StackArgs f = {};
-      f.x = in;
-      f.batch = a.batch;
-      f.n_hidden = last - first - 1;
-      f.max_width = 0;
-      for (int i = 0; i <= f.n_hidden; ++i) {
-        f.dims[i] = a.dims[first + i];
-        if (f.dims[i] > f.max_width) f.max_width = f.dims[i];
-      }
-      for (int i = 0; i < f.n_hidden; ++i) {
-        f.w[i] = a.w[first + i];
-        f.b[i] = a.b[first + i];
-      }
-      if (heads) {
-        f.n_heads = a.n_heads;
-        for (int h = 0; h < a.n_heads; ++h) {
-          f.head_dims[h] = a.head_dims[h];
-          f.hw[h] = a.hw[h];
-          f.hb[h] = a.hb[h];
-          f.out[h] = a.out[h];
-        }
-        f.final_relu = a.final_relu;
-      } else {
-        f.n_heads = 1;
-        f.head_dims[0] = a.dims[last];
-        f.hw[0] = a.w[last - 1];
-        f.hb[0] = a.b[last - 1];
-        f.out[0] = out;
-        f.final_relu = 1;
-      }
+      StackArgs f;
+      fused_segment(v, first, last, in, out, &f);
       err = launch_dense_stack(f, st);
     } else {
       // one layer: a hidden layer (bias + ReLU) or the heads' columns together
       tf32::RowsArgs r = {};
       r.a = in;
-      r.rows = a.batch;
-      r.k = a.dims[first];
+      r.rows = v.batch;
+      r.k = v.dims[first];
       if (heads) {
-        r.nseg = a.n_heads;
-        for (int h = 0; h < a.n_heads; ++h) {
-          r.nbeg[h + 1] = r.nbeg[h] + a.head_dims[h];
-          r.w[h] = a.hw[h];
-          r.bias[h] = a.hb[h];
-          r.out[h] = a.out[h];
+        r.nseg = v.n_heads;
+        for (int h = 0; h < v.n_heads; ++h) {
+          r.nbeg[h + 1] = r.nbeg[h] + v.head_dims[h];
+          r.w[h] = v.hw[h];
+          r.bias[h] = v.hb[h];
+          r.out[h] = v.out[h];
         }
-        r.relu = a.final_relu;
+        r.relu = v.final_relu;
       } else {
         r.nseg = 1;
-        r.nbeg[1] = a.dims[first + 1];
-        r.w[0] = a.w[first];
-        r.bias[0] = a.b[first];
+        r.nbeg[1] = v.dims[first + 1];
+        r.w[0] = v.w[first];
+        r.bias[0] = v.b[first];
         r.out[0] = out;
         r.relu = 1;
       }

@@ -58,14 +58,12 @@ def load(name):
     return _LIBS[name]
 
 
-# Widest input/hidden layer the dense-stack wrappers accept: the widest
-# constituents-mode input the data can give, 255 constituents (uint8 counts)
-# of 4 components (1020).  Stacks wider than 128 take the layer-wise routes
-# of K1-K3, which keep no layer in shared memory and could take wider ones;
-# the bound keeps the port to the widths it is tested at.  kMaxHidden and
-# kMaxHeads bound the layer counts.
-MAX_WIDTH = 1024
-MAX_HIDDEN = 8
+# K1-K3 take a stack of any depth and any width: a layer wider than 128 runs
+# on the layer-wise routes, which keep no layer in shared memory, and a stack
+# deeper than the fused bodies' own bound (ops/fused_vae.py::FUSED_MAX_HIDDEN)
+# is cut into segments (K1/K2) or runs layer by layer (K3).  The heads are
+# bounded: every caller in the port has 1 or 2 (a VAE encoder's mean and
+# log-variance, or one output layer).
 MAX_HEADS = 4
 
 
@@ -85,23 +83,18 @@ def check_stack(x, hidden, heads, what):
                              f"{x.device}, got {t.dtype} on {t.device}")
     if x.dim() != 2:
         raise ValueError(f"{what}: x must be 2-D, got {tuple(x.shape)}")
-    if len(hidden) > MAX_HIDDEN or not 1 <= len(heads) <= MAX_HEADS:
-        raise ValueError(f"{what}: at most {MAX_HIDDEN} hidden layers and 1..{MAX_HEADS} "
-                         f"heads, got {len(hidden)} and {len(heads)}")
+    if not 1 <= len(heads) <= MAX_HEADS:
+        raise ValueError(f"{what}: 1..{MAX_HEADS} heads, got {len(heads)}")
     width = x.shape[1]
-    widths = [width]
     for i, (w, b) in enumerate(hidden):
         if w.dim() != 2 or w.shape[0] != width or b.shape != (w.shape[1],):
             raise ValueError(f"{what}: layer {i} w {tuple(w.shape)} / b {tuple(b.shape)} "
                              f"does not follow width {width}")
         width = w.shape[1]
-        widths.append(width)
     for k, (w, b) in enumerate(heads):
         if w.dim() != 2 or w.shape[0] != width or b.shape != (w.shape[1],):
             raise ValueError(f"{what}: head {k} w {tuple(w.shape)} / b {tuple(b.shape)} "
                              f"does not follow width {width}")
-    if max(widths) > MAX_WIDTH:
-        raise ValueError(f"{what}: widths above {MAX_WIDTH} are not taken (the widest tested)")
 
 
 def check(err, what):

@@ -6,12 +6,14 @@ hidden stack and then ``n_heads`` linear heads on the last hidden
 activation in one launch of ``csrc/fused_vae.cu``.  ``stack_backward``
 backpropagates head gradients through the heads and the ReLU masks and sums
 dW/db over all rows (``csrc/fused_vae_bwd.cu``), by one of two routes that
-``backward_plan`` picks from the stack's shape: the fused body recomputes
-the forward per 64-row tile in shared memory (stacks no wider than 128); the
-layer-wise route runs one register-tiled GEMM launch per product over the
-whole batch, with the hidden activations in a device scratch buffer (every
-other stack, constituents mode among them).  Both end in one launch that
-adds per-CTA or per-split partial sums in a fixed order.  ``FusedEncoder``
+``backward_plan`` picks from the stack's shape: the fused body keeps the
+whole stack's weights in shared memory and recomputes the forward per
+128-row tile, one CTA an SM, and adds its CTAs' partial sums in a fixed
+order inside the same launch (stacks no wider than 128 whose weights and
+tile fit); the layer-wise route runs one register-tiled GEMM launch per
+product over the whole batch, with the hidden activations in a device
+scratch buffer, then one launch that adds the per-split partial sums in a
+fixed order (every other stack, constituents mode among them).  ``FusedEncoder``
 and ``FusedDecoder`` are the ``torch.autograd.Function`` counterparts of the
 JAX custom VJPs: K2 forward, K3 backward; the encoder returns a zero
 gradient for its input (data in every training graph), the decoder returns
@@ -46,12 +48,16 @@ def stack_forward_plain(x, hidden, heads):
 
 
 # K1 and K2's routes.  A stack whose widths are all at most FUSED_MAX_WIDTH
-# runs as one launch of the fused body (csrc/dense_stack.cuh), every
-# activation of a row tile in shared memory.  Any other stack is cut into
-# segments (forward_plan), launched in order by one C call
-# (csrc/stack_layers.cuh): a run of narrow layers stays one fused launch, each
-# wide layer is one row product over the whole batch.  The shape alone decides.
+# and whose hidden layers are at most FUSED_MAX_HIDDEN runs as one launch of
+# the fused body (csrc/dense_stack.cuh), every activation of a row tile in
+# shared memory.  Any other stack is cut into segments (forward_plan),
+# launched in order by one C call (csrc/stack_layers.cuh): a run of narrow
+# layers stays on the fused body, one launch for each FUSED_MAX_HIDDEN hidden
+# layers and the layer after them, and each wide layer is one row product
+# over the whole batch.  The shape alone decides.
 FUSED_SEGMENT, ROW_SEGMENT = 0, 1
+FUSED_MAX_WIDTH = 128
+FUSED_MAX_HIDDEN = 8            # kMaxHidden: the hidden layers one fused launch takes
 # A row segment's column tiles (csrc/gemm_tf32.cuh, 128 rows each): 8 warps
 # of 32 columns and cols / 32 m16 tiles each.
 FORWARD_TILE_COLS = (128, 64, 32)
@@ -121,9 +127,15 @@ def forward_plan(batch, dims, head_dims):
         if l == len(dims) or not (narrow[l] and narrow[l - 1]):
             spans.append((first, l))
             first = l
+    # a narrow run deeper than one fused launch takes: pieces of at most
+    # FUSED_MAX_HIDDEN hidden layers and their head
+    pieces = []
+    for first, last in spans:
+        step = FUSED_MAX_HIDDEN + 1 if narrow[first] else last - first
+        pieces += [(a, min(a + step, last)) for a in range(first, last, step)]
     segments, bufs = [], [0, 0]
-    for i, (first, last) in enumerate(spans):
-        final = i == len(spans) - 1
+    for i, (first, last) in enumerate(pieces):
+        final = i == len(pieces) - 1
         out = -1 if final else i % 2
         if not final:
             bufs[out] = max(bufs[out], _ceil(batch * widths[last], 4) * 4)
@@ -228,14 +240,19 @@ def stack_backward_plain(x, hidden, heads, head_grads, want_dx):
 
 
 # K3's routes.  The fused body (csrc/fused_vae_bwd.cu, stack_bwd_kernel)
-# keeps every activation of a 64-row tile in shared memory; it takes a stack
-# whose widths are all at most 128 and whose tile fits a CTA.  Every other
-# stack takes the layer-wise route: register-tiled GEMM launches over the
-# whole batch (csrc/gemm_tile.cuh), one per product, with the activations in
-# a device scratch buffer.  The shape alone decides.
-FUSED_ROWS = 64                 # TM of stack_bwd_kernel
-FUSED_MAX_WIDTH = 128
-FUSED_MAX_PARTS = 264           # kMaxParts: partial slices, 2 per SM of an H100
+# keeps the whole stack's weights and every activation and gradient of a
+# 128-row tile in shared memory, and sums dW/db in 4 x 4 blocks (db as the
+# row of a ones column), at most FUSED_MAX_BLOCKS of them; it takes a stack
+# of at most FUSED_MAX_HIDDEN hidden layers whose widths are all at most 128
+# and whose weights and tile fit a CTA (_fused_layout mirrors plan_fused_bwd).
+# Every other stack takes the layer-wise route: register-tiled GEMM launches
+# over the whole batch (csrc/gemm_tile.cuh), one per product, with the
+# activations in a device scratch buffer.  The shape alone decides.
+FUSED_ROWS = 128                # kBwdRows: 16 warps of 8 rows
+FUSED_THREADS = 512
+FUSED_MAX_PARTS = 132           # kBwdMaxParts: CTAs and partial slices, one an SM of an H100
+FUSED_MIN_ROWS = 32             # kBwdMinRows: fewest rows a CTA takes
+FUSED_MAX_BLOCKS = 2 * FUSED_THREADS  # kMaxBlocks a thread
 MAX_SMEM = 232448               # a CTA's shared memory on sm_90
 # The layer-wise route's CTA output tiles (rows, columns), in the order of
 # kTiles in csrc/fused_vae_bwd.cu; a row product (batch rows) takes one of the
@@ -245,6 +262,7 @@ GEMM_THREAD_TILES = ((8, 8), (8, 4), (4, 4), (4, 8), (4, 4))  # outputs a thread
 GEMM_CHUNK = 8                  # rows of the reduction a staged chunk holds
 SPLIT_CTAS = 264                # one wave of a weight-gradient launch: 2 CTAs an SM
 SPLIT_MIN_ROWS = 64             # fewest batch rows a split sums
+GRID_Y_MAX = 65_535             # CUDA's bound on a grid's y dimension
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,7 +271,9 @@ class BackwardPlan:
     allocates (float32 counts).
 
     route        "fused" or "layers".
-    n_parts      fused: partial slices, one per CTA.
+    n_parts      fused: CTAs and partial slices (fewer on a card of fewer
+                 SMs), each slice 16 x n_blocks floats.
+    n_blocks     fused: the stack's 4 x 4 dW/db blocks.
     row_tiles    layers: GEMM_TILES index of each row product, indexed as
                  the recompute of hidden layer l (l < L), the head gradient
                  (L), and the gradient through hidden layer i (L + 1 + i).
@@ -263,6 +283,7 @@ class BackwardPlan:
     partial_floats  per-split dW/db slices (fused: per-CTA)."""
     route: str
     n_parts: int = 0
+    n_blocks: int = 0
     row_tiles: tuple = ()
     splits: tuple = ()
     act_floats: int = 0
@@ -277,15 +298,40 @@ def _ceil(a, b):
     return -(-a // b)
 
 
-def _fused_fits(dims, head_dims):
-    """The fused body's tile fits: mirror of plan_bwd in fused_vae_bwd.cu."""
+def _round4(n):
+    return _ceil(n, 4) * 4
+
+
+def _bwd_pitch(n):
+    """A weight row's pitch in the fused body: a multiple of 4 floats that is
+    4 mod 8 (bwd_pitch)."""
+    p = _round4(n)
+    return p + 4 if p // 4 % 2 == 0 else p
+
+
+def _fused_layout(dims, head_dims, want_dx):
+    """(4 x 4 dW/db blocks, shared memory bytes) of the fused body for a
+    stack, as plan_fused_bwd in fused_vae_bwd.cu lays it out: each layer's
+    weights (hidden: dims + 1 rows with the bias, rounded to 4; the heads
+    concatenated) at _bwd_pitch, then per row of a 128-row tile every
+    activation with its ones column, the heads' gradient, every hidden
+    layer's gradient and dx's stage, each rounded to 4 floats."""
     head_total = sum(head_dims)
-    if max(max(dims), head_total) > FUSED_MAX_WIDTH:
+    widths = list(dims[1:]) + [head_total]
+    floats = sum((_round4(k + 1) if i < len(dims) - 1 else k) * _bwd_pitch(n)
+                 for i, (k, n) in enumerate(zip(dims, widths)))
+    blocks = sum(_ceil(k + 1, 4) * _ceil(n, 4) for k, n in zip(dims, widths))
+    floats += FUSED_ROWS * (sum(_round4(d + 1) for d in dims) + _round4(head_total)
+                            + sum(_round4(d) for d in dims[1:]) + (_round4(dims[0]) if want_dx else 0))
+    return blocks, 4 * floats
+
+
+def _fused_fits(dims, head_dims, want_dx):
+    """The fused body takes the stack: mirror of plan_fused_bwd."""
+    if max(max(dims), sum(head_dims)) > FUSED_MAX_WIDTH or len(dims) - 1 > FUSED_MAX_HIDDEN:
         return False
-    g_width = max([head_total] + list(dims[1:]))
-    cols = 256 // (FUSED_ROWS // 8) * 4
-    smem = 4 * ((sum(dims) + 2 * g_width) * (FUSED_ROWS + 4) + 16 * cols)
-    return smem <= MAX_SMEM
+    blocks, smem = _fused_layout(dims, head_dims, want_dx)
+    return blocks <= FUSED_MAX_BLOCKS and smem <= MAX_SMEM
 
 
 def _tile_cost(t, m, n):
@@ -322,16 +368,25 @@ def backward_plan(batch, dims, head_dims, want_dx):
     and head widths ``head_dims`` at ``batch`` rows."""
     layers = [(dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
     layers += [(dims[-1], n) for n in head_dims]
-    n_params = sum(k * n + n for k, n in layers)
-    if _fused_fits(dims, head_dims):
-        n_parts = min(_ceil(batch, FUSED_ROWS), FUSED_MAX_PARTS)
-        return BackwardPlan("fused", n_parts=n_parts, partial_floats=n_parts * n_params)
+    if _fused_fits(dims, head_dims, want_dx):
+        n_parts = min(_ceil(batch, FUSED_MIN_ROWS), FUSED_MAX_PARTS)
+        n_blocks = _fused_layout(dims, head_dims, want_dx)[0]
+        return BackwardPlan("fused", n_parts=n_parts, n_blocks=n_blocks,
+                            partial_floats=n_parts * 16 * n_blocks)
     if batch >= 2 ** 31:
         raise ValueError(f"stack_backward: at most 2**31 - 1 rows, got {batch}")
-    n_hidden = len(dims) - 1
     row_tiles = tuple(_row_tile(n) for n in dims[1:]) + (_row_tile(dims[-1]),) \
         + tuple(_row_tile(n) for n in dims[:-1])
     splits = tuple(_split(batch, k, n) for k, n in layers)
+    # a launch's CTA tiles lie along CUDA's grid y, at most 65,535: a row
+    # product's column tiles, a weight gradient's output tiles
+    tiles_y = [_ceil(n, GEMM_TILES[t][1]) for t, n in
+               zip(row_tiles, tuple(dims[1:]) + (dims[-1],) + tuple(dims[:-1]))]
+    tiles_y += [_tile_cost(t, k, n)[1] for (t, _, _), (k, n) in zip(splits, layers)]
+    if max(tiles_y) > GRID_Y_MAX:
+        raise ValueError(f"stack_backward: a layer of this stack needs {max(tiles_y)} CTA "
+                         f"tiles along CUDA's grid y in one launch, at most {GRID_Y_MAX} "
+                         f"(widths {tuple(dims)}, heads {tuple(head_dims)})")
     return BackwardPlan("layers", row_tiles=row_tiles, splits=splits,
                         act_floats=batch * sum(dims[1:]),
                         partial_floats=sum(s * (k * n + n)
@@ -345,7 +400,7 @@ def _backward_entries():
     fused.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fused.restype = ctypes.c_int
     layers = lib.atlasvae_stack_backward_layers
     layers.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
@@ -355,6 +410,34 @@ def _backward_entries():
                        ctypes.c_void_p]
     layers.restype = ctypes.c_int
     return fused, layers
+
+
+@functools.cache
+def _stack_layout(dims, head_dims):
+    """What stack_backward builds once a shape: the C arrays of the widths,
+    and where each leaf's gradient lies in the flat parameter vector
+    ([dW_0, db_0, ...]) as (shape, stride, offset) of dW and of db, with the
+    vector's length last."""
+    shapes = list(zip(dims, dims[1:])) + [(dims[-1], n) for n in head_dims]
+    dw, db, off = [], [], 0
+    for k, n in shapes:
+        dw.append(((k, n), (n, 1), off))
+        db.append(((n,), (1,), off + k * n))
+        off += k * n + n
+    return cuda_build.int_array(dims), cuda_build.int_array(head_dims), (dw, db, off)
+
+
+_COUNTERS = {}
+
+
+def _barrier_counter(device, stream):
+    """The fused body's two integers of grid-barrier state for one stream:
+    0 before each launch and left 0 by it (its last CTA resets them), so one
+    buffer serves every call that stream makes."""
+    key = (device, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
 
 
 def stack_backward(x, hidden, heads, head_grads, want_dx):
@@ -379,27 +462,29 @@ def stack_backward(x, hidden, heads, head_grads, want_dx):
                              f"{tuple(g.shape)} on {g.device}")
     if batch == 0:
         raise ValueError("stack_backward: empty batch")
-    shapes = [tuple(w.shape) for w, _ in list(hidden) + list(heads)]
-    sizes = [n for k, m in shapes for n in (k * m, m)]
     dims = (x.shape[1],) + tuple(w.shape[1] for w, _ in hidden)
     head_dims = tuple(w.shape[1] for w, _ in heads)
     plan = backward_plan(batch, dims, head_dims, bool(want_dx))
-    grads = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
+    c_dims, c_head_dims, leaf_views = _stack_layout(dims, head_dims)
+    grads = torch.empty(leaf_views[-1], device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x) if want_dx else None
     partial = torch.empty(plan.partial_floats, device=x.device, dtype=torch.float32)
-    c_dims, c_head_dims = cuda_build.int_array(dims), cuda_build.int_array(head_dims)
-    ws = cuda_build.pointer_array([w for w, _ in hidden])
-    bs = cuda_build.pointer_array([b for _, b in hidden])
-    hws = cuda_build.pointer_array([w for w, _ in heads])
-    gs = cuda_build.pointer_array(head_grads)
+    # one C array: the hidden weights, their biases, the head weights, the head gradients
+    n_h, n_k = len(hidden), len(heads)
+    ptrs = cuda_build.pointer_array([w for w, _ in hidden] + [b for _, b in hidden]
+                                    + [w for w, _ in heads] + list(head_grads))
+    at = ctypes.addressof(ptrs)
     fused, layers = _backward_entries()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    common = (x.data_ptr(), batch, len(hidden), ctypes.addressof(c_dims), ctypes.addressof(ws),
-              ctypes.addressof(bs), len(heads), ctypes.addressof(c_head_dims),
-              ctypes.addressof(hws), ctypes.addressof(gs), dx.data_ptr() if want_dx else None)
+    size = ctypes.sizeof(ctypes.c_void_p)
+    common = (x.data_ptr(), batch, n_h, ctypes.addressof(c_dims), at, at + size * n_h, n_k,
+              ctypes.addressof(c_head_dims), at + size * 2 * n_h,
+              at + size * (2 * n_h + n_k), dx.data_ptr() if want_dx else None)
     with torch.cuda.device(x.device):
         if plan.route == "fused":
-            err = fused(*common, partial.data_ptr(), plan.n_parts, grads.data_ptr(), stream)
+            counter = _barrier_counter(x.device, stream)
+            err = fused(*common, partial.data_ptr(), plan.n_parts, grads.data_ptr(),
+                        counter.data_ptr(), stream)
         else:
             acts = torch.empty(plan.act_floats, device=x.device, dtype=torch.float32)
             row_tiles = cuda_build.int_array(plan.row_tiles)
@@ -411,9 +496,8 @@ def stack_backward(x, hidden, heads, head_grads, want_dx):
         backward_launches += 1
     else:
         layered_backward_launches += 1
-    flat = grads.split(sizes)
-    dws = [flat[2 * i].view(shape) for i, shape in enumerate(shapes)]
-    dbs = [flat[2 * i + 1] for i in range(len(shapes))]
+    dws = [grads.as_strided(shape, stride, off) for shape, stride, off in leaf_views[0]]
+    dbs = [grads.as_strided(shape, stride, off) for shape, stride, off in leaf_views[1]]
     return dws, dbs, dx
 
 

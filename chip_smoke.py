@@ -69,7 +69,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                conv kernel's time a call (host work included), its time
                queued behind a sleeping kernel (device_ms: the device
                alone);
-               K1/K2 also at the evaluate phase's 10,000-row chunk;
+               K1/K2 also at the evaluate phase's 10,000-row chunk; K1, K2
+               and K3 at the training batch on stacks of any depth and
+               width (DEEP_WIDE_STACKS: 12 hidden layers of 64, a 300-wide
+               input and 9 of 128, 1,200 and 2,048 wide), each on the route
+               its plan names; K3's dW/db held at GRAD_SCALE_TOL (at the
+               2048-wide stack an element beyond it by no more than the
+               largest move of one flip of a ReLU input that is 0 to float32
+               rounding, tests/relu_ties.py; the count of such inputs, of
+               elements beyond the bar and the allowance's largest ratio to
+               the bar are printed); K3's fused body also timed on the
+               device alone (device_ms);
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
                also against float64, with the card's bits asked again at
@@ -114,8 +124,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                before; check the history, the weights and that K2 and K3
                ran, all on their fused bodies; time a warm run (epochs 2-3), profile one epoch, hold
                the CUDA path against the plain CPU path (first-step
-               gradients, 2-epoch losses with injected noise), and score
-               the trained weights through atlasvae_torch.cli.score;
+               gradients, 2-epoch losses with injected noise), the same at
+               --FC_layers of 10 entries (9 hidden layers a side: K2 on
+               fused segments, K3 on its layer-wise route) over 2 steps,
+               and score the trained weights through atlasvae_torch.cli.score;
 7. const_train -- train the constituents-mode OE-VAE (300->256/128/64/32,
                100 synthetic constituents a jet, a RobustScaler on them;
                the train phase's hyper-parameters, 3 epochs of 1e5 jets in
@@ -567,6 +579,17 @@ TRAIN_ARGS = ["--n_train", "1e5", "--n_valid", "5e4", "--n_OoD", "2e5",
               "--beta", "2", "--lamb", "5", "--OE_type", "MAE", "--weight_type", "X-S",
               "--HLV_scaler_type", "RobustScaler", "--plotting", "OFF",
               "--apply_cuts", "OFF"]
+# --FC_layers of 10 entries: 9 hidden layers a side, deeper than one fused
+# launch of K1-K3 takes (ops/fused_vae.py::FUSED_MAX_HIDDEN)
+DEEP_FC_LAYERS = (80, 80, 60, 60, 40, 40, 30, 20, 20, 10)
+# Stacks of any depth and width, held in the parity phase at the training
+# batch: (fc_layers, input width) of a VAE whose encoder and decoder they are
+DEEP_WIDE_STACKS = {
+    "deep_12_narrow": ((64,) * 12 + (10,), 12),         # 12 hidden layers of 64
+    "deep_10_const": ((128,) * 9 + (32,), 300),         # 300 wide, then 9 of 128
+    "const_1200": ((256, 128, 64, 32), 1200),           # 400 constituents x 3
+    "wide_2048": ((512, 64, 32), 2048),
+}
 GRAD_SCALE_TOL = 3e-4   # per dW/db leaf, times the leaf's largest |value|
 SEED_TRIALS = 2000      # canonical VAEs at random init in phase_seeds
 TRAIN_REL_TOL = 1e-4    # per-epoch losses, CUDA path vs plain CPU path
@@ -677,11 +700,15 @@ def kernel_device_ms(fn):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def parity_backward(params, role, x, gen):
+def parity_backward(params, role, x, gen, ties=False):
     """K3 vs its plain version on the same inputs and head gradients (a
     mean-loss scale, N(0, 1) / B), and the same bits on a second call;
-    timings, autograd yardstick and bound.  Returns (the KERNELS name of the
-    route backward_plan takes, result)."""
+    timings, autograd yardstick and bound.  ``ties`` (the 2048-wide stack
+    only): an element may go beyond its bar by the largest move of one
+    flipped ReLU tie there (tests/relu_ties.py), and the count of ties, of
+    elements beyond the bar and the allowance's largest ratio to the bar
+    are recorded.  Returns (the KERNELS name of the route backward_plan
+    takes, result)."""
     import torch
     from atlasvae_torch.ops import fused_vae
     hidden, heads = stack_pairs(params, role)
@@ -709,32 +736,52 @@ def parity_backward(params, role, x, gen):
     same_bits = all(bool(torch.equal(a, b)) for a, b in
                     zip(got[0] + got[1] + [got[2]] * want_dx, again[0] + again[1] + [again[2]] * want_dx))
     del again
-    err, rel, ok = 0.0, 0.0, same_bits
+    leaf_bars = [GRAD_SCALE_TOL * float(w.abs().max()) for w in want[0] + want[1]]
+    allow = [0.0] * len(leaf_bars), 0.0
+    ties_seen = {}
+    if ties:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+        from relu_ties import largest_over_bar, single_flip_allowance
+        a_dws, a_dbs, a_dx, n_ties = single_flip_allowance(x, hidden, heads, grads, want_dx)
+        allow = [t.float() for t in a_dws + a_dbs], (0.0 if a_dx is None else a_dx.float())
+        ties_seen = dict(relu_ties=n_ties, over_bar=sum(
+            int(((g - w).abs() > bar).sum()) for g, w, bar in zip(got[0] + got[1], want[0] + want[1],
+                                                                   leaf_bars)),
+            tie_allow_over_bar=largest_over_bar(allow[0], leaf_bars))
+    err, rel = 0.0, 0.0
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         diff = float((g - w).abs().max())
         scale = float(w.abs().max())
         err, rel = max(err, diff), max(rel, diff / scale if scale > 0 else diff)
-        ok &= diff <= GRAD_SCALE_TOL * scale and bool(torch.isfinite(g).all())
     if want_dx:
-        diff = (got[2] - want[2]).abs()
-        err = max(err, float(diff.max()))
-        ok &= bool((diff <= ATOL + RTOL * want[2].abs()).all())
+        err = max(err, float((got[2] - want[2]).abs().max()))
+    # every dW/db leaf within GRAD_SCALE_TOL of its largest value, dx within
+    # ATOL + RTOL |ref|; beyond that only by one tie's move where ``ties``
+    ok = same_bits and all(bool(torch.isfinite(g).all()) for g in got[0] + got[1])
+    ok &= all(bool(((g - w).abs() <= bar + a).all())
+              for g, w, bar, a in zip(got[0] + got[1], want[0] + want[1], leaf_bars, allow[0]))
+    if want_dx:
+        ok &= bool(((got[2] - want[2]).abs() <= ATOL + RTOL * want[2].abs() + allow[1]).all())
     b_ms, b_by, flops, nbytes = bound_backward(batch, x.shape[1], hidden, heads, want_dx)
     iters = 50 if batch < BIG_B else 10
     del got, want
     res = dict(batch=batch, widths=[x.shape[1]] + [w.shape[1] for w, _ in hidden]
                + [sum(w.shape[1] for w, _ in heads)], want_dx=want_dx, route=route,
-               same_bits=same_bits, max_abs_err=err,
+               same_bits=same_bits, max_abs_err=err, **ties_seen,
                max_err_over_leaf_scale=rel, ms=time_ms(kernel, iters),
                plain_ms=time_ms(plain, iters), library_ms=time_ms(library, iters),
                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
     res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    if route == "fused":   # the fused body on the device alone: one launch a call
+        res["device_ms"] = time_ms(kernel, iters, queued=True)
     if route == "layers" and batch == BIG_B:
         res["launch_ms"] = kernel_device_ms(kernel)
     if not ok:
         raise AssertionError(f"stack_backward disagrees with its plain version at {res}: "
                              f"dW/db leaf over {GRAD_SCALE_TOL}*max|leaf|, dx over "
-                             f"atol {ATOL} + rtol {RTOL}*|ref|, or other bits on a second call")
+                             f"atol {ATOL} + rtol {RTOL}*|ref|"
+                             + (" (beyond one flipped ReLU tie's move)" if ties else "")
+                             + ", or other bits on a second call")
     return ("stack_backward" if route == "fused" else "stack_backward_layers"), res
 
 
@@ -1127,6 +1174,8 @@ def phase_parity(device):
                          SLICE_CHUNK),
         "const_train": (VAEConfig(fc_layers=CONST_LAYERS, input_dim=3 * EMD_CONST), TRAIN_BATCH),
         "evaluate": (VAEConfig(), EVAL_CHUNK),
+        **{name: (VAEConfig(fc_layers=fc, input_dim=width), TRAIN_BATCH)
+           for name, (fc, width) in DEEP_WIDE_STACKS.items()},
     }
     # K1 runs the decoder (scoring); K2 runs the encoder on both paths and
     # the decoder (one head) in training, so at the scoring chunk and the
@@ -1137,6 +1186,8 @@ def phase_parity(device):
         fwd["canonical"]
     fwd["slice"] = fwd["train"] = fwd["const_train"] = \
         fwd["canonical"] + (("stack_forward", "decoder"),)
+    for name in DEEP_WIDE_STACKS:
+        fwd[name] = fwd["train"]
     results = {name: [] for name in KERNELS}
     for shape, (cfg, batch) in configs.items():
         params = init_vae(gen, cfg, device=device)
@@ -1165,19 +1216,26 @@ def phase_parity(device):
                    ("constituents", VAEConfig(fc_layers=(256, 128, 64, 32), input_dim=312), BIG_B),
                    ("const_train", VAEConfig(fc_layers=CONST_LAYERS, input_dim=3 * EMD_CONST),
                     TRAIN_BATCH)]
+    bwd_configs += [(name, VAEConfig(fc_layers=fc, input_dim=width), TRAIN_BATCH)
+                    for name, (fc, width) in DEEP_WIDE_STACKS.items()]
     for shape, cfg, batch in bwd_configs:
         params = init_vae(gen, cfg, device=device)
         for role in ("encoder", "decoder"):
             width = cfg.input_dim if role == "encoder" else cfg.fc_layers[-1]
             x = torch.randn((batch, width), generator=gen, device=device)
-            name, res = parity_backward(params, role, x, gen)
+            name, res = parity_backward(params, role, x, gen, ties=shape == "wide_2048")
             res["shape"] = f"{shape} {role}"
             results[name].append(res)
             log("parity", kernel=name, shape=json.dumps(res["shape"]), batch=batch,
                 widths=res["widths"], want_dx=res["want_dx"], same_bits=res["same_bits"],
                 max_abs_err=f"{res['max_abs_err']:.3g}",
                 max_err_over_leaf_scale=f"{res['max_err_over_leaf_scale']:.3g}",
-                ms=f"{res['ms']:.4f}", plain_ms=f"{res['plain_ms']:.4f}",
+                **{k: res[k] for k in ("relu_ties", "over_bar") if k in res},
+                **({"tie_allow_over_bar": f"{res['tie_allow_over_bar']:.3g}"}
+                   if "tie_allow_over_bar" in res else {}),
+                ms=f"{res['ms']:.4f}",
+                **({"device_ms": f"{res['device_ms']:.4f}"} if "device_ms" in res else {}),
+                plain_ms=f"{res['plain_ms']:.4f}",
                 library_ms=f"{res['library_ms']:.4f}", bound_ms=f"{res['bound_ms']:.4f}",
                 bound_by=res["bound_by"], tflops=f"{res['tflops']:.2f}",
                 **({"launch_ms": json.dumps(res["launch_ms"])} if "launch_ms" in res else {}))
@@ -1680,11 +1738,11 @@ class _Stamped(list):
         return super().__iter__()
 
 
-def _train_parity(load, device, cfg=None, losses=True):
-    """The CUDA training path against the plain CPU path on the first 5
-    batches of a load: first-step gradients per leaf, and (``losses``) 2
-    epochs of losses with one injected noise stream.  ``cfg``: the model's
-    VAEConfig (default: the canonical one)."""
+def _train_parity(load, device, cfg=None, losses=True, n_batches=5):
+    """The CUDA training path against the plain CPU path on the first
+    ``n_batches`` batches of a load: first-step gradients per leaf, and
+    (``losses``) 2 epochs of losses with one injected noise stream.  ``cfg``:
+    the model's VAEConfig (default: the canonical one)."""
     import numpy as np
     import torch
     from atlasvae_torch.losses import get_losses
@@ -1695,7 +1753,7 @@ def _train_parity(load, device, cfg=None, losses=True):
 
     cfg = cfg or VAEConfig()
     latent = cfg.fc_layers[-1]
-    n = 5 * TRAIN_BATCH
+    n = n_batches * TRAIN_BATCH
     bkg, ood = load
     small = ({"HLVs": features(bkg)[:n], "weights": bkg["weights"][:n]},
              {"HLVs": features(ood)[:n], "weights": ood["weights"][:n]})
@@ -1704,7 +1762,7 @@ def _train_parity(load, device, cfg=None, losses=True):
                           .astype(np.float32),
                           rng.standard_normal((nb, TRAIN_BATCH if phase == "train" else n, latent))
                           .astype(np.float32))
-             for e in range(2) for phase, nb in (("train", 5), ("valid", 1))}
+             for e in range(2) for phase, nb in (("train", n_batches), ("valid", 1))}
     source = lambda phase, epoch, load_idx, n_batches, batch: noise[(phase, epoch)]
     cpu = torch.device("cpu")
     init = init_vae(torch.Generator().manual_seed(21), cfg, device=cpu)
@@ -1822,6 +1880,17 @@ def phase_train(device, workdir):
                  torch.cuda.synchronize()),
         phase="train profile")
     grad_rel, loss_rel = _train_parity(load, device)
+    # --FC_layers of 10 entries: 2 steps (2 epochs of one batch), card against
+    # the CPU at the same bars; K2 on fused segments, K3 on its layer-wise route
+    before = counters()
+    deep_grad_rel, deep_loss_rel = _train_parity(
+        load, device, VAEConfig(fc_layers=DEEP_FC_LAYERS, input_dim=12), n_batches=1)
+    deep = {k: v - before[k] for k, v in counters().items() if v != before[k]}
+    for name in ("stack_forward_layers", "stack_backward_layers"):
+        if deep.get(name, 0) <= 0:
+            raise AssertionError(f"the 9-hidden-layer model never ran {name}: {deep}")
+    log("train", deep_fc_layers=json.dumps(DEEP_FC_LAYERS), deep_grad_rel=f"{deep_grad_rel:.3g}",
+        deep_loss_rel=f"{deep_loss_rel:.3g}", deep_launches=json.dumps(deep))
 
     # the two paths meet: score the trained weights through cli.score
     scores = os.path.join(workdir, "train_scores.h5")

@@ -10,7 +10,12 @@ Tolerance: atol 1e-5, rtol 1e-5 -- the kernel sums each dot product in
 order with FMAs, cuBLAS in its own blocked order; both in full float32.
 The backward kernel's dW/db sum over every row of the batch: atol 1e-5
 times the leaf's largest value up to 1,000 rows, and 3e-4 times it (the
-bar of tests/test_fused_vae.py) over tens of thousands of rows.  The
+bar of tests/test_fused_vae.py) over tens of thousands of rows.  Only at
+the 2048-wide stack (``wide_2048``), where a first-layer ReLU input can sit
+at 0 to float32 rounding (45 of 5.1 million at 10,000 rows) and flip between
+the kernel's recompute and cuBLAS's, may an element go beyond its bar, and
+then by no more than the largest move of one such flip at that element
+(tests/relu_ties.py).  The
 Sinkhorn EMD kernel: rtol 2e-5, atol 1e-6, the bar the JAX package holds
 its two forms of that function to (tests/test_emd.py); where the EMD is
 small beside the jets' total pt (a cloud against a permuted copy of itself)
@@ -28,6 +33,7 @@ ulp of the plain value plus 2e-4 of the leaf's largest value.
 import numpy as np
 import pytest
 import torch
+from relu_ties import single_flip_allowance
 from torch_gaps import assert_close
 
 from atlasvae_torch.losses import get_losses
@@ -131,6 +137,12 @@ WIDE_FORWARD = {
     "const_decoder_1020": ((32, 64, 128, 256), (1020,)),
     "odd": ((301, 130, 33), (5, 5)),
     "wide_heads": ((12, 80), (129, 67, 5)),
+    # any depth and width: 12 narrow hidden layers (two fused segments), a
+    # 300-wide input and 9 hidden layers of 128, 400 constituents x 3, 2048 wide
+    "deep_12_narrow": ((12,) + (64,) * 12, (10, 10)),
+    "deep_10_const": ((300,) + (128,) * 9, (32, 32)),
+    "const_1200": ((1200, 256, 128, 64), (32, 32)),
+    "wide_2048": ((2048, 512, 64), (32, 32)),
 }
 
 
@@ -226,25 +238,40 @@ def test_kernels_refuse_autograd_and_bad_input(cuda):
         fused_mlp.fused_mlp_apply(layers, x.detach().t())
 
 
-def _close_grads(got, want, scale_tol):
+def _close_grads(got, want, scale_tol, tie_inputs=None):
+    """dW/db within scale_tol of each leaf's largest value, dx within ATOL +
+    RTOL |ref|.  Given ``tie_inputs`` (x, hidden, heads, grads, want_dx), an
+    element may go beyond its bar by the largest move of one flipped ReLU tie
+    there (relu_ties.single_flip_allowance), 0 where no tie reaches."""
     dws, dbs, dx = got
-    for g, w in zip(dws + dbs, want[0] + want[1]):
-        assert g.shape == w.shape
-        torch.testing.assert_close(g, w, rtol=0, atol=scale_tol * float(w.abs().max()))
+    if tie_inputs is None:
+        for g, w in zip(dws + dbs, want[0] + want[1]):
+            assert g.shape == w.shape
+            torch.testing.assert_close(g, w, rtol=0, atol=scale_tol * float(w.abs().max()))
+        if want[2] is None:
+            assert dx is None
+        else:
+            torch.testing.assert_close(dx, want[2], atol=ATOL, rtol=RTOL)
+        return
+    a_dws, a_dbs, a_dx, _ = single_flip_allowance(*tie_inputs)
+    for i, (g, w, a) in enumerate(zip(dws + dbs, want[0] + want[1], a_dws + a_dbs)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert_close(g, w, f"leaf {i}", atol=a.cpu().numpy() + scale_tol * float(w.abs().max()))
     if want[2] is None:
         assert dx is None
     else:
-        torch.testing.assert_close(dx, want[2], atol=ATOL, rtol=RTOL)
+        assert_close(dx, want[2], "dx", rtol=RTOL, atol=a_dx.cpu().numpy() + ATOL)
 
 
 def _k3_counts():
     return fused_vae.backward_launches, fused_vae.layered_backward_launches
 
 
-def _check_stack_backward(cuda, batch, dims, head_dims, want_dx, scale_tol, seed):
+def _check_stack_backward(cuda, batch, dims, head_dims, want_dx, scale_tol, seed, ties=False):
     """One K3 call against its plain version, on the route backward_plan
     names (one launch counted there, none on the other), and the same bits on
-    a second call (split or per-CTA partials summed in a fixed order)."""
+    a second call (split or per-CTA partials summed in a fixed order).
+    ``ties``: beyond the bar by one flipped ReLU tie's move (_close_grads)."""
     gen = torch.Generator().manual_seed(seed)
     hidden, heads = _stack(gen, dims, head_dims, cuda)
     x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
@@ -253,7 +280,8 @@ def _check_stack_backward(cuda, batch, dims, head_dims, want_dx, scale_tol, seed
     before = _k3_counts()
     got = fused_vae.stack_backward(x, hidden, heads, grads, want_dx)
     assert _k3_counts() == (before[0] + (route == "fused"), before[1] + (route == "layers"))
-    _close_grads(got, fused_vae.stack_backward_plain(x, hidden, heads, grads, want_dx), scale_tol)
+    _close_grads(got, fused_vae.stack_backward_plain(x, hidden, heads, grads, want_dx), scale_tol,
+                 (x, hidden, heads, grads, want_dx) if ties else None)
     again = fused_vae.stack_backward(x, hidden, heads, grads, want_dx)
     for a, b in zip(got[0] + got[1] + [got[2]] * want_dx, again[0] + again[1] + [again[2]] * want_dx):
         assert torch.equal(a, b)
@@ -268,6 +296,7 @@ def _check_stack_backward(cuda, batch, dims, head_dims, want_dx, scale_tol, seed
     ((3, 1, 7), (2, 2, 2, 2), True),       # four heads, width 1
     ((13, 17, 9), (5, 5), False),          # odd widths
     ((130, 33, 9), (5, 6), True),          # wider than 128: the layer-wise route
+    ((12, 100), (60, 40), True),           # 750 dW/db blocks: two a thread of the fused body
 ])
 def test_stack_backward_matches_plain(cuda, batch, dims, head_dims, want_dx):
     route = _check_stack_backward(cuda, batch, dims, head_dims, want_dx, 1e-5,
@@ -286,6 +315,11 @@ WIDE_STACKS = {
     "const_encoder_765": ((765, 256, 128, 64), (32, 32), False),
     "const_decoder_1020": ((32, 64, 128, 256), (1020,), True),
     "eight_hidden_128": ((128,) * 9, (16, 16), True),
+    # any depth and width (WIDE_FORWARD's four)
+    "deep_12_narrow": ((12,) + (64,) * 12, (10, 10), True),
+    "deep_10_const": ((300,) + (128,) * 9, (32, 32), False),
+    "const_1200": ((1200, 256, 128, 64), (32, 32), False),
+    "wide_2048": ((2048, 512, 64), (32, 32), True),
 }
 
 
@@ -294,7 +328,8 @@ WIDE_STACKS = {
 def test_stack_backward_layered_route_matches_plain(cuda, name, batch):
     dims, head_dims, want_dx = WIDE_STACKS[name]
     tol = 1e-5 if batch <= 1000 else 3e-4
-    assert _check_stack_backward(cuda, batch, dims, head_dims, want_dx, tol, batch) == "layers"
+    assert _check_stack_backward(cuda, batch, dims, head_dims, want_dx, tol, batch,
+                                 ties=name == "wide_2048") == "layers"
 
 
 def test_stack_backward_layered_ragged_split_edges(cuda):
@@ -328,8 +363,10 @@ def test_stack_backward_rejects_bad_head_gradients(cuda):
     assert _k3_counts() == before
 
 
-@pytest.mark.parametrize("batch", [64 * 264 * 2 + 5, 32 * 264 + 33])
+@pytest.mark.parametrize("batch", [64 * 264 * 2 + 5, 32 * 264 + 33, 128 * 132 * 12 + 7])
 def test_stack_backward_many_tiles_per_cta(cuda, batch):
+    """The fused body at 2 and 12 tiles of 128 rows a CTA (its 132 CTAs), and
+    the layer-wise route at a 200-wide input; the same bits on a second call."""
     dims, head_dims = ((12, 80, 40, 20), (10, 10)) if batch > 20000 else \
         ((200, 64, 16), (8, 8))
     gen = torch.Generator().manual_seed(batch)
@@ -338,6 +375,9 @@ def test_stack_backward_many_tiles_per_cta(cuda, batch):
     grads = [(torch.randn((batch, n), generator=gen) / batch).to(cuda) for n in head_dims]
     got = fused_vae.stack_backward(x, hidden, heads, grads, True)
     _close_grads(got, fused_vae.stack_backward_plain(x, hidden, heads, grads, True), 3e-4)
+    again = fused_vae.stack_backward(x, hidden, heads, grads, True)
+    assert all(torch.equal(a, b) for a, b in zip(got[0] + got[1] + [got[2]],
+                                                 again[0] + again[1] + [again[2]]))
 
 
 def test_fused_autograd_on_cuda_matches_cpu(cuda):

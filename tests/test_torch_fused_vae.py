@@ -52,9 +52,20 @@ def test_check_stack_accepts_kernel_shapes():
     cuda_build.check_stack(torch.zeros(3, 312), hidden, heads, "k")
 
 
+@pytest.mark.parametrize("dims", [(12,) + (64,) * 9,          # 9 hidden layers
+                                  (12,) + (64,) * 16,         # 16
+                                  (1025, 256, 64),            # wider than 1024
+                                  (32, 2048, 128)])
+def test_check_stack_accepts_any_depth_and_width(dims):
+    """No depth or width bound reaches a caller: K1-K3 cut a deep or wide
+    stack into what their kernels take (forward_plan, backward_plan)."""
+    hidden, heads = _stack(dims, (8, 8))
+    cuda_build.check_stack(torch.zeros(3, dims[0]), hidden, heads, "stack_forward")
+
+
 @pytest.mark.parametrize("case,error", [
     ("width", ValueError), ("head", ValueError), ("dtype", ValueError),
-    ("layout", ValueError), ("too_wide", ValueError), ("heads", ValueError),
+    ("layout", ValueError), ("heads", ValueError),
     ("grad", NotImplementedError),
 ])
 def test_check_stack_rejects(case, error):
@@ -68,9 +79,6 @@ def test_check_stack_rejects(case, error):
         x = x.double()
     elif case == "layout":
         x = torch.zeros(12, 3).t()
-    elif case == "too_wide":
-        hidden, heads = _stack((cuda_build.MAX_WIDTH + 1, 4), (2,))
-        x = torch.zeros(3, cuda_build.MAX_WIDTH + 1)
     elif case == "heads":
         heads = heads * (cuda_build.MAX_HEADS + 1)
     elif case == "grad":
@@ -100,6 +108,18 @@ F, R = fused_vae.FUSED_SEGMENT, fused_vae.ROW_SEGMENT
     ((32, 313), (5,), [(R, 0, 1), (R, 1, 2)]),
     ((12, 80), (100, 29), [(F, 0, 1), (R, 1, 2)]),           # heads wider than 128 together
     ((200,), (3,), [(R, 0, 1)]),
+    # deeper than one fused launch takes (FUSED_MAX_HIDDEN = 8 hidden layers):
+    # pieces of 8 hidden layers and the layer after them
+    ((12,) + (64,) * 8, (10, 10), [(F, 0, 9)]),                          # 8: one launch
+    ((12,) + (64,) * 9, (10, 10), [(F, 0, 9), (F, 9, 10)]),              # 9
+    ((12,) + (64,) * 12, (10, 10), [(F, 0, 9), (F, 9, 13)]),             # 12
+    ((12,) + (64,) * 16, (10, 10), [(F, 0, 9), (F, 9, 17)]),             # 16
+    ((12,) + (64,) * 17, (10,), [(F, 0, 9), (F, 9, 18)]),
+    ((12,) + (64,) * 18, (10,), [(F, 0, 9), (F, 9, 18), (F, 18, 19)]),
+    ((300,) + (128,) * 9, (32, 32), [(R, 0, 1), (F, 1, 10)]),            # mixed, 9
+    ((300,) + (128,) * 12, (32, 32), [(R, 0, 1), (F, 1, 10), (F, 10, 13)]),  # mixed, 12
+    ((32,) + (64,) * 10 + (256,) * 2 + (64,) * 4, (300,),                # mixed, 16
+     [(F, 0, 9), (F, 9, 10), (R, 10, 11), (R, 11, 12), (R, 12, 13), (F, 13, 16), (R, 16, 17)]),
 ])
 @pytest.mark.parametrize("batch", [1, 10_000, 1_000_003])
 def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
@@ -115,6 +135,8 @@ def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
         span = widths[seg.first:seg.last + 1]
         if seg.kind == F:
             assert max(span) <= fused_vae.FUSED_MAX_WIDTH
+            # at most FUSED_MAX_HIDDEN hidden layers and their head a launch
+            assert seg.last - seg.first - 1 <= fused_vae.FUSED_MAX_HIDDEN
         else:
             assert seg.last == seg.first + 1 and max(span) > fused_vae.FUSED_MAX_WIDTH
             assert seg.tile == fused_vae._forward_tile(widths[seg.last])
@@ -169,15 +191,19 @@ def walk_plan(plan, x, layers, n_heads, final_relu):
     raise AssertionError("the plan never reached the heads")
 
 
-@pytest.mark.parametrize("role", ["encoder", "decoder"])
+@pytest.mark.parametrize("role", ["encoder", "decoder", "deep_narrow", "deep_mixed"])
 def test_plan_walk_matches_plain_and_jax(rng, role):
     """At a small constituents-shaped stack (the widths of 100 constituents,
-    37 rows) the plain walk of K2's plan equals the port's plain version and
-    the JAX kernel (Pallas interpret mode) to atol 1e-5."""
+    37 rows), and at stacks deeper than one fused launch takes (12 narrow
+    hidden layers; a 300-wide input and 9 more), the plain walk of K2's plan
+    equals the port's plain version and the JAX kernel (Pallas interpret
+    mode) to atol 1e-5."""
     from atlasvae.ops.fused_vae import _stack_fwd as jax_stack_fwd
 
     dims, head_dims = {"encoder": ((300, 256, 128, 64), (32, 32)),
-                       "decoder": ((32, 64, 128, 256), (300,))}[role]
+                       "decoder": ((32, 64, 128, 256), (300,)),
+                       "deep_narrow": ((12,) + (64,) * 12, (10, 10)),
+                       "deep_mixed": ((300,) + (128,) * 9, (32, 32))}[role]
     pairs = [((rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32),
               rng.normal(size=n).astype(np.float32))
              for k, n in list(zip(dims, dims[1:])) + [(dims[-1], n) for n in head_dims]]

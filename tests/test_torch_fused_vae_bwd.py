@@ -18,6 +18,7 @@ from atlasvae.models import VAEConfig as JaxVAEConfig, init_vae as jax_init_vae
 from atlasvae.ops import fused_vae as jax_fused_vae
 from atlasvae_torch.interop import params_from_jax
 from atlasvae_torch.ops import fused_vae
+from relu_ties import single_flip_allowance
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 B = 300
@@ -31,6 +32,8 @@ STACKS = {
     # constituents mode (100 constituents x (px, py, pz)): the layer-wise route
     "const_encoder": ((300, 256, 128, 64), (32, 32), False),
     "const_decoder": ((32, 64, 128, 256), (300,), True),
+    # deeper than the fused body takes (9 hidden layers): the layer-wise route
+    "deep_dx": ((12,) + (24,) * 9, (10,), True),
 }
 
 
@@ -148,12 +151,23 @@ def test_stack_backward_runs_plain_version_on_cpu():
     ((12, 80, 40, 20), (10, 10), "fused"),            # canonical encoder
     ((10, 20, 40, 80), (12,), "fused"),               # canonical decoder
     ((5,), (3,), "fused"),
-    ((128, 128, 128), (64, 64), "fused"),             # 128 wide and the tile fits
+    # 128 wide: three 129 x 128 weight blocks (207 KB) and the tile do not
+    # fit the fused body's CTA, which keeps every weight on chip
+    ((128, 128, 128), (64, 64), "layers"),
     ((130, 33, 9), (5, 6), "layers"),                 # a layer wider than 128
     ((12, 80), (129,), "layers"),                     # heads wider than 128 together
     ((128,) * 9, (16, 16), "layers"),                 # fits no CTA: "too wide" before
     ((300, 256, 128, 64), (32, 32), "layers"),        # constituents encoder
     ((32, 64, 128, 256), (300,), "layers"),           # constituents decoder
+    # deeper than FUSED_MAX_HIDDEN (8): the layer-wise route, narrow or mixed
+    ((12,) + (64,) * 9, (10, 10), "layers"),
+    ((12,) + (64,) * 12, (10, 10), "layers"),
+    ((12,) + (64,) * 16, (10,), "layers"),
+    ((300,) + (128,) * 9, (32, 32), "layers"),
+    ((32,) + (64,) * 10 + (256,) * 2 + (64,) * 4, (300,), "layers"),
+    ((2048, 512, 64), (32, 32), "layers"),            # wider than the old 1024 bound
+    ((12,) + (16,) * 8, (10, 10), "fused"),           # 8 hidden layers: the fused body's bound
+    ((12, 100), (60, 40), "fused"),                   # 750 blocks of 4 x 4: two a thread
 ])
 @pytest.mark.parametrize("batch", [1, 10_000, 1_000_003])
 def test_backward_route_follows_the_shape(dims, head_dims, route, batch):
@@ -163,8 +177,13 @@ def test_backward_route_follows_the_shape(dims, head_dims, route, batch):
         n_params = sum(k * n + n for k, n in zip(dims, dims[1:])) + \
             sum(dims[-1] * n + n for n in head_dims)
         if route == "fused":
-            assert plan.n_parts == min(-(-batch // fused_vae.FUSED_ROWS), fused_vae.FUSED_MAX_PARTS)
-            assert plan.partial_floats == plan.n_parts * n_params and plan.act_floats == 0
+            blocks = sum(-(-(k + 1) // 4) * -(-n // 4) for k, n in
+                         zip(dims, dims[1:] + (sum(head_dims),)))
+            assert plan.n_blocks == blocks
+            assert plan.n_parts == min(-(-batch // fused_vae.FUSED_MIN_ROWS),
+                                       fused_vae.FUSED_MAX_PARTS)
+            assert plan.partial_floats == plan.n_parts * 16 * blocks and plan.act_floats == 0
+            assert 16 * blocks >= n_params
             continue
         n_hidden = len(dims) - 1
         assert len(plan.row_tiles) == 2 * n_hidden + 1
@@ -177,6 +196,16 @@ def test_backward_route_follows_the_shape(dims, head_dims, route, batch):
             assert (splits - 1) * rows < batch <= splits * rows and rows % fused_vae.GEMM_CHUNK == 0
         assert plan.partial_floats == sum(s * (k * n + n)
                                           for (_, s, _), (k, n) in zip(plan.splits, layers))
+
+
+def test_backward_plan_refuses_past_the_grid_bound():
+    """The one size the layer-wise route cannot take: a weight gradient whose
+    CTA tiles exceed CUDA's grid y (65,535), a 65,536 x 16,384 layer; the
+    widest the data gives (255 constituents of 4 components, 1,020) is far
+    inside it."""
+    assert fused_vae.backward_plan(10_000, (16_384, 16_384), (8,), True).route == "layers"
+    with pytest.raises(ValueError, match="grid y"):
+        fused_vae.backward_plan(10_000, (65_536, 16_384), (8,), True)
 
 
 def test_backward_scratch_at_a_million_rows():
@@ -192,6 +221,172 @@ def test_backward_scratch_at_a_million_rows():
                            (4, 264, 3792))
     assert plan.partial_floats == 44 * 80_128 + 132 * 32_896 + 264 * 8_256 + 2 * 264 * 2_080
     assert plan.scratch_bytes == 4 * (448_001_344 + plan.partial_floats) == 1_836_588_288
-    # the canonical encoder keeps the fused body: 264 slices of its parameters
+    # the canonical encoder keeps the fused body: 132 slices of its 375 blocks
+    # of 4 x 4 (5,520 parameters)
     canonical = fused_vae.backward_plan(batch, (12, 80, 40, 20), (10, 10), False)
-    assert canonical.route == "fused" and canonical.scratch_bytes == 4 * 264 * 5_520
+    assert canonical.route == "fused" and canonical.n_blocks == 375
+    assert canonical.scratch_bytes == 4 * 132 * 16 * 375
+
+
+def _flipped_backward(x, hidden, heads, grads, row, layer, unit):
+    """stack_backward_plain in float64 with one hidden unit's ReLU mask
+    flipped in one row: what another float32 order of that tie's sum gives."""
+    d = lambda t: t.double()
+    acts, masks = [d(x)], []
+    for w, b in hidden:
+        z = acts[-1] @ d(w) + d(b)
+        masks.append((z > 0).double())
+        acts.append(torch.relu(z))
+    masks[layer][row, unit] = 1.0 - masks[layer][row, unit]
+    acts[layer + 1][row, unit] = 0.0 if masks[layer][row, unit] == 0 else \
+        (acts[layer][row] @ d(hidden[layer][0][:, unit]) + d(hidden[layer][1][unit]))
+    n = len(hidden)
+    dws, dbs = [None] * (n + len(heads)), [None] * (n + len(heads))
+    g = sum(d(gk) @ d(w).T for gk, (w, _) in zip(grads, heads))
+    for k, gk in enumerate(grads):
+        dws[n + k], dbs[n + k] = acts[-1].T @ d(gk), d(gk).sum(dim=0)
+    for i in range(n - 1, -1, -1):
+        g = g * masks[i]
+        dws[i], dbs[i] = acts[i].T @ g, g.sum(dim=0)
+        g = g @ d(hidden[i][0]).T
+    return dws, dbs, g
+
+
+def _as_torch(hidden, heads):
+    t = lambda pairs: [tuple(map(torch.from_numpy, p)) for p in pairs]
+    return t(hidden), t(heads)
+
+
+def _tie_at(x, hidden, row, layer, unit):
+    """Moves x[row, 0] so that the ReLU input of ``unit`` at hidden ``layer``
+    is 0 in float64 (bisection over [-8, 8]; False where it keeps its sign
+    there), then rounds it to float32: a tie to float32 rounding."""
+    d = lambda t: t.double()
+
+    def z(v):
+        a = d(x[row]).clone()
+        a[0] = v
+        for i in range(layer):
+            a = torch.relu(a @ d(hidden[i][0]) + d(hidden[i][1]))
+        return float(a @ d(hidden[layer][0][:, unit]) + d(hidden[layer][1][unit]))
+
+    lo, hi = -8.0, 8.0
+    if (z(lo) > 0) == (z(hi) > 0):
+        return False
+    lo_sign = z(lo) > 0
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if (z(mid) > 0) == lo_sign else (lo, mid)
+    x[row, 0] = (lo + hi) / 2
+    return True
+
+
+def test_single_flip_allowance_covers_a_flipped_tie(rng):
+    """A first-layer ReLU input made 0 to float32 rounding (row 2, unit 1):
+    the gradients with that unit's mask flipped stay within the allowance of
+    the plain version's, and the allowance is 0 wherever the flip cannot
+    reach (the other columns of dW_0 and db_0, the other rows of dW_1)."""
+    hidden, heads = _as_torch(*_stack(rng, (6, 5, 4), (3,)))
+    x = torch.from_numpy(rng.normal(size=(9, 6)).astype(np.float32))
+    grads = [torch.from_numpy(rng.normal(size=(9, 3)).astype(np.float32))]
+    b0 = hidden[0][1].clone()
+    b0[1] = -(x[2].double() @ hidden[0][0][:, 1].double()).float()
+    hidden[0] = (hidden[0][0], b0)
+    plain = fused_vae.stack_backward_plain(x, hidden, heads, grads, True)
+    flipped = _flipped_backward(x, hidden, heads, grads, 2, 0, 1)
+    dws, dbs, dx, n_ties = single_flip_allowance(x, hidden, heads, grads, True)
+    assert n_ties == 1
+    for got, want, allow in zip(flipped[0] + flipped[1] + [flipped[2]],
+                                plain[0] + plain[1] + [plain[2]], dws + dbs + [dx]):
+        assert bool(((got - want.double()).abs() <= allow + 1e-5 * float(want.abs().max())).all())
+    assert bool(dws[0][:, 1].gt(0).all()) and dbs[0][1] > 0
+    assert not dws[0][:, [0, 2, 3, 4]].any() and not dbs[0][[0, 2, 3, 4]].any()
+    assert not dws[1][[0, 2, 3, 4]].any() and not dx[[0, 1, 3, 4, 5, 6, 7, 8]].any()
+
+
+def test_single_flip_allowance_is_zero_without_ties(rng):
+    hidden, heads = _as_torch(*_stack(rng, (12, 80, 40, 20), (10, 10)))
+    x = torch.from_numpy(rng.normal(size=(50, 12)).astype(np.float32))
+    grads = [torch.from_numpy(rng.normal(size=(50, 10)).astype(np.float32)) for _ in range(2)]
+    dws, dbs, dx, n_ties = single_flip_allowance(x, hidden, heads, grads, False)
+    assert n_ties == 0 and dx is None and not any(a.any() for a in dws + dbs)
+
+
+def test_single_flip_allowance_is_the_largest_flip_not_the_sum(rng):
+    """Two ties of one unit, in rows 2 and 5: every element's allowance is
+    the larger of the two flips' moves (each against the float64 plain
+    version), not their sum."""
+    hidden, heads = _as_torch(*_stack(rng, (6, 5, 4), (3,)))
+    x = torch.from_numpy(rng.normal(size=(9, 6)).astype(np.float32))
+    grads = [torch.from_numpy(rng.normal(size=(9, 3)).astype(np.float32))]
+    assert _tie_at(x, hidden, 2, 0, 1) and _tie_at(x, hidden, 5, 0, 1)
+    d = lambda pairs: [(w.double(), b.double()) for w, b in pairs]
+    plain = fused_vae.stack_backward_plain(x.double(), d(hidden), d(heads),
+                                           [g.double() for g in grads], True)
+    moves = [_flipped_backward(x, hidden, heads, grads, row, 0, 1) for row in (2, 5)]
+    dws, dbs, dx, n_ties = single_flip_allowance(x, hidden, heads, grads, True)
+    assert n_ties == 2
+    for i, (want, allow) in enumerate(zip(plain[0] + plain[1] + [plain[2]], dws + dbs + [dx])):
+        one, two = (((m[0] + m[1] + [m[2]])[i] - want).abs() for m in moves)
+        torch.testing.assert_close(allow, torch.maximum(one, two), rtol=1e-9, atol=1e-15)
+        both = (one > 1e-12) & (two > 1e-12)
+        assert bool((allow[both] < (one + two)[both]).all())
+        if i == 0:
+            assert bool(both.any())   # dW_0's tied column: both flips reach it
+
+
+def test_single_flip_allowance_does_not_cover_dropped_rows(rng):
+    """40 ties at the top hidden layer of 2,000 rows (a top-layer flip moves
+    every lower dW densely): a dW_0 that lacks its last 3% of rows still
+    fails the card tests' check, its bar (3e-4 of the leaf's largest value)
+    plus the allowance."""
+    hidden, heads = _as_torch(*_stack(rng, (6, 8, 5), (3,)))
+    batch = 2000
+    x = torch.from_numpy(rng.normal(size=(batch, 6)).astype(np.float32))
+    grads = [torch.from_numpy((rng.normal(size=(batch, 3)) / batch).astype(np.float32))]
+    for unit in range(5):   # the first top-layer unit that crosses 0 in 40 rows
+        trial, tied = x.clone(), 0
+        for row in range(batch):
+            tied += _tie_at(trial, hidden, row, 1, unit)
+            if tied == 40:
+                break
+        if tied == 40:
+            break
+    x = trial
+    dws, _, _, n_ties = single_flip_allowance(x, hidden, heads, grads, False)
+    assert tied == 40 and n_ties >= 40
+    plain = fused_vae.stack_backward_plain(x, hidden, heads, grads, False)[0][0]
+    cut = [g.clone() for g in grads]
+    cut[0][batch - batch * 3 // 100:] = 0
+    faulty = fused_vae.stack_backward_plain(x, hidden, heads, cut, False)[0][0]
+    bar = 3e-4 * float(plain.abs().max())
+    assert bool(((faulty - plain).abs().double() > dws[0] + bar).any())
+
+
+def test_fused_layout_of_the_canonical_stacks():
+    """The fused body's layout (plan_fused_bwd), counted by hand: the
+    encoder's weights 16 x 84 + 84 x 44 + 44 x 20 + 20 x 20 floats, a tile
+    row 16 + 84 + 44 + 24 (activations and ones columns) + 20 (heads) + 20 +
+    40 + 80 (hidden gradients); the decoder with dx adds its 12-float stage."""
+    enc = (16 * 84 + 84 * 44 + 44 * 20 + 20 * 20 + 128 * (168 + 20 + 140)) * 4
+    assert fused_vae._fused_layout((12, 80, 40, 20), (10, 10), False) == (375, enc)
+    dec = (12 * 20 + 24 * 44 + 44 * 84 + 80 * 12
+           + 128 * (12 + 24 + 44 + 84 + 12 + 140 + 12)) * 4
+    assert fused_vae._fused_layout((10, 20, 40, 80), (12,), True) == (358, dec)
+
+
+@pytest.mark.parametrize("want_dx", [False, True])
+def test_fused_route_at_the_envelope_edge(want_dx):
+    """The widest 3-hidden-layer stack of equal widths that the fused body
+    takes stays on it, and one column more takes the layer-wise route: the
+    route follows the C plan's shared memory and block bounds exactly."""
+    def route(w):
+        return fused_vae.backward_plan(10_000, (12, w, w, w), (w // 2, w - w // 2), want_dx).route
+    widest = max(w for w in range(8, 129) if route(w) == "fused")
+    assert widest < 128 and route(widest + 1) == "layers"
+    dims, heads = (12, widest, widest, widest), (widest // 2, widest - widest // 2)
+    blocks, smem = fused_vae._fused_layout(dims, heads, want_dx)
+    assert blocks <= fused_vae.FUSED_MAX_BLOCKS and smem <= fused_vae.MAX_SMEM
+    w = widest + 1
+    blocks, smem = fused_vae._fused_layout((12, w, w, w), (w // 2, w - w // 2), want_dx)
+    assert blocks > fused_vae.FUSED_MAX_BLOCKS or smem > fused_vae.MAX_SMEM

@@ -217,11 +217,13 @@ def test_history_pickle_is_read_by_jax(tmp_path):
         assert pickle.load(f) == hist
 
 
-def test_adam_state_carries_across_from_jax(rng):
+def _carry_across_and_step(rng, jparams, latent):
+    """3 JAX steps, the parameters and Adam state carried across, then two
+    more steps on each side; returns (the port's state, JAX's parameters)."""
     n_batches, batch = 5, 128
     bkg, ood = _toy_load(n_batches * batch, seed=8)
     batches = jax_batch_load(bkg["HLVs"], ood["HLVs"], bkg["weights"], ood["weights"], batch)
-    noise = tuple(rng.standard_normal((n_batches, batch, LATENT)).astype(np.float32)
+    noise = tuple(rng.standard_normal((n_batches, batch, latent)).astype(np.float32)
                   for _ in range(2))
     opt = optax.adam(1.0)
     jax_step, _ = jax_make_step_fns(opt, "MAE", external_noise=True, **HYPER)
@@ -229,7 +231,7 @@ def test_adam_state_carries_across_from_jax(rng):
     key = jax.random.PRNGKey(0)
     first = lambda a: a[:3]
     rest = lambda a: a[3:]
-    jparams, opt_state, _ = jax_step(_jax_params(2), opt.init(_jax_params(2)), lr, key,
+    jparams, opt_state, _ = jax_step(jparams, opt.init(jparams), lr, key,
                                      *map(first, batches), *map(first, noise))
     # carry params and Adam state across, then two more steps on each side
     state = TrainState(params_from_jax(jax.tree.map(np.asarray, jparams), "cpu"),
@@ -239,11 +241,29 @@ def test_adam_state_carries_across_from_jax(rng):
     port_step, _ = make_vae_step_fns("MAE", **HYPER)
     port_step(state, lr, None, to_device(map(rest, batches), CPU),
               to_device(map(rest, noise), CPU))
+    return state, want
+
+
+def _assert_params_match(state, want):
     for got, w in zip(tree_flatten(state.params), jax.tree_util.tree_leaves(want)):
         w = np.asarray(w)
         np.testing.assert_allclose(got.detach().numpy(), w, rtol=1e-6,
                                    atol=1e-6 * np.abs(w).max())
+
+
+def test_adam_state_carries_across_from_jax(rng):
+    state, want = _carry_across_and_step(rng, _jax_params(2), LATENT)
+    _assert_params_match(state, want)
     assert params_to_numpy(state.detached())["encoder"]["mean"]["w"].shape == (16, LATENT)
+
+
+def test_deep_stack_train_steps_match_jax(rng):
+    """--FC_layers of 10 entries (9 hidden layers a side, deeper than one
+    fused launch takes on the card): the same steps as above, the same bar."""
+    deep = JaxVAEConfig(fc_layers=(80, 80, 60, 60, 40, 40, 30, 20, 20, 10), input_dim=12)
+    state, want = _carry_across_and_step(rng, jax_init_vae(jax.random.PRNGKey(2), deep), 10)
+    assert len(state.params["encoder"]["hidden"]) == len(state.params["decoder"]["hidden"]) == 9
+    _assert_params_match(state, want)
 
 
 def test_train_state_leaves_are_views_of_one_tensor():

@@ -27,6 +27,7 @@ from atlasvae_torch.train.checkpoint import (load_pytree, save_pytree, tree_flat
                                              tree_unflatten)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+DEEP_FC_LAYERS = (80, 80, 60, 60, 40, 40, 30, 20, 20, 10)
 
 
 def _pair(fc_layers, input_dim, seed=0):
@@ -35,7 +36,10 @@ def _pair(fc_layers, input_dim, seed=0):
 
 
 @pytest.mark.parametrize("fc_layers,input_dim", [((80, 40, 20, 10), 12),
-                                                 ((256, 128, 64, 32), 312)])
+                                                 ((256, 128, 64, 32), 312),
+                                                 # --FC_layers of 10 entries: 9 hidden
+                                                 # layers each side
+                                                 (DEEP_FC_LAYERS, 12)])
 def test_vae_apply_matches_jax_with_same_noise(rng, fc_layers, input_dim):
     jparams, params = _pair(fc_layers, input_dim)
     x = rng.normal(size=(200, input_dim)).astype(np.float32)
