@@ -10,9 +10,9 @@
 // 2*(10*20 + 20*40 + 40*80 + 80*12) = 10,320 FLOP per row against 88 bytes
 // of HBM traffic (40 in, 48 out), about 117 FLOP/byte: above the f32
 // CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte), so it is bound by
-// f32 FMAs, not bandwidth.  The design keeps every intermediate activation in
-// shared memory (no HBM round trip between layers) and gives each thread an
-// 8x4 register tile, so that each pair of shared-memory loads feeds 32 FMAs.
+// operations, not bandwidth.  The fused body (dense_stack.cuh) keeps every
+// intermediate activation of a warp's 16 rows in registers (no HBM round trip
+// between layers) and runs the products on the tensor cores in 3xTF32.
 // The constituents-mode decoder 32->64/128/256->312 (246 kFLOP a row) takes
 // the layer-wise route (stack_layers.cuh), as K2's encoder does.
 #include "stack_layers.cuh"

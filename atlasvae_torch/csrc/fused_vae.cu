@@ -11,9 +11,10 @@
 // Bound on an H100: the canonical encoder 12->80->40->20, heads 2x(20->10),
 // does 2*(12*80 + 80*40 + 40*20 + 2*20*10) = 10,720 FLOP per row against
 // 128 bytes of HBM traffic (48 in, 80 out), about 84 FLOP/byte: above the
-// f32 CUDA-core ridge (20 FLOP/byte), so it is bound by f32 FMAs.  The
-// design keeps the activations in shared memory and feeds 32 FMAs from each
-// three shared-memory vector loads (dense_stack.cuh).  The constituents-mode
+// f32 CUDA-core ridge (20 FLOP/byte), so it is bound by operations.  The
+// fused body (dense_stack.cuh) keeps a warp's rows in registers through every
+// layer and runs the products on the tensor cores in 3xTF32, the weights on
+// chip once a persistent CTA.  The constituents-mode
 // encoder 312->256/128/64 + 2x32 does 250 kFLOP a row, 3.7 ms of f32 work
 // at 1,000,003 rows; it takes the layer-wise route (stack_layers.cuh), whose
 // wide layers run on the tensor cores in 3xTF32.

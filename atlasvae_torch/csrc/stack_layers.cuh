@@ -2,21 +2,23 @@
 // takes well, run as the segments ops/fused_vae.py::forward_plan cuts it
 // into, every launch of one forward from one host call.
 //
-// Why: at constituents-mode width (312 -> 256 -> 128 -> 64 + 2 x 32) the
-// fused body (dense_stack.cuh) drops to 32-row tiles to fit two 312-wide
-// activation buffers, and restages every layer's weights through shared
-// memory for each of them: 500 KB of weights per 32 rows, with scalar loads
-// that overlap no FMA.  It ran at about 8 TFLOP/s on an H100, 4-4.5x slower
+// Why: at constituents-mode width (312 -> 256 -> 128 -> 64 + 2 x 32) the first
+// fused body dropped to 32-row tiles to fit two 312-wide activation buffers,
+// and restaged every layer's weights through shared memory for each of
+// them: 500 KB of weights per 32 rows, with scalar loads that overlapped no
+// FMA.  It ran at about 8 TFLOP/s on an H100, 4-4.5x slower
 // than cuBLAS.  Here a wide layer (input or output wider than 128) is one
 // row product over the whole batch (gemm_tf32.cuh), whose tile reads each
 // weight chunk once per 128 rows, and whose output goes through device
 // memory to the next segment: one round trip of the activation, as K3's
 // layer-wise route accepts.  A run of narrow layers stays one launch of the
-// fused body, activations on chip, at its 128-row tile.
+// fused body, activations on chip.
 //
 // A stack of any depth: a run of narrow layers is cut into fused segments of
 // at most kMaxHidden hidden layers each (the fused body's StackArgs holds no
-// more), which pass activations through buf0/buf1 as row segments do.
+// more) and no more layers than fit one CTA of the fused body (every layer
+// up to 128 x 128 does alone), which pass activations through buf0/buf1 as
+// row segments do.
 //
 // segments: n_segments x kSegmentInts ints (kind, first layer, last layer
 // exclusive, column tile, output buffer), the stack's layers counted with

@@ -9,6 +9,7 @@ the package (``ATLASVAE_TORCH_BUILD_DIR`` overrides it).  Nothing here runs
 when the package is imported.
 """
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -100,6 +101,14 @@ def check_stack(x, hidden, heads, what):
 def check(err, what):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def on_device(x):
+    """A context in which x's card is the current one: a no-op where it is
+    already (the common case, and the cheaper one on the host)."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
 
 
 def pointer_array(tensors):

@@ -18,7 +18,7 @@ import functools
 import torch
 
 from . import cuda_build
-from .fused_vae import forward_plan, layered_args
+from .fused_vae import forward_plan, layered_args, shape_array
 
 # Kernel launches made by fused_mlp_apply: its fused body, and its layer-wise
 # route (reset and read by chip_smoke.py).
@@ -75,14 +75,15 @@ def fused_mlp_apply(layers, x, activation="relu", final_activation="linear"):
     widths = (x.shape[1],) + tuple(w.shape[1] for w, _ in pairs)
     plan = forward_plan(x.shape[0], widths[:-1], widths[-1:])
     out = torch.empty((x.shape[0], widths[-1]), device=x.device, dtype=torch.float32)
-    dims = cuda_build.int_array(widths)
-    ws = cuda_build.pointer_array([w for w, _ in pairs])
-    bs = cuda_build.pointer_array([b for _, b in pairs])
-    fused, layered = _entries()
-    common = (x.data_ptr(), x.shape[0], len(pairs), ctypes.addressof(dims),
-              ctypes.addressof(ws), ctypes.addressof(bs), out.data_ptr(),
+    dims = shape_array(widths)
+    # one C array: the weights, then the biases
+    ptrs = cuda_build.pointer_array([w for w, _ in pairs] + [b for _, b in pairs])
+    at = ctypes.addressof(ptrs)
+    common = (x.data_ptr(), x.shape[0], len(pairs), ctypes.addressof(dims), at,
+              at + ctypes.sizeof(ctypes.c_void_p) * len(pairs), out.data_ptr(),
               int(final_activation == "relu"))
-    with torch.cuda.device(x.device):
+    fused, layered = _entries()
+    with cuda_build.on_device(x):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.route == "fused":
             err = fused(*common, stream)

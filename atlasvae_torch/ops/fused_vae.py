@@ -47,20 +47,50 @@ def stack_forward_plain(x, hidden, heads):
     return tuple(h @ w + b for w, b in heads)
 
 
-# K1 and K2's routes.  A stack whose widths are all at most FUSED_MAX_WIDTH
-# and whose hidden layers are at most FUSED_MAX_HIDDEN runs as one launch of
-# the fused body (csrc/dense_stack.cuh), every activation of a row tile in
-# shared memory.  Any other stack is cut into segments (forward_plan),
-# launched in order by one C call (csrc/stack_layers.cuh): a run of narrow
-# layers stays on the fused body, one launch for each FUSED_MAX_HIDDEN hidden
-# layers and the layer after them, and each wide layer is one row product
+# K1 and K2's routes.  A stack whose widths are all at most FUSED_MAX_WIDTH,
+# of at most FUSED_MAX_HIDDEN hidden layers, whose weights fit one CTA of the
+# fused body (forward_smem) runs as one launch of it (csrc/dense_stack.cuh),
+# every activation of a warp's rows in registers.  Any other stack is cut into
+# segments (forward_plan), launched in order by one C call
+# (csrc/stack_layers.cuh): a run of narrow layers stays on the fused body, one
+# launch for as many layers as fit a CTA (at most FUSED_MAX_HIDDEN hidden
+# layers and the layer after them), and each wide layer is one row product
 # over the whole batch.  The shape alone decides.
 FUSED_SEGMENT, ROW_SEGMENT = 0, 1
 FUSED_MAX_WIDTH = 128
 FUSED_MAX_HIDDEN = 8            # kMaxHidden: the hidden layers one fused launch takes
+# The fused body's CTA (csrc/dense_stack.cuh): 8 warps, or 4 where 8 warps'
+# buffers do not fit, each warp FUSED_BLOCK_ROWS rows (an m16 tile) at a time.
+FUSED_WARPS = (8, 4)            # kStackWarps, then half
+FUSED_BLOCK_ROWS = 16           # kBlockRows
 # A row segment's column tiles (csrc/gemm_tf32.cuh, 128 rows each): 8 warps
 # of 32 columns and cols / 32 m16 tiles each.
 FORWARD_TILE_COLS = (128, 64, 32)
+
+
+@functools.cache
+def forward_smem(dims, head_dims):
+    """The bytes of shared memory a CTA of the fused body takes for a stack
+    of input/hidden widths ``dims`` and head widths ``head_dims``, or None
+    where it does not take it: each layer's B fragments (per k8 step and n8
+    tile 128 floats: hi and lo of two weights a lane) and bias (8 floats an
+    n8 tile), then each warp's x buffer (16 rows of dims[0]) and stage (16
+    rows of the heads), which the staged copies of every leaf's W (each
+    rounded to 4 floats) overlay at the CTA's start; 8 warps, else 4.  The
+    mirror of plan_dense_stack."""
+    total = sum(head_dims)
+    widths = tuple(dims) + (total,)
+    if min(widths) < 1 or max(widths) > FUSED_MAX_WIDTH or len(dims) - 1 > FUSED_MAX_HIDDEN:
+        return None
+    floats = sum(128 * _ceil(k, 8) * _ceil(n, 8) + 8 * _ceil(n, 8)
+                 for k, n in zip(widths, widths[1:]))
+    raw = sum(_round4(k * n) for k, n in zip(dims, dims[1:])) + \
+        sum(_round4(dims[-1] * n) for n in head_dims)
+    for warps in FUSED_WARPS:
+        smem = 4 * (floats + max(warps * FUSED_BLOCK_ROWS * (dims[0] + total), raw))
+        if smem <= MAX_SMEM:
+            return smem
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,12 +157,19 @@ def forward_plan(batch, dims, head_dims):
         if l == len(dims) or not (narrow[l] and narrow[l - 1]):
             spans.append((first, l))
             first = l
-    # a narrow run deeper than one fused launch takes: pieces of at most
+    # a narrow run is cut into pieces that one fused launch takes: as many
+    # layers as fit (forward_smem; any one layer does), at most
     # FUSED_MAX_HIDDEN hidden layers and their head
     pieces = []
     for first, last in spans:
-        step = FUSED_MAX_HIDDEN + 1 if narrow[first] else last - first
-        pieces += [(a, min(a + step, last)) for a in range(first, last, step)]
+        a = first
+        while a < last:
+            b = a + 1
+            while narrow[a] and b < last and forward_smem(
+                    widths[a:b + 1], tuple(head_dims) if b + 1 == len(dims) else (widths[b + 1],)):
+                b += 1
+            pieces.append((a, b))
+            a = b
     segments, bufs = [], [0, 0]
     for i, (first, last) in enumerate(pieces):
         final = i == len(pieces) - 1
@@ -172,6 +209,12 @@ def layered_args(plan, x):
             base + 4 * plan.buf_floats[0] if plan.buf_floats[1] else None), (scratch, segs)
 
 
+@functools.cache
+def shape_array(widths):
+    """The C array of a stack's widths, built once a shape."""
+    return cuda_build.int_array(widths)
+
+
 def stack_forward(x, hidden, heads):
     """Hidden ReLU stack + linear heads on a CUDA tensor: one kernel, or the
     segments of ``forward_plan``; the plain version on a CPU tensor."""
@@ -181,22 +224,22 @@ def stack_forward(x, hidden, heads):
     if x.device.type != "cuda":
         raise ValueError(f"stack_forward: unsupported device {x.device}")
     cuda_build.check_stack(x, hidden, heads, "stack_forward")
+    batch = x.shape[0]
     dims = (x.shape[1],) + tuple(w.shape[1] for w, _ in hidden)
     head_widths = tuple(w.shape[1] for w, _ in heads)
-    plan = forward_plan(x.shape[0], dims, head_widths)
-    outs = [torch.empty((x.shape[0], n), device=x.device, dtype=torch.float32)
-            for n in head_widths]
-    c_dims, head_dims = cuda_build.int_array(dims), cuda_build.int_array(head_widths)
-    ws = cuda_build.pointer_array([w for w, _ in hidden])
-    bs = cuda_build.pointer_array([b for _, b in hidden])
-    hws = cuda_build.pointer_array([w for w, _ in heads])
-    hbs = cuda_build.pointer_array([b for _, b in heads])
-    out_ptrs = cuda_build.pointer_array(outs)
+    plan = forward_plan(batch, dims, head_widths)
+    outs = [torch.empty((batch, n), device=x.device, dtype=torch.float32) for n in head_widths]
+    c_dims, c_heads = shape_array(dims), shape_array(head_widths)
+    # one C array: the hidden weights, their biases, the head weights, their biases, the outputs
+    n_h, n_k = len(hidden), len(heads)
+    ptrs = cuda_build.pointer_array([w for w, _ in hidden] + [b for _, b in hidden]
+                                    + [w for w, _ in heads] + [b for _, b in heads] + outs)
+    at, size = ctypes.addressof(ptrs), ctypes.sizeof(ctypes.c_void_p)
+    common = (x.data_ptr(), batch, n_h, ctypes.addressof(c_dims), at, at + size * n_h, n_k,
+              ctypes.addressof(c_heads), at + size * 2 * n_h, at + size * (2 * n_h + n_k),
+              at + size * (2 * n_h + 2 * n_k))
     fused, layers = _forward_entries()
-    common = (x.data_ptr(), x.shape[0], len(hidden), ctypes.addressof(c_dims),
-              ctypes.addressof(ws), ctypes.addressof(bs), len(heads), ctypes.addressof(head_dims),
-              ctypes.addressof(hws), ctypes.addressof(hbs), ctypes.addressof(out_ptrs))
-    with torch.cuda.device(x.device):
+    with cuda_build.on_device(x):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.route == "fused":
             err = fused(*common, stream)

@@ -78,8 +78,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                largest move of one flip of a ReLU input that is 0 to float32
                rounding, tests/relu_ties.py; the count of such inputs, of
                elements beyond the bar and the allowance's largest ratio to
-               the bar are printed); K3's fused body also timed on the
-               device alone (device_ms);
+               the bar are printed); the fused bodies of K1, K2 and K3
+               also timed on the device alone (device_ms);
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
                also against float64, with the card's bits asked again at
@@ -292,9 +292,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the
-# tensor cores, bf16 products on the tensor cores (f32 accumulation) and HBM3
-# bandwidth.  Bounds are stated against these.
+# tensor cores, TF32 and bf16 products on the tensor cores (f32
+# accumulation) and HBM3 bandwidth.  Bounds are stated against these.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
@@ -655,13 +656,19 @@ def stack_pairs(params, role):
 
 def bound(batch, d0, hidden, heads):
     """Least time (ms) for one call and what bounds it: each input read
-    once, each output written once, 2*K*N + N FLOP per row and layer."""
+    once, each output written once, 2*K*N + N FLOP per row and layer.  Both
+    routes of K1/K2 take every product in 3xTF32 on the tensor cores (three
+    TF32 products for each f32 one): the 2*K*N at a third of the TF32 peak,
+    the bias's N at the f32 one."""
     layers = list(hidden) + list(heads)
     n_params = sum(w.numel() + b.numel() for w, b in layers)
     out_cols = sum(w.shape[1] for w, _ in heads)
     nbytes = 4 * (batch * d0 + n_params + batch * out_cols)
-    flops = batch * sum(2 * w.shape[0] * w.shape[1] + w.shape[1] for w, _ in layers)
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    products = batch * sum(2 * w.shape[0] * w.shape[1] for w, _ in layers)
+    other = batch * sum(w.shape[1] for w, _ in layers)
+    flops = products + other
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = (3 * products / PEAK_TF32_FLOPS + other / PEAK_F32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops, nbytes
 
 
@@ -826,6 +833,8 @@ def parity(name, params, role, x):
                library_ms=time_ms(library, iters), bound_ms=b_ms, bound_by=b_by,
                flops=flops, bytes=nbytes)
     res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    if route == "fused":   # the fused body on the device alone: one launch a call
+        res["device_ms"] = time_ms(kernel, iters, queued=True)
     if route == "layers" and x.shape[0] == BIG_B:
         res["launch_ms"] = kernel_device_ms(kernel)
     if not ok:
@@ -1201,6 +1210,7 @@ def phase_parity(device):
                 log("parity", kernel=name, shape=json.dumps(res["shape"]), batch=batch,
                     widths=res["widths"], same_bits=res["same_bits"],
                     max_abs_err=f"{res['max_abs_err']:.3g}", ms=f"{res['ms']:.4f}",
+                    **({"device_ms": f"{res['device_ms']:.4f}"} if "device_ms" in res else {}),
                     plain_ms=f"{res['plain_ms']:.4f}", library_ms=f"{res['library_ms']:.4f}",
                     bound_ms=f"{res['bound_ms']:.4f}", bound_by=res["bound_by"],
                     tflops=f"{res['tflops']:.2f}",
@@ -1912,7 +1922,7 @@ def phase_train(device, workdir):
 
 
 K3_LAYER_KERNELS = ("rows_gemm_kernel", "split_gemm_kernel", "reduce_splits")
-FORWARD_KERNELS = ("dense_stack_kernel", "rows_tf32_kernel")   # K1/K2, both routes
+FORWARD_KERNELS = ("fused_stack_kernel", "rows_tf32_kernel")   # K1/K2, both routes
 
 
 def phase_const_train(device, workdir):
@@ -3862,7 +3872,7 @@ def phase_scaleout(device, workdir, smi):
     (trace_file,) = os.listdir(os.path.join(workdir, "trace"))
     with open(os.path.join(workdir, "trace", trace_file)) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
-    named = {k: sum(k in n for n in names) for k in ("dense_stack_kernel", "stack_bwd_kernel",
+    named = {k: sum(k in n for n in names) for k in ("fused_stack_kernel", "stack_bwd_kernel",
                                                     "train step")}
     if not all(named.values()):
         raise AssertionError(f"scaleout: the trace misses a kernel or span: {named}")
@@ -3929,6 +3939,7 @@ def main():
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             max_abs_err=max(r["max_abs_err"] for r in parity_results[name]),
             ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+            **({"device_ms": main_shape["device_ms"]} if "device_ms" in main_shape else {}),
             bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
             library_ms=main_shape["library_ms"],
             phases=["parity"] + [p for p, n in by_phase.items() if n > 0],

@@ -24,10 +24,24 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--calls", type=int, default=20)
-    args = ap.parse_args()
+def precision_state():
+    """Every process-wide setting that may move a float32 product on the CPU
+    (the fp32_precision knobs where this torch has them)."""
+    import torch
+    state = {"threads": torch.get_num_threads(), "mkldnn": torch.backends.mkldnn.enabled,
+             "float32_matmul_precision": torch.get_float32_matmul_precision(),
+             "deterministic": torch.are_deterministic_algorithms_enabled()}
+    for name, obj in (("fp32_precision", torch.backends),
+                      ("mkldnn.fp32_precision", torch.backends.mkldnn),
+                      ("mkldnn.matmul.fp32_precision", getattr(torch.backends.mkldnn, "matmul", None)),
+                      ("cuda.matmul.fp32_precision", torch.backends.cuda.matmul)):
+        if obj is not None and hasattr(obj, "fp32_precision"):
+            state[name] = str(obj.fp32_precision)
+    return state
+
+
+def measure(calls):
+    """The test's CPU side ``calls`` times under each setting, as a report."""
     import torch
     from atlasvae_torch.models import VAEConfig, init_vae, vae_apply
     from atlasvae_torch.train.checkpoint import tree_map
@@ -39,17 +53,17 @@ def main():
     f64 = vae_apply(tree_map(lambda t: t.double(), params), x.double(), noise=noise.double())
     default_threads = torch.get_num_threads()
     report = {"torch": torch.__version__, "cpu_capability": torch.backends.cpu.get_cpu_capability(),
-              "default_threads": default_threads, "settings": []}
+              "default_threads": default_threads, "state": precision_state(), "settings": []}
     for threads in (default_threads, 1, 8):
         for mkldnn in (True, False):
             torch.set_num_threads(threads)
             torch.backends.mkldnn.enabled = mkldnn
             digests, gaps = [], []
-            for _ in range(args.calls):
+            for _ in range(calls):
                 out = vae_apply(params, x, noise=noise)
                 digests.append(hashlib.sha1(b"".join(t.numpy().tobytes() for t in out)).hexdigest())
                 gaps.append(max(float((o.double() - r).abs().max()) for o, r in zip(out, f64)))
-            row = dict(threads=threads, mkldnn=mkldnn, calls=args.calls,
+            row = dict(threads=threads, mkldnn=mkldnn, calls=calls,
                        same_as_first=sum(d == digests[0] for d in digests),
                        distinct=len(set(digests)), gap_to_f64_max=max(gaps),
                        gap_to_f64_min=min(gaps))
@@ -57,7 +71,14 @@ def main():
             print("[cpu_bits] " + json.dumps(row), flush=True)
     torch.set_num_threads(default_threads)
     torch.backends.mkldnn.enabled = True
-    print(json.dumps(report))
+    return report
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--calls", type=int, default=20)
+    args = ap.parse_args()
+    print(json.dumps(measure(args.calls)))
     return 0
 
 

@@ -6,8 +6,9 @@ without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
-Tolerance: atol 1e-5, rtol 1e-5 -- the kernel sums each dot product in
-order with FMAs, cuBLAS in its own blocked order; both in full float32.
+Tolerance: atol 1e-5, rtol 1e-5 -- K1/K2 take each product in 3xTF32 on
+the tensor cores (good to about 2^-22 of itself) and sum in a fixed order,
+cuBLAS in its own blocked order in full float32.
 The backward kernel's dW/db sum over every row of the batch: atol 1e-5
 times the leaf's largest value up to 1,000 rows, and 3e-4 times it (the
 bar of tests/test_fused_vae.py) over tens of thousands of rows.  Only at
@@ -85,41 +86,59 @@ def _counted(route, before):
     return before[0] + (route == "fused"), before[1] + (route == "layers")
 
 
-@pytest.mark.parametrize("batch", [1, 7, 129, 1000])
-@pytest.mark.parametrize("dims,head_dims", [
-    ((12, 80, 40, 20), (10, 10)),      # canonical encoder
-    ((5,), (3,)),                      # heads only
-    ((3, 1, 7), (2, 2, 2, 2)),         # four heads, width 1
-    ((130, 33, 9), (5, 6)),            # width > 128: the layer-wise route
-    ((312, 256, 128, 64), (32, 32)),   # constituents-mode encoder
-    ((10, 20, 40, 80), (12,)),         # canonical decoder (training forward)
+# batches that end mid-warp (16 rows) and mid-CTA (64), and at 65,539 and
+# 300,007 rows many 16-row blocks for each warp of the persistent grid
+FORWARD_BATCHES = [1, 7, 129, 1000, 10_007, 65_539, 300_007]
+
+
+@pytest.mark.parametrize("batch", FORWARD_BATCHES)
+# each stack with the route forward_plan must give it: the fused body where
+# every width is at most 128 and the stack's weights fit one CTA, else the
+# layer-wise route (a wide layer, or fused segments that each fit)
+@pytest.mark.parametrize("dims,head_dims,route", [
+    ((12, 80, 40, 20), (10, 10), "fused"),      # canonical encoder
+    ((5,), (3,), "fused"),                      # heads only
+    ((3, 1, 7), (2, 2, 2, 2), "fused"),         # four heads, width 1
+    ((130, 33, 9), (5, 6), "layers"),           # width > 128
+    ((312, 256, 128, 64), (32, 32), "layers"),  # constituents-mode encoder
+    ((10, 20, 40, 80), (12,), "fused"),         # canonical decoder (training forward)
+    ((128, 64), (32, 32), "fused"),             # the constituents encoder's fused tail
+    ((1, 13, 33, 127), (128,), "layers"),       # widths 1, 13 (4-byte copies), 33, 127;
+                                                # the 127 x 128 heads a segment apart
+    ((13, 128, 33), (1, 5, 13, 7), "fused"),    # four odd heads, 128 wide
+    ((128,) * 9, (32, 32), "layers"),           # 8 hidden layers of 128: a segment each
 ])
-def test_stack_forward_matches_plain(cuda, batch, dims, head_dims):
+def test_stack_forward_matches_plain(cuda, batch, dims, head_dims, route):
     gen = torch.Generator().manual_seed(batch * 1000 + len(dims))
     hidden, heads = _stack(gen, dims, head_dims, cuda)
     x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
-    route = fused_vae.forward_plan(batch, tuple(dims), tuple(head_dims)).route
-    assert route == ("layers" if max(dims) > 128 else "fused")
+    assert fused_vae.forward_plan(batch, tuple(dims), tuple(head_dims)).route == route
     before = _k2_counts()
     got = fused_vae.stack_forward(x, hidden, heads)
     assert _k2_counts() == _counted(route, before)
     _close(got, fused_vae.stack_forward_plain(x, hidden, heads))
+    again = fused_vae.stack_forward(x, hidden, heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("batch", [1, 127, 128, 1001])
-@pytest.mark.parametrize("dims", [(10, 20, 40, 80, 12), (7, 3), (32, 256, 313, 5)])
+@pytest.mark.parametrize("batch", [1, 127, 128, 1001, 10_007, 65_539, 300_007])
+@pytest.mark.parametrize("dims,route", [((10, 20, 40, 80, 12), "fused"), ((7, 3), "fused"),
+                                        ((32, 256, 313, 5), "layers"),
+                                        ((1, 13, 33, 127, 128), "layers"),   # odd widths, 128 out
+                                        ((32, 64, 128), "fused"),   # the constituents decoder's head
+                                        ((128,) * 10, "layers")])   # 8 hidden layers of 128
 @pytest.mark.parametrize("final", ["linear", "relu"])
-def test_fused_mlp_matches_plain(cuda, batch, dims, final):
+def test_fused_mlp_matches_plain(cuda, batch, dims, route, final):
     gen = torch.Generator().manual_seed(batch * 100 + len(dims))
     hidden, heads = _stack(gen, dims[:-1], dims[-1:], cuda)
     layers = [{"w": w, "b": b} for w, b in hidden + heads]
     x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
-    route = fused_vae.forward_plan(batch, dims[:-1], dims[-1:]).route
-    assert route == ("layers" if max(dims) > 128 else "fused")
+    assert fused_vae.forward_plan(batch, dims[:-1], dims[-1:]).route == route
     before = _k1_counts()
     got = fused_mlp.fused_mlp_apply(layers, x, final_activation=final)
     assert _k1_counts() == _counted(route, before)
     _close([got], [fused_mlp.fused_mlp_plain(layers, x, final_activation=final)])
+    assert torch.equal(got, fused_mlp.fused_mlp_apply(layers, x, final_activation=final))
 
 
 # K1/K2's layer-wise route: the constituents-mode stacks (300 wide in

@@ -89,7 +89,8 @@ def test_check_stack_rejects(case, error):
 
 # K1/K2's route: forward_plan cuts a stack into fused segments (runs of
 # layers no wider than 128, the heads counted as one layer of their summed
-# width) and row segments (one wider layer each)
+# width, as many as fit one CTA of the fused body) and row segments (one
+# wider layer each)
 F, R = fused_vae.FUSED_SEGMENT, fused_vae.ROW_SEGMENT
 
 
@@ -97,7 +98,11 @@ F, R = fused_vae.FUSED_SEGMENT, fused_vae.ROW_SEGMENT
     ((12, 80, 40, 20), (10, 10), [(F, 0, 4)]),               # canonical encoder
     ((10, 20, 40, 80), (12,), [(F, 0, 4)]),                  # canonical decoder
     ((5,), (3,), [(F, 0, 1)]),                               # heads only
-    ((128, 128, 128), (64, 64), [(F, 0, 3)]),                # 128 wide: still fused
+    # 128 wide: each 128 x 128 layer's fragments take 128 KB of a CTA's 227
+    ((128, 128, 128), (64, 64), [(F, 0, 1), (F, 1, 2), (F, 2, 3)]),
+    ((128, 64), (32, 32), [(F, 0, 2)]),                      # the constituents encoder's tail
+    ((32, 64), (128,), [(F, 0, 2)]),                         # the constituents decoder's head
+    ((1, 13, 33, 127), (128,), [(F, 0, 3), (F, 3, 4)]),      # odd widths; 128 x 128 heads apart
     ((300, 256, 128, 64), (32, 32), [(R, 0, 1), (R, 1, 2), (F, 2, 4)]),   # constituents encoder
     ((312, 256, 128, 64), (32, 32), [(R, 0, 1), (R, 1, 2), (F, 2, 4)]),
     ((32, 64, 128, 256), (300,), [(F, 0, 2), (R, 2, 3), (R, 3, 4)]),      # constituents decoder
@@ -108,18 +113,26 @@ F, R = fused_vae.FUSED_SEGMENT, fused_vae.ROW_SEGMENT
     ((32, 313), (5,), [(R, 0, 1), (R, 1, 2)]),
     ((12, 80), (100, 29), [(F, 0, 1), (R, 1, 2)]),           # heads wider than 128 together
     ((200,), (3,), [(R, 0, 1)]),
-    # deeper than one fused launch takes (FUSED_MAX_HIDDEN = 8 hidden layers):
-    # pieces of 8 hidden layers and the layer after them
-    ((12,) + (64,) * 8, (10, 10), [(F, 0, 9)]),                          # 8: one launch
-    ((12,) + (64,) * 9, (10, 10), [(F, 0, 9), (F, 9, 10)]),              # 9
-    ((12,) + (64,) * 12, (10, 10), [(F, 0, 9), (F, 9, 13)]),             # 12
-    ((12,) + (64,) * 16, (10, 10), [(F, 0, 9), (F, 9, 17)]),             # 16
-    ((12,) + (64,) * 17, (10,), [(F, 0, 9), (F, 9, 18)]),
-    ((12,) + (64,) * 18, (10,), [(F, 0, 9), (F, 9, 18), (F, 18, 19)]),
-    ((300,) + (128,) * 9, (32, 32), [(R, 0, 1), (F, 1, 10)]),            # mixed, 9
-    ((300,) + (128,) * 12, (32, 32), [(R, 0, 1), (F, 1, 10), (F, 10, 13)]),  # mixed, 12
+    # deeper than one fused launch takes: at most FUSED_MAX_HIDDEN = 8 hidden
+    # layers and the layer after them, and no more than fit a CTA (four 64 x 64
+    # layers, the 12 x 64 one and a 64-wide head: 209,152 bytes)
+    ((12,) + (32,) * 8, (10, 10), [(F, 0, 9)]),                          # 8: one launch
+    ((12,) + (32,) * 9, (10, 10), [(F, 0, 9), (F, 9, 10)]),              # 9
+    ((12,) + (64,) * 8, (10, 10), [(F, 0, 5), (F, 5, 9)]),
+    ((12,) + (64,) * 9, (10, 10), [(F, 0, 5), (F, 5, 10)]),
+    ((12,) + (64,) * 12, (10, 10), [(F, 0, 5), (F, 5, 9), (F, 9, 13)]),  # 12
+    ((12,) + (64,) * 16, (10, 10),                                      # 16
+     [(F, 0, 5), (F, 5, 9), (F, 9, 13), (F, 13, 17)]),
+    ((12,) + (64,) * 17, (10,), [(F, 0, 5), (F, 5, 9), (F, 9, 13), (F, 13, 18)]),
+    ((12,) + (64,) * 18, (10,),
+     [(F, 0, 5), (F, 5, 9), (F, 9, 13), (F, 13, 17), (F, 17, 19)]),
+    ((300,) + (128,) * 9, (32, 32),                                      # mixed, 9
+     [(R, 0, 1)] + [(F, l, l + 1) for l in range(1, 10)]),
+    ((300,) + (128,) * 12, (32, 32),                                     # mixed, 12
+     [(R, 0, 1)] + [(F, l, l + 1) for l in range(1, 13)]),
     ((32,) + (64,) * 10 + (256,) * 2 + (64,) * 4, (300,),                # mixed, 16
-     [(F, 0, 9), (F, 9, 10), (R, 10, 11), (R, 11, 12), (R, 12, 13), (F, 13, 16), (R, 16, 17)]),
+     [(F, 0, 5), (F, 5, 9), (F, 9, 10), (R, 10, 11), (R, 11, 12), (R, 12, 13), (F, 13, 16),
+      (R, 16, 17)]),
 ])
 @pytest.mark.parametrize("batch", [1, 10_000, 1_000_003])
 def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
@@ -135,8 +148,16 @@ def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
         span = widths[seg.first:seg.last + 1]
         if seg.kind == F:
             assert max(span) <= fused_vae.FUSED_MAX_WIDTH
-            # at most FUSED_MAX_HIDDEN hidden layers and their head a launch
+            # at most FUSED_MAX_HIDDEN hidden layers and their head a launch,
+            # as many as fit a CTA: one layer more would not, where the run
+            # of narrow layers goes on
             assert seg.last - seg.first - 1 <= fused_vae.FUSED_MAX_HIDDEN
+            heads = tuple(head_dims) if seg.last == len(dims) else (widths[seg.last],)
+            assert fused_vae.forward_smem(span[:-1], heads) is not None
+            more = widths[seg.first:seg.last + 2]
+            if seg.last < len(dims) and max(more) <= fused_vae.FUSED_MAX_WIDTH:
+                heads = tuple(head_dims) if seg.last + 1 == len(dims) else (more[-1],)
+                assert fused_vae.forward_smem(more[:-1], heads) is None
         else:
             assert seg.last == seg.first + 1 and max(span) > fused_vae.FUSED_MAX_WIDTH
             assert seg.tile == fused_vae._forward_tile(widths[seg.last])
@@ -148,6 +169,50 @@ def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
             need[seg.out] = max(need[seg.out], batch * widths[seg.last])
     assert all(f >= n and f % 4 == 0 and f - n < 4 for f, n in zip(plan.buf_floats, need))
     assert plan.scratch_bytes == 4 * sum(plan.buf_floats)
+
+
+@pytest.mark.parametrize("dims,head_dims,smem", [
+    # the canonical encoder: B fragments (2x10 + 10x5 + 5x3 + 3x3 tiles of
+    # 128 floats) 12,032 floats and bias 168, then eight warps' x (16 x 12)
+    # and stage (16 x 20), 4,096 floats, over which every layer's W (5,360
+    # floats) is staged at the start: 17,560 floats
+    ((12, 80, 40, 20), (10, 10), 70_240),
+    ((10, 20, 40, 80), (12,), 67_872),                   # the canonical decoder
+    ((128, 64), (32, 32), 197_120),                      # the constituents encoder's tail
+    ((32, 64), (128,), 164_608),                         # its decoder's head
+    ((128,), (128,), 197_120),                           # the widest layer: 4 warps' buffers
+    ((5,), (3,), 4_640),
+    ((3, 1, 7), (2, 2, 2, 2), 7_264),                    # leaves of 3, 7 and 8 floats
+    ((12,) + (20,) * 8, (20,), 57_184),                  # 8 hidden layers
+    ((12,) + (64,) * 4, (64,), 209_152),                 # the most 64 x 64 layers that fit
+    ((12,) + (64,) * 5, (64,), None),                    # 258,560 bytes: too much
+    ((128, 128), (64, 64), None),                        # two 128 x 128 layers' fragments
+    ((12,) + (20,) * 9, (20,), None),                    # 9 hidden layers
+    ((129, 64), (8,), None),                             # wider than 128
+    ((12, 80), (100, 29), None),
+])
+def test_forward_smem_mirrors_the_plan(dims, head_dims, smem):
+    """forward_smem mirrors csrc/dense_stack.cuh::plan_dense_stack: a CTA's
+    shared memory, or None where the fused body does not take the stack."""
+    assert fused_vae.forward_smem(dims, head_dims) == smem
+
+
+def _canonical_grid(batch, sms=132):
+    """The fused body's persistent grid for the canonical encoder on an H100
+    (launch_dense_stack): CTAs of eight warps, a 16-row block each, as many
+    as the rows need, at most ctas_per_sm on each SM: the smaller of what
+    an SM's 233,472 bytes hold (1 KB reserved a CTA) and what the T = 10
+    instance's registers allow (stack_ctas: 2)."""
+    ctas_per_sm = min(233_472 // (fused_vae.forward_smem((12, 80, 40, 20), (10, 10)) + 1024), 2)
+    return min(-(-(-(-batch // 16)) // 8), ctas_per_sm * sms)
+
+
+@pytest.mark.parametrize("batch,grid", [(1, 1), (32, 1), (128, 1), (129, 2), (10_000, 79),
+                                        (33_792, 264), (65_536, 264), (1_000_003, 264)])
+def test_fused_grid_is_persistent(batch, grid):
+    """The canonical encoder's grid: a CTA of eight warps a 16-row block each
+    (10,000 rows: 625 blocks, 79 CTAs), at most two CTAs on each of 132 SMs."""
+    assert _canonical_grid(batch) == grid
 
 
 @pytest.mark.parametrize("n,cols", [(312, 64), (300, 64), (256, 128), (128, 128), (201, 128),
