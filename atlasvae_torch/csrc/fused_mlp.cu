@@ -59,11 +59,11 @@ extern "C" int atlasvae_fused_mlp_forward_layers(const void* x, long long batch,
                                                  const void* const* biases, void* out,
                                                  int final_relu, int n_segments,
                                                  const int* segments, void* buf0, void* buf1,
-                                                 void* stream) {
+                                                 void* wsplit, void* stream) {
   if (n_layers < 1) return (int)cudaErrorInvalidValue;
   float* const outs[1] = {static_cast<float*>(out)};
   return (int)atlasvae::forward_layers(
       make_view(x, batch, n_layers, dims, weights, biases, outs, final_relu), n_segments,
       segments, static_cast<float*>(buf0), static_cast<float*>(buf1),
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(wsplit), static_cast<cudaStream_t>(stream));
 }

@@ -62,10 +62,11 @@ extern "C" int atlasvae_stack_forward_layers(
     const void* x, long long batch, int n_hidden, const int* dims, const void* const* weights,
     const void* const* biases, int n_heads, const int* head_dims,
     const void* const* head_weights, const void* const* head_biases, void* const* outs,
-    int n_segments, const int* segments, void* buf0, void* buf1, void* stream) {
+    int n_segments, const int* segments, void* buf0, void* buf1, void* wsplit,
+    void* stream) {
   return (int)atlasvae::forward_layers(
       make_view(x, batch, n_hidden, dims, weights, biases, n_heads, head_dims, head_weights,
                 head_biases, outs),
       n_segments, segments, static_cast<float*>(buf0), static_cast<float*>(buf1),
-      static_cast<cudaStream_t>(stream));
+      static_cast<float*>(wsplit), static_cast<cudaStream_t>(stream));
 }

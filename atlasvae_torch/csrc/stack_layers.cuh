@@ -8,11 +8,13 @@
 // them: 500 KB of weights per 32 rows, with scalar loads that overlapped no
 // FMA.  It ran at about 8 TFLOP/s on an H100, 4-4.5x slower
 // than cuBLAS.  Here a wide layer (input or output wider than 128) is one
-// row product over the whole batch (gemm_tf32.cuh), whose tile reads each
-// weight chunk once per 128 rows, and whose output goes through device
-// memory to the next segment: one round trip of the activation, as K3's
-// layer-wise route accepts.  A run of narrow layers stays one launch of the
-// fused body, activations on chip.
+// row product over the whole batch on wgmma (gemm_wgmma.cuh), whose tile
+// reads each weight chunk once per 128 rows, and whose output goes through
+// device memory to the next segment: one round trip of the activation, as
+// K3's layer-wise route accepts.  The row products' weights are first split
+// into TF32 hi/lo words and transposed, every wide layer of the call in one
+// pre-pass launch, into the scratch `wsplit`.  A run of narrow layers stays
+// one launch of the fused body, activations on chip.
 //
 // A stack of any depth: a run of narrow layers is cut into fused segments of
 // at most kMaxHidden hidden layers each (the fused body's StackArgs holds no
@@ -23,18 +25,19 @@
 // segments: n_segments x kSegmentInts ints (kind, first layer, last layer
 // exclusive, column tile, output buffer), the stack's layers counted with
 // the heads as layer n_hidden; buf0/buf1: scratch of the sizes the plan
-// gives.  Returns the first CUDA error.
+// gives; wsplit: the row segments' split weights, wg::split_floats each, in
+// order.  Returns the first CUDA error.
 #pragma once
 
 #include "dense_stack.cuh"
-#include "gemm_tf32.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace atlasvae {
 
 constexpr int kSegmentInts = 5;
 constexpr int kFusedSegment = 0;
 constexpr int kRowSegment = 1;
-constexpr int kTileCols[3] = {128, 64, 32};  // a row segment's column tile: FORWARD_TILE_COLS
+constexpr int kTileCols[2] = {128, 64};  // a row segment's column tile: FORWARD_TILE_COLS
 
 // A whole stack as the caller's arrays hold it, any depth (host side only:
 // each launch copies what it needs into its own bounded arguments).
@@ -102,8 +105,31 @@ inline cudaError_t forward_fused(const StackView& v, cudaStream_t st) {
   return launch_dense_stack(f, st);
 }
 
+// Layer `first` of v (a hidden layer, or the heads' columns together) as
+// the W side of a pre-pass entry.
+inline wg::PrepLayer prep_layer(const StackView& v, int first, int bn, float* dst) {
+  wg::PrepLayer p = {};
+  p.k = v.dims[first];
+  if (first == v.n_hidden) {
+    p.nseg = v.n_heads;
+    for (int h = 0; h < v.n_heads; ++h) {
+      p.nbeg[h + 1] = p.nbeg[h] + v.head_dims[h];
+      p.w[h] = v.hw[h];
+    }
+  } else {
+    p.nseg = 1;
+    p.nbeg[1] = v.dims[first + 1];
+    p.w[0] = v.w[first];
+  }
+  p.bn = bn;
+  p.k_chunks = (p.k + wg::kBK - 1) / wg::kBK;
+  p.n_pad = (p.nbeg[p.nseg] + bn - 1) / bn * bn;
+  p.dst = dst;
+  return p;
+}
+
 inline cudaError_t forward_layers(const StackView& v, int n_segments, const int* segments,
-                                  float* buf0, float* buf1, cudaStream_t st) {
+                                  float* buf0, float* buf1, float* wsplit, cudaStream_t st) {
   const int n_layers = v.n_hidden + 1;
   if (v.n_hidden < 0 || v.n_heads < 1 || v.n_heads > kMaxHeads) return cudaErrorInvalidValue;
   if (n_segments < 1 || n_segments > n_layers) return cudaErrorInvalidValue;
@@ -115,13 +141,33 @@ inline cudaError_t forward_layers(const StackView& v, int n_segments, const int*
     const bool last_segment = s == n_segments - 1;
     if (g[1] != expect || g[2] <= g[1] || g[2] > n_layers ||
         (g[0] == kFusedSegment && g[2] - g[1] - 1 > kMaxHidden) || (g[0] != kFusedSegment &&
-        (g[0] != kRowSegment || g[2] != g[1] + 1 || g[3] < 0 || g[3] >= 3)) ||
+        (g[0] != kRowSegment || g[2] != g[1] + 1 || g[3] < 0 || g[3] >= 2)) ||
         (last_segment ? g[4] != -1 : (g[4] < 0 || g[4] > 1 || buf[g[4]] == nullptr)))
       return cudaErrorInvalidValue;
     expect = g[2];
   }
   if (expect != n_layers) return cudaErrorInvalidValue;
   if (v.batch <= 0) return cudaSuccess;
+
+  // the pre-pass: every row segment's W^T split, in segment order, kMaxPrep a launch
+  wg::PrepArgs prep = {};
+  float* dst = wsplit;
+  for (int s = 0; s < n_segments; ++s) {
+    const int* g = segments + kSegmentInts * s;
+    if (g[0] != kRowSegment) continue;
+    if (wsplit == nullptr) return cudaErrorInvalidValue;
+    const wg::PrepLayer& l = prep.l[prep.n_layers++] = prep_layer(v, g[1], kTileCols[g[3]], dst);
+    dst += wg::split_floats(l.k, l.nbeg[l.nseg], l.bn);
+    if (prep.n_layers == wg::kMaxPrep) {
+      const cudaError_t err = wg::launch_split(prep, st);
+      if (err != cudaSuccess) return err;
+      prep.n_layers = 0;
+    }
+  }
+  if (prep.n_layers > 0) {
+    const cudaError_t err = wg::launch_split(prep, st);
+    if (err != cudaSuccess) return err;
+  }
 
   const float* in = v.x;
   for (int s = 0; s < n_segments; ++s) {
@@ -136,7 +182,7 @@ inline cudaError_t forward_layers(const StackView& v, int n_segments, const int*
       err = launch_dense_stack(f, st);
     } else {
       // one layer: a hidden layer (bias + ReLU) or the heads' columns together
-      tf32::RowsArgs r = {};
+      wg::RowsArgs r = {};
       r.a = in;
       r.rows = v.batch;
       r.k = v.dims[first];
@@ -144,7 +190,6 @@ inline cudaError_t forward_layers(const StackView& v, int n_segments, const int*
         r.nseg = v.n_heads;
         for (int h = 0; h < v.n_heads; ++h) {
           r.nbeg[h + 1] = r.nbeg[h] + v.head_dims[h];
-          r.w[h] = v.hw[h];
           r.bias[h] = v.hb[h];
           r.out[h] = v.out[h];
         }
@@ -152,13 +197,14 @@ inline cudaError_t forward_layers(const StackView& v, int n_segments, const int*
       } else {
         r.nseg = 1;
         r.nbeg[1] = v.dims[first + 1];
-        r.w[0] = v.w[first];
         r.bias[0] = v.b[first];
         r.out[0] = out;
         r.relu = 1;
       }
       r.n = r.nbeg[r.nseg];
-      err = tf32::launch_rows(kTileCols[g[3]], r, st);
+      r.wsplit = wsplit;
+      wsplit += wg::split_floats(r.k, r.n, kTileCols[g[3]]);
+      err = wg::launch_rows(kTileCols[g[3]], r, st);
     }
     if (err != cudaSuccess) return err;
     in = out;

@@ -53,7 +53,7 @@ def _entries():
     fused.restype = ctypes.c_int
     layers = lib.atlasvae_fused_mlp_forward_layers
     layers.argtypes = fused.argtypes[:-1] + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                             ctypes.c_void_p, ctypes.c_void_p]
+                                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     layers.restype = ctypes.c_int
     return fused, layers
 

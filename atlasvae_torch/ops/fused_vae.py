@@ -63,9 +63,23 @@ FUSED_MAX_HIDDEN = 8            # kMaxHidden: the hidden layers one fused launch
 # buffers do not fit, each warp FUSED_BLOCK_ROWS rows (an m16 tile) at a time.
 FUSED_WARPS = (8, 4)            # kStackWarps, then half
 FUSED_BLOCK_ROWS = 16           # kBlockRows
-# A row segment's column tiles (csrc/gemm_tf32.cuh, 128 rows each): 8 warps
-# of 32 columns and cols / 32 m16 tiles each.
-FORWARD_TILE_COLS = (128, 64, 32)
+# A row segment's tile (csrc/gemm_wgmma.cuh): ROW_TILE_ROWS rows (two
+# warpgroups of 64) x FORWARD_TILE_COLS[tile] columns, k in stages of
+# ROW_STAGE_K, walked by one persistent CTA on each of the card's SMs.
+# _forward_tile picks the column tile from the shape by a cost in clocks of
+# an SM: whole rounds of tiles over CARD_SMS CTAs, each tile ROW_TILE_CLOCKS
+# (its epilogue, the round's tail) plus a stage's 12 wgmma m64nNk8 of two
+# warpgroups (N / 2 clocks each at TF32's rate: 12 N a stage) and
+# ROW_STAGE_CLOCKS beside them.  The constants are a model; on an H100 the
+# other tile took 5-27% longer at 7 of the 8 layer-wise shapes
+# probes/stack_forward.py times at 10,000 and 65,536 rows, and 2% less at
+# emd_slice's decoder (PERF.md, Findings).
+FORWARD_TILE_COLS = (128, 64)
+ROW_TILE_ROWS = 128
+ROW_STAGE_K = 32
+CARD_SMS = 132                  # an H100 SXM's SMs
+ROW_TILE_CLOCKS = 3000
+ROW_STAGE_CLOCKS = 200
 
 
 @functools.cache
@@ -118,11 +132,14 @@ class Segment:
 
 @dataclasses.dataclass(frozen=True)
 class ForwardPlan:
-    """How K1/K2 run one stack at one batch size: its segments in order, and
-    the floats of the two scratch buffers the segments pass activations in
-    (each a multiple of 4, so that the second starts 16-byte aligned)."""
+    """How K1/K2 run one stack at one batch size: its segments in order, the
+    floats of the two scratch buffers the segments pass activations in (each
+    a multiple of 4, so that the next starts 16-byte aligned), and those of
+    the row segments' split weights (split_floats each, in segment order),
+    which follow them in one allocation."""
     segments: tuple
     buf_floats: tuple = (0, 0)
+    wsplit_floats: int = 0
 
     @property
     def route(self):
@@ -131,19 +148,29 @@ class ForwardPlan:
 
     @property
     def scratch_bytes(self):
-        return 4 * sum(self.buf_floats)
+        return 4 * (sum(self.buf_floats) + self.wsplit_floats)
 
 
-def _forward_tile(n):
-    """The column tile of a row product with n output columns: the least
-    padded width times 1 + the fragment elements a warp loads and splits per
-    mma (per k-step 8 of the weights and 4 per m16 tile, for 12 mma per m16
-    tile: 1/2, 2/3 and 1 at 128, 64 and 32 columns); on a tie the wider."""
+def _forward_tile(batch, k, n):
+    """The column tile (its FORWARD_TILE_COLS index) of a row product of
+    ``batch`` rows, ``k`` deep, ``n`` columns: the least cost in clocks of an
+    SM, whole rounds of tiles times a tile's (see ROW_TILE_CLOCKS); on a tie
+    the wider."""
+    stages = _ceil(k, ROW_STAGE_K)
+
     def cost(t):
         cols = FORWARD_TILE_COLS[t]
-        mt = cols // 32
-        return _ceil(n, cols) * cols * (1 + (8 + 4 * mt) / (12 * mt)), t
+        ctas = _ceil(batch, ROW_TILE_ROWS) * _ceil(n, cols)
+        return _ceil(ctas, CARD_SMS) * (ROW_TILE_CLOCKS + stages * (12 * cols + ROW_STAGE_CLOCKS)), t
     return min(range(len(FORWARD_TILE_COLS)), key=cost)
+
+
+def split_floats(k, n, tile):
+    """Floats of a row product's split weights (csrc/gemm_wgmma.cuh,
+    split_weights_kernel): W^T's hi and lo TF32 words, n rounded up to whole
+    column tiles and k to whole stages."""
+    cols = FORWARD_TILE_COLS[tile]
+    return 2 * _ceil(n, cols) * cols * _ceil(k, ROW_STAGE_K) * ROW_STAGE_K
 
 
 @functools.cache
@@ -170,7 +197,7 @@ def forward_plan(batch, dims, head_dims):
                 b += 1
             pieces.append((a, b))
             a = b
-    segments, bufs = [], [0, 0]
+    segments, bufs, wsplit = [], [0, 0], 0
     for i, (first, last) in enumerate(pieces):
         final = i == len(pieces) - 1
         out = -1 if final else i % 2
@@ -179,8 +206,10 @@ def forward_plan(batch, dims, head_dims):
         if narrow[first]:
             segments.append(Segment(FUSED_SEGMENT, first, last, out=out))
         else:
-            segments.append(Segment(ROW_SEGMENT, first, last, _forward_tile(widths[last]), out))
-    return ForwardPlan(tuple(segments), tuple(bufs))
+            tile = _forward_tile(batch, widths[first], widths[last])
+            segments.append(Segment(ROW_SEGMENT, first, last, tile, out))
+            wsplit += split_floats(widths[first], widths[last], tile)
+    return ForwardPlan(tuple(segments), tuple(bufs), wsplit)
 
 
 @functools.cache
@@ -193,20 +222,23 @@ def _forward_entries():
     fused.restype = ctypes.c_int
     layers = lib.atlasvae_stack_forward_layers
     layers.argtypes = fused.argtypes[:-1] + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                             ctypes.c_void_p, ctypes.c_void_p]
+                                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     layers.restype = ctypes.c_int
     return fused, layers
 
 
 def layered_args(plan, x):
-    """The arguments (n_segments, segment ints, buffer 0, buffer 1) that a
-    layered plan adds to its C call, and what must stay alive until the call
-    returns: the scratch tensor holding both buffers and the ints."""
-    scratch = torch.empty(sum(plan.buf_floats), device=x.device, dtype=torch.float32)
+    """The arguments (n_segments, segment ints, buffer 0, buffer 1, split
+    weights) that a layered plan adds to its C call, and what must stay alive
+    until the call returns: the scratch tensor holding all three and the
+    ints."""
+    b0, b1 = plan.buf_floats
+    scratch = torch.empty(b0 + b1 + plan.wsplit_floats, device=x.device, dtype=torch.float32)
     base = scratch.data_ptr()
     segs = cuda_build.int_array([v for seg in plan.segments for v in seg.ints()])
-    return (len(plan.segments), ctypes.addressof(segs), base if plan.buf_floats[0] else None,
-            base + 4 * plan.buf_floats[0] if plan.buf_floats[1] else None), (scratch, segs)
+    return (len(plan.segments), ctypes.addressof(segs), base if b0 else None,
+            base + 4 * b0 if b1 else None,
+            base + 4 * (b0 + b1) if plan.wsplit_floats else None), (scratch, segs)
 
 
 @functools.cache

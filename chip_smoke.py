@@ -356,15 +356,17 @@ KERNELS = {
     "fused_mlp": dict(source="atlasvae_torch/csrc/fused_mlp.cu",
                       replaces="atlasvae/ops/fused_mlp.py:42",
                       main_shape="slice decoder"),
-    # K1's layer-wise route: the stacks wider than 128
-    "fused_mlp_layers": dict(source="atlasvae_torch/csrc/stack_layers.cuh",
+    # K1's layer-wise route: the stacks wider than 128, each wide layer one
+    # launch of rows_wgmma_kernel (wgmma, 3xTF32) after one split_weights_kernel
+    # a call, the narrow runs on the fused body (csrc/stack_layers.cuh)
+    "fused_mlp_layers": dict(source="atlasvae_torch/csrc/gemm_wgmma.cuh",
                              replaces="atlasvae/ops/fused_mlp.py:42",
                              main_shape="emd_slice decoder"),
     "stack_forward": dict(source="atlasvae_torch/csrc/fused_vae.cu",
                           replaces="atlasvae/ops/fused_vae.py:71",
                           main_shape="slice encoder"),
-    # K2's layer-wise route: the stacks wider than 128
-    "stack_forward_layers": dict(source="atlasvae_torch/csrc/stack_layers.cuh",
+    # K2's layer-wise route: the same kernels as K1's
+    "stack_forward_layers": dict(source="atlasvae_torch/csrc/gemm_wgmma.cuh",
                                  replaces="atlasvae/ops/fused_vae.py:71",
                                  main_shape="const_train encoder"),
     "stack_backward": dict(source="atlasvae_torch/csrc/fused_vae_bwd.cu",
@@ -1922,7 +1924,8 @@ def phase_train(device, workdir):
 
 
 K3_LAYER_KERNELS = ("rows_gemm_kernel", "split_gemm_kernel", "reduce_splits")
-FORWARD_KERNELS = ("fused_stack_kernel", "rows_tf32_kernel")   # K1/K2, both routes
+# K1/K2, both routes: the fused body, the row product and its weights' pre-pass
+FORWARD_KERNELS = ("fused_stack_kernel", "rows_wgmma_kernel", "split_weights_kernel")
 
 
 def phase_const_train(device, workdir):

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Probe K1/K2's fused body (csrc/dense_stack.cuh) on one NVIDIA GPU.
+"""Probe K1/K2 on one NVIDIA GPU: the fused body (csrc/dense_stack.cuh)
+and the layer-wise route's row product (csrc/gemm_wgmma.cuh).
 
     python3 probes/stack_forward.py [--build NAME=DIR ...] [--rounds 3]
+                                    [--match REGEX]
                                     [--out build/probe_stack_forward.json]
 
 Builds this tree's K1 and K2 libraries (fused_mlp, fused_vae) and, all
@@ -19,14 +21,20 @@ then in reverse (the median of the rounds), each tree's wrapper call (host
 work included) and the same call on the device alone
 (``time_ms(queued=True)``: the calls wait behind a sleeping kernel until
 all are enqueued), beside the plain version and one PyTorch call of the
-same function (an addmm/relu chain).  Prints one JSON object as its last
-line.
+same function (an addmm/relu chain).  On the layer-wise route it also
+records each launch's device ms of one call (the pre-pass, the row
+products, the fused segments), and for every tree the largest gap to the
+plain version, its largest ratio to the bar, and whether it gives this
+tree's bits.  ``--match`` keeps the
+shapes whose label the regular expression finds.  Prints one JSON object
+as its last line.
 """
 
 import argparse
 import importlib
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,7 +74,17 @@ SHAPES = [("slice encoder", 65_536, "K2", ENCODER, (10, 10)),
           ("deep_10_const decoder 10,000", 10_000, "K1", (32,) + (128,) * 9 + (300,), "linear"),
           ("32 encoder", 32, "K2", ENCODER, (10, 10)),
           ("8,448 encoder", 132 * 64, "K2", ENCODER, (10, 10)),
-          ("16,896 encoder", 132 * 128, "K2", ENCODER, (10, 10))]
+          ("16,896 encoder", 132 * 128, "K2", ENCODER, (10, 10)),
+          ("const_train encoder", 10_000, "K2", (300, 256, 128, 64), (32, 32)),
+          ("emd_slice encoder", 65_536, "K2", (300, 256, 128, 64), (32, 32)),
+          ("emd_slice decoder", 65_536, "K1", (32, 64, 128, 256, 300), "linear"),
+          ("emd_slice255 encoder", 65_536, "K2", (765, 256, 128, 64), (32, 32)),
+          ("emd_slice255 decoder", 65_536, "K1", (32, 64, 128, 256, 765), "linear"),
+          ("const_1200 encoder", 10_000, "K2", (1200, 256, 128, 64), (32, 32)),
+          ("const_1200 decoder", 10_000, "K1", (32, 64, 128, 256, 1200), "linear"),
+          ("wide_2048 encoder", 10_000, "K2", (2048, 512, 64), (32, 32)),
+          ("1,000,003 x 312 encoder", 1_000_003, "K2", (312, 256, 128, 64), (32, 32)),
+          ("1,000,003 x 312 decoder", 1_000_003, "K1", (32, 64, 128, 256, 312), "linear")]
 
 
 def load_tree(name, root):
@@ -118,19 +136,23 @@ def library_of(kernel, x, hidden, heads, final):
 
 
 def gap(got, want):
-    """(largest |got - want|, every element within atol + rtol |want|)."""
-    err, ok = 0.0, True
+    """(largest |got - want|, its largest ratio to atol + rtol |want|, every
+    element within that bar)."""
+    err, ratio, ok = 0.0, 0.0, True
     for g, w in zip(got, want):
         diff = (g - w).abs()
+        bar = chip_smoke.ATOL + chip_smoke.RTOL * w.abs()
         err = max(err, float(diff.max()))
-        ok &= bool((diff <= chip_smoke.ATOL + chip_smoke.RTOL * w.abs()).all())
-    return err, ok
+        ratio = max(ratio, float((diff / bar).max()))
+        ok &= bool((diff <= bar).all())
+    return err, ratio, ok
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--build", action="append", default=[], metavar="NAME=DIR")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--match", default="")
     ap.add_argument("--out", default=str(ROOT / "build" / "probe_stack_forward.json"))
     args = ap.parse_args()
     import torch
@@ -163,6 +185,8 @@ def main():
 
     gen = torch.Generator(device).manual_seed(1234)
     for label, batch, kernel, widths, heads in SHAPES:
+        if not re.search(args.match, label):
+            continue
         x, hidden, head_pairs = stack(gen, kernel, widths, heads, batch, device)
         final = heads if kernel == "K1" else "linear"
         plain = (fused_vae.stack_forward_plain(x, hidden, head_pairs) if kernel == "K2" else
@@ -180,16 +204,22 @@ def main():
             got = fn()
             again = fn() if t == "this" else got
             torch.cuda.synchronize()
-            err, ok = gap(got, plain)
-            row[f"{t}_max_abs_err"], row[f"{t}_within_bar"] = err, ok
+            err, ratio, ok = gap(got, plain)
+            row[f"{t}_max_abs_err"], row[f"{t}_over_bar"], row[f"{t}_within_bar"] = err, ratio, ok
             if t == "this":
                 row["same_bits"] = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+                mine = got
+            else:
+                row[f"{t}_same_bits_as_this"] = all(bool(torch.equal(a, b))
+                                                    for a, b in zip(got, mine))
             del got, again
             calls[f"{t} wrapper"] = calls[f"{t} device"] = fn
+        if plan.route == "layers":
+            row["launch_ms"] = chip_smoke.kernel_device_ms(calls["this wrapper"])
         report["parity"].append(row)
         print("[parity] " + json.dumps(row), flush=True)
         if not (row["this_within_bar"] and row["same_bits"]):
-            raise AssertionError(f"the fused body disagrees with its plain version: {row}")
+            raise AssertionError(f"K1/K2 disagree with their plain version: {row}")
         calls["plain"] = (lambda: fused_vae.stack_forward_plain(x, hidden, head_pairs)) \
             if kernel == "K2" else (lambda: fused_mlp.fused_mlp_plain(
                 [{"w": w, "b": b} for w, b in hidden + head_pairs], x, final_activation=final))
@@ -203,7 +233,7 @@ def main():
         report["ms"][label] = {k: statistics.median(v) for k, v in rounds.items()}
         report["ms"][label]["bound_ms"] = b_ms
         print(f"[ms] {label} " + json.dumps(report["ms"][label]), flush=True)
-        del x, hidden, head_pairs, plain, calls
+        del x, hidden, head_pairs, plain, calls, mine
         torch.cuda.empty_cache()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(report, indent=1))

@@ -199,6 +199,72 @@ def test_fused_mlp_layered_route_matches_plain(cuda, name, final, batch):
     assert torch.equal(got, fused_mlp.fused_mlp_apply(layers, x, final_activation=final))
 
 
+# The row product's edges (csrc/gemm_wgmma.cuh): a head of width 1, k = 1
+# (the 4-byte copy route: a pitch that is no multiple of 16 bytes), 765 and
+# 1,020 wide on each operand (input, hidden, head; 765 copies by 4 bytes,
+# 1,020 by TMA), W^T padded along k (33 and 301 deep, stages of 32), at
+# batches around the two 64-row warpgroups of a 128-row tile
+ROW_EDGES = {
+    "head_width_1": ((200,), (1,)),
+    "k_1": ((1,), (200,)),
+    "k_1_hidden": ((1, 200), (5,)),
+    "input_765": ((765, 64), (8,)),
+    "hidden_765": ((32, 765, 64), (8,)),
+    "head_765": ((32, 64), (765,)),
+    "input_1020": ((1020, 64), (8,)),
+    "hidden_1020": ((32, 1020, 64), (8,)),
+    "head_1020": ((32, 64), (1020,)),
+    "k_padded": ((33, 129), (3, 4)),
+    "k_padded_301": ((301, 200), (7,)),
+}
+ROW_EDGE_BATCHES = [1, 63, 64, 65, 127, 128, 129, 10_007]
+
+
+@pytest.mark.parametrize("batch", ROW_EDGE_BATCHES)
+@pytest.mark.parametrize("name", sorted(ROW_EDGES))
+def test_stack_forward_row_product_edges_match_plain(cuda, name, batch):
+    dims, head_dims = ROW_EDGES[name]
+    gen = torch.Generator().manual_seed(batch * 7 + len(name))
+    hidden, heads = _stack(gen, dims, head_dims, cuda)
+    x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
+    plan = fused_vae.forward_plan(batch, dims, head_dims)
+    assert plan.route == "layers" and plan.wsplit_floats > 0
+    before = _k2_counts()
+    got = fused_vae.stack_forward(x, hidden, heads)
+    assert _k2_counts() == _counted("layers", before)
+    _close(got, fused_vae.stack_forward_plain(x, hidden, heads))
+    again = fused_vae.stack_forward(x, hidden, heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("batch", ROW_EDGE_BATCHES)
+@pytest.mark.parametrize("name", sorted(ROW_EDGES))
+def test_fused_mlp_row_product_edges_match_plain(cuda, name, batch):
+    dims, head_dims = ROW_EDGES[name]
+    widths = dims + head_dims[-1:]
+    gen = torch.Generator().manual_seed(batch * 11 + len(name))
+    hidden, heads = _stack(gen, widths[:-1], widths[-1:], cuda)
+    layers = [{"w": w, "b": b} for w, b in hidden + heads]
+    x = torch.randn((batch, widths[0]), generator=gen).to(cuda)
+    before = _k1_counts()
+    got = fused_mlp.fused_mlp_apply(layers, x, final_activation="relu")
+    assert _k1_counts() == _counted("layers", before)
+    _close([got], [fused_mlp.fused_mlp_plain(layers, x, final_activation="relu")])
+    assert torch.equal(got, fused_mlp.fused_mlp_apply(layers, x, final_activation="relu"))
+
+
+def test_row_product_reads_a_misaligned_input(cuda):
+    """A 300-wide input whose rows start 4 bytes past a 16-byte boundary (a
+    column slice): the row product copies it by 4 bytes, not by TMA."""
+    gen = torch.Generator().manual_seed(3)
+    hidden, heads = _stack(gen, (300, 256, 64), (32, 32), cuda)
+    wide = torch.randn((1000, 301), generator=gen).to(cuda)
+    x = torch.as_strided(wide, (1000, 300), (300, 1), 1)   # contiguous rows, offset 1 float
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    got = fused_vae.stack_forward(x, hidden, heads)
+    _close(got, fused_vae.stack_forward_plain(x.clone(), hidden, heads))
+
+
 def test_canonical_forward_stays_one_fused_launch(cuda):
     """The canonical encoder and decoder keep the fused body: one launch a
     call, the layer-wise route never, at the scoring chunk as at one row."""

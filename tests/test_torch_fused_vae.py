@@ -143,7 +143,7 @@ def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
     # every layer once and in order; each segment's widths on its side of 128
     assert plan.segments[0].first == 0 and plan.segments[-1].last == len(dims)
     assert all(a.last == b.first for a, b in zip(plan.segments, plan.segments[1:]))
-    need = [0, 0]
+    need, wsplit = [0, 0], 0
     for i, seg in enumerate(plan.segments):
         span = widths[seg.first:seg.last + 1]
         if seg.kind == F:
@@ -160,7 +160,8 @@ def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
                 assert fused_vae.forward_smem(more[:-1], heads) is None
         else:
             assert seg.last == seg.first + 1 and max(span) > fused_vae.FUSED_MAX_WIDTH
-            assert seg.tile == fused_vae._forward_tile(widths[seg.last])
+            assert seg.tile == fused_vae._forward_tile(batch, widths[seg.first], widths[seg.last])
+            wsplit += fused_vae.split_floats(widths[seg.first], widths[seg.last], seg.tile)
         # ping-pong: each segment but the last writes the other buffer
         if seg is plan.segments[-1]:
             assert seg.out == -1
@@ -168,7 +169,9 @@ def test_forward_plan_follows_the_shape(dims, head_dims, segments, batch):
             assert seg.out == i % 2
             need[seg.out] = max(need[seg.out], batch * widths[seg.last])
     assert all(f >= n and f % 4 == 0 and f - n < 4 for f, n in zip(plan.buf_floats, need))
-    assert plan.scratch_bytes == 4 * sum(plan.buf_floats)
+    # the row segments' split weights follow the buffers in the same allocation
+    assert plan.wsplit_floats == wsplit
+    assert plan.scratch_bytes == 4 * (sum(plan.buf_floats) + plan.wsplit_floats)
 
 
 @pytest.mark.parametrize("dims,head_dims,smem", [
@@ -215,25 +218,96 @@ def test_fused_grid_is_persistent(batch, grid):
     assert _canonical_grid(batch) == grid
 
 
-@pytest.mark.parametrize("n,cols", [(312, 64), (300, 64), (256, 128), (128, 128), (201, 128),
-                                    (130, 64), (64, 64), (33, 64), (32, 32), (10, 32)])
-def test_forward_tile_pads_least(n, cols):
-    """A row segment's column tile: 312 and 300 columns pad to 320 in 64-wide
-    tiles (384 in 128-wide ones), 256 fill two 128-wide tiles."""
-    assert fused_vae.FORWARD_TILE_COLS[fused_vae._forward_tile(n)] == cols
+# a row segment's column tile (csrc/gemm_wgmma.cuh: 128 rows a CTA, one CTA
+# an SM): the widths of the tile's first cases at the scoring chunk, k = 300
+@pytest.mark.parametrize("batch,k,n,cols", [
+    (65_536, 300, 312, 128), (65_536, 300, 300, 128), (65_536, 300, 256, 128),
+    (65_536, 300, 128, 128), (65_536, 300, 201, 128), (65_536, 300, 130, 64),
+    (65_536, 300, 64, 64), (65_536, 300, 33, 64), (65_536, 300, 32, 64), (65_536, 300, 10, 64),
+    # one CTA either way: the narrower tile
+    (1, 300, 256, 64), (7, 765, 312, 64),
+])
+def test_forward_tile_pads_least(batch, k, n, cols):
+    """A row segment's column tile costs least in whole rounds of tiles: at
+    65,536 rows (512 row tiles, 3.9 rounds a 128-wide column tile) 312 and
+    300 columns take three 128-wide tiles, 130 columns (one 128-wide tile
+    and 2 columns) three 64-wide ones; at a tile's rows the narrower tile."""
+    assert fused_vae.FORWARD_TILE_COLS[fused_vae._forward_tile(batch, k, n)] == cols
+
+
+def _waves(batch, n, cols):
+    return -(-(-(-batch // fused_vae.ROW_TILE_ROWS) * -(-n // cols)) // fused_vae.CARD_SMS)
+
+
+@pytest.mark.parametrize("batch,k,n,cols,waves", [
+    # const_train and etl (10,000 rows): 300 -> 256 takes 316 tiles of 64
+    # columns, 2.4 rounds of 132 (128 columns: 158 tiles, 1.2 rounds of twice
+    # the work), 256 -> 128 one round of 79 tiles; the decoder's 128 -> 256
+    # (4 stages) 158 tiles of 128 columns, its 256 -> 300 395 of 64
+    (10_000, 300, 256, 64, 3), (10_000, 256, 128, 128, 1),
+    (10_000, 128, 256, 128, 2), (10_000, 256, 300, 64, 3),
+    (10_000, 1200, 256, 64, 3),                          # const_1200
+    # emd_slice (65,536 rows) at 100 and 255 constituents
+    (65_536, 300, 256, 128, 8), (65_536, 765, 256, 128, 8), (65_536, 256, 128, 128, 4),
+    (65_536, 128, 256, 128, 8), (65_536, 256, 300, 128, 12), (65_536, 256, 765, 128, 24),
+    # 1,000,003 rows
+    (1_000_003, 312, 256, 128, 119), (1_000_003, 256, 128, 128, 60),
+    (1_000_003, 256, 312, 128, 178),
+])
+def test_forward_tile_at_the_main_path_batches(batch, k, n, cols, waves):
+    """The column tile, and the rounds of 132 tiles (one persistent CTA an
+    SM) it takes, at the three batch sizes the main paths run."""
+    assert fused_vae.FORWARD_TILE_COLS[fused_vae._forward_tile(batch, k, n)] == cols
+    assert _waves(batch, n, cols) == waves
+
+
+@pytest.mark.parametrize("k,n,cols,floats", [
+    (765, 256, 128, 393_216),        # emd_slice255's input layer: 1.57 MB, k padded to 768
+    (300, 256, 64, 163_840),         # const_train's: k padded to 320
+    (256, 765, 128, 393_216),        # the 765-wide head: n padded to 768
+    (1200, 256, 64, 622_592),
+    (2048, 512, 64, 2_097_152),
+    (1, 1, 64, 4_096),               # one stage of one 64-wide tile
+    (33, 129, 128, 32_768),
+])
+def test_forward_split_weight_floats(k, n, cols, floats):
+    """The scratch of a row product's split weights: hi and lo TF32 words of
+    W^T, n rounded up to whole column tiles, k to whole 32-deep stages."""
+    tile = fused_vae.FORWARD_TILE_COLS.index(cols)
+    assert fused_vae.split_floats(k, n, tile) == floats
+    assert floats == 2 * -(-n // cols) * cols * -(-k // 32) * 32
 
 
 def test_forward_scratch_at_a_million_rows():
     """What one K2/K1 call allocates at 1,000,003 rows of the constituents
     stacks: the two hidden activations that pass through device memory
-    (1.5 GB); the canonical stacks allocate nothing."""
+    (1.5 GB) and the wide layers' split weights; the canonical stacks
+    allocate nothing."""
     batch = 1_000_003
     enc = fused_vae.forward_plan(batch, (312, 256, 128, 64), (32, 32))
     assert enc.buf_floats == (256_000_768, 128_000_384)
-    assert enc.scratch_bytes == 1_536_004_608
+    # 312 -> 256: 2 x 256 x 320; 256 -> 128: 2 x 128 x 256
+    assert enc.wsplit_floats == 163_840 + 65_536
+    assert enc.scratch_bytes == 1_536_922_112
     dec = fused_vae.forward_plan(batch, (32, 64, 128, 256), (312,))
     assert dec.buf_floats == (128_000_384, 256_000_768)
+    # 128 -> 256: 2 x 256 x 128; 256 -> 312: 2 x 384 x 256
+    assert dec.wsplit_floats == 65_536 + 196_608
     assert fused_vae.forward_plan(batch, (12, 80, 40, 20), (10, 10)).scratch_bytes == 0
+
+
+@pytest.mark.parametrize("batch,dims,head_dims,floats", [
+    (10_000, (300, 256, 128, 64), (32, 32), 163_840 + 65_536),      # const_train, etl
+    (65_536, (300, 256, 128, 64), (32, 32), 2 * 256 * 320 + 65_536),
+    (65_536, (765, 256, 128, 64), (32, 32), 393_216 + 65_536),      # emd_slice255
+    (65_536, (32, 64, 128, 256), (765,), 65_536 + 393_216),
+    (10_000, (12, 80, 40, 20), (10, 10), 0),                        # fused: none
+])
+def test_forward_split_weights_at_the_main_path_batches(batch, dims, head_dims, floats):
+    """The split weights one call allocates beside its activation buffers."""
+    plan = fused_vae.forward_plan(batch, dims, head_dims)
+    assert plan.wsplit_floats == floats
+    assert plan.scratch_bytes == 4 * (sum(plan.buf_floats) + floats)
 
 
 def walk_plan(plan, x, layers, n_heads, final_relu):
