@@ -55,36 +55,41 @@
 //
 // 2. The layer-wise route (the rest of this file), for everything else: the
 //    constituents-mode 312->256/128/64 + 2x32 encoder and its decoder, and
-//    stacks whose fused tile does not fit.  At 312 wide the fused body's
-//    tile held 200 KB (one CTA an SM), restaged all 500 KB of weights twice
-//    per 32 rows with uncoalesced transposed reads, and read-modified-wrote
-//    every CTA's whole dW slice per tile.  Here each product is one launch of
-//    the register-tiled GEMM of gemm_tile.cuh over the whole batch:
-//      recompute  a_l = relu(a_{l-1} W_l + b_l)          row product, a_l to a
-//                 scratch buffer of batch x sum(hidden widths): the one HBM
-//                 round trip the design accepts (1.8 GB at 1,000,003 rows);
-//      heads      dW_h = a_L^T g_h, db_h = sum g_h         split-K products;
+//    stacks whose fused tile does not fit.  Each product is one persistent
+//    launch over the whole batch on the wgmma mainloop of gemm_wgmma.cuh
+//    (3xTF32, TMA, a producer warpgroup and two consumer warpgroups, a fresh
+//    accumulator every k8 step), after one pre-pass launch that splits every
+//    layer's weights into hi/lo TF32 words in the order and swizzle a stage
+//    wants (bwd_split_kernel):
+//      recompute  a_l = relu(a_{l-1} W_l + b_l)          bwd_rows_kernel, K2's
+//                 row product with its ReLU near-ties re-decided in f32, a_l
+//                 to a scratch buffer of batch x sum(hidden widths): the one
+//                 HBM round trip the design accepts (1.8 GB at 1,000,003 rows);
+//      heads      dW_h = a_L^T g_h, db_h = sum g_h         bwd_dw_kernel, all
+//                 heads one launch (column segments);
 //                 g_L = (sum_h g_h W_h^T) * (a_L > 0)      one row product
-//                 over the concatenated heads, the mask in its epilogue,
-//                 written over a_L (read by its own thread just before);
-//      layer l    dW_l = a_{l-1}^T g_l, db_l = sum g_l     split-K;
+//                 over the heads' gradients as k segments, the mask in its
+//                 epilogue, written over a_L (read by its own thread just
+//                 before);
+//      layer l    dW_l = a_{l-1}^T g_l, db_l = sum g_l     bwd_dw_kernel;
 //                 g_{l-1} = (g_l W_l^T) * (a_{l-1} > 0)    over a_{l-1}, or
 //                 dx = g_1 W_1^T unmasked for the input layer;
-//    then one ordered reduction of the split slices.  A split-K CTA owns one
-//    output tile of dW and a fixed range of rows, keeps the tile in
-//    registers over the whole range and writes it once; db comes from the
-//    same pass.  Bound at 1,000,003 x 312->256/128/64 + 2x32: 582 GFLOP
-//    (recompute 120,832 MAC a row, dW 124,928, g W^T 45,056) over 67 TFLOP/s
-//    of f32, 8.7 ms; bytes (x, g, the activations' round trip) about 1 ms.
-//    So the design aims every product at the f32 FMA rate: up to 16 FMAs a
-//    shared-memory read, coalesced 16-byte global loads, two CTAs an SM
-//    (registers capped at 128 a thread), a weight gradient's tiles x splits
-//    at most 264 CTAs: one wave.
+//    then one ordered reduction of the weight gradients' split slices
+//    (reduce_splits; a weight gradient of one split writes its place in
+//    the output directly).  A weight gradient's CTA takes an output tile
+//    and a fixed range of the batch, keeps the tile in registers over it and
+//    writes it once; db comes from the same pass.  Bound at 1,000,003 x
+//    312->256/128/64 + 2x32: 582 GFLOP (recompute 120,832 MAC a row, dW
+//    124,928, g W^T 45,056), 1,745 GFLOP of TF32 products in 3xTF32: 3.53 ms
+//    at 495 TFLOP/s; bytes (x, g, the activations' round trip) about 1 ms.
+//    No launch has a bound on its tiles but the 2^31 rows of a batch: the
+//    CTAs are persistent, one an SM, walking their tiles.
+#include <array>
 #include <cstdint>
 #include <vector>
 
 #include "dense_stack.cuh"
-#include "gemm_tile.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace atlasvae {
 
@@ -615,376 +620,350 @@ extern "C" int atlasvae_stack_backward(const void* x, long long batch, int n_hid
 namespace atlasvae {
 namespace layers {
 
-using gemm::Operand;
+constexpr int kCols[2] = {128, 64};   // a product's column tile: FORWARD_TILE_COLS
 
-enum Epilogue { kBiasRelu = 0, kMask = 1, kPlain = 2 };
-
-// out (rows x n, row stride ldo) = epilogue(A B) over the whole batch.
-struct RowsArgs {
-  Operand a, b;
-  long long k;           // reduction length
-  long long rows;
-  int n;
-  float* out;
-  long long ldo;
-  const float* bias;     // kBiasRelu: relu(acc + bias[n])
-  const float* mask;     // kMask: acc * (mask[m * ldo + n] > 0); may be `out` itself
-  int epi;
-  int vec_out;           // float4 stores and mask/bias reads
-};
-
-// One slice of dW (m x n) and db (n) per row split: slice s at part + s * slice.
-struct SplitArgs {
-  Operand a, b;          // a: (i = input column, k = row); b: (k = row, i = output column)
-  long long batch;
-  long long rows_per_split;
-  int m, n;
-  int tiles_n;
-  float* part;
-  long long slice;
-  int vec_out;
-};
-
-__device__ __forceinline__ float epilogue(const RowsArgs& g, float v, long long m, int n,
-                                          float bias_n) {
-  if (g.epi == kBiasRelu) return fmaxf(v + bias_n, 0.f);
-  if (g.epi == kMask) return v * (g.mask[m * g.ldo + n] > 0.f ? 1.f : 0.f);
-  return v;
-}
-
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(gemm::kThreads, 2)
-rows_gemm_kernel(const __grid_constant__ RowsArgs g) {
-  using T = gemm::Tile<BM, BN, TM, TN>;
-  __shared__ __align__(16) float smem[T::kSmemFloats];
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  float acc[TM][TN], unused[TN];
-  gemm::mainloop<BM, BN, TM, TN>(g.a, g.b, m0, n0, 0, g.k, smem, acc, unused, false);
-  const int tx = threadIdx.x % T::kTX, ty = threadIdx.x / T::kTX;
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const long long m = m0 + T::row(ty, r);
-    if (m >= g.rows) continue;
-    float* dst = g.out + m * g.ldo;
-#pragma unroll
-    for (int f = 0; f < TN / 4; ++f) {
-      const int n = n0 + T::col(tx, 4 * f);
-      if (g.vec_out) {  // n and g.n multiples of 4: the four columns are all in or all out
-        if (n >= g.n) continue;
-        float4 v = make_float4(acc[r][4 * f], acc[r][4 * f + 1], acc[r][4 * f + 2],
-                               acc[r][4 * f + 3]);
-        if (g.epi == kBiasRelu) {
-          const float4 b = __ldg(reinterpret_cast<const float4*>(g.bias + n));
-          v = make_float4(fmaxf(v.x + b.x, 0.f), fmaxf(v.y + b.y, 0.f), fmaxf(v.z + b.z, 0.f),
-                          fmaxf(v.w + b.w, 0.f));
-        } else if (g.epi == kMask) {
-          const float4 a = *reinterpret_cast<const float4*>(g.mask + m * g.ldo + n);
-          v = make_float4(v.x * (a.x > 0.f ? 1.f : 0.f), v.y * (a.y > 0.f ? 1.f : 0.f),
-                          v.z * (a.z > 0.f ? 1.f : 0.f), v.w * (a.w > 0.f ? 1.f : 0.f));
-        }
-        *reinterpret_cast<float4*>(dst + n) = v;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < g.n)
-            dst[n + j] = epilogue(g, acc[r][4 * f + j], m, n + j,
-                                  g.epi == kBiasRelu ? __ldg(g.bias + n + j) : 0.f);
-      }
-    }
-  }
-}
-
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(gemm::kThreads, 2)
-split_gemm_kernel(const __grid_constant__ SplitArgs g) {
-  using T = gemm::Tile<BM, BN, TM, TN>;
-  __shared__ __align__(16) float smem[T::kSmemFloats];
-  const int s = blockIdx.x;
-  const int tile_m = blockIdx.y / g.tiles_n, tile_n = blockIdx.y % g.tiles_n;
-  const long long m0 = (long long)tile_m * BM;
-  const long long n0 = (long long)tile_n * BN;
-  const long long k_begin = s * g.rows_per_split;
-  const long long k_end = min(k_begin + g.rows_per_split, g.batch);
-  const bool want_db = tile_m == 0;
-  float acc[TM][TN], db[TN];
-  gemm::mainloop<BM, BN, TM, TN>(g.a, g.b, m0, n0, k_begin, k_end, smem, acc, db, want_db);
-  const int tx = threadIdx.x % T::kTX, ty = threadIdx.x / T::kTX;
-  float* const dw = g.part + s * g.slice;
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const long long m = m0 + T::row(ty, r);
-    if (m >= g.m) continue;
-#pragma unroll
-    for (int f = 0; f < TN / 4; ++f) {
-      const long long n = n0 + T::col(tx, 4 * f);
-      if (g.vec_out) {
-        if (n < g.n)
-          *reinterpret_cast<float4*>(dw + m * g.n + n) =
-              make_float4(acc[r][4 * f], acc[r][4 * f + 1], acc[r][4 * f + 2], acc[r][4 * f + 3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < g.n) dw[m * g.n + n + j] = acc[r][4 * f + j];
-      }
-    }
-  }
-  if (want_db && ty == 0) {  // the first row group's threads hold the column sums
-    float* const dbs = dw + (long long)g.m * g.n;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const long long n = n0 + T::col(tx, j);
-      if (n < g.n) dbs[n] = db[j];
-    }
-  }
-}
-
-// grads[p] = sum over the splits of p's layer, in split order, for the
-// layers of one group (a stack of any depth reduces in groups of
-// kReduceLayers layers, one launch a group: one launch up to 12 layers).
+// grads[dst + e] = sum over the splits of partial[src + e + split * stride],
+// in split order, for each entry (a layer's dW/db, or a head's) of a group:
+// one launch up to kReduceLayers entries.
 constexpr int kReduceLayers = 12;
 struct ReduceArgs {
-  int n_layers;
-  long long off[kReduceLayers + 1];  // layer i's dW/db in grads: [off[i], off[i + 1])
-  long long base[kReduceLayers];     // its first slice in partial; slices follow at stride size
+  int n;
+  long long pre[kReduceLayers + 1];  // entry i's elements are p in [pre[i], pre[i + 1])
+  long long dst[kReduceLayers];
+  long long src[kReduceLayers];
+  long long stride[kReduceLayers];
   int splits[kReduceLayers];
 };
 
 __global__ void reduce_splits(const float* __restrict__ partial, const __grid_constant__ ReduceArgs r,
                               float* __restrict__ grads) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= r.off[r.n_layers]) return;
+  if (p >= r.pre[r.n]) return;
   int i = 0;
-  while (p >= r.off[i + 1]) ++i;
-  const long long size = r.off[i + 1] - r.off[i];
-  const float* src = partial + r.base[i] + (p - r.off[i]);
+  while (p >= r.pre[i + 1]) ++i;
+  const float* src = partial + r.src[i] + (p - r.pre[i]);
   float s = 0.f;
-  for (int k = 0; k < r.splits[i]; ++k) s += src[k * size];
-  grads[p] = s;
+  for (int k = 0; k < r.splits[i]; ++k) s += src[k * r.stride[i]];
+  grads[r.dst[i] + (p - r.pre[i])] = s;
 }
 
-// Tile shapes (BM, BN, TM, TN), indexed as GEMM_TILES in ops/fused_vae.py.
-constexpr int kNumTiles = 5;
+// Collects the pre-pass's layers, kMaxPrep a launch, each layer's split B
+// placed after the last in `ws`.
+struct Prep {
+  wg::PrepArgs p = {};
+  float* ws;
+  cudaStream_t st;
+  cudaError_t err = cudaSuccess;
 
-template <int BM, int BN, int TM, int TN>
-cudaError_t launch_rows_t(const RowsArgs& g, cudaStream_t st) {
-  const dim3 grid((unsigned)((g.rows + BM - 1) / BM), (unsigned)((g.n + BN - 1) / BN));
-  rows_gemm_kernel<BM, BN, TM, TN><<<grid, gemm::kThreads, 0, st>>>(g);
-  return cudaGetLastError();
-}
-
-template <int BM, int BN, int TM, int TN>
-cudaError_t launch_split_t(SplitArgs g, int splits, cudaStream_t st) {
-  g.tiles_n = (g.n + BN - 1) / BN;
-  const dim3 grid((unsigned)splits, (unsigned)(((g.m + BM - 1) / BM) * g.tiles_n));
-  split_gemm_kernel<BM, BN, TM, TN><<<grid, gemm::kThreads, 0, st>>>(g);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_rows(int tile, const RowsArgs& g, cudaStream_t st) {
-  switch (tile) {
-    case 0: return launch_rows_t<128, 128, 8, 8>(g, st);
-    case 1: return launch_rows_t<128, 64, 8, 4>(g, st);
-    case 2: return launch_rows_t<128, 32, 4, 4>(g, st);
-    case 3: return launch_rows_t<64, 128, 4, 8>(g, st);
-    case 4: return launch_rows_t<64, 64, 4, 4>(g, st);
+  // B of a product of k x n, one segment (trans: W (n, k) row-major, else
+  // W (k, n)) or the heads' (trans, segments along k); with `norm2`, room
+  // for its columns' squared norms follows.  Returns where B goes.
+  float* add(const float* const* w, const int* beg, int nseg, int trans, int k, int n, int bn,
+             bool room_for_norms, float** norm2) {
+    wg::PrepLayer& l = p.l[p.n_layers++];
+    l = wg::PrepLayer{};
+    for (int s = 0; s < nseg; ++s) {
+      l.w[s] = w[s];
+      l.nbeg[s + 1] = beg[s + 1];
+    }
+    l.nseg = nseg;
+    l.trans = trans;
+    l.k = k;
+    l.n = n;
+    l.bn = bn;
+    l.k_chunks = (k + wg::kBK - 1) / wg::kBK;
+    l.n_pad = (n + bn - 1) / bn * bn;
+    l.dst = ws;
+    ws += wg::split_floats(k, n, bn);
+    if (room_for_norms) {
+      if (norm2 != nullptr) *norm2 = l.norm2 = ws;
+      ws += l.n_pad;
+    }
+    float* const dst = l.dst;
+    if (p.n_layers == wg::kMaxPrep) flush();
+    return dst;
   }
-  return cudaErrorInvalidValue;
-}
-
-cudaError_t launch_split(int tile, const SplitArgs& g, int splits, cudaStream_t st) {
-  switch (tile) {
-    case 0: return launch_split_t<128, 128, 8, 8>(g, splits, st);
-    case 1: return launch_split_t<128, 64, 8, 4>(g, splits, st);
-    case 2: return launch_split_t<128, 32, 4, 4>(g, splits, st);
-    case 3: return launch_split_t<64, 128, 4, 8>(g, splits, st);
-    case 4: return launch_split_t<64, 64, 4, 4>(g, splits, st);
+  void flush() {
+    if (p.n_layers > 0 && err == cudaSuccess) err = wg::launch_split(p, st, true);
+    p.n_layers = 0;
   }
-  return cudaErrorInvalidValue;
-}
+};
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+// What both entries share: the stack's views, the pre-pass of the
+// recompute's layers, and the recompute itself.
+struct Stack {
+  long long batch;
+  int L;
+  const int* dims;
+  const float* const* W;
+  const float* const* B;
+  std::vector<float*> act;   // act[0] = x; act[l + 1] = hidden layer l's output, then its gradient
+  std::vector<float*> rec_split, rec_norm2;
 
-inline void set_vec(Operand& o) {
-  bool v = o.k_contig ? o.kbeg[o.nseg] % 4 == 0 : o.extent % 4 == 0;
-  for (int s = 0; s < o.nseg; ++s)
-    v = v && aligned16(o.p[s]) && o.ld[s] % 4 == 0 && o.kbeg[s] % 4 == 0;
-  o.vec = v;
-}
+  float* chain;               // the re-decisions' row buffers, chain_width wide
+  int chain_width;
+  int* redecided = nullptr;   // or n_hidden counts of re-decided elements, one a layer
 
-// (i, k) at p[i * ld + k] for k < k_len
-inline Operand k_contig(const float* p, long long ld, long long extent, int k_len) {
-  Operand o = {};
-  o.p[0] = p;
-  o.ld[0] = ld;
-  o.kbeg[1] = k_len;
-  o.nseg = 1;
-  o.k_contig = 1;
-  o.extent = extent;
-  set_vec(o);
-  return o;
-}
+  Stack(const void* x, long long batch_, int n_hidden, const int* dims_, const void* const* w,
+        const void* const* b, void* acts, void* chain_, int chain_width_)
+      : batch(batch_), L(n_hidden), dims(dims_), W(reinterpret_cast<const float* const*>(w)),
+        B(reinterpret_cast<const float* const*>(b)), act(n_hidden + 1),
+        rec_split(n_hidden), rec_norm2(n_hidden, nullptr), chain(static_cast<float*>(chain_)),
+        chain_width(chain_width_) {
+    act[0] = const_cast<float*>(static_cast<const float*>(x));
+    long long off = 0;
+    for (int l = 0; l < L; ++l) {   // each buffer 16-byte aligned
+      act[l + 1] = static_cast<float*>(acts) + off;
+      off += (batch * dims[l + 1] + 3) / 4 * 4;
+    }
+  }
 
-// (i, k) at p[k * ld + i]
-inline Operand i_contig(const float* p, long long ld, long long extent) {
-  Operand o = {};
-  o.p[0] = p;
-  o.ld[0] = ld;
-  o.nseg = 1;
-  o.extent = extent;
-  set_vec(o);
-  return o;
-}
+  void prep_recompute(Prep& prep, const int* row_tiles, bool redecide) {
+    for (int l = 0; l < L; ++l) {
+      const int beg[2] = {0, dims[l + 1]};
+      rec_split[l] = prep.add(&W[l], beg, 1, 0, dims[l], dims[l + 1], kCols[row_tiles[l]], true,
+                              redecide ? &rec_norm2[l] : nullptr);
+    }
+  }
 
-inline RowsArgs rows_args(const Operand& a, const Operand& b, long long k, long long rows, int n,
-                          float* out, int epi, const float* bias, const float* mask) {
-  RowsArgs g = {};
-  g.a = a;
-  g.b = b;
-  g.k = k;
-  g.rows = rows;
-  g.n = n;
-  g.out = out;
-  g.ldo = n;
-  g.epi = epi;
-  g.bias = bias;
-  g.mask = mask;
-  g.vec_out = n % 4 == 0 && aligned16(out) && (epi != kBiasRelu || aligned16(bias)) &&
-              (epi != kMask || aligned16(mask));
-  return g;
+  cudaError_t recompute(const int* row_tiles, bool redecide, cudaStream_t st) {
+    for (int l = 0; l < L; ++l) {
+      wg::RowsArgs r = {};
+      r.a[0] = act[l];
+      r.rows = batch;
+      r.k = dims[l];
+      r.n = r.nbeg[1] = dims[l + 1];
+      r.nseg = 1;
+      r.bias[0] = B[l];
+      r.out[0] = act[l + 1];
+      r.relu = 1;
+      r.wsplit = rec_split[l];
+      r.w = W[l];
+      r.wnorm2 = rec_norm2[l];
+      // a re-decided row's input, rebuilt through up to kMaxChain layers below
+      const int first = l > wg::kMaxChain ? l - wg::kMaxChain : 0;
+      r.chain_n = l - first;
+      r.chain_x = act[first];
+      for (int j = first; j <= l; ++j) r.chain_dims[j - first] = dims[j];
+      for (int j = first; j < l; ++j) {
+        r.chain_w[j - first] = W[j];
+        r.chain_b[j - first] = B[j];
+        if (dims[j + 1] > chain_width) return cudaErrorInvalidValue;
+      }
+      r.chain_buf = chain;
+      r.chain_width = chain_width;
+      r.redecided = redecided != nullptr ? redecided + l : nullptr;
+      const cudaError_t err = wg::launch_bwd_rows(kCols[row_tiles[l]], r, redecide, st);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+};
+
+inline bool valid_tiles(const int* row_tiles, int n) {
+  for (int i = 0; i < n; ++i)
+    if (row_tiles[i] < 0 || row_tiles[i] > 1) return false;
+  return true;
 }
 
 }  // namespace layers
 }  // namespace atlasvae
 
-// The layer-wise route.  acts: batch x sum(dims[1..n_hidden]) floats of
-// scratch (hidden activations, then the gradients written over them);
-// partial: each layer's split slices, hidden layers then heads, layer i's
-// splits x (dims_in * dims_out + dims_out) floats; row_tiles (2 n_hidden + 1)
-// and split_plan (3 per layer: tile, splits, rows per split) as
-// ops/fused_vae.py::backward_plan gives them.  Returns the first CUDA error.
+// The layer-wise route.  wsplit: the pre-pass's split weights (and the
+// recompute's column norms), chain: 2 x chain_width floats for each SM
+// (chain_width: the widest hidden layer below the last; none for fewer than
+// two hidden layers), acts: batch x
+// sum(dims[1..n_hidden]) floats
+// (each layer's rounded up to 4: hidden activations, then the gradients
+// written over them), partial: each weight gradient's split slices (those
+// of more than one split), in the sizes and order of
+// ops/fused_vae.py::backward_plan; row_tiles (2 n_hidden + 1: the
+// recompute of each hidden layer, the heads' gradient, the gradient through
+// each hidden layer) and dw_plan (3 per weight gradient, hidden layers then
+// the heads together: column tile, splits, rows per split) as backward_plan
+// gives them.  Returns the first CUDA error.
 extern "C" int atlasvae_stack_backward_layers(
     const void* x, long long batch, int n_hidden, const int* dims, const void* const* weights,
     const void* const* biases, int n_heads, const int* head_dims,
-    const void* const* head_weights, const void* const* head_grads, void* dx, void* acts,
-    void* partial, const int* row_tiles, const int* split_plan, void* grads, void* stream) {
+    const void* const* head_weights, const void* const* head_grads, void* dx, void* wsplit,
+    void* chain, int chain_width, void* acts, void* partial, const int* row_tiles,
+    const int* dw_plan, void* grads, void* stream) {
   using namespace atlasvae;
   using namespace atlasvae::layers;
   const int L = n_hidden;
-  if (L < 0 || n_heads < 1 || n_heads > kMaxHeads || batch < 1)
+  if (L < 0 || n_heads < 1 || n_heads > wg::kMaxSeg || batch < 1 || batch >= (1ll << 31) ||
+      !valid_tiles(row_tiles, 2 * L + 1))
     return (int)cudaErrorInvalidValue;
-  const int n_layers = L + n_heads;
-  for (int i = 0; i < 2 * L + 1; ++i)
-    if (row_tiles[i] < 0 || row_tiles[i] >= kNumTiles)
-      return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n_layers; ++i) {
-    const int* sp = split_plan + 3 * i;
-    if (sp[0] < 0 || sp[0] >= kNumTiles || sp[1] < 1 || sp[2] < 1 ||
-        (long long)sp[1] * sp[2] < batch || (long long)(sp[1] - 1) * sp[2] >= batch)
+  for (int i = 0; i <= L; ++i) {
+    const int* d = dw_plan + 3 * i;
+    if (d[0] < 0 || d[0] > 1 || d[1] < 1 || d[2] < 1 || d[2] % wg::kBK != 0 ||
+        (long long)d[1] * d[2] < batch || (long long)(d[1] - 1) * d[2] >= batch)
       return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* const* W = reinterpret_cast<const float* const*>(weights);
-  const float* const* Bv = reinterpret_cast<const float* const*>(biases);
+  Stack v(x, batch, L, dims, weights, biases, acts, chain, chain_width);
   const float* const* HW = reinterpret_cast<const float* const*>(head_weights);
   const float* const* G = reinterpret_cast<const float* const*>(head_grads);
   float* const DX = static_cast<float*>(dx);
   float* const P = static_cast<float*>(partial);
-
-  // act[0] = x; act[l + 1] = hidden layer l's output, then its gradient
-  std::vector<float*> act(L + 1);
-  act[0] = const_cast<float*>(static_cast<const float*>(x));
-  long long act_off = 0;
-  for (int l = 0; l < L; ++l) {
-    act[l + 1] = static_cast<float*>(acts) + act_off;
-    act_off += batch * dims[l + 1];
-  }
+  float* const out = static_cast<float*>(grads);
   const int dL = dims[L];
-  int head_total = 0;
-  for (int h = 0; h < n_heads; ++h) head_total += head_dims[h];
+  int head_beg[wg::kMaxSeg + 1] = {0};
+  for (int h = 0; h < n_heads; ++h) head_beg[h + 1] = head_beg[h] + head_dims[h];
+  const int head_total = head_beg[n_heads];
+  const bool need_gl = L > 0 || DX != nullptr;
 
-  // each layer's dW/db: its place in grads (off), its slices in partial (base)
-  std::vector<long long> off(n_layers + 1, 0), base(n_layers, 0);
-  for (int i = 0; i < n_layers; ++i) {
-    const long long k = i < L ? dims[i] : dL;
-    const long long n = i < L ? dims[i + 1] : head_dims[i - L];
+  // each weight gradient's place in grads (off, by leaf: hidden layers,
+  // then each head), its slices in partial (base, by gradient: hidden
+  // layers, then the heads together) and a slice's floats
+  const int n_leaves = L + n_heads;
+  std::vector<long long> off(n_leaves + 1, 0), base(L + 1, 0), slice(L + 1);
+  for (int i = 0; i < n_leaves; ++i) {
+    const long long k = i < L ? dims[i] : dL, n = i < L ? dims[i + 1] : head_dims[i - L];
     off[i + 1] = off[i] + k * n + n;
-    if (i + 1 < n_layers) base[i + 1] = base[i] + split_plan[3 * i + 1] * (k * n + n);
   }
-  auto weight_grad = [&](int i, const float* a, const float* g, int k, int n) {
-    SplitArgs s = {};
-    s.a = i_contig(a, k, k);
-    s.b = i_contig(g, n, n);
-    s.batch = batch;
-    s.rows_per_split = split_plan[3 * i + 2];
-    s.m = k;
-    s.n = n;
-    s.part = P + base[i];
-    s.slice = (long long)k * n + n;
-    s.vec_out = n % 4 == 0 && s.slice % 4 == 0 && aligned16(s.part);
-    return launch_split(split_plan[3 * i], s, split_plan[3 * i + 1], st);
-  };
-  cudaError_t err;
+  long long run = 0;
+  for (int i = 0; i <= L; ++i) {
+    slice[i] = i < L ? (long long)(dims[i] + 1) * dims[i + 1] : (long long)(dL + 1) * head_total;
+    base[i] = run;
+    if (dw_plan[3 * i + 1] > 1) run += dw_plan[3 * i + 1] * slice[i];
+  }
+
+  // 1. the pre-pass: the recompute's weights, the heads' and every hidden
+  // layer's whose gradient goes one layer down, kMaxPrep a launch
+  Prep prep;
+  prep.ws = static_cast<float*>(wsplit);
+  prep.st = st;
+  v.prep_recompute(prep, row_tiles, true);
+  float* gl_split = nullptr;
+  if (need_gl)
+    gl_split = prep.add(HW, head_beg, n_heads, 1, head_total, dL, kCols[row_tiles[L]], false,
+                        nullptr);
+  std::vector<float*> g_split(L, nullptr);
+  for (int i = L - 1; i >= 0; --i)
+    if (i > 0 || DX != nullptr) {
+      const int beg[2] = {0, dims[i + 1]};
+      g_split[i] = prep.add(&v.W[i], beg, 1, 1, dims[i + 1], dims[i],
+                            kCols[row_tiles[L + 1 + i]], false, nullptr);
+    }
+  prep.flush();
+  cudaError_t err = prep.err;
 #define K3_TRY(call)          \
   if ((err = (call)) != cudaSuccess) return (int)err
+  K3_TRY(err);
 
-  // 1. recompute the hidden activations
-  for (int l = 0; l < L; ++l)
-    K3_TRY(launch_rows(row_tiles[l],
-                       rows_args(k_contig(act[l], dims[l], batch, dims[l]),
-                                 i_contig(W[l], dims[l + 1], dims[l + 1]), dims[l], batch,
-                                 dims[l + 1], act[l + 1], kBiasRelu, Bv[l], nullptr),
-                       st));
-  // 2. the heads' dW/db, then g_L = (sum_h g_h W_h^T) * (a_L > 0) over a_L
-  for (int h = 0; h < n_heads; ++h)
-    K3_TRY(weight_grad(L + h, act[L], G[h], dL, head_dims[h]));
-  if (L > 0 || DX != nullptr) {
-    Operand a = {}, b = {};
-    a.nseg = b.nseg = n_heads;
-    a.k_contig = b.k_contig = 1;
-    a.extent = batch;
-    b.extent = dL;
-    for (int h = 0; h < n_heads; ++h) {
-      a.p[h] = G[h];
-      b.p[h] = HW[h];
-      a.ld[h] = b.ld[h] = head_dims[h];
-      a.kbeg[h + 1] = b.kbeg[h + 1] = a.kbeg[h] + head_dims[h];
+  // 2. recompute the hidden activations
+  K3_TRY(v.recompute(row_tiles, true, st));
+
+  auto weight_grad = [&](int i, const float* a, int m, int nseg, const float* const* g,
+                         const int* beg) {
+    wg::DwArgs d = {};
+    d.a = a;
+    d.batch = batch;
+    d.m = m;
+    d.n = beg[nseg];
+    d.nseg = nseg;
+    long long seg_off = 0;
+    for (int s = 0; s < nseg; ++s) {
+      d.g[s] = g[s];
+      d.nbeg[s + 1] = beg[s + 1];
+      const int width = beg[s + 1] - beg[s];
+      d.part[s] = dw_plan[3 * i + 1] > 1 ? P + base[i] + seg_off : out + off[i + s];
+      seg_off += (long long)(m + 1) * width;
     }
-    set_vec(a);
-    set_vec(b);
-    float* out = L > 0 ? act[L] : DX;
-    K3_TRY(launch_rows(row_tiles[L],
-                       rows_args(a, b, head_total, batch, dL, out, L > 0 ? kMask : kPlain,
-                                 nullptr, L > 0 ? act[L] : nullptr),
-                       st));
-  }
-  // 3. hidden layers, last first: dW/db, then the gradient one layer down
+    d.slice = slice[i];
+    d.rows_per_split = dw_plan[3 * i + 2];
+    return wg::launch_dw(kCols[dw_plan[3 * i]], d, dw_plan[3 * i + 1], st);
+  };
+  auto grad_down = [&](const float* const* a, const int* kbeg, int aseg, int n, const float* split,
+                       int tile, float* dst, bool mask) {
+    wg::RowsArgs r = {};
+    for (int s = 0; s < aseg; ++s) {
+      r.a[s] = a[s];
+      r.kbeg[s + 1] = kbeg[s + 1];
+    }
+    r.aseg = aseg;
+    r.k = kbeg[aseg];
+    r.rows = batch;
+    r.n = r.nbeg[1] = n;
+    r.nseg = 1;
+    r.out[0] = dst;
+    r.mask = mask;
+    r.wsplit = split;
+    return wg::launch_bwd_rows(kCols[tile], r, false, st);
+  };
+
+  // 3. the heads' dW/db, then g_L = (sum_h g_h W_h^T) * (a_L > 0) over a_L
+  K3_TRY(weight_grad(L, v.act[L], dL, n_heads, G, head_beg));
+  if (need_gl)
+    K3_TRY(grad_down(G, head_beg, n_heads, dL, gl_split, row_tiles[L], L > 0 ? v.act[L] : DX,
+                     L > 0));
+  // 4. hidden layers, last first: dW/db, then the gradient one layer down
   for (int i = L - 1; i >= 0; --i) {
-    const int k = dims[i], n = dims[i + 1];
-    K3_TRY(weight_grad(i, act[i], act[i + 1], k, n));
-    if (i > 0 || DX != nullptr) {
-      float* out = i > 0 ? act[i] : DX;
-      K3_TRY(launch_rows(row_tiles[L + 1 + i],
-                         rows_args(k_contig(act[i + 1], n, batch, n), k_contig(W[i], n, k, n),
-                                   n, batch, k, out, i > 0 ? kMask : kPlain, nullptr,
-                                   i > 0 ? act[i] : nullptr),
-                         st));
+    const int beg[2] = {0, dims[i + 1]};
+    const float* gi = v.act[i + 1];
+    K3_TRY(weight_grad(i, v.act[i], dims[i], 1, &gi, beg));
+    if (i > 0 || DX != nullptr)
+      K3_TRY(grad_down(&gi, beg, 1, dims[i], g_split[i], row_tiles[L + 1 + i],
+                       i > 0 ? v.act[i] : DX, i > 0));
+  }
+  // 5. the ordered sum of the splits, a group of entries a launch
+  std::vector<std::array<long long, 5>> entries;   // dst, len, src, stride, splits
+  for (int i = 0; i <= L; ++i) {
+    const long long splits = dw_plan[3 * i + 1];
+    if (splits == 1) continue;
+    if (i < L) {
+      entries.push_back({off[i], off[i + 1] - off[i], base[i], slice[i], splits});
+    } else {
+      long long seg_off = 0;
+      for (int h = 0; h < n_heads; ++h) {
+        entries.push_back({off[L + h], off[L + h + 1] - off[L + h], base[L] + seg_off, slice[L],
+                           splits});
+        seg_off += (long long)(dL + 1) * head_dims[h];
+      }
     }
   }
-  // 4. the ordered sum of the splits, a group of layers a launch
-  for (int g0 = 0; g0 < n_layers; g0 += kReduceLayers) {
+  for (size_t g0 = 0; g0 < entries.size(); g0 += kReduceLayers) {
     ReduceArgs red = {};
-    red.n_layers = n_layers - g0 < kReduceLayers ? n_layers - g0 : kReduceLayers;
-    for (int i = 0; i < red.n_layers; ++i) {
-      red.off[i + 1] = off[g0 + i + 1] - off[g0];
-      red.base[i] = base[g0 + i];
-      red.splits[i] = split_plan[3 * (g0 + i) + 1];
+    red.n = (int)(entries.size() - g0 < (size_t)kReduceLayers ? entries.size() - g0 : kReduceLayers);
+    for (int i = 0; i < red.n; ++i) {
+      const auto& e = entries[g0 + i];
+      red.dst[i] = e[0];
+      red.pre[i + 1] = red.pre[i] + e[1];
+      red.src[i] = e[2];
+      red.stride[i] = e[3];
+      red.splits[i] = (int)e[4];
     }
-    const long long n_params = red.off[red.n_layers];
-    reduce_splits<<<(unsigned)((n_params + 255) / 256), 256, 0, st>>>(
-        P, red, static_cast<float*>(grads) + off[g0]);
+    const long long total = red.pre[red.n];
+    reduce_splits<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(P, red, out);
     K3_TRY(cudaGetLastError());
   }
 #undef K3_TRY
   return (int)cudaSuccess;
+}
+
+// The layer-wise route's recompute alone: its pre-pass and its row
+// products, the hidden activations left in acts (laid out as above) and the
+// split weights in wsplit (the recompute's share of the layout above).  For
+// measuring what the recompute decides (ops/fused_vae.py::stack_recompute);
+// redecided: n_hidden ints, 0 at the call, to which each layer adds the
+// elements it re-decided.
+extern "C" int atlasvae_stack_recompute(const void* x, long long batch, int n_hidden,
+                                        const int* dims, const void* const* weights,
+                                        const void* const* biases, void* wsplit, void* chain,
+                                        int chain_width, void* acts, const int* row_tiles,
+                                        int redecide, void* redecided, void* stream) {
+  using namespace atlasvae::layers;
+  if (n_hidden < 1 || batch < 1 || batch >= (1ll << 31) || !valid_tiles(row_tiles, n_hidden))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Stack v(x, batch, n_hidden, dims, weights, biases, acts, chain, chain_width);
+  v.redecided = static_cast<int*>(redecided);
+  Prep prep;
+  prep.ws = static_cast<float*>(wsplit);
+  prep.st = st;
+  v.prep_recompute(prep, row_tiles, redecide != 0);
+  prep.flush();
+  if (prep.err != cudaSuccess) return (int)prep.err;
+  return (int)v.recompute(row_tiles, redecide != 0, st);
 }

@@ -121,6 +121,7 @@ inline wg::PrepLayer prep_layer(const StackView& v, int first, int bn, float* ds
     p.nbeg[1] = v.dims[first + 1];
     p.w[0] = v.w[first];
   }
+  p.n = p.nbeg[p.nseg];
   p.bn = bn;
   p.k_chunks = (p.k + wg::kBK - 1) / wg::kBK;
   p.n_pad = (p.nbeg[p.nseg] + bn - 1) / bn * bn;
@@ -183,7 +184,7 @@ inline cudaError_t forward_layers(const StackView& v, int n_segments, const int*
     } else {
       // one layer: a hidden layer (bias + ReLU) or the heads' columns together
       wg::RowsArgs r = {};
-      r.a = in;
+      r.a[0] = in;
       r.rows = v.batch;
       r.k = v.dims[first];
       if (heads) {

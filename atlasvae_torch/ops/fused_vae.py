@@ -10,10 +10,11 @@ dW/db over all rows (``csrc/fused_vae_bwd.cu``), by one of two routes that
 whole stack's weights in shared memory and recomputes the forward per
 128-row tile, one CTA an SM, and adds its CTAs' partial sums in a fixed
 order inside the same launch (stacks no wider than 128 whose weights and
-tile fit); the layer-wise route runs one register-tiled GEMM launch per
-product over the whole batch, with the hidden activations in a device
-scratch buffer, then one launch that adds the per-split partial sums in a
-fixed order (every other stack, constituents mode among them).  ``FusedEncoder``
+tile fit); the layer-wise route runs one persistent launch per product over
+the whole batch on K1/K2's ``wgmma`` mainloop (3xTF32), with the hidden
+activations in a device scratch buffer, then one launch that adds the
+per-split partial sums in a fixed order (every other stack, constituents
+mode among them).  ``FusedEncoder``
 and ``FusedDecoder`` are the ``torch.autograd.Function`` counterparts of the
 JAX custom VJPs: K2 forward, K3 backward; the encoder returns a zero
 gradient for its input (data in every training graph), the decoder returns
@@ -35,6 +36,8 @@ launches = 0
 layered_launches = 0
 backward_launches = 0
 layered_backward_launches = 0
+# K3's layer-wise recompute alone (stack_recompute), a measuring aid
+recompute_launches = 0
 
 
 def stack_forward_plain(x, hidden, heads):
@@ -320,24 +323,21 @@ def stack_backward_plain(x, hidden, heads, head_grads, want_dx):
 # row of a ones column), at most FUSED_MAX_BLOCKS of them; it takes a stack
 # of at most FUSED_MAX_HIDDEN hidden layers whose widths are all at most 128
 # and whose weights and tile fit a CTA (_fused_layout mirrors plan_fused_bwd).
-# Every other stack takes the layer-wise route: register-tiled GEMM launches
-# over the whole batch (csrc/gemm_tile.cuh), one per product, with the
-# activations in a device scratch buffer.  The shape alone decides.
+# Every other stack takes the layer-wise route: one persistent launch per
+# product over the whole batch on csrc/gemm_wgmma.cuh (the row products as
+# K1/K2's, column tile from _forward_tile; a weight gradient's CTA tile
+# ROW_TILE_ROWS of its rows by a column tile, the batch cut into splits of a
+# whole number of ROW_STAGE_K rows, as many as fill CARD_SMS CTAs but none
+# under SPLIT_MIN_ROWS rows), with the activations in a device scratch
+# buffer.  The shape alone decides.
 FUSED_ROWS = 128                # kBwdRows: 16 warps of 8 rows
 FUSED_THREADS = 512
 FUSED_MAX_PARTS = 132           # kBwdMaxParts: CTAs and partial slices, one an SM of an H100
 FUSED_MIN_ROWS = 32             # kBwdMinRows: fewest rows a CTA takes
 FUSED_MAX_BLOCKS = 2 * FUSED_THREADS  # kMaxBlocks a thread
 MAX_SMEM = 232448               # a CTA's shared memory on sm_90
-# The layer-wise route's CTA output tiles (rows, columns), in the order of
-# kTiles in csrc/fused_vae_bwd.cu; a row product (batch rows) takes one of the
-# first three, a weight-gradient product (in x out) any.
-GEMM_TILES = ((128, 128), (128, 64), (128, 32), (64, 128), (64, 64))
-GEMM_THREAD_TILES = ((8, 8), (8, 4), (4, 4), (4, 8), (4, 4))  # outputs a thread
-GEMM_CHUNK = 8                  # rows of the reduction a staged chunk holds
-SPLIT_CTAS = 264                # one wave of a weight-gradient launch: 2 CTAs an SM
-SPLIT_MIN_ROWS = 64             # fewest batch rows a split sums
-GRID_Y_MAX = 65_535             # CUDA's bound on a grid's y dimension
+SPLIT_MIN_ROWS = 256            # fewest batch rows a weight gradient's split sums
+MAX_ROWS = 2 ** 31 - 1          # the layer-wise route's batch: int32 TMA coordinates
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,13 +349,22 @@ class BackwardPlan:
     n_parts      fused: CTAs and partial slices (fewer on a card of fewer
                  SMs), each slice 16 x n_blocks floats.
     n_blocks     fused: the stack's 4 x 4 dW/db blocks.
-    row_tiles    layers: GEMM_TILES index of each row product, indexed as
-                 the recompute of hidden layer l (l < L), the head gradient
-                 (L), and the gradient through hidden layer i (L + 1 + i).
-    splits       layers: (tile, splits, rows per split) of the weight
-                 gradient of each layer, hidden layers first, then the heads.
-    act_floats   layers: batch x the sum of the hidden widths.
-    partial_floats  per-split dW/db slices (fused: per-CTA)."""
+    row_tiles    layers: FORWARD_TILE_COLS index of each row product,
+                 indexed as the recompute of hidden layer l (l < L), the
+                 heads' gradient (L), and the gradient through hidden layer
+                 i (L + 1 + i).
+    splits       layers: (FORWARD_TILE_COLS index, splits, rows per split)
+                 of each weight gradient, hidden layers first, then the
+                 heads together.
+    act_floats   layers: the hidden activations, batch x each hidden width,
+                 each rounded up to 4.
+    partial_floats  per-split dW/db slices (fused: per-CTA; layers: of the
+                 weight gradients of more than one split).
+    wsplit_floats   layers: the pre-pass's split weights (and the
+                 recompute's column norms).
+    chain_width  layers: the widest hidden layer that a re-decided ReLU
+                 input's row is rebuilt through (0 for fewer than two hidden
+                 layers); the wrapper adds chain_floats(sms) of scratch."""
     route: str
     n_parts: int = 0
     n_blocks: int = 0
@@ -363,10 +372,19 @@ class BackwardPlan:
     splits: tuple = ()
     act_floats: int = 0
     partial_floats: int = 0
+    wsplit_floats: int = 0
+    chain_width: int = 0
+
+    def chain_floats(self, sms):
+        """The rebuilt rows' buffers: two rows for each CTA, a CTA on each of
+        ``sms`` SMs at most."""
+        return sms * 2 * self.chain_width
 
     @property
     def scratch_bytes(self):
-        return 4 * (self.act_floats + self.partial_floats)
+        """On a card of CARD_SMS SMs."""
+        return 4 * (self.act_floats + self.partial_floats + self.wsplit_floats
+                    + self.chain_floats(CARD_SMS))
 
 
 def _ceil(a, b):
@@ -409,63 +427,59 @@ def _fused_fits(dims, head_dims, want_dx):
     return blocks <= FUSED_MAX_BLOCKS and smem <= MAX_SMEM
 
 
-def _tile_cost(t, m, n):
-    """Shared-memory reads of an m x n product under tile t, per k: its
-    padded output area times the float4 reads a thread makes per output
-    (TM / 4 + TN / 4 for TM x TN outputs): 1/16 for 8 x 8, 3/32 for 8 x 4,
-    1/8 for 4 x 4.  Then the fewest CTA tiles; on a tie the later tile."""
-    bm, bn = GEMM_TILES[t]
-    tm, tn = GEMM_THREAD_TILES[t]
-    tiles = _ceil(m, bm) * _ceil(n, bn)
-    return tiles * bm * bn * (tm // 4 + tn // 4) / (tm * tn), tiles, -t
-
-
-def _row_tile(n):
-    """The column tile (of 128, 64, 32; 128 rows) of a row product with n
-    output columns."""
-    return min(range(3), key=lambda t: _tile_cost(t, 128, n))
-
-
-def _split(batch, m, n):
-    """(tile, splits, rows per split) of an m x n weight gradient summed over
-    the batch: the tile of least cost, and as many row splits as keep
-    tiles x splits within one wave of two CTAs an SM."""
-    tile = min(range(len(GEMM_TILES)), key=lambda t: _tile_cost(t, m, n))
-    tiles = _tile_cost(tile, m, n)[1]
-    splits = max(1, min(SPLIT_CTAS // tiles, _ceil(batch, SPLIT_MIN_ROWS)))
-    rows = _ceil(_ceil(batch, splits), GEMM_CHUNK) * GEMM_CHUNK
+def _dw_split(batch, m, n):
+    """(FORWARD_TILE_COLS index, splits, rows per split) of an m x n weight
+    gradient summed over the batch: the column tile that pads n least (on a
+    tie the wider), and as many splits of whole stages as keep its tiles x
+    splits within one CTA an SM, none under SPLIT_MIN_ROWS rows."""
+    tile = min(range(len(FORWARD_TILE_COLS)),
+               key=lambda t: (_ceil(n, FORWARD_TILE_COLS[t]) * FORWARD_TILE_COLS[t], t))
+    tiles = _ceil(m, ROW_TILE_ROWS) * _ceil(n, FORWARD_TILE_COLS[tile])
+    splits = max(1, min(CARD_SMS // tiles, batch // SPLIT_MIN_ROWS))
+    rows = _ceil(_ceil(batch, splits), ROW_STAGE_K) * ROW_STAGE_K
     return tile, _ceil(batch, rows), rows
+
+
+def _recompute_layout(batch, dims):
+    """The recompute's column tiles and what it takes of the scratch: (row
+    tiles, floats of its split weights and column norms, activation floats,
+    the chain width: the widest hidden layer below the last)."""
+    tiles = tuple(_forward_tile(batch, k, n) for k, n in zip(dims, dims[1:]))
+    wsplit = sum(split_floats(k, n, t) + _ceil(n, FORWARD_TILE_COLS[t]) * FORWARD_TILE_COLS[t]
+                 for (k, n), t in zip(zip(dims, dims[1:]), tiles))
+    return tiles, wsplit, sum(_round4(batch * n) for n in dims[1:]), max(dims[1:-1], default=0)
 
 
 @functools.cache
 def backward_plan(batch, dims, head_dims, want_dx):
     """K3's route and scratch for a stack of input/hidden widths ``dims``
-    and head widths ``head_dims`` at ``batch`` rows."""
-    layers = [(dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
-    layers += [(dims[-1], n) for n in head_dims]
+    and head widths ``head_dims`` at ``batch`` rows.  The layer-wise route
+    takes any depth and width (persistent launches: no grid bound) up to
+    MAX_ROWS rows."""
     if _fused_fits(dims, head_dims, want_dx):
         n_parts = min(_ceil(batch, FUSED_MIN_ROWS), FUSED_MAX_PARTS)
         n_blocks = _fused_layout(dims, head_dims, want_dx)[0]
         return BackwardPlan("fused", n_parts=n_parts, n_blocks=n_blocks,
                             partial_floats=n_parts * 16 * n_blocks)
-    if batch >= 2 ** 31:
+    if batch > MAX_ROWS:
         raise ValueError(f"stack_backward: at most 2**31 - 1 rows, got {batch}")
-    row_tiles = tuple(_row_tile(n) for n in dims[1:]) + (_row_tile(dims[-1]),) \
-        + tuple(_row_tile(n) for n in dims[:-1])
-    splits = tuple(_split(batch, k, n) for k, n in layers)
-    # a launch's CTA tiles lie along CUDA's grid y, at most 65,535: a row
-    # product's column tiles, a weight gradient's output tiles
-    tiles_y = [_ceil(n, GEMM_TILES[t][1]) for t, n in
-               zip(row_tiles, tuple(dims[1:]) + (dims[-1],) + tuple(dims[:-1]))]
-    tiles_y += [_tile_cost(t, k, n)[1] for (t, _, _), (k, n) in zip(splits, layers)]
-    if max(tiles_y) > GRID_Y_MAX:
-        raise ValueError(f"stack_backward: a layer of this stack needs {max(tiles_y)} CTA "
-                         f"tiles along CUDA's grid y in one launch, at most {GRID_Y_MAX} "
-                         f"(widths {tuple(dims)}, heads {tuple(head_dims)})")
-    return BackwardPlan("layers", row_tiles=row_tiles, splits=splits,
-                        act_floats=batch * sum(dims[1:]),
-                        partial_floats=sum(s * (k * n + n)
-                                           for (_, s, _), (k, n) in zip(splits, layers)))
+    n_hidden, head_total = len(dims) - 1, sum(head_dims)
+    rec_tiles, wsplit, act_floats, chain_width = _recompute_layout(batch, dims)
+    # the gradients one layer down: the heads' (k = their widths together,
+    # n = the last hidden width), then each hidden layer's (k = its output)
+    down = [(head_total, dims[-1])] + [(dims[i + 1], dims[i]) for i in range(n_hidden)]
+    down_tiles = tuple(_forward_tile(batch, k, n) for k, n in down)
+    # run: the heads' where a hidden layer or dx follows, a hidden layer's but the input one's
+    # unless dx is wanted
+    run = [n_hidden > 0 or want_dx] + [i > 0 or want_dx for i in range(n_hidden)]
+    wsplit += sum(split_floats(k, n, t) for (k, n), t, r in zip(down, down_tiles, run) if r)
+    layers = [(dims[i], dims[i + 1]) for i in range(n_hidden)] + [(dims[-1], head_total)]
+    splits = tuple(_dw_split(batch, m, n) for m, n in layers)
+    return BackwardPlan("layers", row_tiles=rec_tiles + down_tiles, splits=splits,
+                        act_floats=act_floats,
+                        partial_floats=sum(s * (m + 1) * n for (_, s, _), (m, n)
+                                           in zip(splits, layers) if s > 1),
+                        wsplit_floats=wsplit, chain_width=chain_width)
 
 
 @functools.cache
@@ -481,10 +495,16 @@ def _backward_entries():
     layers.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     layers.restype = ctypes.c_int
-    return fused, layers
+    recompute = lib.atlasvae_stack_recompute
+    recompute.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p]
+    recompute.restype = ctypes.c_int
+    return fused, layers, recompute
 
 
 @functools.cache
@@ -503,6 +523,11 @@ def _stack_layout(dims, head_dims):
 
 
 _COUNTERS = {}
+
+
+@functools.cache
+def _device_sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _barrier_counter(device, stream):
@@ -543,13 +568,12 @@ def stack_backward(x, hidden, heads, head_grads, want_dx):
     c_dims, c_head_dims, leaf_views = _stack_layout(dims, head_dims)
     grads = torch.empty(leaf_views[-1], device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x) if want_dx else None
-    partial = torch.empty(plan.partial_floats, device=x.device, dtype=torch.float32)
     # one C array: the hidden weights, their biases, the head weights, the head gradients
     n_h, n_k = len(hidden), len(heads)
     ptrs = cuda_build.pointer_array([w for w, _ in hidden] + [b for _, b in hidden]
                                     + [w for w, _ in heads] + list(head_grads))
     at = ctypes.addressof(ptrs)
-    fused, layers = _backward_entries()
+    fused, layers, _ = _backward_entries()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     size = ctypes.sizeof(ctypes.c_void_p)
     common = (x.data_ptr(), batch, n_h, ctypes.addressof(c_dims), at, at + size * n_h, n_k,
@@ -558,14 +582,23 @@ def stack_backward(x, hidden, heads, head_grads, want_dx):
     with torch.cuda.device(x.device):
         if plan.route == "fused":
             counter = _barrier_counter(x.device, stream)
+            partial = torch.empty(plan.partial_floats, device=x.device, dtype=torch.float32)
             err = fused(*common, partial.data_ptr(), plan.n_parts, grads.data_ptr(),
                         counter.data_ptr(), stream)
         else:
-            acts = torch.empty(plan.act_floats, device=x.device, dtype=torch.float32)
+            # one allocation: the split weights, the rebuilt rows, the
+            # activations, the slices
+            chain = plan.chain_floats(_device_sms(x.device))
+            scratch = torch.empty(plan.wsplit_floats + chain + plan.act_floats
+                                  + plan.partial_floats, device=x.device, dtype=torch.float32)
+            base = scratch.data_ptr()
             row_tiles = cuda_build.int_array(plan.row_tiles)
             splits = cuda_build.int_array([v for split in plan.splits for v in split])
-            err = layers(*common, acts.data_ptr(), partial.data_ptr(), ctypes.addressof(row_tiles),
-                         ctypes.addressof(splits), grads.data_ptr(), stream)
+            err = layers(*common, base, base + 4 * plan.wsplit_floats, plan.chain_width,
+                         base + 4 * (plan.wsplit_floats + chain),
+                         base + 4 * (plan.wsplit_floats + chain + plan.act_floats),
+                         ctypes.addressof(row_tiles), ctypes.addressof(splits), grads.data_ptr(),
+                         stream)
     cuda_build.check(err, f"stack_backward kernel ({plan.route} route)")
     if plan.route == "fused":
         backward_launches += 1
@@ -574,6 +607,61 @@ def stack_backward(x, hidden, heads, head_grads, want_dx):
     dws = [grads.as_strided(shape, stride, off) for shape, stride, off in leaf_views[0]]
     dbs = [grads.as_strided(shape, stride, off) for shape, stride, off in leaf_views[1]]
     return dws, dbs, dx
+
+
+def stack_recompute_plain(x, hidden):
+    """Plain version of the layer-wise route's recompute: every hidden
+    activation relu(a W + b), first layer first."""
+    acts = [x]
+    for w, b in hidden:
+        acts.append(torch.relu(acts[-1] @ w + b))
+    return acts[1:]
+
+
+def stack_recompute(x, hidden, redecide=True, counts=False):
+    """The recompute of K3's layer-wise route alone on a CUDA tensor (its
+    pre-pass and row products; the plain version on a CPU tensor): the
+    hidden activations as stack_backward decides their ReLU masks, for
+    counting where those differ from K2's forward and from the plain
+    version.  ``redecide=False`` leaves its ReLU near-ties as the 3xTF32
+    products decide them (stack_backward re-decides them), to measure what
+    the re-decision does.  ``counts``: also return
+    how many elements each layer re-decided (a CUDA tensor; zeros on the
+    CPU), as (activations, counts)."""
+    global recompute_launches
+    if x.device.type == "cpu":
+        acts = stack_recompute_plain(x, hidden)
+        return (acts, torch.zeros(len(hidden), dtype=torch.int32)) if counts else acts
+    if x.device.type != "cuda":
+        raise ValueError(f"stack_recompute: unsupported device {x.device}")
+    if not hidden:
+        raise ValueError("stack_recompute: no hidden layer")
+    cuda_build.check_stack(x, hidden[:-1], hidden[-1:], "stack_recompute")
+    batch = x.shape[0]
+    if batch == 0 or batch > MAX_ROWS:
+        raise ValueError(f"stack_recompute: 1 to 2**31 - 1 rows, got {batch}")
+    dims = (x.shape[1],) + tuple(w.shape[1] for w, _ in hidden)
+    tiles, wsplit, act_floats, chain_width = _recompute_layout(batch, dims)
+    chain = _device_sms(x.device) * 2 * chain_width
+    scratch = torch.empty(wsplit + chain + act_floats, device=x.device, dtype=torch.float32)
+    redecided = torch.zeros(len(hidden), device=x.device, dtype=torch.int32)
+    ptrs = cuda_build.pointer_array([w for w, _ in hidden] + [b for _, b in hidden])
+    at, size = ctypes.addressof(ptrs), ctypes.sizeof(ctypes.c_void_p)
+    c_dims, c_tiles = shape_array(dims), cuda_build.int_array(tiles)
+    _, _, recompute = _backward_entries()
+    with torch.cuda.device(x.device):
+        base = scratch.data_ptr()
+        err = recompute(x.data_ptr(), batch, len(hidden), ctypes.addressof(c_dims), at,
+                        at + size * len(hidden), base, base + 4 * wsplit, chain_width,
+                        base + 4 * (wsplit + chain), ctypes.addressof(c_tiles), int(redecide),
+                        redecided.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "stack_recompute kernel")
+    recompute_launches += 1
+    acts, off = [], wsplit + chain
+    for n in dims[1:]:
+        acts.append(scratch[off:off + batch * n].view(batch, n))
+        off += _round4(batch * n)
+    return (acts, redecided) if counts else acts
 
 
 def _pairs(leaves, n_heads):

@@ -78,8 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                largest move of one flip of a ReLU input that is 0 to float32
                rounding, tests/relu_ties.py; the count of such inputs, of
                elements beyond the bar and the allowance's largest ratio to
-               the bar are printed); the fused bodies of K1, K2 and K3
-               also timed on the device alone (device_ms);
+               the bar are printed); K3 on both routes also timed on the
+               device alone (device_ms), and on its layer-wise route the
+               ReLU masks of its recompute (stack_recompute) counted where
+               they differ from K2's forward and from the plain version's;
+               the fused bodies of K1 and K2 also timed on the device alone;
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
                also against float64, with the card's bits asked again at
@@ -372,8 +375,10 @@ KERNELS = {
     "stack_backward": dict(source="atlasvae_torch/csrc/fused_vae_bwd.cu",
                            replaces="atlasvae/ops/fused_vae.py:130",
                            main_shape="train encoder"),
-    # K3's layer-wise route: the stacks its fused body does not take
-    "stack_backward_layers": dict(source="atlasvae_torch/csrc/fused_vae_bwd.cu",
+    # K3's layer-wise route: the stacks its fused body does not take, each
+    # product one launch on the wgmma mainloop (bwd_rows_kernel, bwd_dw_kernel
+    # after one bwd_split_kernel a call), then reduce_splits
+    "stack_backward_layers": dict(source="atlasvae_torch/csrc/gemm_wgmma.cuh",
                                   replaces="atlasvae/ops/fused_vae.py:130",
                                   main_shape="const_train encoder"),
     # K4's register route (jets of at most 128 constituents), its cluster
@@ -674,12 +679,14 @@ def bound(batch, d0, hidden, heads):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops, nbytes
 
 
-def bound_backward(batch, d0, hidden, heads, want_dx):
+def bound_backward(batch, d0, hidden, heads, want_dx, route):
     """Least time (ms) for one backward call and what bounds it: x, the
     head gradients and the parameters read once, the gradients (and dx)
     written once; per row the forward recompute, dW (2*K*N), db, the ReLU
     masks and g @ W^T (2*K*N) for every layer but the input one unless dx
-    is wanted."""
+    is wanted.  The fused body takes its products in f32 on the CUDA cores;
+    the layer-wise route (``route`` "layers") in 3xTF32 on the tensor cores
+    (three TF32 products for each f32 one), the rest at the f32 rate."""
     layers = list(hidden) + list(heads)
     n_params = sum(w.numel() + b.numel() for w, b in layers)
     head_cols = sum(w.shape[1] for w, _ in heads)
@@ -688,8 +695,16 @@ def bound_backward(batch, d0, hidden, heads, want_dx):
     per_row += sum(2 * w.shape[0] * w.shape[1] + w.shape[1] for w, _ in layers)     # dW, db
     per_row += sum(2 * w.shape[0] * w.shape[1] for i, (w, _) in enumerate(layers)
                    if i > 0 or want_dx)                                            # g @ W^T
+    products = sum(2 * w.shape[0] * w.shape[1] for w, _ in hidden)
+    products += sum(2 * w.shape[0] * w.shape[1] for w, _ in layers)
+    products += sum(2 * w.shape[0] * w.shape[1] for i, (w, _) in enumerate(layers) if i > 0 or want_dx)
     flops = batch * per_row
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    if route == "layers":
+        t_ops = (3 * batch * products / PEAK_TF32_FLOPS
+                 + (flops - batch * products) / PEAK_F32_FLOPS) * 1e3
+    else:
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), flops, nbytes
 
 
@@ -709,6 +724,28 @@ def kernel_device_ms(fn):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def recompute_flips(x, hidden):
+    """Where the ReLU masks of K3's layer-wise recompute (stack_recompute)
+    differ from K2's forward (each hidden layer's pre-activation as the
+    stack_forward of the layers below it with that layer as its head) and
+    from the plain version's, layer by layer; and the plain version's where
+    the recompute's near-ties are not re-decided (redecide=False); and how
+    many elements each layer re-decided."""
+    import torch
+    from atlasvae_torch.ops import fused_vae
+    with torch.inference_mode():
+        plain = fused_vae.stack_recompute_plain(x, hidden)
+        got, redecided = fused_vae.stack_recompute(x, hidden, counts=True)
+        vs_plain = [int(((a > 0) != (p > 0)).sum()) for a, p in zip(got, plain)]
+        vs_k2 = [int(((fused_vae.stack_forward(x, hidden[:l], [hidden[l]])[0] > 0) != (a > 0)).sum())
+                 for l, a in enumerate(got)]
+        del got
+        raw = fused_vae.stack_recompute(x, hidden, redecide=False)
+        raw_vs_plain = [int(((a > 0) != (p > 0)).sum()) for a, p in zip(raw, plain)]
+    return dict(recompute_flips_vs_plain=vs_plain, recompute_flips_vs_k2=vs_k2,
+                undecided_flips_vs_plain=raw_vs_plain, redecided=redecided.tolist())
+
+
 def parity_backward(params, role, x, gen, ties=False):
     """K3 vs its plain version on the same inputs and head gradients (a
     mean-loss scale, N(0, 1) / B), and the same bits on a second call;
@@ -716,8 +753,9 @@ def parity_backward(params, role, x, gen, ties=False):
     only): an element may go beyond its bar by the largest move of one
     flipped ReLU tie there (tests/relu_ties.py), and the count of ties, of
     elements beyond the bar and the allowance's largest ratio to the bar
-    are recorded.  Returns (the KERNELS name of the route backward_plan
-    takes, result)."""
+    are recorded.  On the layer-wise route also the recompute's mask flips
+    (recompute_flips) and each launch's device ms.  Returns (the KERNELS name
+    of the route backward_plan takes, result)."""
     import torch
     from atlasvae_torch.ops import fused_vae
     hidden, heads = stack_pairs(params, role)
@@ -771,19 +809,20 @@ def parity_backward(params, role, x, gen, ties=False):
               for g, w, bar, a in zip(got[0] + got[1], want[0] + want[1], leaf_bars, allow[0]))
     if want_dx:
         ok &= bool(((got[2] - want[2]).abs() <= ATOL + RTOL * want[2].abs() + allow[1]).all())
-    b_ms, b_by, flops, nbytes = bound_backward(batch, x.shape[1], hidden, heads, want_dx)
+    b_ms, b_by, flops, nbytes = bound_backward(batch, x.shape[1], hidden, heads, want_dx, route)
+    flips = recompute_flips(x, hidden) if route == "layers" else {}
     iters = 50 if batch < BIG_B else 10
     del got, want
     res = dict(batch=batch, widths=[x.shape[1]] + [w.shape[1] for w, _ in hidden]
                + [sum(w.shape[1] for w, _ in heads)], want_dx=want_dx, route=route,
-               same_bits=same_bits, max_abs_err=err, **ties_seen,
+               same_bits=same_bits, max_abs_err=err, **ties_seen, **flips,
                max_err_over_leaf_scale=rel, ms=time_ms(kernel, iters),
                plain_ms=time_ms(plain, iters), library_ms=time_ms(library, iters),
                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
     res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
-    if route == "fused":   # the fused body on the device alone: one launch a call
-        res["device_ms"] = time_ms(kernel, iters, queued=True)
-    if route == "layers" and batch == BIG_B:
+    # the device alone: every call's launches queued behind a sleeping kernel
+    res["device_ms"] = time_ms(kernel, iters, queued=True)
+    if route == "layers":
         res["launch_ms"] = kernel_device_ms(kernel)
     if not ok:
         raise AssertionError(f"stack_backward disagrees with its plain version at {res}: "
@@ -1243,6 +1282,9 @@ def phase_parity(device):
                 max_abs_err=f"{res['max_abs_err']:.3g}",
                 max_err_over_leaf_scale=f"{res['max_err_over_leaf_scale']:.3g}",
                 **{k: res[k] for k in ("relu_ties", "over_bar") if k in res},
+                **{k: json.dumps(res[k]) for k in ("recompute_flips_vs_plain", "recompute_flips_vs_k2",
+                                                   "undecided_flips_vs_plain", "redecided")
+                   if k in res},
                 **({"tie_allow_over_bar": f"{res['tie_allow_over_bar']:.3g}"}
                    if "tie_allow_over_bar" in res else {}),
                 ms=f"{res['ms']:.4f}",
@@ -1923,7 +1965,7 @@ def phase_train(device, workdir):
     return launches, facts
 
 
-K3_LAYER_KERNELS = ("rows_gemm_kernel", "split_gemm_kernel", "reduce_splits")
+K3_LAYER_KERNELS = ("bwd_rows_kernel", "bwd_dw_kernel", "bwd_split_kernel", "reduce_splits")
 # K1/K2, both routes: the fused body, the row product and its weights' pre-pass
 FORWARD_KERNELS = ("fused_stack_kernel", "rows_wgmma_kernel", "split_weights_kernel")
 

@@ -405,6 +405,10 @@ WIDE_STACKS = {
     "deep_10_const": ((300,) + (128,) * 9, (32, 32), False),
     "const_1200": ((1200, 256, 128, 64), (32, 32), False),
     "wide_2048": ((2048, 512, 64), (32, 32), True),
+    # odd head widths: the heads' gradients as k segments of 4-byte copies,
+    # their weight gradients as column segments
+    "odd_heads": ((300, 256, 128, 64), (5, 27), True),
+    "four_odd_heads": ((129, 33, 9), (1, 5, 13, 7), True),
 }
 
 
@@ -423,9 +427,68 @@ def test_stack_backward_layered_ragged_split_edges(cuda):
     batch = 22_741
     dims, head_dims, _ = WIDE_STACKS["const_encoder"]
     plan = fused_vae.backward_plan(batch, dims, head_dims, True)
-    assert all(batch % rows and batch % rows % fused_vae.GEMM_CHUNK
+    assert all(batch % rows and batch % rows % fused_vae.ROW_STAGE_K
                for _, _, rows in plan.splits)
     assert _check_stack_backward(cuda, batch, dims, head_dims, True, 3e-4, 17) == "layers"
+
+
+@pytest.mark.parametrize("width", [765, 1020])
+def test_stack_backward_reads_misaligned_inputs(cuda, width):
+    """An input and a head gradient whose rows start 4 bytes past a 16-byte
+    boundary, at the widest inputs the data gives (255 constituents of 3 and
+    of 4 components; 765 wide is also a pitch of no whole 16 bytes): the
+    recompute and the weight gradients copy them by 4 bytes, not by TMA or
+    16-byte copies."""
+    gen = torch.Generator().manual_seed(width)
+    batch, dims, head_dims = 1000, (width, 256, 64), (32, 32)
+    hidden, heads = _stack(gen, dims, head_dims, cuda)
+    wide = torch.randn((batch * width + 1,), generator=gen).to(cuda)
+    x = torch.as_strided(wide, (batch, width), (width, 1), 1)
+    spare = (torch.randn((batch * 32 + 1,), generator=gen) / batch).to(cuda)
+    grads = [torch.as_strided(spare, (batch, 32), (32, 1), 1),
+             (torch.randn((batch, 32), generator=gen) / batch).to(cuda)]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 and grads[0].data_ptr() % 16 == 4
+    got = fused_vae.stack_backward(x, hidden, heads, grads, True)
+    _close_grads(got, fused_vae.stack_backward_plain(x.clone(), hidden, heads,
+                                                     [g.clone() for g in grads], True), 1e-5)
+
+
+def test_stack_backward_takes_a_layer_past_the_old_grid_bound(cuda):
+    """A 65,536 -> 16,384 layer at 1,000 rows (a batch that ends mid-stage),
+    the stack's one layer (a head: no ReLU), with dx: its weight gradient
+    has 65,536 tiles of 128 x 128 (more than CUDA's grid y took) and dx's
+    row product 8 x 512; the persistent launches walk them all."""
+    dims, head_dims = (65_536,), (16_384,)
+    plan = fused_vae.backward_plan(1000, dims, head_dims, True)
+    assert plan.route == "layers" and plan.splits == ((0, 1, 1024),) and plan.partial_floats == 0
+    assert _check_stack_backward(cuda, 1000, dims, head_dims, True, 1e-5, 65) == "layers"
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("dims,head_dims,want_dx", [
+    ((12, 80, 80), (20, 20), False),       # two heads: the heads' gradient as k segments
+    ((300, 256, 64), (32, 32), True),
+    ((10, 20, 30), (12,), True),
+])
+def test_stack_backward_propagates_non_finite_head_gradients(cuda, bad, dims, head_dims, want_dx):
+    """A NaN or inf in one head gradient (a loss that overflowed) leaves every
+    gradient non-finite where the plain version's f32 sums do (the training
+    step's guard then zeroes them), and the rest within its bar.  On the
+    layer-wise route the GPU's own NaN (an inf masked to inf x 0) once split
+    into TF32 words as -0.0 and vanished."""
+    gen = torch.Generator().manual_seed(len(dims) + int(bad != bad))
+    hidden, heads = _stack(gen, dims, head_dims, cuda)
+    x = torch.randn((1000, dims[0]), generator=gen).to(cuda)
+    grads = [(torch.randn((1000, n), generator=gen) / 1000).to(cuda) for n in head_dims]
+    grads[-1][7, 3] = bad
+    got = fused_vae.stack_backward(x, hidden, heads, grads, want_dx)
+    want = fused_vae.stack_backward_plain(x, hidden, heads, grads, want_dx)
+    for g, w in zip(got[0] + got[1] + [got[2]] * want_dx, want[0] + want[1] + [want[2]] * want_dx):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        ok = torch.isfinite(w)
+        if bool(ok.any()):
+            torch.testing.assert_close(g[ok], w[ok], rtol=0, atol=1e-5 * float(w[ok].abs().max()))
 
 
 def test_stack_backward_rejects_bad_head_gradients(cuda):

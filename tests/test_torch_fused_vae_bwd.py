@@ -186,46 +186,127 @@ def test_backward_route_follows_the_shape(dims, head_dims, route, batch):
             assert 16 * blocks >= n_params
             continue
         n_hidden = len(dims) - 1
-        assert len(plan.row_tiles) == 2 * n_hidden + 1
-        assert len(plan.splits) == n_hidden + len(head_dims)
-        assert plan.act_floats == batch * sum(dims[1:])
-        layers = list(zip(dims, dims[1:])) + [(dims[-1], n) for n in head_dims]
-        for (tile, splits, rows), (k, n) in zip(plan.splits, layers):
-            bm, bn = fused_vae.GEMM_TILES[tile]
-            assert splits * -(-k // bm) * -(-n // bn) <= fused_vae.SPLIT_CTAS or splits == 1
-            assert (splits - 1) * rows < batch <= splits * rows and rows % fused_vae.GEMM_CHUNK == 0
-        assert plan.partial_floats == sum(s * (k * n + n)
-                                          for (_, s, _), (k, n) in zip(plan.splits, layers))
+        head_total = sum(head_dims)
+        # row products: the recompute of each hidden layer, the heads'
+        # gradient, the gradient through each hidden layer; each the tile K2
+        # gives the same product
+        products = list(zip(dims, dims[1:])) + [(head_total, dims[-1])] + \
+            [(dims[i + 1], dims[i]) for i in range(n_hidden)]
+        assert plan.row_tiles == tuple(fused_vae._forward_tile(batch, k, n) for k, n in products)
+        # weight gradients: each hidden layer, then the heads together
+        layers = list(zip(dims, dims[1:])) + [(dims[-1], head_total)]
+        assert len(plan.splits) == n_hidden + 1
+        for (tile, splits, rows), (m, n) in zip(plan.splits, layers):
+            cols = fused_vae.FORWARD_TILE_COLS[tile]
+            tiles = -(-m // fused_vae.ROW_TILE_ROWS) * -(-n // cols)
+            assert splits * tiles <= fused_vae.CARD_SMS or splits == 1
+            assert (splits - 1) * rows < batch <= splits * rows
+            assert rows % fused_vae.ROW_STAGE_K == 0
+            assert splits == 1 or rows >= fused_vae.SPLIT_MIN_ROWS
+        assert plan.act_floats == sum(-(-batch * n // 4) * 4 for n in dims[1:])
+        assert plan.chain_width == max(dims[1:-1], default=0)
+        assert plan.partial_floats == sum(s * (m + 1) * n for (_, s, _), (m, n)
+                                          in zip(plan.splits, layers) if s > 1)
+        # the split weights: every recompute (with its column norms), the
+        # heads' gradient where a hidden layer or dx follows, and every
+        # hidden layer's but the input one's unless dx is wanted
+        need = [True] * n_hidden + [n_hidden > 0 or want_dx] + \
+            [i > 0 or want_dx for i in range(n_hidden)]
+        cols = [fused_vae.FORWARD_TILE_COLS[t] for t in plan.row_tiles]
+        assert plan.wsplit_floats == sum(
+            fused_vae.split_floats(k, n, t) + (-(-n // c) * c if i < n_hidden else 0)
+            for i, ((k, n), t, c, r) in enumerate(zip(products, plan.row_tiles, cols, need)) if r)
 
 
-def test_backward_plan_refuses_past_the_grid_bound():
-    """The one size the layer-wise route cannot take: a weight gradient whose
-    CTA tiles exceed CUDA's grid y (65,535), a 65,536 x 16,384 layer; the
-    widest the data gives (255 constituents of 4 components, 1,020) is far
-    inside it."""
-    assert fused_vae.backward_plan(10_000, (16_384, 16_384), (8,), True).route == "layers"
-    with pytest.raises(ValueError, match="grid y"):
-        fused_vae.backward_plan(10_000, (65_536, 16_384), (8,), True)
+def test_backward_plan_takes_a_layer_past_the_old_grid_bound():
+    """The layer-wise route's launches are persistent (a CTA an SM walking
+    its tiles), so no layer is refused for its tiles: a 65,536 x 16,384
+    layer, whose weight gradient has 65,536 CTA tiles of 128 x 128, more
+    than CUDA's grid y took, is planned as one split written in place (no
+    slices), its weights split twice (recompute and dx: 2 x 2 x 2^30 floats
+    and the recompute's 16,384 column norms)."""
+    for batch in (1000, 10_000):
+        plan = fused_vae.backward_plan(batch, (65_536, 16_384), (8,), True)
+        assert plan.route == "layers"
+        # the heads' 16,384 x 8 gradient: 128 tiles, one split too
+        assert plan.splits == ((0, 1, -(-batch // 32) * 32), (1, 1, -(-batch // 32) * 32))
+        assert plan.partial_floats == 0
+        assert plan.act_floats == batch * 16_384
+        assert plan.wsplit_floats == 2 * (2 * 65_536 * 16_384) + 16_384 + \
+            fused_vae.split_floats(8, 16_384, plan.row_tiles[1])
+    # the layer alone, as the stack's head (no ReLU): one split, in place
+    heads_only = fused_vae.backward_plan(1000, (65_536,), (16_384,), True)
+    assert heads_only.splits == ((0, 1, 1024),) and heads_only.partial_floats == 0
+    assert heads_only.wsplit_floats == 2 * 65_536 * 16_384 and heads_only.act_floats == 0
+    # the widest input the data gives (255 constituents of 4 components):
+    # 16 tiles of 128 x 128, 8 splits of the batch fill 128 of the 132 SMs
+    assert fused_vae.backward_plan(10_000, (1020, 256), (8,), True).splits[0] == (0, 8, 1280)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        fused_vae.backward_plan(2 ** 31, (300, 256), (8,), True)
+
+
+@pytest.mark.parametrize("batch", [1, 31, 32, 33, 255, 257, 10_000, 22_741, 1_000_003])
+@pytest.mark.parametrize("m,n", [(300, 256), (256, 128), (128, 64), (64, 64), (32, 64),
+                                 (64, 10), (765, 256), (2048, 512), (65_536, 16_384)])
+def test_weight_gradient_split_covers_the_batch_in_whole_stages(batch, m, n):
+    tile, splits, rows = fused_vae._dw_split(batch, m, n)
+    cols = fused_vae.FORWARD_TILE_COLS[tile]
+    # the column tile pads n least, on a tie the wider
+    assert -(-n // cols) * cols == min(-(-n // c) * c for c in fused_vae.FORWARD_TILE_COLS)
+    assert cols == 128 or -(-n // 128) * 128 > -(-n // 64) * 64
+    tiles = -(-m // fused_vae.ROW_TILE_ROWS) * -(-n // cols)
+    assert rows % fused_vae.ROW_STAGE_K == 0 and (splits - 1) * rows < batch <= splits * rows
+    assert splits == 1 or (splits * tiles <= fused_vae.CARD_SMS and rows >= fused_vae.SPLIT_MIN_ROWS)
+    # one split only where the tiles fill the card or the batch is short
+    assert splits > 1 or tiles * 2 > fused_vae.CARD_SMS or batch < 2 * fused_vae.SPLIT_MIN_ROWS
 
 
 def test_backward_scratch_at_a_million_rows():
     """What one K3 call allocates at 1,000,003 rows of the constituents-mode
     encoder: the hidden activations (1.8 GB, the one round trip through
-    device memory the layer-wise route takes) and the split slices."""
+    device memory the layer-wise route takes), the weight gradients' split
+    slices and the split weights."""
     batch = 1_000_003
     plan = fused_vae.backward_plan(batch, (312, 256, 128, 64), (32, 32), False)
     assert plan.route == "layers"
-    assert plan.act_floats == batch * 448
-    # 128 x 128 tiles where the product is wide enough, 64 x 64 for the heads
-    assert plan.splits == ((0, 44, 22728), (0, 132, 7576), (1, 264, 3792), (4, 264, 3792),
-                           (4, 264, 3792))
-    assert plan.partial_floats == 44 * 80_128 + 132 * 32_896 + 264 * 8_256 + 2 * 264 * 2_080
-    assert plan.scratch_bytes == 4 * (448_001_344 + plan.partial_floats) == 1_836_588_288
+    assert plan.act_floats == batch * 448   # each buffer a multiple of 4 floats already
+    # 128 x 128 tiles where the product is wide enough, 128 x 64 for the last
+    # layer and the heads (64 columns together); splits of whole stages that
+    # fill the card's 132 SMs
+    assert plan.splits == ((0, 22, 45_472), (0, 66, 15_168), (1, 132, 7584), (1, 132, 7584))
+    assert plan.partial_floats == 22 * 313 * 256 + 66 * 257 * 128 + 132 * 129 * 64 + 132 * 65 * 64
+    assert plan.row_tiles == (0, 0, 1, 1, 0, 0, 0)
+    # recompute 312 -> 256, 256 -> 128 (128 wide), 128 -> 64 (64), each with
+    # its column norms; the heads' 64 -> 64 and the hidden layers' but the
+    # input one's (no dx)
+    assert plan.wsplit_floats == (2 * 256 * 320 + 256) + (2 * 128 * 256 + 128) + \
+        (2 * 64 * 128 + 64) + 2 * 64 * 64 + 2 * 256 * 128 + 2 * 128 * 64
+    # a re-decided ReLU input's row is rebuilt through the layers below it:
+    # two rows of the widest (256) for each CTA of 132 SMs
+    assert plan.chain_width == 256
+    assert plan.scratch_bytes == 4 * (448_001_344 + 5_572_864 + 336_320 + 132 * 2 * 256) \
+        == 1_815_912_448
     # the canonical encoder keeps the fused body: 132 slices of its 375 blocks
     # of 4 x 4 (5,520 parameters)
     canonical = fused_vae.backward_plan(batch, (12, 80, 40, 20), (10, 10), False)
     assert canonical.route == "fused" and canonical.n_blocks == 375
     assert canonical.scratch_bytes == 4 * 132 * 16 * 375
+
+
+@pytest.mark.parametrize("dims", [(300, 256, 128, 64), (13, 17, 9), (7,) + (24,) * 9])
+def test_stack_recompute_runs_its_plain_version_on_cpu(rng, dims):
+    """On a CPU tensor the recompute alone is its plain version: the hidden
+    activations of stack_backward_plain's forward, each relu(a W + b)."""
+    hidden, _ = _stack(rng, dims, (3,))
+    x = rng.normal(size=(B, dims[0])).astype(np.float32)
+    t = [(torch.from_numpy(w), torch.from_numpy(b)) for w, b in hidden]
+    before = fused_vae.recompute_launches
+    got = fused_vae.stack_recompute(torch.from_numpy(x), t)
+    assert fused_vae.recompute_launches == before and len(got) == len(hidden)
+    a = x.astype(np.float64)
+    for act, (w, b) in zip(got, hidden):
+        a = np.maximum(a @ w + b, 0.0)
+        np.testing.assert_allclose(act.numpy(), a, **TOL)
 
 
 def _flipped_backward(x, hidden, heads, grads, row, layer, unit):
