@@ -347,9 +347,9 @@ fused_stack_kernel(const __grid_constant__ StackArgs a, const __grid_constant__ 
               const int width = a.head_dims[h];
               float* const s = st + kBlockRows * p.head_off[h] + (c - p.head_off[h]);
               float v0 = acc[j][e] + bias[c], v1 = acc[j][2 + e] + bias[c];
-              if (relu_out) {
-                v0 = fmaxf(v0, 0.f);
-                v1 = fmaxf(v1, 0.f);
+              if (relu_out) {   // a segment's hidden layer may feed a row product
+                v0 = relu_quiet(v0);
+                v1 = relu_quiet(v1);
               }
               s[g * width] = v0;
               s[(g + 8) * width] = v1;
@@ -363,10 +363,10 @@ fused_stack_kernel(const __grid_constant__ StackArgs a, const __grid_constant__ 
       for (int j = 0; j < T; ++j) {
         if (j >= p.nt[t]) break;
         const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * j);
-        act[j][0] = fmaxf(acc[j][0] + bv.x, 0.f);
-        act[j][1] = fmaxf(acc[j][1] + bv.y, 0.f);
-        act[j][2] = fmaxf(acc[j][2] + bv.x, 0.f);
-        act[j][3] = fmaxf(acc[j][3] + bv.y, 0.f);
+        act[j][0] = relu_nan(acc[j][0] + bv.x);
+        act[j][1] = relu_nan(acc[j][1] + bv.y);
+        act[j][2] = relu_nan(acc[j][2] + bv.x);
+        act[j][3] = relu_nan(acc[j][3] + bv.y);
       }
     }
     __syncwarp();

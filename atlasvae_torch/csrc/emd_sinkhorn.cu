@@ -66,9 +66,13 @@
 // plain version does not have (the cost matrix enters an exponent divided by
 // eps = 0.01, which magnifies its last bit a hundredfold).  Every route builds
 // each element of C and K by the same expressions, so they differ only in the
-// order of their sums.
+// order of their sums.  Its maxima, minima and floors carry a NaN as the
+// plain version's clamps do (nan_math.cuh): a NaN or infinite pt or
+// coordinate gives the plain version's NaN EMD, not a finite one.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "nan_math.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -140,10 +144,10 @@ emd_wide_kernel(const float* __restrict__ p, const float* __restrict__ q,
 
   for (int x = tid; x < n4; x += n_threads) {
     const bool live = x < n;
-    pt_p[x] = live ? fmaxf(pj[3 * x], 0.0f) : 0.0f;
+    pt_p[x] = live ? max_nan(pj[3 * x], 0.0f) : 0.0f;
     y_p[x] = live ? pj[3 * x + 1] : 0.0f;
     phi_p[x] = live ? pj[3 * x + 2] : 0.0f;
-    pt_q[x] = live ? fmaxf(qj[3 * x], 0.0f) : 0.0f;
+    pt_q[x] = live ? max_nan(qj[3 * x], 0.0f) : 0.0f;
     y_q[x] = live ? qj[3 * x + 1] : 0.0f;
     phi_q[x] = live ? qj[3 * x + 2] : 0.0f;
     f[x] = g[x] = u[x] = v[x] = err_a[x] = err_b[x] = 0.0f;
@@ -156,8 +160,8 @@ emd_wide_kernel(const float* __restrict__ p, const float* __restrict__ q,
     sum_q += pt_q[i];
   }
   for (int x = tid; x < n4; x += n_threads) {
-    a[x] = __fdiv_rn(pt_p[x], fmaxf(sum_p, kFloor));
-    b[x] = __fdiv_rn(pt_q[x], fmaxf(sum_q, kFloor));
+    a[x] = __fdiv_rn(pt_p[x], max_nan(sum_p, kFloor));
+    b[x] = __fdiv_rn(pt_q[x], max_nan(sum_q, kFloor));
   }
   __syncthreads();
 
@@ -182,19 +186,19 @@ emd_wide_kernel(const float* __restrict__ p, const float* __restrict__ q,
         float acc = 0.0f;
         for (int j = lane; j < n; j += 32) acc = fmaf(row[j], v[j], acc);
         acc = warp_sum(acc);
-        if (lane == 0) u[i] = __fdiv_rn(a[i], fmaxf(acc, kFloor));
+        if (lane == 0) u[i] = __fdiv_rn(a[i], max_nan(acc, kFloor));
       }
       __syncthreads();
       for (int j = tid; j < n; j += n_threads) {
         float acc = 0.0f;
         for (int i = 0; i < n; ++i) acc = fmaf(row_of(i)[j], u[i], acc);
-        v[j] = __fdiv_rn(b[j], fmaxf(acc, kFloor));
+        v[j] = __fdiv_rn(b[j], max_nan(acc, kFloor));
       }
       __syncthreads();
     }
     for (int x = tid; x < n; x += n_threads) {
-      f[x] = __fadd_rn(f[x], __fmul_rn(eps, logf(fmaxf(u[x], kFloor))));
-      g[x] = __fadd_rn(g[x], __fmul_rn(eps, logf(fmaxf(v[x], kFloor))));
+      f[x] = __fadd_rn(f[x], __fmul_rn(eps, logf(max_nan(u[x], kFloor))));
+      g[x] = __fadd_rn(g[x], __fmul_rn(eps, logf(max_nan(v[x], kFloor))));
     }
     __syncthreads();
   }
@@ -218,14 +222,14 @@ emd_wide_kernel(const float* __restrict__ p, const float* __restrict__ q,
     float* const row = row_of(i);
     float total = 0.0f;
     for (int j = lane; j < n; j += 32) total += row[j];
-    const float scale = fminf(__fdiv_rn(a[i], fmaxf(warp_sum(total), kFloor)), 1.0f);
+    const float scale = min_nan(__fdiv_rn(a[i], max_nan(warp_sum(total), kFloor)), 1.0f);
     for (int j = lane; j < n; j += 32) row[j] = __fmul_rn(row[j], scale);
   }
   __syncthreads();
   for (int j = tid; j < n; j += n_threads) {
     float total = 0.0f;
     for (int i = 0; i < n; ++i) total += row_of(i)[j];
-    const float scale = fminf(__fdiv_rn(b[j], fmaxf(total, kFloor)), 1.0f);
+    const float scale = min_nan(__fdiv_rn(b[j], max_nan(total, kFloor)), 1.0f);
     for (int i = 0; i < n; ++i) row_of(i)[j] = __fmul_rn(row_of(i)[j], scale);
   }
   __syncthreads();
@@ -245,7 +249,7 @@ emd_wide_kernel(const float* __restrict__ p, const float* __restrict__ q,
   if (tid == 0) {
     float deficit = 0.0f;
     for (int i = 0; i < n; ++i) deficit += fabsf(err_a[i]);
-    deficit_total = fmaxf(deficit, kFloor);
+    deficit_total = max_nan(deficit, kFloor);
   }
   __syncthreads();
   const float deficit = deficit_total;
@@ -266,7 +270,7 @@ emd_wide_kernel(const float* __restrict__ p, const float* __restrict__ q,
   if (tid == 0) {
     float transport = 0.0f;
     for (int i = 0; i < n; ++i) transport += u[i];
-    out[blockIdx.x] = __fadd_rn(__fmul_rn(transport, fminf(sum_p, sum_q)),
+    out[blockIdx.x] = __fadd_rn(__fmul_rn(transport, min_nan(sum_p, sum_q)),
                                 fabsf(__fsub_rn(sum_p, sum_q)));
   }
 }
@@ -595,13 +599,13 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
   // cost matrix
   for (int x = tl; x < NR; x += G) {
     const bool live = active && x < n_rows;
-    ptp[x] = live ? fmaxf(pj[3 * x], 0.f) : 0.f;
+    ptp[x] = live ? max_nan(pj[3 * x], 0.f) : 0.f;
     av[x] = live ? pj[3 * x + 1] : 0.f;
     f[x] = live ? pj[3 * x + 2] : 0.f;
   }
   for (int x = tl; x < NC; x += G) {
     const bool live = active && x < n;
-    ptq[x] = live ? fmaxf(qj[3 * x], 0.f) : 0.f;
+    ptq[x] = live ? max_nan(qj[3 * x], 0.f) : 0.f;
     bv[x] = live ? qj[3 * x + 1] : 0.f;
     g[x] = live ? qj[3 * x + 2] : 0.f;
   }
@@ -634,11 +638,11 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
   const float sum_p = sp[0], sum_q = sq[0];
   __syncthreads();  // the coordinates are read
   for (int x = tl; x < NR; x += G) {
-    av[x] = __fdiv_rn(ptp[x], fmaxf(sum_p, kFloor));
+    av[x] = __fdiv_rn(ptp[x], max_nan(sum_p, kFloor));
     f[x] = 0.f;
   }
   for (int x = tl; x < NC; x += G) {
-    bv[x] = __fdiv_rn(ptq[x], fmaxf(sum_q, kFloor));
+    bv[x] = __fdiv_rn(ptq[x], max_nan(sum_q, kFloor));
     g[x] = 0.f;
   }
   __syncthreads();
@@ -735,7 +739,7 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
           for (int b = 0; b < CB; ++b) rs[a] = fmaf(K[a][b], v[b], rs[a]);
       }
       scatter<RV, TC / 2, 1>(rs, lane);
-      if (row_owner) um = __fdiv_rn(my_a, fmaxf(rs[0], kFloor));
+      if (row_owner) um = __fdiv_rn(my_a, max_nan(rs[0], kFloor));
       if (row_writer) us[tr * RV + ridx] = um;
       __syncwarp();
       load_vec(u, us + tr * RV);
@@ -756,7 +760,7 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
         __syncthreads();
         float t[OWN];
         auto finish = [&](int o) {  // v of the owner's column from its sum
-          vm[o] = __fdiv_rn(my_b[o], fmaxf(t[o], kFloor));
+          vm[o] = __fdiv_rn(my_b[o], max_nan(t[o], kFloor));
           vfin[col_slot[o]] = vm[o];
         };
 #pragma unroll
@@ -779,18 +783,18 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
         __syncthreads();
         load_vec(v, vfin + tc * CV);
       } else {
-        if (col_owner[0]) vm[0] = __fdiv_rn(my_b[0], fmaxf(cs[0], kFloor));
+        if (col_owner[0]) vm[0] = __fdiv_rn(my_b[0], max_nan(cs[0], kFloor));
         if (col_writer) part[col_slot[0]] = vm[0];
         __syncwarp();
         load_vec(v, part + tc * CV);
       }
     }
     __syncthreads();  // every lane has read f and g for this stage's K
-    if (row_owner) f[my_row] = __fadd_rn(f[my_row], __fmul_rn(eps, logf(fmaxf(um, kFloor))));
+    if (row_owner) f[my_row] = __fadd_rn(f[my_row], __fmul_rn(eps, logf(max_nan(um, kFloor))));
 #pragma unroll
     for (int o = 0; o < OWN; ++o)
       if (col_owner[o])
-        g[my_col[o]] = __fadd_rn(g[my_col[o]], __fmul_rn(eps, logf(fmaxf(vm[o], kFloor))));
+        g[my_col[o]] = __fadd_rn(g[my_col[o]], __fmul_rn(eps, logf(max_nan(vm[o], kFloor))));
     __syncthreads();
   }
 
@@ -808,7 +812,7 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
   sum_over_tc<TC>(ea);
 #pragma unroll
   for (int a = 0; a < RA; ++a) {
-    const float scale = fminf(__fdiv_rn(av[row0 + a], fmaxf(ea[a], kFloor)), 1.f);
+    const float scale = min_nan(__fdiv_rn(av[row0 + a], max_nan(ea[a], kFloor)), 1.f);
 #pragma unroll
     for (int b = 0; b < CB; ++b) K[a][b] = __fmul_rn(K[a][b], scale);
   }
@@ -821,7 +825,7 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
   sum_over_tr<T>(eb, part, warp, lane, tc, ex);
 #pragma unroll
   for (int b = 0; b < CB; ++b) {
-    const float scale = fminf(__fdiv_rn(bv[col0 + b], fmaxf(eb[b], kFloor)), 1.f);
+    const float scale = min_nan(__fdiv_rn(bv[col0 + b], max_nan(eb[b], kFloor)), 1.f);
 #pragma unroll
     for (int a = 0; a < RA; ++a) K[a][b] = __fmul_rn(K[a][b], scale);
   }
@@ -848,7 +852,7 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
 #pragma unroll
   for (int b = 0; b < CB; ++b) eb[b] = __fsub_rn(bv[col0 + b], eb[b]);
   sum_over_tr<T>(deficit, part, warp, lane, tc, ex);
-  const float d = fmaxf(deficit[0], kFloor), rd = __frcp_rn(d);
+  const float d = max_nan(deficit[0], kFloor), rd = __frcp_rn(d);
   // <plan + err_a err_b^T / deficit, C>: a tile at a time, then the lanes
   float acc[1] = {0.f};
 #pragma unroll
@@ -863,7 +867,7 @@ emd_tile_kernel(const float* __restrict__ p, const float* __restrict__ q,
   sum_over_tc<TC>(acc);
   sum_over_tr<T>(acc, part, warp, lane, tc, ex);
   if (active && tl == 0 && rank == 0)
-    out[pair] = __fadd_rn(__fmul_rn(acc[0], fminf(sum_p, sum_q)), fabsf(__fsub_rn(sum_p, sum_q)));
+    out[pair] = __fadd_rn(__fmul_rn(acc[0], min_nan(sum_p, sum_q)), fabsf(__fsub_rn(sum_p, sum_q)));
 }
 
 template <class T>

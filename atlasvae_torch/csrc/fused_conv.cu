@@ -28,7 +28,9 @@
 // In float both sum each conv pixel's taps with the same chain of FMAs,
 // from 0 in (dy, dx, c) order, and keep the first position of the window
 // that reaches the maximum (rows, then columns, strictly greater), as K6
-// (fused_conv_bwd.cu) recomputes them.
+// (fused_conv_bwd.cu) recomputes them.  A NaN is carried as XLA carries it
+// (nan_math.cuh): a NaN conv output is its window's value, and the ReLU
+// keeps it.
 //
 // Bound on an H100 at the jet-ID training batch (5,000 x 16x16x1, 3x3, 100
 // maps, pool 2x2), float: 5.1 MB read, 98 MB written, 1.8 GFLOP: the write
@@ -55,7 +57,7 @@
 // holds it now is instruction issue
 // (a few hundred a group of four pooled pixels, most of them the pool and
 // the stores' staging), at about twice the byte bound (PERF.md §6).  The
-// pool keeps the largest value only (fmaxf): K6 picks the same value, and
+// pool keeps the largest value only (max.NaN): K6 picks the same value, and
 // its position, from the same products.
 #include <cstdint>
 
@@ -91,11 +93,12 @@ conv_pool_relu_kernel(const __grid_constant__ ConvArgs<T> a) {
       for (int o = threadIdx.x; o < total; o += kConvThreads) {
         const int m = o % mcur;
         int img, oy, ox, by, bx;
+        float total;
         conv_pixel_of(s, it, o / mcur, &img, &oy, &ox);
         const float z = conv_pool_pixel(s, xs + img * img_stride, it.ylo, oy, ox, ws + m,
-                                        p.mt, &by, &bx);
+                                        p.mt, &by, &bx, &total);
         a.out[(((size_t)(it.n0 + img) * s.Ho + oy) * s.Wo + ox) * s.M + m0 + m] =
-            narrow<T>(fmaxf(z + load_widened(a.b + m0 + m), 0.f));
+            narrow<T>(relu_nan(z + load_widened(a.b + m0 + m)));
       }
     }
   }
@@ -123,13 +126,13 @@ conv_pool_relu_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int ox = pix % Wo, rest = pix / Wo;
     const int oy = rest % Ho;
     const int y0 = 2 * oy, x0 = 2 * ox;
-    float patch[4][4], best[4];
+    float patch[4][4], best[4], total;
     int at[4];
     tile_load_patch(x + (size_t)(rest / Ho) * H * W, H, W, y0, x0, vec2, patch);
-    tile_pool_window(patch, wr, Hc, Wc, y0, x0, best, at);
+    tile_pool_window<false>(patch, wr, Hc, Wc, y0, x0, best, at, total);
     float o[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = fmaxf(best[j] + br[j], 0.f);
+    for (int j = 0; j < 4; ++j) o[j] = relu_nan(best[j] + br[j]);
     T* dst = out + (size_t)pix * M + m0;
     if (vec4) {
       store_quad(dst, o);
@@ -194,8 +197,8 @@ conv_pool_relu_tc_kernel(const unsigned short* __restrict__ x, const unsigned sh
         float zn[2][4];   // the next tile's products, in flight during this tile's pool
         tc_conv_tile(wa[j + 1 < kTcMTiles ? j + 1 : j], bf, zn);
         const float2 bias = wb[j];
-        const unsigned o = bf16x2_bits(fmaxf(tc_max(z, 0, pe) + bias.x, 0.f),
-                                       fmaxf(tc_max(z, 1, pe) + bias.y, 0.f));
+        const unsigned o = bf16x2_bits(relu_nan(tc_max(z, 0, pe) + bias.x),
+                                       relu_nan(tc_max(z, 1, pe) + bias.y));
         const int m = 16 * j + g;
         if (m < s.M) row[m] = (unsigned short)(o & 0xffffu);
         if (m + 8 < s.M) row[m + 8] = (unsigned short)(o >> 16);

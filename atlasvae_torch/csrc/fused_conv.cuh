@@ -41,6 +41,8 @@
 
 #include <atomic>
 
+#include "nan_math.cuh"
+
 namespace atlasvae {
 
 typedef __nv_bfloat16 bf16;
@@ -217,12 +219,18 @@ __device__ __forceinline__ void conv_stage_weights(const ConvArgs<T>& a, int m0,
 
 // The pooled pixel (oy, ox) of one staged image for the map at ws + m: the
 // largest conv output of its window and the conv pixel (*by, *bx) of the
-// first position that reaches it, scanning rows then columns.  The taps are
-// summed in (dy, dx, c) order, one FMA each.
+// first position that reaches it, scanning rows then columns (a window of
+// -inf values: its first position, as XLA's z == y routes it).  A NaN is the
+// window's value (max_nan); its position is then any of the window's, which
+// K6 masks off (NaN + b > 0 is false: it routes 0 x its patch, and the x * 0
+// terms of the window's other positions come from nonfinite_taps).  The
+// taps are summed in (dy, dx, c) order, one FMA each.  *total: the sum of
+// the window's conv outputs, not finite where an input of the window is not.
 __device__ __forceinline__ float conv_pool_pixel(const ConvShape& s, const float* xs_img,
                                                  int ylo, int oy, int ox, const float* wm,
-                                                 int mt, int* by, int* bx) {
+                                                 int mt, int* by, int* bx, float* total) {
   float best = -INFINITY;
+  *total = 0.f;
   *by = -1;
   *bx = -1;
   for (int t = 0; t < s.ph; ++t) {
@@ -240,11 +248,12 @@ __device__ __forceinline__ float conv_pool_pixel(const ConvShape& s, const float
           wp += mt;
         }
       }
-      if (acc > best) {   // strictly: a later tie does not take over
-        best = acc;
+      *total += acc;
+      if (*by < 0 || !(acc <= best)) {   // a later tie does not take over
         *by = y;
         *bx = x0;
       }
+      best = max_nan(best, acc);
     }
   }
   return best;
@@ -305,14 +314,20 @@ __device__ __forceinline__ void tile_load_patch(const T* __restrict__ img, int H
 }
 
 // The pool window whose first conv pixel is (y0, x0): for each of the four
-// maps the largest conv output and its position at = 2 t + q, the first
-// strictly greater one in row order, positions at or past (Hc, Wc) skipped.
+// maps the largest conv output (max_nan: a NaN is the window's value) and its
+// position at = 2 t + q, the first strictly greater one in row order (in a
+// NaN window any position: see conv_pool_pixel), positions at or past
+// (Hc, Wc) skipped.  kRoute (K6): also the positions, and total: the sum of
+// the first map's conv outputs over the window, not finite where an input of
+// it is not; K5 reads the values only.
 // Each conv pixel is one chain of FMAs from 0 in (dy, dx) order, the band
 // route's chain, so both routes of K5 and K6 see the same bits.
+template <bool kRoute>
 __device__ __forceinline__ void tile_pool_window(const float (&patch)[4][4],
                                                  const float (&wr)[9][4], int Hc, int Wc,
                                                  int y0, int x0, float (&best)[4],
-                                                 int (&at)[4]) {
+                                                 int (&at)[4], float& total) {
+  total = 0.f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     best[j] = -INFINITY;
@@ -331,10 +346,13 @@ __device__ __forceinline__ void tile_pool_window(const float (&patch)[4][4],
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx)
             acc = fmaf(patch[t + dy][q + dx], wr[3 * dy + dx][j], acc);
-        if (valid && acc > best[j]) {   // strictly: a later tie does not take over
-          best[j] = acc;
-          at[j] = 2 * t + q;
+        // selects, not a branch on valid: as a branch this cost K5's and K6's
+        // register routes 6% and 14% on an H100 (probes/conv_backward.py)
+        if constexpr (kRoute) {
+          if (j == 0) total += valid ? acc : 0.f;
+          if (valid && !(acc <= best[j])) at[j] = 2 * t + q;   // a later tie does not take over
         }
+        best[j] = max_nan(best[j], valid ? acc : -INFINITY);
       }
     }
 }
@@ -573,7 +591,7 @@ __device__ __forceinline__ void tc_route(const float (&z)[2][4], int h, const Tc
                                          unsigned* hi) {
   float v[4];
   tc_window(z, h, p, v);
-  const float zmax = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+  const float zmax = max_nan(max_nan(v[0], v[1]), max_nan(v[2], v[3]));
   const unsigned gr = live && zmax + bias > 0.f ? g16 : 0u;
   const bool e0 = v[0] == zmax, e1 = v[1] == zmax, e2 = v[2] == zmax;
   *lo = e0 ? gr : e1 ? gr << 16 : 0u;
@@ -584,7 +602,7 @@ __device__ __forceinline__ void tc_route(const float (&z)[2][4], int h, const Tc
 __device__ __forceinline__ float tc_max(const float (&z)[2][4], int h, const TcPixel& p) {
   float v[4];
   tc_window(z, h, p, v);
-  return fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+  return max_nan(max_nan(v[0], v[1]), max_nan(v[2], v[3]));
 }
 
 }  // namespace atlasvae

@@ -16,8 +16,12 @@
 // (in float, and in the bf16 band route: K5's chain of FMAs), keeps the
 // first position that reaches the largest value (rows, then columns: XLA's
 // select-and-scatter order), masks g by zmax + b > 0 and adds g times that
-// position's input patch to dW and g to db.  Two routes, chosen from the
-// shape by ops/fused_conv_cuda.py `route`, as K5's are:
+// position's input patch to dW and g to db.  A NaN carries as in the plain
+// version: a NaN conv output is its window's value and its mask is off; an
+// input that is not finite gives the taps it meets at the window's other
+// positions the NaN of the plain version's dense product (nonfinite_taps;
+// the bf16 register route's product is dense already).  Two routes, chosen
+// from the shape by ops/fused_conv_cuda.py `route`, as K5's are:
 //
 // * The register route (conv_pool_relu_bwd_tiles_kernel in float; its bf16
 //   form below): 3x3 taps, one channel, a 2x2 pool and at most 128 maps,
@@ -78,6 +82,31 @@ namespace atlasvae {
 constexpr int kMaxParts = 264;  // the band route's partial slices at most
 constexpr long long kMaxScratch = 1LL << 25;  // floats of scratch (128 MB) at most
 
+// The plain version's weight gradient is a dense product: every conv pixel
+// of a window adds x times its gradient, 0 at all but the routed one, so an
+// input that is not finite (NaN, or inf: inf x 0) makes the taps it meets at
+// the window's other positions NaN; the routes add g times the routed patch
+// only.  Where a window's sum of conv outputs is not finite (rare: it is
+// finite wherever its inputs are, but for an overflow, where this finds
+// nothing), this writes NaN into the map's column of the CTA's slice
+// (part_m[k M], tap k) for each such tap: NaN absorbs every later sum, so
+// the order of these stores does not matter.
+__device__ __noinline__ void nonfinite_taps(const ConvShape& s, const float* xs_img, int ylo,
+                                            int oy, int ox, int by, int bx, float* part_m) {
+  for (int t = 0; t < s.ph; ++t) {
+    const int y = oy * s.ph + t - s.plh;
+    if (y < 0 || y >= s.Hc) continue;
+    for (int q = 0; q < s.pw; ++q) {
+      const int x0 = ox * s.pw + q - s.plw;
+      if (x0 < 0 || x0 >= s.Wc || (y == by && x0 == bx)) continue;
+      for (int k = 0; k < s.K; ++k) {
+        const float v = xs_img[(y - ylo + k / s.kwC) * s.WC + x0 * s.C + k % s.kwC];
+        if (!(fabsf(v) < INFINITY)) part_m[(size_t)k * s.M] = __uint_as_float(0x7FFFFFFFu);
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kConvThreads)
 conv_pool_relu_bwd_kernel(const __grid_constant__ ConvArgs<T> a) {
@@ -114,17 +143,20 @@ conv_pool_relu_bwd_kernel(const __grid_constant__ ConvArgs<T> a) {
         const int m = o % mcur;
         const int pix = o / mcur;
         int img, oy, ox, by, bx;
+        float total;
         conv_pixel_of(s, it, pix, &img, &oy, &ox);
-        const float zmax = conv_pool_pixel(s, xs + (size_t)img * img_stride, it.ylo, oy, ox,
-                                           ws + m, p.mt, &by, &bx);
+        const float* const xs_img = xs + (size_t)img * img_stride;
+        const float zmax = conv_pool_pixel(s, xs_img, it.ylo, oy, ox, ws + m, p.mt, &by, &bx,
+                                           &total);
         float gr = 0.f;
         if (by >= 0 && zmax + load_widened(a.b + m0 + m) > 0.f)
           gr = load_widened(a.g + (((size_t)(it.n0 + img) * s.Ho + oy) * s.Wo + ox) * s.M + m0 +
                             m);
         gz[pix * p.mt + m] = gr;
-        // a masked pixel points at the item's first patch: 0 * finite = 0
-        patch[pix * p.mt + m] =
-            gr != 0.f ? img * img_stride + (by - it.ylo) * s.WC + bx * s.C : 0;
+        // a masked pixel points at its routed patch too: 0 times its inputs
+        patch[pix * p.mt + m] = by >= 0 ? img * img_stride + (by - it.ylo) * s.WC + bx * s.C : 0;
+        if (!(fabsf(total) < INFINITY))
+          nonfinite_taps(s, xs_img, it.ylo, oy, ox, by, bx, part + m0 + m);
       }
       __syncthreads();
 
@@ -154,6 +186,46 @@ conv_pool_relu_bwd_kernel(const __grid_constant__ ConvArgs<T> a) {
 constexpr int kTileParts = 264;   // CTAs, and partial slices, at most
 constexpr int kTileRed = 10 * 4 * 256;   // (9 taps + db) x 4 maps x 256 threads
 
+// The register route's nonfinite_taps, for the thread's maps over its pixels
+// again: bit 9 j + k where tap k of map j meets an input that is not finite
+// at a window position other than the routed one.  Out of line, and run only
+// where the pixel loop met a window whose sum is not finite: inside the loop
+// the same work took the kernel from 126 registers to 162 and from two CTAs
+// an SM to one, 1.8x the time at the jet-ID batch on an H100
+// (probes/conv_backward.py).
+template <typename T>
+__device__ __noinline__ unsigned long long nonfinite_tile_taps(
+    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b, int H, int W,
+    int M, int Ho, int Wo, int pixels, int first, int slots, int per_thread, bool vec2) {
+  const int Hc = H - 2, Wc = W - 2;
+  float wr[9][4], br[4];
+  tile_load_weights(w, b, M, 4 * threadIdx.x, wr, br);
+  unsigned long long nan_taps = 0;
+  for (int k = 0; k < per_thread; ++k) {
+    const int pix = first + k * slots;
+    if (pix >= pixels) return nan_taps;
+    const int ox = pix % Wo, rest = pix / Wo;
+    const int y0 = 2 * (rest % Ho), x0 = 2 * ox;
+    float patch[4][4], best[4], total;
+    int at[4];
+    tile_load_patch(x + (size_t)(rest / Ho) * H * W, H, W, y0, x0, vec2, patch);
+    tile_pool_window<true>(patch, wr, Hc, Wc, y0, x0, best, at, total);
+    if (fabsf(total) < INFINITY) continue;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (y0 + a / 2 >= Hc || x0 + a % 2 >= Wc) continue;
+      unsigned taps = 0;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        taps |= (fabsf(patch[a / 2 + t / 3][a % 2 + t % 3]) < INFINITY ? 0u : 1u) << t;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (a != at[j]) nan_taps |= (unsigned long long)taps << (9 * j);
+    }
+  }
+  return nan_taps;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256)
 conv_pool_relu_bwd_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -165,6 +237,7 @@ conv_pool_relu_bwd_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w
   const int m0 = 4 * threadIdx.x;
   const int Hc = H - 2, Wc = W - 2;
   float wr[9][4], br[4], dw[9][4], db[4];
+  bool nonfinite = false;   // a window's sum of conv outputs was not finite
   tile_load_weights(w, b, M, m0, wr, br);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -193,10 +266,10 @@ conv_pool_relu_bwd_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w
 #pragma unroll
       for (int j = 0; j < 4; ++j) gv[j] = m0 + j < M ? load_widened(gp + j) : 0.f;
     }
-    float patch[4][4], best[4];
+    float patch[4][4], best[4], total;
     int at[4];
     tile_load_patch(x + (size_t)img * H * W, H, W, y0, x0, vec2, patch);
-    tile_pool_window(patch, wr, Hc, Wc, y0, x0, best, at);
+    tile_pool_window<true>(patch, wr, Hc, Wc, y0, x0, best, at, total);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float gr = best[j] + br[j] > 0.f ? gv[j] : 0.f;   // the ReLU's mask
@@ -214,6 +287,7 @@ conv_pool_relu_bwd_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w
               fmaf(right ? rows[dy][dx + 1] : rows[dy][dx], gr, dw[3 * dy + dx][j]);
       db[j] += gr;
     }
+    nonfinite |= !(fabsf(total) < INFINITY);
     ox += step_x;
     oy += step_y;
     if (ox >= Wo) {
@@ -224,6 +298,16 @@ conv_pool_relu_bwd_tiles_kernel(const T* __restrict__ x, const T* __restrict__ w
       img += oy / Ho;
       oy %= Ho;
     }
+  }
+
+  if (nonfinite) {
+    const unsigned long long nan_taps = nonfinite_tile_taps(x, w, b, H, W, M, Ho, Wo, pixels,
+                                                            first, slots, per_thread, vec2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        if (nan_taps >> (9 * j + k) & 1ull) dw[k][j] = __uint_as_float(0x7FFFFFFFu);
   }
 
   // red[slot][k][4 mg + j], k = 9 for db; then thread i adds element i of

@@ -67,12 +67,12 @@
 //                 HBM round trip the design accepts (1.8 GB at 1,000,003 rows);
 //      heads      dW_h = a_L^T g_h, db_h = sum g_h         bwd_dw_kernel, all
 //                 heads one launch (column segments);
-//                 g_L = (sum_h g_h W_h^T) * (a_L > 0)      one row product
+//                 g_L = [a_L > 0] (sum_h g_h W_h^T)      one row product
 //                 over the heads' gradients as k segments, the mask in its
 //                 epilogue, written over a_L (read by its own thread just
 //                 before);
 //      layer l    dW_l = a_{l-1}^T g_l, db_l = sum g_l     bwd_dw_kernel;
-//                 g_{l-1} = (g_l W_l^T) * (a_{l-1} > 0)    over a_{l-1}, or
+//                 g_{l-1} = [a_{l-1} > 0] (g_l W_l^T)    over a_{l-1}, or
 //                 dx = g_1 W_1^T unmasked for the input layer;
 //    then one ordered reduction of the weight gradients' split slices
 //    (reduce_splits; a weight gradient of one split writes its place in
@@ -179,7 +179,7 @@ __device__ __forceinline__ void warp_forward(const float* in, int in_w, const fl
     const int c = lane + 32 * i;
     if (c < n) {
 #pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) out[r * out_w + c] = fmaxf(acc[r][i], 0.f);
+      for (int r = 0; r < kWarpRows; ++r) out[r * out_w + c] = relu_nan(acc[r][i]);
     }
   }
   const int extra = out_w - n;
@@ -189,8 +189,10 @@ __device__ __forceinline__ void warp_forward(const float* in, int in_w, const fl
   }
 }
 
-// out[r][k] = (sum_c g[r][c] W[k][c]) * (mask[r][k] > 0) for the warp's 8
-// rows and k < n (no mask for dx), c over g_w columns; then zero pads.  A
+// out[r][k] = mask[r][k] > 0 ? sum_c g[r][c] W[k][c] : 0 for the warp's 8
+// rows and k < n (no mask for dx), c over g_w columns; then zero pads.  The
+// mask selects, as jax.nn.relu's gradient does: a non-finite g under an off
+// ReLU gives 0, not inf x 0.  A
 // lane owns outputs lane, lane + 32, ... and reads its rows of W as float4.
 template <int NI>
 __device__ __forceinline__ void warp_backward(const float* g, int g_w, const float* W, int pitch,
@@ -228,7 +230,7 @@ __device__ __forceinline__ void warp_backward(const float* g, int g_w, const flo
 #pragma unroll
       for (int r = 0; r < kWarpRows; ++r) {
         float v = acc[r][i];
-        if (mask != nullptr) v *= mask[r * mask_w + k] > 0.f ? 1.f : 0.f;
+        if (mask != nullptr && !(mask[r * mask_w + k] > 0.f)) v = 0.f;
         out[r * out_w + k] = v;
       }
     }
@@ -893,7 +895,7 @@ extern "C" int atlasvae_stack_backward_layers(
     return wg::launch_bwd_rows(kCols[tile], r, false, st);
   };
 
-  // 3. the heads' dW/db, then g_L = (sum_h g_h W_h^T) * (a_L > 0) over a_L
+  // 3. the heads' dW/db, then g_L = [a_L > 0] (sum_h g_h W_h^T) over a_L
   K3_TRY(weight_grad(L, v.act[L], dL, n_heads, G, head_beg));
   if (need_gl)
     K3_TRY(grad_down(G, head_beg, n_heads, dL, gl_split, row_tiles[L], L > 0 ? v.act[L] : DX,

@@ -152,7 +152,9 @@ struct RowsArgs {
   const float* bias[kMaxSeg];   // or null: no bias
   float* out[kMaxSeg];          // (rows, width of s) row-major
   int relu;
-  int mask;                     // out = acc * (out > 0): the element's old value is its mask
+  int mask;                     // out = out > 0 ? acc : 0: the element's old value is its mask
+  int safe;                     // K1/K2: A is the caller's input, split by rna_tf32<true>
+                                // (rows_wgmma_kernel<..., true>)
   int tiles_n;
   int k_chunks;                 // stages of 32 k
   const float* wsplit;          // the pre-split W^T (split_weights_kernel)
@@ -395,28 +397,40 @@ __device__ __forceinline__ void producers_sync() {
 // tf32::split by integer operations: hi = x rounded to TF32 (nearest, ties
 // away from zero: half a TF32 ulp added to the bits, the 13 low bits
 // cleared), lo = the rest so rounded; the same words as cvt.rna.tf32.f32
-// for every finite x, on the integer pipe.  kSafe (K3's kernels): the
-// magnitude is first held below 0x7FFFF000, where the add's carry would run
-// into the sign and make the GPU's own NaN, 0x7FFFFFFF, a -0.0 (a NaN stays
-// a NaN, or an inf where only its low payload bits were set; finite values
-// and infs keep their words).  Without it a NaN of the caller's (K3: a head
-// gradient's, or inf x 0 in a mask) vanished from a product where the
-// plain version's f32 sum keeps it (a form that tested for inf and NaN
-// instead cost K3 8-11% on an H100).  K1/K2 keep the two operations and
-// their speed: their inputs are data, their own ReLU outputs (never a NaN)
-// and, in training, the decoder's latent, where a NaN of the GPU's still
-// vanishes (ROADMAP, Queue 3).
-template <bool kSafe = false>
+// for every finite x, on the integer pipe.  kSafe: the magnitude is first
+// held below 0x7FFFF000, where the add's carry would run into the sign and
+// make the GPU's own NaN, 0x7FFFFFFF, a -0.0 (a NaN stays a NaN, or an inf
+// where only its low payload bits were set; finite values and infs keep
+// their words).  Without it a NaN vanished from a product where the plain
+// version's f32 sum keeps it (a form that tested for inf and NaN instead
+// cost K3 8-11% on an H100).  K3's kernels split every operand so; K1/K2
+// split the caller's input so (RowsArgs::safe: data, or the decoder's
+// latent, which may hold a NaN of any payload) and their own ReLU outputs
+// by the two operations, since those write a NaN as 0x7FC00000, whose
+// +0x1000 does not carry (nan_math.cuh::relu_quiet).
+//
+// An infinite operand: with hi = inf, lo = inf - inf is NaN, and the cross
+// term inf x w_lo may be of the other sign than inf x w_hi: the product came
+// out NaN where the f32 product is +-inf (and a ReLU then gave NaN where the
+// plain version's gives 0).  So the safe split caps hi's magnitude at the
+// largest finite TF32 value, as cvt.rna.satfinite does (a NaN's hi too: its
+// lo keeps the NaN), and lo takes the inf: x w = lo_x w_hi + hi_x w_lo +
+// hi_x w_hi is then +-inf of x w's sign (hi_x w_lo stays finite for |w| <
+// 2^11), the plain version's.  The cap is the clamp's constant: no operation
+// more.  (The fast split still gives hi = inf: an inf among K1/K2's own ReLU
+// outputs may meet a row product as NaN; ROADMAP, Known divergences.)
+template <bool kSafe = false, bool kHi = false>
 __device__ __forceinline__ uint32_t rna_tf32(float x) {
   const uint32_t u = __float_as_uint(x);
+  constexpr uint32_t kCap = kHi ? 0x7F7FEFFFu : 0x7FFFEFFFu;
   if constexpr (kSafe)
-    return ((min(u & 0x7FFFFFFFu, 0x7FFFEFFFu) + 0x1000u) & 0x7FFFE000u) | (u & 0x80000000u);
+    return ((min(u & 0x7FFFFFFFu, kCap) + 0x1000u) & 0x7FFFE000u) | (u & 0x80000000u);
   else
     return (u + 0x1000u) & 0xFFFFE000u;
 }
 template <bool kSafe = false>
 __device__ __forceinline__ void split_rna(float x, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32<kSafe>(x);
+  hi = rna_tf32<kSafe, true>(x);
   lo = rna_tf32<kSafe>(x - __uint_as_float(hi));
 }
 
@@ -581,7 +595,7 @@ __device__ __forceinline__ void redecide_tile(const RowsArgs& g, const int* flag
             consumers_sync();
             if (live) acc = chain_from(acc, stage, wc + (long long)k0 * kout, kout, kc);
           }
-          if (live) dst[u] = fmaxf(acc + __ldg(g.chain_b[j] + u), 0.f);
+          if (live) dst[u] = relu_nan(acc + __ldg(g.chain_b[j] + u));
         }
         consumers_sync();
         in = dst;
@@ -601,7 +615,7 @@ __device__ __forceinline__ void redecide_tile(const RowsArgs& g, const int* flag
     }
     if (tid == 0) {
       float v = g.bias[0] != nullptr ? dot + __ldg(g.bias[0] + n) : dot;
-      if (g.relu) v = fmaxf(v, 0.f);
+      if (g.relu) v = relu_nan(v);
       g.out[0][m * g.n + n] = v;
     }
     consumers_sync();   // the buffers are free for the next
@@ -612,8 +626,11 @@ __device__ __forceinline__ void redecide_tile(const RowsArgs& g, const int* flag
 // + gridDim.x, ...: the producer runs on into the next tile's stages while
 // the consumers write this one out, so a tile costs no launch and no
 // pipeline fill.  kTies: K3's recompute, its ReLU's near-ties re-decided;
-// kBwd: one of K3's products (the split keeps a NaN, rna_tf32).
-template <int BN, bool kTma, bool kTies, bool kBwd>
+// kSafe: A split by rna_tf32<true> (K3's products; K1/K2's layer on the
+// caller's input).  A template argument, not a flag read in the mainloop: a
+// form that chose the split there by a flag ran K1/K2's row products 16-20%
+// slower than before on an H100 (probes/stack_forward.py).
+template <int BN, bool kTma, bool kTies, bool kSafe>
 __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsArgs& g) {
   using T = Tile<BN>;
   constexpr int S = T::kStages;
@@ -694,8 +711,8 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsAr
       mbar_wait(&full[s], (it / S) & 1);
       const uint8_t* const st = smem + s * T::kStageBytes;
       uint32_t ah[4][4], al[4][4];
-      load_fragments<kTies, kBwd>(reinterpret_cast<const float*>(st + 2 * T::kBBytes), r0, gq, t,
-                                  ah, al, ss);
+      load_fragments<kTies, kSafe>(reinterpret_cast<const float*>(st + 2 * T::kBBytes), r0, gq,
+                                   t, ah, al, ss);
       mma_stage<BN>(acc, part, ah, al, desc_sw128(st), desc_sw128(st + T::kBBytes));
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
@@ -746,7 +763,7 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsAr
         // other flags below; meanwhile the 3xTF32 value stands
         if (n_ok && v * v < kTieScale * row_norm2[r] * col_norm2)
           mine |= 1ull << ((r - threadIdx.x / BN) / (kConsumers / BN));
-        if (g.relu) v = fmaxf(v, 0.f);
+        if (g.relu) v = relu_nan(v);
         if (n_ok) out[m * width] = v;
       }
       // the flags in lists of up to kMaxFlags, each list by all 256 threads
@@ -785,9 +802,9 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsAr
           if (r >= kBM || m >= g.rows) break;
           float v = tile_out[r * T::kOutStride + col];
           if (has_bias) v += bias;
-          if (g.relu) v = fmaxf(v, 0.f);
+          if (g.relu) v = relu_quiet(v);   // the next layer's split is the fast one
           if (n_ok) {
-            if (g.mask) v *= mk[i] > 0.f ? 1.f : 0.f;
+            if (g.mask && !(mk[i] > 0.f)) v = 0.f;   // selected, as jax.nn.relu's gradient
             out[m * width] = v;
           }
         }
@@ -796,11 +813,11 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsAr
   }
 }
 
-template <int BN, bool kTma>
+template <int BN, bool kTma, bool kSafe>
 __global__ void __launch_bounds__(kThreads, 1)
     rows_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
                       const __grid_constant__ RowsArgs g) {
-  rows_body<BN, kTma, false, false>(a_map, g);
+  rows_body<BN, kTma, false, kSafe>(a_map, g);
 }
 
 // K3's row products under their own name: the recompute (kTies) and the
@@ -1178,7 +1195,9 @@ template <int BN, bool kTma, int kKind>
 inline cudaError_t launch_rows_t(const CUtensorMap& map, const RowsArgs& g, cudaStream_t st) {
   const long long tiles = ((g.rows + kBM - 1) / kBM) * g.tiles_n;
   constexpr size_t bytes = Tile<BN>::kSmemBytes;
-  if constexpr (kKind == 0) return launch_persistent<rows_wgmma_kernel<BN, kTma>, bytes>(map, g, tiles, st);
+  if constexpr (kKind == 0)
+    return g.safe ? launch_persistent<rows_wgmma_kernel<BN, kTma, true>, bytes>(map, g, tiles, st)
+                  : launch_persistent<rows_wgmma_kernel<BN, kTma, false>, bytes>(map, g, tiles, st);
   else return launch_persistent<bwd_rows_kernel<BN, kTma, kKind == 2>, bytes>(map, g, tiles, st);
 }
 

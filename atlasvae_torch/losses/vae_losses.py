@@ -17,6 +17,7 @@ and the OE gap, as in the JAX package.
 import torch
 
 from ..models.vae import clip_values, encode, vae_apply
+from ..ops.activations import relu
 
 
 def reconstruction_loss(x, x_hat, oe_type):
@@ -38,12 +39,12 @@ def oe_loss(recon_bkg_loss, kld_bkg, params, x_ood, oe_type, margin, generator=N
     encode_fn, apply_fn = forward
     if oe_type == "KLD":
         z_mean_ood, z_log_var_ood = encode_fn(params, x_ood, activation)
-        return torch.relu(kld_bkg - kld_loss(z_mean_ood, z_log_var_ood) + margin)
+        return relu(kld_bkg - kld_loss(z_mean_ood, z_log_var_ood) + margin)
     recon_ood, _, _ = apply_fn(params, x_ood, generator, activation, noise=noise)
     gap = recon_bkg_loss - reconstruction_loss(x_ood, recon_ood, oe_type)
     if oe_type in ("MSE", "MAE"):
         return torch.sigmoid(gap)
-    return torch.relu(gap + margin)  # MSE-margin / MAE-margin
+    return relu(gap + margin)  # MSE-margin / MAE-margin
 
 
 def get_losses(params, bkg_x, ood_x, bkg_w, ood_w, generator=None, oe_type="KLD",

@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from ..ops.activations import relu
 from .mlp import init_mlp, init_dense, dense_apply, mlp_apply
 
 
@@ -53,9 +54,9 @@ def init_aae(generator, config, device="cuda"):
 def ae_apply(params, x, activation="relu"):
     """Autoencoder forward: ReLU latent, ReLU reconstruction."""
     h = mlp_apply(params["encoder"]["hidden"], x, activation)
-    z = torch.relu(dense_apply(params["encoder"]["out"], h))
+    z = relu(dense_apply(params["encoder"]["out"], h))
     h = mlp_apply(params["decoder"]["hidden"], z, activation)
-    return torch.relu(dense_apply(params["decoder"]["out"], h))
+    return relu(dense_apply(params["decoder"]["out"], h))
 
 
 def discriminator_apply(params, x, activation="relu"):

@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops.activations import relu
 from ..ops.fused_conv import conv2d_valid, fused_conv1_pool_relu, supported
 from ..ops.pooling import maxpool_same
 from .mlp import init_mlp, init_dense, dense_apply
@@ -250,7 +251,7 @@ def _conv_tower(convs, x, pools, rank, dropout, generator, train):
             # is input data here by construction
             x = fused_conv1_pool_relu(x, conv["w"], conv["b"], pool)
         else:
-            x = torch.relu(maxpool_same(conv2d_valid(x, conv["w"]) + conv["b"], pool))
+            x = relu(maxpool_same(conv2d_valid(x, conv["w"]) + conv["b"], pool))
         x = _dropout(x, dropout, generator, train)
     return x.reshape(x.shape[0], -1)
 
@@ -258,7 +259,7 @@ def _conv_tower(convs, x, pools, rank, dropout, generator, train):
 def _dense_stack(layers, x, dropout, generator, train):
     """Dense > ReLU > Dropout per layer."""
     for layer in layers:
-        x = _dropout(torch.relu(dense_apply(layer, x)), dropout, generator, train)
+        x = _dropout(relu(dense_apply(layer, x)), dropout, generator, train)
     return x
 
 

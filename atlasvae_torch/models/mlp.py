@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from ..ops.activations import leaky_relu0, relu
+
 
 def _he_normal(generator, shape):
     return torch.randn(shape, generator=generator, device=generator.device) * \
@@ -50,8 +52,8 @@ def init_mlp(generator, dims, kernel_init="he_normal", bias_init="normal", devic
 
 
 _ACTIVATIONS = {
-    "relu": torch.relu,
-    "leaky_relu": torch.relu,  # the reference's leaky_relu has slope 0
+    "relu": relu,
+    "leaky_relu": leaky_relu0,  # the reference's leaky_relu has slope 0
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
     "linear": lambda x: x,

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import fused_conv_cuda
+from .activations import relu
 from .pooling import maxpool_same
 
 MAX_TAPS, MAX_MAPS = fused_conv_cuda.MAX_TAPS, fused_conv_cuda.MAX_MAPS
@@ -55,7 +56,7 @@ def conv2d_valid(x, w):
 def conv1_pool_relu_plain(x, w, b, pool):
     """Plain PyTorch version of K5: in float32, rounded once to x's dtype."""
     z = maxpool_same(conv2d_valid(x.float(), w.float()), pool)
-    return torch.relu(z + b.float()).to(x.dtype)
+    return relu(z + b.float()).to(x.dtype)
 
 
 def conv1_pool_relu_backward_plain(x, w, b, g, pool):

@@ -293,7 +293,10 @@ def stack_backward_plain(x, hidden, heads, head_grads, want_dx):
     """Plain PyTorch version of K3, the counterpart of ``_stack_bwd``:
     recompute the forward, then dW_head = h_last^T g and db = sum g per
     head, g_hidden = sum_k g_k W_k^T, and per hidden layer (last first)
-    mask by act > 0, dW = a^T g, db = sum g, g = g W^T.  Returns
+    g where act > 0 else 0, dW = a^T g, db = sum g, g = g W^T.  The mask
+    selects, as autograd through ``jax.nn.relu`` does (the JAX package's
+    default path; its Pallas kernel's ``g * (act > 0)`` gives the same on
+    the CPU): a non-finite g under a ReLU that is off gives 0, not NaN.  Returns
     (dws, dbs, dx) with the hidden layers first, then the heads; dx is None
     unless ``want_dx``."""
     acts = [x]
@@ -309,7 +312,7 @@ def stack_backward_plain(x, hidden, heads, head_grads, want_dx):
         g_hidden = g_hidden + g @ w.T
     g = g_hidden
     for i in range(n_hidden - 1, -1, -1):
-        g = g * (acts[i + 1] > 0)
+        g = torch.where(acts[i + 1] > 0, g, 0.0)
         dws[i] = acts[i].T @ g
         dbs[i] = g.sum(dim=0)
         if i > 0 or want_dx:

@@ -8,11 +8,12 @@ sides alike and only reaches the high-side case with ``ceil_mode``; XLA puts
 pool of 3 or more meets a size that is not its multiple.  So the padding is
 done here, with -inf, and the windows are read as strided views.
 
-Values equal ``-reduce_window(-z, inf, min)``; the gradient goes to the
-**first** position of a window that equals its maximum, in row-major window
-order, as XLA's select-and-scatter routes it.  Jet images are mostly zeros,
-so whole windows tie: the rule is written out here (a later position takes
-over only where it is strictly larger) and not left to a library's argmax.
+Values equal ``-reduce_window(-z, inf, min)``: a NaN anywhere in a window
+is the window's value.  The gradient goes to the **first** position of a
+window that equals its maximum, in row-major window order, as the JAX
+package's ``maxpool_same`` routes it (``hit = z == y``), so a NaN window
+routes nothing.  Jet images are mostly zeros, so whole windows tie: the rule
+is written out here and not left to a library's argmax.
 """
 
 import itertools
@@ -28,9 +29,9 @@ def same_pad_lo(size, pool):
     return total // 2, out
 
 
-def _padded(z, pool):
-    """``z`` (N, *spatial, M) padded with -inf to whole windows, XLA's way,
-    and the (low, high) pads per spatial axis."""
+def _padded(z, pool, fill=-math.inf):
+    """``z`` (N, *spatial, M) padded with ``fill`` to whole windows, XLA's
+    way, and the (low, high) pads per spatial axis."""
     if z.dim() != len(pool) + 2:
         raise ValueError(f"maxpool_same: input of {z.dim()} dims for a pool of rank {len(pool)}")
     pads = []
@@ -39,7 +40,7 @@ def _padded(z, pool):
         pads.append((lo, out * p - z.shape[axis + 1] - lo))
     if any(lo or hi for lo, hi in pads):
         flat = [0, 0] + [v for lo, hi in reversed(pads) for v in (lo, hi)]
-        z = torch.nn.functional.pad(z, flat, value=-math.inf)
+        z = torch.nn.functional.pad(z, flat, value=fill)
     return z, pads
 
 
@@ -53,35 +54,39 @@ def _positions(pool):
 
 class _MaxPoolSame(torch.autograd.Function):
     """One elementwise pass per window position over channels-last views:
-    a later position takes over only where it is strictly larger, so
-    ``first`` holds the rank of the first position that reaches the max."""
+    ``torch.maximum`` keeps a NaN and, on a tie, the earlier value.  The
+    backward walks the positions again and routes ``g`` to the first that
+    equals the window's value; the input is padded with NaN there, which
+    equals nothing, so a padding cell never takes it (in the forward it is
+    -inf, which a window of real -inf values ties)."""
 
     @staticmethod
     def forward(ctx, z, pool):
         padded, pads = _padded(z, pool)
-        values = first = None
-        for rank, position in enumerate(_positions(pool)):
+        values = None
+        for position in _positions(pool):
             cand = padded[position]
-            if values is None:
-                values = cand.clone()
-                first = torch.zeros(cand.shape, dtype=torch.uint8 if math.prod(pool) < 256
-                                    else torch.int32, device=z.device)
-                continue
-            larger = cand > values
-            values = torch.where(larger, cand, values)
-            first.masked_fill_(larger, rank)
-        ctx.save_for_backward(first)
-        ctx.pool, ctx.pads, ctx.padded_shape = pool, pads, padded.shape
+            values = cand.clone() if values is None else torch.maximum(values, cand)
+        ctx.save_for_backward(z, values)
+        ctx.pool, ctx.pads = pool, pads
         return values
 
     @staticmethod
     def backward(ctx, g):
-        (first,) = ctx.saved_tensors
-        gz = torch.empty(ctx.padded_shape, dtype=g.dtype, device=g.device)
-        for rank, position in enumerate(_positions(ctx.pool)):
-            gz[position] = torch.where(first == rank, g, 0.0)
+        z, values = ctx.saved_tensors
+        padded, _ = _padded(z, ctx.pool, fill=math.nan)
+        gz = torch.empty(padded.shape, dtype=g.dtype, device=g.device)
+        taken = None
+        for position in _positions(ctx.pool):
+            hit = padded[position] == values
+            if taken is None:
+                taken = hit
+            else:
+                hit &= ~taken
+                taken |= hit
+            gz[position] = torch.where(hit, g, 0.0)
         crop = [slice(None)] + [slice(lo, size - hi) for (lo, hi), size
-                                in zip(ctx.pads, ctx.padded_shape[1:-1])] + [slice(None)]
+                                in zip(ctx.pads, padded.shape[1:-1])] + [slice(None)]
         return gz[tuple(crop)], None
 
 

@@ -83,6 +83,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                ReLU masks of its recompute (stack_recompute) counted where
                they differ from K2's forward and from the plain version's;
                the fused bodies of K1 and K2 also timed on the device alone;
+               then every route of K1-K6 at a main path's shape on inputs
+               with NaN, +inf and -inf planted (in x, and in K3's head
+               gradients and K6's g), against its plain version: the same
+               elements NaN, +inf and -inf, the finite ones at the route's
+               bar (parity_nonfinite: a [nonfinite] line a route and plant);
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
                also against float64, with the card's bits asked again at
@@ -127,8 +132,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                before; check the history, the weights and that K2 and K3
                ran, all on their fused bodies; time a warm run (epochs 2-3), profile one epoch, hold
                the CUDA path against the plain CPU path (first-step
-               gradients, 2-epoch losses with injected noise), the same at
-               --FC_layers of 10 entries (9 hidden layers a side: K2 on
+               gradients, 2-epoch losses with injected noise), one step
+               from a state whose logvar overflows on some rows (the same
+               gradient elements zeroed by the guard on both sides), the
+               same at --FC_layers of 10 entries (9 hidden layers a side: K2 on
                fused segments, K3 on its layer-wise route) over 2 steps,
                and score the trained weights through atlasvae_torch.cli.score;
 7. const_train -- train the constituents-mode OE-VAE (300->256/128/64/32,
@@ -1170,6 +1177,206 @@ def parity_conv(gen, shape, sparse, device, dtype=None):
     return out
 
 
+
+# Non-finite inputs.  Every route of K1-K6 at a main path's shape, on inputs
+# with NaN, +inf and -inf planted (x, and the head gradients or g of K3 and
+# K6), against its plain version on the same card: the same elements NaN,
+# +inf, -inf, and the finite ones at the route's bar.  One exception is
+# counted and not failed: K1/K2's row products split their own ReLU outputs
+# by the integer split, which leaves an inf its inf high word, so inf x w_lo
+# can make a NaN where the f32 product is +-inf (ROADMAP, Known divergences);
+# both are not finite.
+NONFINITE_PLANTS = {"nan": float("nan"), "inf": float("inf"), "-inf": float("-inf")}
+TF32_ROUTES = ("fused_mlp_layers", "stack_forward_layers")
+
+
+def nonfinite_gap(got, want, close):
+    """Counts of where ``got`` and ``want`` hold NaN, +inf and -inf, and of
+    the elements that part: finite on one side only (``finite_apart``),
+    NaN against +-inf (``inf_to_nan``: the kernel's NaN where the plain
+    version has an inf; ``nan_to_inf`` the other way), infs of other signs,
+    and finite values past ``close``."""
+    import torch
+    got, want = got.float(), want.float()
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    both = fin_g & fin_w
+    n = lambda t: int(t.sum())
+    return dict(kernel_nan=n(nan_g), plain_nan=n(nan_w),
+                kernel_posinf=n(got == float("inf")), plain_posinf=n(want == float("inf")),
+                kernel_neginf=n(got == float("-inf")), plain_neginf=n(want == float("-inf")),
+                finite_apart=n(fin_g != fin_w), inf_to_nan=n(nan_g & ~nan_w & ~fin_w),
+                nan_to_inf=n(~nan_g & ~fin_g & nan_w),
+                inf_signs_apart=n(~fin_g & ~fin_w & ~nan_g & ~nan_w & (got != want)),
+                over_bar=n(both & ~close(torch.where(both, got, 0.0), torch.where(both, want, 0.0))))
+
+
+def _nonfinite_case(rows, route, plant, shape, got, want, close):
+    """Adds the gaps of one call over its outputs to ``rows``, logs them and
+    raises where they part (inf_to_nan only allowed on TF32_ROUTES)."""
+    total = {}
+    for g, w in zip(got, want):
+        for k, v in nonfinite_gap(g, w, close).items():
+            total[k] = total.get(k, 0) + v
+    res = dict(route=route, plant=plant, shape=shape, **total)
+    rows.append(res)
+    log("nonfinite", route=route, plant=plant, shape=json.dumps(shape),
+        **{k: v for k, v in total.items()})
+    allowed = route in TF32_ROUTES and plant != "nan"
+    bad = total["finite_apart"] + total["nan_to_inf"] + total["inf_signs_apart"] + \
+        total["over_bar"] + (0 if allowed else total["inf_to_nan"])
+    if bad or total["plain_nan"] + total["plain_posinf"] + total["plain_neginf"] == 0:
+        raise AssertionError(f"{route} on {plant} ({shape}) parts from its plain version, or "
+                             f"the plant reached no output: {res}")
+
+
+def _plant(t, value, where):
+    """Copies of ``t`` with ``value`` at the index tuples ``where``."""
+    t = t.clone()
+    for at in where:
+        t[at] = value
+    return t
+
+
+def parity_nonfinite(gen, device):
+    """NONFINITE_PLANTS through every route of K1-K6 at the shapes of the
+    main paths that run them (the forward kernels: all three plants in other
+    rows of one call; K3, K6 and K4, whose outputs mix rows or jets within a
+    route's call: a call a plant).  Returns the rows logged."""
+    import torch
+    from atlasvae_torch.models import VAEConfig, init_vae
+    from atlasvae_torch.ops import emd, emd_cuda, fused_conv, fused_conv_cuda, fused_mlp, fused_vae
+    from atlasvae_torch.utils.bf16 import ulp as bf16_ulp, ulps_apart as bf16_ulps_apart
+    rows = []
+    dense = lambda g, w: (g - w).abs() <= ATOL + RTOL * w.abs()
+
+    def leaf_close(tol, bf16=False):
+        def close(g, w):
+            scale = float(w.abs().max())
+            return (g - w).abs() <= tol * scale + 1e-12 + (bf16_ulp(w) if bf16 else 0.0)
+        return close
+
+    # K1 and K2: the slice chunk's canonical decoder and encoder on the fused
+    # bodies; emd_slice's decoder (K1) and const_train's encoder (K2) on the
+    # layer-wise routes
+    stacks = [("slice", VAEConfig(), SLICE_CHUNK, ("fused_mlp", "decoder")),
+              ("slice", VAEConfig(), SLICE_CHUNK, ("stack_forward", "encoder")),
+              ("emd_slice", VAEConfig(fc_layers=EMD_LAYERS, input_dim=3 * EMD_CONST), SLICE_CHUNK,
+               ("fused_mlp", "decoder")),
+              ("const_train", VAEConfig(fc_layers=CONST_LAYERS, input_dim=3 * EMD_CONST),
+               TRAIN_BATCH, ("stack_forward", "encoder"))]
+    for shape, cfg, batch, (name, role) in stacks:
+        params = init_vae(gen, cfg, device=device)
+        hidden, heads = stack_pairs(params, role)
+        width = cfg.input_dim if role == "encoder" else cfg.fc_layers[-1]
+        x = torch.randn((batch, width), generator=gen, device=device)
+        for r, value in zip((batch // 7, batch // 3, batch // 2), NONFINITE_PLANTS.values()):
+            x[r, r % width] = value
+        x[batch // 3 + 1, :] = float("inf")   # a whole row: the next layer's inf - inf
+        dims = (width,) + tuple(w.shape[1] for w, _ in hidden)
+        route = fused_vae.forward_plan(batch, dims, tuple(w.shape[1] for w, _ in heads)).route
+        with torch.inference_mode():
+            if name == "fused_mlp":
+                layers = [{"w": w, "b": b} for w, b in hidden + heads]
+                got, want = (fused_mlp.fused_mlp_apply(layers, x),), \
+                    (fused_mlp.fused_mlp_plain(layers, x),)
+            else:
+                got = fused_vae.stack_forward(x, hidden, heads)
+                want = fused_vae.stack_forward_plain(x, hidden, heads)
+        _nonfinite_case(rows, name + ("" if route == "fused" else "_layers"), "nan, inf, -inf",
+                        f"{shape} {role} {batch}", got, want, dense)
+        del params, x, got, want
+    # K3: the training batch's canonical encoder and decoder (fused body) and
+    # const_train's (layer-wise route); a plant in x, then in a head gradient
+    for shape, cfg in (("train", VAEConfig()),
+                       ("const_train", VAEConfig(fc_layers=CONST_LAYERS, input_dim=3 * EMD_CONST))):
+        params = init_vae(gen, cfg, device=device)
+        for role in ("encoder", "decoder"):
+            hidden, heads = stack_pairs(params, role)
+            want_dx = role == "decoder"
+            width = cfg.input_dim if role == "encoder" else cfg.fc_layers[-1]
+            x = torch.randn((TRAIN_BATCH, width), generator=gen, device=device)
+            grads = [torch.randn((TRAIN_BATCH, w.shape[1]), generator=gen, device=device) /
+                     TRAIN_BATCH for w, _ in heads]
+            dims = (width,) + tuple(w.shape[1] for w, _ in hidden)
+            route = fused_vae.backward_plan(TRAIN_BATCH, dims, tuple(w.shape[1] for w, _ in heads),
+                                            want_dx).route
+            for plant, value in NONFINITE_PLANTS.items():
+                for where in ("x", "g"):
+                    xs = _plant(x, value, [(77, 3)]) if where == "x" else x
+                    gs = grads if where == "x" else \
+                        grads[:-1] + [_plant(grads[-1], value, [(1234, 1)])]
+                    got = fused_vae.stack_backward(xs, hidden, heads, gs, want_dx)
+                    want = fused_vae.stack_backward_plain(xs, hidden, heads, gs, want_dx)
+                    flat = lambda r: r[0] + r[1] + ([r[2]] if want_dx else [])
+                    _nonfinite_case(rows, "stack_backward" + ("" if route == "fused" else "_layers"),
+                                    f"{plant} in {where}", f"{shape} {role} {TRAIN_BATCH}",
+                                    flat(got), flat(want), leaf_close(GRAD_SCALE_TOL))
+        del params
+    # K4: each route at its main path's chunk (the wide route at 400
+    # constituents, 20 iterations): a NaN pt, a NaN phi, a +inf pt and a
+    # -inf pt (a dead constituent: the EMD stays finite) in jets of their own
+    chunk, chunk255 = (emd._EMD_BUDGET_BYTES // (16 * n ** 2) for n in (EMD_CONST, EMD_WIDE_CONST))
+    for batch, n, n_iters in ((chunk, EMD_CONST, EMD_ITERS), (chunk255, EMD_WIDE_CONST, EMD_ITERS),
+                              (200, 400, EMD_FEW_ITERS)):
+        p, q = emd_clouds(gen, batch, n, device)
+        for j, (col, value) in enumerate(((0, float("nan")), (2, float("nan")), (0, float("inf")),
+                                          (0, float("-inf"))), start=1):
+            p[j * (batch // 5), 0, col] = value
+        mass = torch.minimum(p[..., 0].clamp_min(0).sum(1), q[..., 0].clamp_min(0).sum(1))
+        mass = torch.where(torch.isfinite(mass), mass, 0.0)
+        close = lambda g, w, mass=mass: (g - w).abs() <= EMD_ATOL + EMD_RTOL * w.abs() + \
+            EMD_MASS_TOL * mass
+        got = emd_cuda.emd_sinkhorn(p, q, 1.0, n_iters, EMD_EPS, EMD_STAGES)
+        want = emd._sinkhorn_emd(p, q, 1.0, n_iters, EMD_EPS, EMD_STAGES)
+        _nonfinite_case(rows, EMD_KERNELS[emd_cuda.route(n)[0]], "nan pt, nan phi, inf pt, -inf pt",
+                        f"{batch}x{n} {n_iters} iterations", (got,), (want,), close)
+        del p, q, got, want
+        torch.cuda.empty_cache()
+    # K5 and K6: the jet-ID batch on the register routes (float, and bf16 on
+    # the tensor cores) and on the band routes, and the band routes' own
+    # shape; K5 takes the three plants in three images of one call, K6 a
+    # call a plant, in x and in g
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        form = "_bf16" if bf16 else ""
+        fwd_close = (lambda g, w: (bf16_ulps_apart(g.to(dtype), w.to(dtype)) <= 1)
+                     | ((g - w).abs() <= ATOL)) if bf16 else dense
+        for shape, force in ((CONV_SHAPES[0], None), (CONV_SHAPES[0], "bands"),
+                             (CONV_SHAPES[5], None)):
+            name, n, h, wd, c, kh, kw, m, pool = shape
+            x = torch.randn((n, h, wd, c), generator=gen, device=device)
+            x = (x.abs() * (torch.rand(x.shape, generator=gen, device=device) < 0.08)).to(dtype)
+            w = (torch.randn((kh, kw, c, m), generator=gen, device=device) * 0.3).to(dtype)
+            b = (torch.randn((m,), generator=gen, device=device) * 0.1).to(dtype)
+            which = force or fused_conv_cuda.route(x.shape, w.shape, pool)
+            sfx = form + ("" if which == "tiles" else "_bands")
+            spots = [(1, h // 2, wd // 2, 0), (2, h // 3, wd // 2, 0), (n - 1, h // 2, 1, c - 1)]
+            xs = x.clone()
+            for at, value in zip(spots, NONFINITE_PLANTS.values()):
+                xs[at] = value
+            got = fused_conv_cuda.conv_pool_relu(xs, w, b, pool, force_route=force)
+            want = fused_conv.conv1_pool_relu_plain(xs, w, b, pool)
+            _nonfinite_case(rows, "fused_conv" + sfx, "nan, inf, -inf in x",
+                            f"{name} {n}", (got,), (want,), fwd_close)
+            g = (torch.randn(want.shape, generator=gen, device=device) / n).to(dtype)
+            # g's plant where image 1's output is largest: under a ReLU that is on
+            lit = fused_conv.conv1_pool_relu_plain(x[1:2], w, b, pool)[0].float()
+            g_at = (1,) + tuple(int(i) for i in torch.unravel_index(lit.argmax(), lit.shape))
+            tol = CONV_GRAD_TOL_BIG if n >= 1000 else CONV_GRAD_TOL
+            for plant, value in NONFINITE_PLANTS.items():
+                for where in ("x", "g"):
+                    xp = _plant(x, value, spots[:1]) if where == "x" else x
+                    gp = _plant(g, value, [g_at]) if where == "g" else g
+                    got = fused_conv_cuda.conv_pool_relu_backward(xp, w, b, gp, pool,
+                                                                  force_route=force)
+                    want = fused_conv.conv1_pool_relu_backward_plain(xp, w, b, gp, pool)
+                    _nonfinite_case(rows, "fused_conv_backward" + sfx, f"{plant} in {where}",
+                                    f"{name} {n}", got, want, leaf_close(tol, bf16))
+            del x, xs, w, b, g
+            torch.cuda.empty_cache()
+    return rows
+
 def phase_device():
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1208,6 +1415,18 @@ def phase_build():
                  if "registers" in l or "spill" in l]
         log("build", lib=path.name, nvcc_s=f"{secs:.2f}", ptxas=json.dumps(usage))
     log("build", total_s=f"{time.perf_counter() - start:.2f}")
+    # the NaN-carrying maxima (csrc/nan_math.cuh) as the card runs them:
+    # FMNMX with .NAN in each library's SASS (any FMNMX without it is counted)
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    for name, (path, _, _) in report.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                              text=True, timeout=120).stdout
+        ops = [tok for line in sass.splitlines() if "FMNMX" in line and "*/" in line
+               for tok in line.split("*/", 1)[1].split() if tok.startswith("FMNMX")]
+        nan = sum(".NAN" in op for op in ops)
+        log("build", lib=path.name, fmnmx_nan=nan, fmnmx_other=len(ops) - nan)
+        if nan == 0:
+            raise AssertionError(f"{path.name}: no FMNMX.NAN among its {len(ops)} FMNMX")
 
 
 def phase_parity(device):
@@ -1339,6 +1558,14 @@ def phase_parity(device):
                     results[name].append(res)
                     log_conv_parity(name, res)
                 torch.cuda.empty_cache()
+    rows = parity_nonfinite(gen, device)
+    by_route = {}
+    for r in rows:
+        total = by_route.setdefault(r["route"], dict(calls=0, inf_to_nan=0))
+        total["calls"] += 1
+        total["inf_to_nan"] += r["inf_to_nan"]
+    log("nonfinite", routes=len(by_route), calls=len(rows), mismatches=0,
+        by_route=json.dumps(by_route))
     return results
 
 
@@ -1860,6 +2087,68 @@ def _train_parity(load, device, cfg=None, losses=True, n_batches=5):
     return grad_rel, loss_rel
 
 
+def _overflow_step(load, device):
+    """One training step (gradient, guard, Adam) of the canonical VAE from a
+    state whose logvar overflows on a few rows of the batch: exp(logvar)
+    is inf there, the clip makes it 0, and its gradient 0 x inf = NaN runs
+    into the encoder (K3's head gradients, then every layer).  Card against
+    the CPU: the same gradient elements not finite (those the guard zeroes),
+    the guarded gradients within GRAD_SCALE_TOL of each leaf's largest
+    value, and the stepped weights within ATOL + RTOL of the CPU's."""
+    import numpy as np
+    import torch
+    from atlasvae_torch.losses import get_losses
+    from atlasvae_torch.models import VAEConfig, init_vae
+    from atlasvae_torch.train.checkpoint import tree_map
+    from atlasvae_torch.train.loop import features
+    from atlasvae_torch.train.step import TrainState, clip_gradients
+
+    cpu = torch.device("cpu")
+    bkg, ood = load
+    batch = {k: torch.as_tensor(np.asarray(v[:TRAIN_BATCH], np.float32))
+             for k, v in (("x", features(bkg)), ("w", bkg["weights"]), ("ood", features(ood)),
+                          ("w_ood", ood["weights"]))}
+    rng = np.random.default_rng(9)
+    noise = tuple(torch.as_tensor(rng.standard_normal((TRAIN_BATCH, 10)).astype(np.float32))
+                  for _ in range(2))
+    init = init_vae(torch.Generator().manual_seed(31), VAEConfig(), device=cpu)
+    # scale logvar's first unit so that about 1% of the batch passes 100 (exp overflows at 88.7)
+    h = batch["x"]
+    for layer in init["encoder"]["hidden"]:
+        h = torch.relu(h @ layer["w"] + layer["b"])
+    lv = h @ init["encoder"]["logvar"]["w"][:, 0]   # the head's bias starts at 0
+    init["encoder"]["logvar"]["w"][:, 0] *= 100.0 / float(torch.quantile(lv, 0.99))
+    overflow_rows = int((h @ init["encoder"]["logvar"]["w"][:, 0] > 88.7).sum())
+    out = {}
+    for d in (cpu, device):
+        state = TrainState(tree_map(lambda t, d=d: t.to(d), init))
+        at = lambda k, d=d: batch[k].to(d)
+        total = get_losses(state.params, at("x"), at("ood"), at("w"), at("w_ood"), None, "MAE",
+                           2.0, 5.0, 1.0, noise=tuple(n.to(d) for n in noise))[3].sum()
+        grads = torch.autograd.grad(total, state.leaves)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        guarded = clip_gradients(flat)
+        state.adam.step(state.flat, guarded, 1e-3)
+        out[d] = (torch.isfinite(flat).cpu(), [g.cpu() for g in guarded.split(
+            [v.numel() for v in state.leaves])], state.flat.cpu())
+    (fin_gpu, g_gpu, p_gpu), (fin_cpu, g_cpu, p_cpu) = out[device], out[cpu]
+    zeroed = int((~fin_cpu).sum())
+    if not 0 < zeroed < fin_cpu.numel() // 2:
+        raise AssertionError(f"the overflow step's guard zeroed {zeroed} of {fin_cpu.numel()}")
+    apart = int((fin_gpu != fin_cpu).sum())
+    over = sum(int(((a - b).abs() > GRAD_SCALE_TOL * float(b.abs().max())).sum())
+               for a, b in zip(g_gpu, g_cpu))
+    p_over = int(((p_gpu - p_cpu).abs() > ATOL + RTOL * p_cpu.abs()).sum())
+    log("train", overflow_step_zeroed=zeroed, overflow_step_zeroed_apart=apart,
+        overflow_step_guarded_over_bar=over, overflow_step_weights_over_bar=p_over,
+        overflow_rows=overflow_rows)
+    if apart or over or p_over:
+        raise AssertionError(f"the overflow step parts card from CPU: {apart} elements zeroed on "
+                             f"one side only, {over} guarded gradients and {p_over} weights past "
+                             "their bars")
+    return zeroed
+
+
 def phase_train(device, workdir):
     """Train the canonical OE-VAE through the CLI, then time, profile,
     check against the plain CPU path, and score the result."""
@@ -1934,6 +2223,7 @@ def phase_train(device, workdir):
                  torch.cuda.synchronize()),
         phase="train profile")
     grad_rel, loss_rel = _train_parity(load, device)
+    overflow_zeroed = _overflow_step(load, device)
     # --FC_layers of 10 entries: 2 steps (2 epochs of one batch), card against
     # the CPU at the same bars; K2 on fused segments, K3 on its layer-wise route
     before = counters()
@@ -1960,7 +2250,8 @@ def phase_train(device, workdir):
                  warm_jets_per_s=warm_rate, ms_per_step=warm_s / (steps * (TRAIN_EPOCHS - 1)) * 1e3,
                  warm_epoch_s=epoch_s, warm_epoch_jets_per_s=jets / epoch_s,
                  launches_per_step=per_step, idle_share=idle, grad_rel=grad_rel,
-                 loss_rel=loss_rel, scored_mae_mean=float(mae.mean()))
+                 loss_rel=loss_rel, overflow_step_zeroed=overflow_zeroed,
+                 scored_mae_mean=float(mae.mean()))
     log("train", **{k: (json.dumps(v) if isinstance(v, dict) else v) for k, v in facts.items()})
     return launches, facts
 

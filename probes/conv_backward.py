@@ -3,7 +3,7 @@
 on one NVIDIA GPU.
 
     python3 probes/conv_backward.py [--dtype float32|bfloat16] [--build NAME=DIR ...]
-                                    [--out build/probe_conv_<dtype>.json]
+                                    [--no-variants] [--out build/probe_conv_<dtype>.json]
 
 Builds, one nvcc a source, all started together, into build/probe_conv/:
 
@@ -12,7 +12,7 @@ Builds, one nvcc a source, all started together, into build/probe_conv/:
   divided each pixel's index anew instead of stepping it by the slot
   stride, with other numbers of partial slices, the pixel loop unrolled
   twice, a register cap for two CTAs an SM, or the next pixel's g loaded
-  before this pixel's FMAs).
+  before this pixel's FMAs); ``--no-variants`` builds it as it is only.
 * ``--dtype bfloat16``: K5's and K6's bf16 register routes (the
   tensor-core kernels) as they are.
 
@@ -20,8 +20,9 @@ and, in either, both sources of every earlier tree of the repository named
 by ``--build NAME=DIR`` (e.g. the parent commit, ``git archive``d into a
 directory .gitignore lists; its ``atlasvae_torch/csrc/`` is enough).
 Prints each build's ptxas lines (registers, shared memory, spills) and the
-static opcode mix of the probed kernels' SASS (cuobjdump -sass), with the
-HMMA instructions by their full name; a bf16 build without HMMA fails.
+static opcode mix of the probed kernels' SASS (cuobjdump -sass: in float32
+K5's and K6's register kernels), with the HMMA instructions by their full
+name; a bf16 build without HMMA fails.
 
 Then, on sparse seeded images (a few lit pixels: whole windows tie) at the
 jet-ID training batch (5,000 x 16x16x1, 3x3, 100 maps, pool 2x2), a ragged
@@ -52,7 +53,7 @@ CSRC = ROOT / "atlasvae_torch" / "csrc"
 SHAPES = [("jetid train batch", 5000), ("ragged batch", 1037), ("jetid predict chunk", 20000),
           ("large batch", 100000)]
 MAPS = 100
-KERNELS = {"float32": ("conv_pool_relu_bwd_tiles_kernel",),
+KERNELS = {"float32": ("conv_pool_relu_tiles_kernel", "conv_pool_relu_bwd_tiles_kernel"),
            "bfloat16": ("conv_pool_relu_tc_kernel", "conv_pool_relu_bwd_tc_kernel")}
 
 LOOP = "#pragma unroll 1\n  for (int k = 0; k < per_thread; ++k) {"
@@ -215,6 +216,7 @@ def main():
     ap.add_argument("--dtype", choices=tuple(KERNELS), default="float32")
     ap.add_argument("--build", action="append", default=[], metavar="NAME=DIR")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--no-variants", action="store_true")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--iters", type=int, default=30)
     args = ap.parse_args()
@@ -237,7 +239,7 @@ def main():
 
     own = {src: (CSRC / f"{src}.cu").read_text() for src in ("fused_conv", "fused_conv_bwd")}
     sources = {"as_is": own}
-    if not bf16:
+    if not bf16 and not args.no_variants:
         for name, edits in VARIANTS.items():
             text = own["fused_conv_bwd"]
             for old, new in edits:

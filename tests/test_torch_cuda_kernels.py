@@ -475,8 +475,8 @@ def test_stack_backward_propagates_non_finite_head_gradients(cuda, bad, dims, he
     """A NaN or inf in one head gradient (a loss that overflowed) leaves every
     gradient non-finite where the plain version's f32 sums do (the training
     step's guard then zeroes them), and the rest within its bar.  On the
-    layer-wise route the GPU's own NaN (an inf masked to inf x 0) once split
-    into TF32 words as -0.0 and vanished."""
+    layer-wise route the GPU's own NaN (inf - inf in g W^T) once split into
+    TF32 words as -0.0 and vanished."""
     gen = torch.Generator().manual_seed(len(dims) + int(bad != bad))
     hidden, heads = _stack(gen, dims, head_dims, cuda)
     x = torch.randn((1000, dims[0]), generator=gen).to(cuda)
@@ -1136,3 +1136,154 @@ def test_bf16_training_sums_in_float32_with_the_flag_on(cuda, monkeypatch):
     assert after[0] > before[0] and after[2] > before[2]
     assert probs[cuda].dtype == np.float32
     np.testing.assert_allclose(probs[cuda], probs["cpu"], atol=1e-2, rtol=0)
+
+
+# ---- NaN and inf: every route of K1-K6 on planted non-finite inputs ----
+#
+# Each kernel against its plain version on the same inputs with NaN, +inf or
+# -inf planted in x (and in a head gradient for K3, in g for K6): the same
+# elements finite, the same NaN (and the same signed infs) and the finite
+# values at the bars above.  One allowance: K1/K2's row products split their
+# own ReLU outputs by the integer split, which leaves an inf its inf high
+# word, so inf x w_lo may give NaN where the f32 product gives +-inf: there an
+# inf plant may turn an inf into a NaN, never a finite value into anything
+# else (ROADMAP, Known divergences).
+
+NONFINITE = {"nan": float("nan"), "inf": float("inf"), "-inf": float("-inf")}
+
+
+def _same_nonfinite(got, want, close, inf_may_be_nan=False):
+    got, want = got.float(), want.float()
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+    assert torch.equal(fin_g, fin_w), f"{int((fin_g != fin_w).sum())} elements finite on one side"
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    assert not bool((nan_w & ~nan_g).any()), "a NaN of the plain version's is not NaN"
+    if not inf_may_be_nan:
+        assert torch.equal(nan_g, nan_w), f"{int((nan_g != nan_w).sum())} NaN apart"
+    infs = ~fin_w & ~nan_w & ~nan_g
+    assert torch.equal(got[infs], want[infs]), "infs of other signs"
+    if bool(fin_w.any()):
+        assert bool(close(got[fin_w], want[fin_w]).all()), "finite values past their bar"
+
+
+def _dense_close(g, w):
+    return (g - w).abs() <= ATOL + RTOL * w.abs()
+
+
+def _leaf_close(tol, bf16=False):
+    def close(g, w):
+        return (g - w).abs() <= tol * float(w.abs().max()) + 1e-12 + \
+            (bf16_ulp(w) if bf16 else 0.0)
+    return close
+
+
+# (kernel, dims, head_dims, route): the canonical decoder and encoder on the
+# fused body, the constituents-mode decoder and encoder on the layer-wise route
+NONFINITE_FORWARD = [("fused_mlp", (10, 20, 40, 80), (12,), "fused"),
+                     ("fused_mlp", (32, 64, 128, 256), (300,), "layers"),
+                     ("stack_forward", (12, 80, 40, 20), (10, 10), "fused"),
+                     ("stack_forward", (300, 256, 128, 64), (32, 32), "layers")]
+
+
+@pytest.mark.parametrize("plant", sorted(NONFINITE))
+@pytest.mark.parametrize("kernel,dims,head_dims,route", NONFINITE_FORWARD)
+def test_stack_forward_carries_non_finite_inputs(cuda, kernel, dims, head_dims, route, plant):
+    """K1 and K2: a plant in one element of a row, and a row all plant (the
+    next layer's inf - inf), in a batch that ends mid-tile."""
+    gen = torch.Generator().manual_seed(len(dims) + len(plant))
+    hidden, heads = _stack(gen, dims, head_dims, cuda)
+    batch = 1000
+    x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
+    x[7, 3] = x[500, dims[0] - 1] = NONFINITE[plant]
+    x[999, :] = NONFINITE[plant]
+    assert fused_vae.forward_plan(batch, dims, head_dims).route == route
+    if kernel == "fused_mlp":
+        layers = [{"w": w, "b": b} for w, b in hidden + heads]
+        got, want = [fused_mlp.fused_mlp_apply(layers, x)], [fused_mlp.fused_mlp_plain(layers, x)]
+    else:
+        got = fused_vae.stack_forward(x, hidden, heads)
+        want = fused_vae.stack_forward_plain(x, hidden, heads)
+    for g, w in zip(got, want):
+        assert not bool(torch.isfinite(w).all())
+        _same_nonfinite(g, w, _dense_close, inf_may_be_nan=route == "layers" and plant != "nan")
+
+
+@pytest.mark.parametrize("plant", sorted(NONFINITE))
+@pytest.mark.parametrize("where", ["x", "g"])
+@pytest.mark.parametrize("dims,head_dims,want_dx,route", [
+    ((12, 80, 40, 20), (10, 10), False, "fused"),
+    ((10, 20, 40, 80), (12,), True, "fused"),
+    ((300, 256, 128, 64), (32, 32), False, "layers"),
+    ((32, 64, 128, 256), (300,), True, "layers"),
+])
+def test_stack_backward_carries_non_finite_inputs(cuda, dims, head_dims, want_dx, route, where,
+                                                  plant):
+    """K3: a plant in x or in a head gradient; under a ReLU that is off a
+    non-finite gradient gives 0 (the mask selects, as jax.nn.relu's
+    gradient does)."""
+    gen = torch.Generator().manual_seed(len(dims) + len(where) + len(plant))
+    hidden, heads = _stack(gen, dims, head_dims, cuda)
+    batch = 1000
+    x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
+    grads = [(torch.randn((batch, n), generator=gen) / batch).to(cuda) for n in head_dims]
+    if where == "x":
+        x[77, 3] = NONFINITE[plant]
+    else:
+        grads[-1][123, 1] = NONFINITE[plant]
+    assert fused_vae.backward_plan(batch, dims, head_dims, want_dx).route == route
+    got = fused_vae.stack_backward(x, hidden, heads, grads, want_dx)
+    want = fused_vae.stack_backward_plain(x, hidden, heads, grads, want_dx)
+    outs = lambda r: r[0] + r[1] + ([r[2]] if want_dx else [])
+    assert any(not bool(torch.isfinite(w).all()) for w in outs(want))
+    for g, w in zip(outs(got), outs(want)):
+        _same_nonfinite(g, w, _leaf_close(1e-5))   # 1e-5 of the leaf's largest, up to 1,000 rows
+
+
+@pytest.mark.parametrize("n,which", [(100, "tiles"), (255, "cluster"), (400, "wide")])
+def test_emd_sinkhorn_carries_non_finite_inputs(cuda, n, which):
+    """K4 on each route: a NaN pt, a NaN phi, a +inf pt (NaN EMDs, as the
+    plain version's), and a -inf pt (a dead constituent: a finite EMD)."""
+    gen = torch.Generator().manual_seed(n)
+    p, q = _clouds(gen, 40, n, cuda)
+    for j, (col, value) in enumerate(((0, float("nan")), (2, float("nan")), (0, float("inf")),
+                                      (0, float("-inf"))), start=1):
+        p[5 * j, 0, col] = value
+    before = _route_counts()
+    got = emd_cuda.emd_sinkhorn(p, q, 1.0, 20, 0.01)
+    assert _launched_on(before, which)
+    want = emd._sinkhorn_emd(p, q, 1.0, 20, 0.01)
+    assert int((~torch.isfinite(want)).sum()) == 3
+    _same_nonfinite(got, want, lambda g, w: (g - w).abs() <= 1e-6 + 2e-5 * w.abs())
+
+
+@pytest.mark.parametrize("plant", sorted(NONFINITE))
+@pytest.mark.parametrize("where", ["x", "g"])
+@pytest.mark.parametrize("which", fused_conv_cuda.ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_carry_non_finite_inputs(cuda, dtype, which, where, plant):
+    """K5 and K6 on each route, float32 and bf16, at the jet-ID block's
+    shape: a plant in a pixel of x (K6: its taps at the window's other
+    positions take the NaN of the plain version's dense product) or in g
+    under a ReLU that is on."""
+    shape = (37, 16, 16, 1, 3, 3, 100, (2, 2))
+    x, w, b, gen = _conv_case(shape, cuda, sparse=True, seed=len(plant))
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    pool = shape[-1]
+    bf16 = dtype == torch.bfloat16
+    lit = fused_conv.conv1_pool_relu_plain(x, w, b, pool)
+    g = (torch.randn(lit.shape, generator=gen) / 37).to(cuda).to(dtype)
+    if where == "x":
+        x[3, 8, 7, 0] = NONFINITE[plant]
+    else:
+        g[(3,) + tuple(int(i) for i in torch.unravel_index(lit[3].float().argmax(),
+                                                           lit[3].shape))] = NONFINITE[plant]
+    got = fused_conv_cuda.conv_pool_relu(x, w, b, pool, force_route=which)
+    want = fused_conv.conv1_pool_relu_plain(x, w, b, pool)
+    fwd_close = (lambda g_, w_: (bf16_ulps_apart(g_.to(dtype), w_.to(dtype)) <= 1)
+                 | ((g_ - w_).abs() <= ATOL)) if bf16 else _dense_close
+    _same_nonfinite(got, want, fwd_close)
+    got = fused_conv_cuda.conv_pool_relu_backward(x, w, b, g, pool, force_route=which)
+    want = fused_conv.conv1_pool_relu_backward_plain(x, w, b, g, pool)
+    assert any(not bool(torch.isfinite(t).all()) for t in want)
+    for got_leaf, want_leaf in zip(got, want):
+        _same_nonfinite(got_leaf, want_leaf, _leaf_close(GRAD_TOL, bf16))
