@@ -348,8 +348,8 @@ fused_stack_kernel(const __grid_constant__ StackArgs a, const __grid_constant__ 
               float* const s = st + kBlockRows * p.head_off[h] + (c - p.head_off[h]);
               float v0 = acc[j][e] + bias[c], v1 = acc[j][2 + e] + bias[c];
               if (relu_out) {   // a segment's hidden layer may feed a row product
-                v0 = relu_quiet(v0);
-                v1 = relu_quiet(v1);
+                v0 = relu_nan(v0);
+                v1 = relu_nan(v1);
               }
               s[g * width] = v0;
               s[(g + 8) * width] = v1;

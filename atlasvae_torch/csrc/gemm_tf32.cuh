@@ -43,7 +43,7 @@ __device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\
 
 // hi saturates at the largest finite TF32 value: an infinite x leaves its
 // inf to lo (inf - hi), so that the product is +-inf of the f32 product's
-// sign and not NaN (gemm_wgmma.cuh, rna_tf32); a NaN stays a NaN.
+// sign and not NaN (gemm_wgmma.cuh, split_rna); a NaN stays a NaN.
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   asm("cvt.rna.satfinite.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
   const float rest = x - __uint_as_float(hi);

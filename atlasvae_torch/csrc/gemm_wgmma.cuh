@@ -20,10 +20,11 @@
 //   128-byte swizzle a stage wants: a stage's B is one contiguous bulk copy.
 //   W is split once a call (about 4 us at the main path's stacks on an
 //   H100), not once a CTA and k-step.  A's fragment is read from shared
-//   memory into registers, split there by integer operations (split_rna),
-//   and given to wgmma from registers (the RS form); B_hi and B_lo are read
-//   by wgmma from shared memory through descriptors.  (A from shared memory,
-//   unsplit, ran 5-20% faster on an H100: the price of A's split.)
+//   memory into registers, split there (split_rna: hi by a conversion, lo by
+//   integer operations) and given to wgmma from registers (the RS form);
+//   B_hi and B_lo are read by wgmma from shared memory through descriptors.
+//   (A from shared memory, unsplit, ran 5-20% faster on an H100: the price
+//   of A's split.)
 // - Accumulation: the tensor cores do not round their accumulate to nearest
 //   (see gemm_tf32.cuh), so each k8 step's three products go into a fresh
 //   accumulator (scale-d = 0 on the first), added to the running sum by an
@@ -153,8 +154,6 @@ struct RowsArgs {
   float* out[kMaxSeg];          // (rows, width of s) row-major
   int relu;
   int mask;                     // out = out > 0 ? acc : 0: the element's old value is its mask
-  int safe;                     // K1/K2: A is the caller's input, split by rna_tf32<true>
-                                // (rows_wgmma_kernel<..., true>)
   int tiles_n;
   int k_chunks;                 // stages of 32 k
   const float* wsplit;          // the pre-split W^T (split_weights_kernel)
@@ -394,50 +393,43 @@ __device__ __forceinline__ void producers_sync() {
   asm volatile("bar.sync 2, 128;\n" ::: "memory");
 }
 
-// tf32::split by integer operations: hi = x rounded to TF32 (nearest, ties
-// away from zero: half a TF32 ulp added to the bits, the 13 low bits
-// cleared), lo = the rest so rounded; the same words as cvt.rna.tf32.f32
-// for every finite x, on the integer pipe.  kSafe: the magnitude is first
-// held below 0x7FFFF000, where the add's carry would run into the sign and
-// make the GPU's own NaN, 0x7FFFFFFF, a -0.0 (a NaN stays a NaN, or an inf
-// where only its low payload bits were set; finite values and infs keep
-// their words).  Without it a NaN vanished from a product where the plain
-// version's f32 sum keeps it (a form that tested for inf and NaN instead
-// cost K3 8-11% on an H100).  K3's kernels split every operand so; K1/K2
-// split the caller's input so (RowsArgs::safe: data, or the decoder's
-// latent, which may hold a NaN of any payload) and their own ReLU outputs
-// by the two operations, since those write a NaN as 0x7FC00000, whose
-// +0x1000 does not carry (nan_math.cuh::relu_quiet).
-//
-// An infinite operand: with hi = inf, lo = inf - inf is NaN, and the cross
-// term inf x w_lo may be of the other sign than inf x w_hi: the product came
-// out NaN where the f32 product is +-inf (and a ReLU then gave NaN where the
-// plain version's gives 0).  So the safe split caps hi's magnitude at the
-// largest finite TF32 value, as cvt.rna.satfinite does (a NaN's hi too: its
-// lo keeps the NaN), and lo takes the inf: x w = lo_x w_hi + hi_x w_lo +
-// hi_x w_hi is then +-inf of x w's sign (hi_x w_lo stays finite for |w| <
-// 2^11), the plain version's.  The cap is the clamp's constant: no operation
-// more.  (The fast split still gives hi = inf: an inf among K1/K2's own ReLU
-// outputs may meet a row product as NaN; ROADMAP, Known divergences.)
-template <bool kSafe = false, bool kHi = false>
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  const uint32_t u = __float_as_uint(x);
-  constexpr uint32_t kCap = kHi ? 0x7F7FEFFFu : 0x7FFFEFFFu;
-  if constexpr (kSafe)
-    return ((min(u & 0x7FFFFFFFu, kCap) + 0x1000u) & 0x7FFFE000u) | (u & 0x80000000u);
-  else
-    return (u + 0x1000u) & 0xFFFFE000u;
-}
-template <bool kSafe = false>
+// A's split, for every A operand of this file's kernels (K1/K2's input and
+// their own ReLU outputs, K3's activations and gradients): hi by
+// cvt.rna.satfinite.tf32.f32 (one PTX instruction); lo = x - hi rounded to TF32
+// (nearest, ties away from zero) by integer operations: the rest held below
+// 0x7FFFF000 by a signed minimum, half a TF32 ulp added to its bits, the 13
+// low bits cleared.  For every finite x with magnitude bits below 0x7F7FF000
+// these are the words of the bare integer split, (u + 0x1000) & 0xFFFFE000
+// for both.  Above that:
+// - from 0x7F7FF000 up to FLT_MAX, x rounds up to inf: hi saturates at the
+//   largest finite TF32 value and lo keeps the rest, so x w stays finite;
+// - +-inf: hi saturates the same way and lo = inf - hi is the inf, so x w =
+//   lo_x w_hi + hi_x w_lo + hi_x w_hi is +-inf of the f32 product's sign
+//   (hi_x w_lo stays finite for |w| < 2^11), not inf - inf;
+// - NaN, of any payload: lo = x - hi is the GPU's NaN, 0x7FFFFFFF, which the
+//   minimum keeps a NaN (0x7FFFE000; the bare +0x1000 carries it into the
+//   sign, -0.0).  hi alone does not carry every NaN: on an H100 the
+//   conversion gave a hi that is no NaN for 32,766 of the 16,777,214 NaN words.
+// The bare integer split gave an inf or a value near FLT_MAX hi = inf (a NaN
+// product where the f32 one is +-inf or finite) and lost the GPU's NaN.  On an
+// H100 ptxas makes the conversion a compare, a select and integer operations:
+// this split has 5 SASS instructions an element more than the bare one and
+// runs K1/K2's row products 0.1-7.4% slower; a form that capped hi by integer
+// operations (6 more) ran them 1-15% slower than this one, and lo by a second
+// conversion (tf32::split's form) ran the 1,000,003 x 312 decoder 2.3% slower
+// than the split before, this form 0.8%.
+// probes/split_words.py checks each case above on every float word, on the
+// card.
 __device__ __forceinline__ void split_rna(float x, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32<kSafe, true>(x);
-  lo = rna_tf32<kSafe>(x - __uint_as_float(hi));
+  asm("cvt.rna.satfinite.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const int rest = __float_as_int(x - __uint_as_float(hi));
+  lo = ((uint32_t)min(rest, 0x7FFFEFFF) + 0x1000u) & 0xFFFFE000u;
 }
 
 // A's fragments of a stage's four k8 steps, split: (r0, q), (r0 + 8, q),
 // (r0, q + 4), (r0 + 8, q + 4) for q = 8 kk + t; (r0 + 8) % 8 == r0 % 8 == gq.
 // kNorm: ss[0] and ss[1] also take the squares of rows r0 and r0 + 8.
-template <bool kNorm = false, bool kSafe = false>
+template <bool kNorm = false>
 __device__ __forceinline__ void load_fragments(const float* as, int r0, int gq, int t,
                                                uint32_t (&ah)[4][4], uint32_t (&al)[4][4],
                                                float (&ss)[2]) {
@@ -448,7 +440,7 @@ __device__ __forceinline__ void load_fragments(const float* as, int r0, int gq, 
                         as[r0 * kBK + swizzle(q + 4, gq)], as[(r0 + 8) * kBK + swizzle(q + 4, gq)]};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      split_rna<kSafe>(v[e], ah[kk][e], al[kk][e]);
+      split_rna(v[e], ah[kk][e], al[kk][e]);
       if constexpr (kNorm) ss[e & 1] = fmaf(v[e], v[e], ss[e & 1]);
     }
   }
@@ -625,12 +617,8 @@ __device__ __forceinline__ void redecide_tile(const RowsArgs& g, const int* flag
 // The row product's body.  One CTA an SM walks the output tiles blockIdx.x,
 // + gridDim.x, ...: the producer runs on into the next tile's stages while
 // the consumers write this one out, so a tile costs no launch and no
-// pipeline fill.  kTies: K3's recompute, its ReLU's near-ties re-decided;
-// kSafe: A split by rna_tf32<true> (K3's products; K1/K2's layer on the
-// caller's input).  A template argument, not a flag read in the mainloop: a
-// form that chose the split there by a flag ran K1/K2's row products 16-20%
-// slower than before on an H100 (probes/stack_forward.py).
-template <int BN, bool kTma, bool kTies, bool kSafe>
+// pipeline fill.  kTies: K3's recompute, its ReLU's near-ties re-decided.
+template <int BN, bool kTma, bool kTies>
 __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsArgs& g) {
   using T = Tile<BN>;
   constexpr int S = T::kStages;
@@ -711,8 +699,8 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsAr
       mbar_wait(&full[s], (it / S) & 1);
       const uint8_t* const st = smem + s * T::kStageBytes;
       uint32_t ah[4][4], al[4][4];
-      load_fragments<kTies, kSafe>(reinterpret_cast<const float*>(st + 2 * T::kBBytes), r0, gq,
-                                   t, ah, al, ss);
+      load_fragments<kTies>(reinterpret_cast<const float*>(st + 2 * T::kBBytes), r0, gq, t,
+                            ah, al, ss);
       mma_stage<BN>(acc, part, ah, al, desc_sw128(st), desc_sw128(st + T::kBBytes));
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
@@ -802,7 +790,7 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsAr
           if (r >= kBM || m >= g.rows) break;
           float v = tile_out[r * T::kOutStride + col];
           if (has_bias) v += bias;
-          if (g.relu) v = relu_quiet(v);   // the next layer's split is the fast one
+          if (g.relu) v = relu_nan(v);
           if (n_ok) {
             if (g.mask && !(mk[i] > 0.f)) v = 0.f;   // selected, as jax.nn.relu's gradient
             out[m * width] = v;
@@ -813,11 +801,11 @@ __device__ __forceinline__ void rows_body(const CUtensorMap& a_map, const RowsAr
   }
 }
 
-template <int BN, bool kTma, bool kSafe>
+template <int BN, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
     rows_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
                       const __grid_constant__ RowsArgs g) {
-  rows_body<BN, kTma, false, kSafe>(a_map, g);
+  rows_body<BN, kTma, false>(a_map, g);
 }
 
 // K3's row products under their own name: the recompute (kTies) and the
@@ -826,7 +814,7 @@ template <int BN, bool kTma, bool kTies>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_rows_kernel(const __grid_constant__ CUtensorMap a_map,
                     const __grid_constant__ RowsArgs g) {
-  rows_body<BN, kTma, kTies, true>(a_map, g);
+  rows_body<BN, kTma, kTies>(a_map, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -1015,7 +1003,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < 8; ++i) {
           const float v = src[i * BN + row];
           db[j] += v;
-          split_rna<true>(v, hi[i], lo[i]);
+          split_rna(v, hi[i], lo[i]);
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -1082,10 +1070,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         uint32_t ah[4][4], al[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          split_rna<true>(as[off[0][0] + 256 * kk], ah[kk][0], al[kk][0]);
-          split_rna<true>(as[off[1][0] + 256 * kk], ah[kk][1], al[kk][1]);
-          split_rna<true>(as[off[0][1] + 256 * kk], ah[kk][2], al[kk][2]);
-          split_rna<true>(as[off[1][1] + 256 * kk], ah[kk][3], al[kk][3]);
+          split_rna(as[off[0][0] + 256 * kk], ah[kk][0], al[kk][0]);
+          split_rna(as[off[1][0] + 256 * kk], ah[kk][1], al[kk][1]);
+          split_rna(as[off[0][1] + 256 * kk], ah[kk][2], al[kk][2]);
+          split_rna(as[off[1][1] + 256 * kk], ah[kk][3], al[kk][3]);
         }
         mma_stage<BN>(acc, part, ah, al, desc_sw128(st), desc_sw128(st + T::kBBytes));
       }
@@ -1196,8 +1184,7 @@ inline cudaError_t launch_rows_t(const CUtensorMap& map, const RowsArgs& g, cuda
   const long long tiles = ((g.rows + kBM - 1) / kBM) * g.tiles_n;
   constexpr size_t bytes = Tile<BN>::kSmemBytes;
   if constexpr (kKind == 0)
-    return g.safe ? launch_persistent<rows_wgmma_kernel<BN, kTma, true>, bytes>(map, g, tiles, st)
-                  : launch_persistent<rows_wgmma_kernel<BN, kTma, false>, bytes>(map, g, tiles, st);
+    return launch_persistent<rows_wgmma_kernel<BN, kTma>, bytes>(map, g, tiles, st);
   else return launch_persistent<bwd_rows_kernel<BN, kTma, kKind == 2>, bytes>(map, g, tiles, st);
 }
 

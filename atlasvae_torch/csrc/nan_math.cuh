@@ -27,14 +27,4 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 
 __device__ __forceinline__ float relu_nan(float v) { return max_nan(v, 0.f); }
 
-// ReLU for an activation that a later product splits into TF32 words by the
-// integer split (gemm_wgmma.cuh::rna_tf32<false>): its NaN is written as
-// 0x7FC00000, whose +0x1000 does not carry into the sign, so the split keeps
-// it a NaN (the canonical 0x7FFFFFFF would become -0.0 there).  One signed
-// integer minimum: max.NaN's NaN, 0x7FFFFFFF, is above 0x7FC00000, and
-// every other output of it (+0, finite, +inf; a -0.0 reads negative) below.
-__device__ __forceinline__ float relu_quiet(float v) {
-  return __int_as_float(min(__float_as_int(max_nan(v, 0.f)), 0x7FC00000));
-}
-
 }  // namespace atlasvae

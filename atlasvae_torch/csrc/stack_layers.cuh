@@ -185,7 +185,6 @@ inline cudaError_t forward_layers(const StackView& v, int n_segments, const int*
       // one layer: a hidden layer (bias + ReLU) or the heads' columns together
       wg::RowsArgs r = {};
       r.a[0] = in;
-      r.safe = in == v.x;   // any NaN of the caller's; the layers' own are 0x7FC00000
       r.rows = v.batch;
       r.k = v.dims[first];
       if (heads) {

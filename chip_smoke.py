@@ -85,9 +85,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                the fused bodies of K1 and K2 also timed on the device alone;
                then every route of K1-K6 at a main path's shape on inputs
                with NaN, +inf and -inf planted (in x, and in K3's head
-               gradients and K6's g), against its plain version: the same
-               elements NaN, +inf and -inf, the finite ones at the route's
-               bar (parity_nonfinite: a [nonfinite] line a route and plant);
+               gradients and K6's g), and K1/K2's layer-wise routes on NaN,
+               +inf, -inf and a value near FLT_MAX made inside the stack,
+               against its plain version: the same elements NaN, +inf and
+               -inf, the finite ones at the route's bar (parity_nonfinite:
+               a [nonfinite] line a route and plant);
                then vae_apply on the card against the CPU's float32 path
                over 2,000 seeded canonical VAEs at random init, each side
                also against float64, with the card's bits asked again at
@@ -1181,13 +1183,11 @@ def parity_conv(gen, shape, sparse, device, dtype=None):
 # Non-finite inputs.  Every route of K1-K6 at a main path's shape, on inputs
 # with NaN, +inf and -inf planted (x, and the head gradients or g of K3 and
 # K6), against its plain version on the same card: the same elements NaN,
-# +inf, -inf, and the finite ones at the route's bar.  One exception is
-# counted and not failed: K1/K2's row products split their own ReLU outputs
-# by the integer split, which leaves an inf its inf high word, so inf x w_lo
-# can make a NaN where the f32 product is +-inf (ROADMAP, Known divergences);
-# both are not finite.
+# +inf, -inf, and the finite ones at the route's bar.  K1/K2's layer-wise
+# routes also take NaN, +inf, -inf and a value near FLT_MAX made inside the
+# stack (tests/nonfinite_stacks.py), which their row products read as a
+# layer's own ReLU output.
 NONFINITE_PLANTS = {"nan": float("nan"), "inf": float("inf"), "-inf": float("-inf")}
-TF32_ROUTES = ("fused_mlp_layers", "stack_forward_layers")
 
 
 def nonfinite_gap(got, want, close):
@@ -1213,7 +1213,7 @@ def nonfinite_gap(got, want, close):
 
 def _nonfinite_case(rows, route, plant, shape, got, want, close):
     """Adds the gaps of one call over its outputs to ``rows``, logs them and
-    raises where they part (inf_to_nan only allowed on TF32_ROUTES)."""
+    raises where they part."""
     total = {}
     for g, w in zip(got, want):
         for k, v in nonfinite_gap(g, w, close).items():
@@ -1222,9 +1222,8 @@ def _nonfinite_case(rows, route, plant, shape, got, want, close):
     rows.append(res)
     log("nonfinite", route=route, plant=plant, shape=json.dumps(shape),
         **{k: v for k, v in total.items()})
-    allowed = route in TF32_ROUTES and plant != "nan"
     bad = total["finite_apart"] + total["nan_to_inf"] + total["inf_signs_apart"] + \
-        total["over_bar"] + (0 if allowed else total["inf_to_nan"])
+        total["over_bar"] + total["inf_to_nan"]
     if bad or total["plain_nan"] + total["plain_posinf"] + total["plain_neginf"] == 0:
         raise AssertionError(f"{route} on {plant} ({shape}) parts from its plain version, or "
                              f"the plant reached no output: {res}")
@@ -1286,6 +1285,43 @@ def parity_nonfinite(gen, device):
         _nonfinite_case(rows, name + ("" if route == "fused" else "_layers"), "nan, inf, -inf",
                         f"{shape} {role} {batch}", got, want, dense)
         del params, x, got, want
+    # K1 and K2's layer-wise routes on values made inside the stack: const_train's
+    # encoder (K2: a row segment after a row segment), emd_slice's and
+    # emd_slice255's encoder and decoder (K1: a row segment after a fused one)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from nonfinite_stacks import NEAR_MAX, PATTERNS, plant_inside, route_stack
+    inside = [("const_train", CONST_LAYERS, EMD_CONST, TRAIN_BATCH, "encoder"),
+              ("emd_slice", EMD_LAYERS, EMD_CONST, SLICE_CHUNK, "encoder"),
+              ("emd_slice", EMD_LAYERS, EMD_CONST, SLICE_CHUNK, "decoder"),
+              ("emd_slice255", EMD_LAYERS, EMD_WIDE_CONST, SLICE_CHUNK, "encoder"),
+              ("emd_slice255", EMD_LAYERS, EMD_WIDE_CONST, SLICE_CHUNK, "decoder")]
+    for shape, layers, n_const, batch, role in inside:
+        cfg = VAEConfig(fc_layers=layers, input_dim=3 * n_const)
+        params = init_vae(gen, cfg, device=device)
+        hidden, heads = stack_pairs(params, role)
+        width = cfg.input_dim if role == "encoder" else cfg.fc_layers[-1]
+        dims = (width,) + tuple(w.shape[1] for w, _ in hidden)
+        assert fused_vae.forward_plan(batch, dims, tuple(w.shape[1] for w, _ in heads)).route \
+            == "layers"
+        route_stack(hidden, heads)
+        x = torch.randn((batch, width), generator=gen, device=device)
+        spots = [batch // 9 * (i + 1) + i for i in range(8)] + [batch - 2, batch - 1]
+        near = plant_inside(x, PATTERNS, spots)
+        with torch.inference_mode():
+            if role == "decoder":
+                kernel, layers_ = "fused_mlp", [{"w": w, "b": b} for w, b in hidden + heads]
+                got, want = (fused_mlp.fused_mlp_apply(layers_, x),), \
+                    (fused_mlp.fused_mlp_plain(layers_, x),)
+            else:
+                kernel = "stack_forward"
+                got = fused_vae.stack_forward(x, hidden, heads)
+                want = fused_vae.stack_forward_plain(x, hidden, heads)
+        if any(float(w[near].abs().max()) != NEAR_MAX for w in want):
+            raise AssertionError(f"{shape} {role}: NEAR_MAX did not reach the outputs")
+        _nonfinite_case(rows, kernel + "_layers", "nan, inf, -inf made inside; near FLT_MAX",
+                        f"{shape} {role} {batch}", got, want, dense)
+        del params, x, got, want
+        torch.cuda.empty_cache()
     # K3: the training batch's canonical encoder and decoder (fused body) and
     # const_train's (layer-wise route); a plant in x, then in a head gradient
     for shape, cfg in (("train", VAEConfig()),

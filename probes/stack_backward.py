@@ -18,9 +18,10 @@ shared memory, spills) and nvcc seconds.
 Then, at each of SHAPES, holds every tree's wrapper against the plain
 version at chip_smoke.py's bars (dW/db within GRAD_SCALE_TOL of each leaf's
 largest value, dx within ATOL + RTOL |ref|; this tree also the same bits on
-a second call) and times, in rounds with the calls in order and then in
-reverse (the median of the rounds), each tree's wrapper call (host work
-included) and the same call on the device alone (``time_ms(queued=True)``:
+a second call, every other tree whether it gives this tree's bits) and
+times, in rounds with the calls in order and then in reverse (the median
+of the rounds), each tree's wrapper call (host work included) and the same
+call on the device alone (``time_ms(queued=True)``:
 the calls wait behind a sleeping kernel until all are enqueued), beside the
 plain version and autograd through one chain of torch.addmm and relu (the
 library yardstick).  On the layer-wise route it also records each launch's
@@ -196,11 +197,15 @@ def main():
             torch.cuda.synchronize()
             leaf, dx, ok = gap(got, plain, allow)
             row[f"{t}_over_bar"], row[f"{t}_dx_over_bar"], row[f"{t}_within_bar"] = leaf, dx, ok
+            flat = got[0] + got[1] + [got[2]] * want_dx
             if t == "this":
                 row["same_bits"] = all(bool(torch.equal(a, b)) for a, b in
-                                       zip(got[0] + got[1] + [got[2]] * want_dx,
-                                           again[0] + again[1] + [again[2]] * want_dx))
-            del got, again
+                                       zip(flat, again[0] + again[1] + [again[2]] * want_dx))
+                mine = flat
+            else:
+                row[f"{t}_same_bits_as_this"] = all(bool(torch.equal(a, b))
+                                                    for a, b in zip(flat, mine))
+            del got, again, flat
             calls[f"{t} wrapper"] = calls[f"{t} device"] = fn
             if route == "layers":
                 row[f"{t}_launch_ms"] = chip_smoke.kernel_device_ms(fn)
@@ -222,7 +227,7 @@ def main():
         report["ms"][label] = {k: statistics.median(v) for k, v in rounds.items()}
         report["ms"][label]["bound_ms"] = b_ms
         print(f"[ms] {label} " + json.dumps(report["ms"][label]), flush=True)
-        del x, hidden, head_pairs, grads, plain, calls
+        del x, hidden, head_pairs, grads, plain, calls, mine
         torch.cuda.empty_cache()
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(report, indent=1))

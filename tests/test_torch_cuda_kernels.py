@@ -34,6 +34,7 @@ ulp of the plain value plus 2e-4 of the leaf's largest value.
 import numpy as np
 import pytest
 import torch
+from nonfinite_stacks import NEAR_MAX, plant_inside, route_stack
 from relu_ties import single_flip_allowance
 from torch_gaps import assert_close
 
@@ -1142,24 +1143,19 @@ def test_bf16_training_sums_in_float32_with_the_flag_on(cuda, monkeypatch):
 #
 # Each kernel against its plain version on the same inputs with NaN, +inf or
 # -inf planted in x (and in a head gradient for K3, in g for K6): the same
-# elements finite, the same NaN (and the same signed infs) and the finite
-# values at the bars above.  One allowance: K1/K2's row products split their
-# own ReLU outputs by the integer split, which leaves an inf its inf high
-# word, so inf x w_lo may give NaN where the f32 product gives +-inf: there an
-# inf plant may turn an inf into a NaN, never a finite value into anything
-# else (ROADMAP, Known divergences).
+# elements finite, the same NaN, the same signed infs and the finite values
+# at the bars above, on every route.
 
 NONFINITE = {"nan": float("nan"), "inf": float("inf"), "-inf": float("-inf")}
 
 
-def _same_nonfinite(got, want, close, inf_may_be_nan=False):
+def _same_nonfinite(got, want, close):
     got, want = got.float(), want.float()
     fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
     assert torch.equal(fin_g, fin_w), f"{int((fin_g != fin_w).sum())} elements finite on one side"
     nan_g, nan_w = torch.isnan(got), torch.isnan(want)
     assert not bool((nan_w & ~nan_g).any()), "a NaN of the plain version's is not NaN"
-    if not inf_may_be_nan:
-        assert torch.equal(nan_g, nan_w), f"{int((nan_g != nan_w).sum())} NaN apart"
+    assert torch.equal(nan_g, nan_w), f"{int((nan_g != nan_w).sum())} NaN apart"
     infs = ~fin_w & ~nan_w & ~nan_g
     assert torch.equal(got[infs], want[infs]), "infs of other signs"
     if bool(fin_w.any()):
@@ -1177,26 +1173,47 @@ def _leaf_close(tol, bf16=False):
     return close
 
 
-# (kernel, dims, head_dims, route): the canonical decoder and encoder on the
-# fused body, the constituents-mode decoder and encoder on the layer-wise route
-NONFINITE_FORWARD = [("fused_mlp", (10, 20, 40, 80), (12,), "fused"),
-                     ("fused_mlp", (32, 64, 128, 256), (300,), "layers"),
-                     ("stack_forward", (12, 80, 40, 20), (10, 10), "fused"),
-                     ("stack_forward", (300, 256, 128, 64), (32, 32), "layers")]
+# (kernel, dims, head_dims, route, batch, inside): the canonical decoder and
+# encoder on the fused body, the constituents-mode decoder and encoder on the
+# layer-wise route; inside: the values made inside the stack
+# (tests/nonfinite_stacks.py), at a batch whose plan has a row segment after a
+# row segment (K2: const_train's, 300 -> 256 on 64-column tiles, then 256 ->
+# 128 on 128) or after a fused one (K1: 32 -> 64 -> 128 fused, then 128 ->
+# 256), and at 1,000 rows (every row segment on 64 columns); every batch ends
+# mid-tile
+NONFINITE_FORWARD = [("fused_mlp", (10, 20, 40, 80), (12,), "fused", 1000, False),
+                     ("fused_mlp", (32, 64, 128, 256), (300,), "layers", 1000, False),
+                     ("stack_forward", (12, 80, 40, 20), (10, 10), "fused", 1000, False),
+                     ("stack_forward", (300, 256, 128, 64), (32, 32), "layers", 1000, False),
+                     ("fused_mlp", (32, 64, 128, 256), (300,), "layers", 9_999, True),
+                     ("fused_mlp", (32, 64, 128, 256), (300,), "layers", 1000, True),
+                     ("stack_forward", (300, 256, 128, 64), (32, 32), "layers", 9_999, True),
+                     ("stack_forward", (300, 256, 128, 64), (32, 32), "layers", 1000, True)]
 
 
 @pytest.mark.parametrize("plant", sorted(NONFINITE))
-@pytest.mark.parametrize("kernel,dims,head_dims,route", NONFINITE_FORWARD)
-def test_stack_forward_carries_non_finite_inputs(cuda, kernel, dims, head_dims, route, plant):
+@pytest.mark.parametrize("kernel,dims,head_dims,route,batch,inside", NONFINITE_FORWARD)
+def test_stack_forward_carries_non_finite_inputs(cuda, kernel, dims, head_dims, route, batch,
+                                                 inside, plant):
     """K1 and K2: a plant in one element of a row, and a row all plant (the
-    next layer's inf - inf), in a batch that ends mid-tile."""
+    next layer's inf - inf); or (inside) the plant made inside the stack
+    and NEAR_MAX carried as a finite value: every product after the first
+    takes them as a ReLU output."""
     gen = torch.Generator().manual_seed(len(dims) + len(plant))
     hidden, heads = _stack(gen, dims, head_dims, cuda)
-    batch = 1000
     x = torch.randn((batch, dims[0]), generator=gen).to(cuda)
-    x[7, 3] = x[500, dims[0] - 1] = NONFINITE[plant]
-    x[999, :] = NONFINITE[plant]
-    assert fused_vae.forward_plan(batch, dims, head_dims).route == route
+    if inside:
+        route_stack(hidden, heads)
+        rows = (7, 130, batch // 2, batch // 2 + 1, batch - 2, batch - 1)
+        near = plant_inside(x, (plant,), rows)
+    else:
+        x[7, 3] = x[500, dims[0] - 1] = NONFINITE[plant]
+        x[batch - 1, :] = NONFINITE[plant]
+    plan = fused_vae.forward_plan(batch, dims, head_dims)
+    assert plan.route == route
+    if inside:   # the boundary under test: a row segment, then one on 128 columns past 1,000
+        first = (1, 1) if kernel == "stack_forward" else (0, 0)
+        assert [(g.kind, g.tile) for g in plan.segments[:2]] == [first, (1, int(batch <= 1000))]
     if kernel == "fused_mlp":
         layers = [{"w": w, "b": b} for w, b in hidden + heads]
         got, want = [fused_mlp.fused_mlp_apply(layers, x)], [fused_mlp.fused_mlp_plain(layers, x)]
@@ -1204,8 +1221,11 @@ def test_stack_forward_carries_non_finite_inputs(cuda, kernel, dims, head_dims, 
         got = fused_vae.stack_forward(x, hidden, heads)
         want = fused_vae.stack_forward_plain(x, hidden, heads)
     for g, w in zip(got, want):
-        assert not bool(torch.isfinite(w).all())
-        _same_nonfinite(g, w, _dense_close, inf_may_be_nan=route == "layers" and plant != "nan")
+        assert inside and plant == "-inf" or not bool(torch.isfinite(w).all())
+        if inside:   # NEAR_MAX came through: the outputs' largest finite value is it
+            assert bool(torch.isfinite(w[list(near)]).all())
+            assert float(w[list(near)].abs().max()) == NEAR_MAX
+        _same_nonfinite(g, w, _dense_close)
 
 
 @pytest.mark.parametrize("plant", sorted(NONFINITE))

@@ -54,6 +54,7 @@ from atlasvae_torch.ops.activations import leaky_relu0, relu
 from atlasvae_torch.ops.pooling import maxpool_same
 from atlasvae_torch.train import aae_loop, jetid_loop
 from atlasvae_torch.train.checkpoint import tree_flatten
+from nonfinite_stacks import NEAR_MAX, plant_inside, route_stack
 
 NAN, INF = float("nan"), float("inf")
 BAD = [NAN, INF, -INF]
@@ -407,6 +408,58 @@ def test_k2_plain_carries_a_plant_as_the_pallas_kernel(rng, bad):
         same_nonfinite(a, b, f"K2 head {k}", **KERNEL_TOL)
         same_nonfinite(a, _xla_stack(x, _jax_pairs(hidden), _jax_pairs(heads))[k], "K2 XLA",
                        **KERNEL_TOL)
+
+
+# Values made inside the stack (tests/nonfinite_stacks.py): NaN, +inf and -inf
+# from finite sums (or a NaN) in the first layers, and NEAR_MAX carried as a
+# finite value, which every later product takes as a ReLU output; at the
+# layer-wise route's widths, the reference side of the card's within-stack
+# cases (tests/test_torch_cuda_kernels.py).
+
+INSIDE_ROWS = (2, 9, 17, 30, 38, 39)
+
+
+def _inside_case(rng, dims, head_dims, plant):
+    hidden, heads = _stack(rng, dims, head_dims)
+    route_stack(hidden, heads)
+    x = rng.normal(size=(40, dims[0])).astype(np.float32)
+    return hidden, heads, x, plant_inside(x, (plant,), INSIDE_ROWS)
+
+
+def _near_max_came_through(want, near, what):
+    w = _np(want)[list(near)]
+    assert np.isfinite(w).all() and np.abs(w).max() == NEAR_MAX, what
+
+
+@pytest.mark.parametrize("bad", BAD_IDS)
+def test_k1_plain_carries_values_made_inside_the_stack_as_the_pallas_kernel(rng, bad):
+    hidden, heads, x, near = _inside_case(rng, (32, 64, 128, 256), (300,), bad)
+    layers = [{"w": w, "b": b} for w, b in hidden + heads]
+    want = jax_fused_mlp_apply(layers, x)
+    _near_max_came_through(want, near, "K1")
+    got = fused_mlp.fused_mlp_apply([{k: torch.from_numpy(v) for k, v in l.items()} for l in layers],
+                                    torch.from_numpy(x))
+    same_nonfinite(got, want, "K1", **KERNEL_TOL)
+    same_nonfinite(got, _xla_stack(x, _jax_pairs(hidden), _jax_pairs(heads))[0], "K1 XLA",
+                   **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("bad", BAD_IDS)
+def test_k2_plain_carries_values_made_inside_the_stack_as_the_pallas_kernel(rng, bad):
+    """Against XLA on every row; against the Pallas kernel on every row but
+    those whose last hidden layer holds +inf: the kernel pads that 64-wide
+    layer to 128 lanes with zero weights, and inf * 0 there makes its heads
+    NaN where XLA's (and the port's) are +-inf (ROADMAP, Known divergences)."""
+    hidden, heads, x, near = _inside_case(rng, (300, 256, 128, 64), (32, 32), bad)
+    want = jax_fused_vae._stack_fwd(jnp.asarray(x), _jax_pairs(hidden), _jax_pairs(heads))
+    xla = _xla_stack(x, _jax_pairs(hidden), _jax_pairs(heads))
+    got = fused_vae.stack_forward(torch.from_numpy(x), _torch_pairs(hidden), _torch_pairs(heads))
+    padded = [r for r in INSIDE_ROWS if r not in near] if bad == "inf" else []
+    keep = [r for r in range(x.shape[0]) if r not in padded]
+    for k, (a, b) in enumerate(zip(got, want)):
+        _near_max_came_through(xla[k], near, f"K2 XLA head {k}")
+        same_nonfinite(a, xla[k], f"K2 XLA head {k}", **KERNEL_TOL)
+        same_nonfinite(a[keep], _np(b)[keep], f"K2 head {k}", **KERNEL_TOL)
 
 
 @jax.jit
